@@ -1,0 +1,70 @@
+"""Shared helpers of the tests that hold the PyTorch port against the JAX
+package: configuration mirroring, numpy parameter trees, error measures."""
+
+import dataclasses
+
+import jax
+import numpy as np
+
+from visualrwkv_torch import config as pcfg
+from visualrwkv_torch.vision.sam import SAMConfig as PortSAMConfig
+from visualrwkv_torch.vision.vit import ViTConfig as PortViTConfig
+
+
+def _mirror(obj, cls):
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj) if f.name in names})
+
+
+def port_tower_cfg(jcfg):
+    """A JAX ViTConfig / SAMConfig -> the port's class with the same fields."""
+    cls = PortSAMConfig if type(jcfg).__name__ == "SAMConfig" else PortViTConfig
+    return _mirror(jcfg, cls)
+
+
+def port_cfg(jcfg):
+    """A JAX VLMConfig -> the port's VLMConfig with the same geometry."""
+    jv = jcfg.vision
+    overrides = None
+    if jv.tower_config_overrides:
+        overrides = {k: port_tower_cfg(v) for k, v in jv.tower_config_overrides.items()}
+    vision = pcfg.VisionConfig(
+        towers=jv.towers, image_size=jv.image_size, sam_image_size=jv.sam_image_size,
+        dino_dim=jv.dino_dim, siglip_dim=jv.siglip_dim, sam_dim=jv.sam_dim,
+        tower_config_overrides=overrides,
+    )
+    return pcfg.VLMConfig(
+        rwkv=_mirror(jcfg.rwkv, pcfg.RWKVConfig), vision=vision, proj_type=jcfg.proj_type,
+        num_token_per_image=jcfg.num_token_per_image,
+    )
+
+
+def np_tree(params):
+    """A JAX parameter tree with numpy leaves."""
+    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), params)
+
+
+def perturbed(tree, seed, scale=0.02):
+    """Add seeded normal noise to every leaf, so zero-initialised weights
+    (RWKV output / value projections, LoRA down-factors, biases) carry
+    signal and every layout transpose matters."""
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    rng = np.random.default_rng(seed)
+    leaves = [(l + scale * rng.standard_normal(l.shape)).astype(np.float32) for l in leaves]
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def max_rel(x, ref):
+    """max |x - ref| / max |ref|."""
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(x - ref).max() / np.abs(ref).max())
+
+
+def rel_rms(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.sqrt(((x - ref) ** 2).sum() / max(1e-30, (ref**2).sum())))
+
+
+def to_np(t):
+    """A torch tensor -> numpy fp32."""
+    return t.detach().float().cpu().numpy()
