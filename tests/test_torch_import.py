@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15, out.stdout  # every subpackage was walked
+    assert n_modules >= 24, out.stdout  # every subpackage was walked, train/ and data/ included
 
 
 def test_entry_points_default_to_cuda():
@@ -52,6 +52,14 @@ def test_entry_points_default_to_cuda():
         init_visualrwkv_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         vlm_forward({}, cfg, [[1, 2]])
+    from visualrwkv_torch.config import TrainConfig
+    from visualrwkv_torch.models.visualrwkv import training_loss
+    from visualrwkv_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        training_loss({}, cfg, [[1, 2]], [[1, 2]])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, TrainConfig(), {})
     # the CPU, when asked for, works
     params = init_visualrwkv_params(cfg, device="cpu")
     logits = vlm_forward(params, cfg, [[1, 2, 3]], device="cpu")
@@ -68,5 +76,6 @@ def test_unported_options_raise():
                {"bidirectional_image": True}, {"image_scanning": "zigzag"}):
         with pytest.raises(NotImplementedError):
             VLMConfig(**kw)
-    with pytest.raises(NotImplementedError):
-        InferenceEngine({}, VLMConfig(), state_layout="flat", device="cpu")
+    with pytest.raises(ValueError):
+        InferenceEngine({}, VLMConfig(), state_layout="rows", device="cpu")
+    assert InferenceEngine({}, VLMConfig(), state_layout="flat", device="cpu").state_layout == "flat"

@@ -1,5 +1,5 @@
 """Configuration of the port: the fields of the JAX configuration tree that
-the VisualRWKV-7 serving path reads, plus the token constants.
+the VisualRWKV-7 serving and training paths read, plus the token constants.
 
 Options of the JAX configuration that select paths the port does not have
 yet raise ``NotImplementedError`` when the configuration is built, so that a
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -131,6 +131,64 @@ class VLMConfig:
 
     def replace(self, **kw) -> "VLMConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Trainer configuration: every field of the JAX package's ``TrainConfig``.
+
+    ``split_step``, ``opt_partition_mb`` and ``stacked_layers`` are accepted
+    and ignored: they shape how XLA compiles and places the step on a TPU
+    (two programs instead of one, optimizer leaf groups, a scan over depth)
+    and do not change the result. Options of paths that are not ported raise
+    ``NotImplementedError``."""
+
+    lr_init: float = 6e-4
+    lr_final: float = 1e-5
+    warmup_steps: int = -1
+    beta1: float = 0.9
+    beta2: float = 0.99
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    weight_decay_final: float = -1.0
+    grad_clip: float = 1.0
+    micro_bsz: int = 2
+    accumulate_grad_batches: int = 1
+    epoch_steps: int = 1000
+    epoch_count: int = 2
+    epoch_begin: int = 0
+    epoch_save: int = 1
+    grad_cp: Any = True  # False | True (per-block activation checkpointing)
+    ce_chunk_t: int = 128  # T-chunk of the chunked head + cross-entropy
+    freeze_rwkv_layers: int = 0
+    freeze_emb: bool = False
+    freeze_proj: bool = False
+    enable_state_tuning: bool = False
+    zero_stage: int = 1  # optimizer-state sharding; one GPU holds it whole
+    offload_optimizer: bool = False
+    param_dtype: str = "float32"  # "bfloat16": bf16 parameters and gradients
+    # "master_fp32": fp32 master weights and Adam moments for parameters stored
+    # below fp32; "bf16_sr": no masters, bf16 moments, stochastic rounding
+    optim_precision: str = "master_fp32"
+    stacked_layers: bool = False
+    split_step: Optional[bool] = None
+    opt_partition_mb: int = 64
+    wandb_project: str = ""
+
+    def __post_init__(self):
+        unported = {
+            "offload_optimizer": self.offload_optimizer,
+            "zero_stage >= 3": self.zero_stage >= 3,
+            "enable_state_tuning": self.enable_state_tuning,
+            f"grad_cp={self.grad_cp!r}": self.grad_cp not in (False, True),
+        }
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"{name} is not ported yet")
+        if self.optim_precision not in ("master_fp32", "bf16_sr"):
+            raise ValueError(f"unknown optim_precision {self.optim_precision!r}")
+        if self.param_dtype not in ("float32", "bfloat16"):
+            raise NotImplementedError(f"param_dtype {self.param_dtype!r} is not ported (float32, bfloat16)")
 
 
 def resolve_device(device) -> torch.device:

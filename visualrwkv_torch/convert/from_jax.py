@@ -1,4 +1,6 @@
-"""Carry a ``visualrwkv_tpu`` parameter tree into the port's layouts.
+"""Carry a ``visualrwkv_tpu`` parameter tree into the port's layouts, and
+back (:func:`params_to_numpy`), so that parameters the port has trained can
+be held against the JAX trainer's.
 
 The input is the JAX tree with every leaf a numpy array (a caller turns
 ``jax.Array`` leaves into numpy first; nothing here imports JAX). Layout
@@ -118,3 +120,47 @@ def params_from_jax(np_tree: Params, cfg: VLMConfig, device="cuda",
         out["vit"] = {name: _tower(np_tree["vit"][name], tcfgs[name]) for name in tcfgs}
         out["proj"] = _proj(np_tree["proj"])
     return _tree(out, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# The inverse direction: the port's parameters -> the JAX layout (numpy)
+# ---------------------------------------------------------------------------
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return tree.detach().float().cpu().numpy()
+
+
+def _conv_to_patch(w):
+    """[C, 3, p, p] -> [p*p*3, C] (ph, pw, c order)."""
+    return w.transpose(2, 3, 1, 0).reshape(-1, w.shape[0])
+
+
+def _tower_to_jax(tree: Params, tcfg) -> Params:
+    out = dict(tree)
+    pe = dict(tree["patch_embed"])
+    pe["weight"] = _conv_to_patch(pe["weight"])
+    out["patch_embed"] = pe
+    out["blocks"] = _blocks(tree["blocks"])  # a transpose is its own inverse
+    if isinstance(tcfg, SAMConfig):
+        neck = dict(tree["neck"])
+        for c in ("conv1", "conv2"):
+            neck[c] = {"weight": tree["neck"][c]["weight"].transpose(2, 3, 1, 0)}  # OIHW -> HWIO
+        out["neck"] = neck
+    return out
+
+
+def params_to_numpy(params: Params, cfg: VLMConfig) -> Params:
+    """The port's ``{"rwkv", "vit", "proj"}`` parameters -> the JAX package's
+    tree with fp32 numpy leaves: :func:`params_from_jax` reversed."""
+    tree = _np_tree(params)
+    out: Params = {"rwkv": _rwkv(tree["rwkv"])}
+    if "vit" in tree:
+        tcfgs = tower_configs(cfg.vision, cfg.rwkv.compute_dtype)
+        out["vit"] = {name: _tower_to_jax(tree["vit"][name], tcfgs[name]) for name in tcfgs}
+        out["proj"] = _proj(tree["proj"])
+    return out

@@ -1,6 +1,8 @@
-// RWKV-7 ("x070") WKV recurrence on Hopper: sequence forward (K1) and the
-// one-token decode step (K2). Plain C interface, loaded with ctypes by
-// visualrwkv_torch/ops/wkv7_cuda.py.
+// RWKV-7 ("x070") WKV recurrence on Hopper: sequence forward (K1), the
+// one-token decode step on the head layout (K2) and on the flat layout (K4),
+// and the training forward that also saves the chunk states (K5). Plain C
+// interface, loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py. The
+// backward (K6) is in wkv7_train.cu.
 //
 // Recurrence per (batch, head), fp32 state S of shape [Nv, Nk] = [64, 64]:
 //   sa_i = sum_j S_ij a_j
@@ -27,6 +29,22 @@
 // a warp walks rows, each lane owns two adjacent columns, so every row is
 // read and written as one coalesced 128- or 256-byte transaction, and the two
 // row sums are warp shuffles.
+//
+// K4 wkv7_step_flat replaces wkv7_step_flat_pallas (_wkv7_step_flat_kernel):
+// the same step on the flat state [B, Nv, H*Nk]. The Pallas kernel turns the
+// per-head sums into matrix-unit dots against one-hot masks, because a TPU
+// lane dimension of 64 pads to 128; here a state row of one head is 64
+// contiguous elements in both layouts and only the stride between rows
+// differs (H*64 instead of 64), so K4 is K2's body with that stride. Bound:
+// state bytes, as K2.
+//
+// K5 wkv7_fwd_res replaces wkv7_pallas_fwd_res: K1's recurrence that also
+// writes the state entering every 16-step chunk, zin[bh, c] = transpose of S
+// before step 16c (fp32). The transpose (Z = S^T, as the Pallas kernel saves
+// it) is what makes the stores coalesced: thread i owns row i of S, so for a
+// fixed column j the 64 threads write 64 adjacent floats of Z[j, :]; the
+// backward's row owners read Z the same way. Bound: as K1 (latency of the T
+// dependent steps); the extra bytes are B*H*(T/16)*16 KiB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,12 +89,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 // ---------------------------------------------------------------------------
 // K1: sequence forward. Streams [B, T, H, N]; state [B, H, Nv, Nk] fp32.
 // ---------------------------------------------------------------------------
-template <typename T>
+constexpr int CHUNK = 16;  // K5 saves the state entering every CHUNK steps
+
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
     int Tlen, int H, const T* __restrict__ r, const T* __restrict__ w,
     const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ a,
     const T* __restrict__ b, const float* __restrict__ s0, T* __restrict__ y,
-    float* __restrict__ s_out) {
+    float* __restrict__ s_out, float* __restrict__ zin) {
   const int bh = blockIdx.x;
   const int bb = bh / H, hh = bh % H;
   const int i = threadIdx.x;
@@ -106,6 +126,11 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
     nv = to_f(v[off]); na = to_f(a[off]); nb = to_f(b[off]);
   }
   for (int t = 0; t < Tlen; ++t) {
+    if (SAVE && t % CHUNK == 0) {  // zin[bh, t / CHUNK, j, i] = S[i][j]
+      float* z = zin + ((size_t)bh * (Tlen / CHUNK) + t / CHUNK) * N * N + i;
+#pragma unroll
+      for (int j = 0; j < N; ++j) z[(size_t)j * N] = S[j];
+    }
     const int p = t & 1;
     sr[p][i] = nr;
     sw[p][i] = expf(-expf(nw));
@@ -139,19 +164,23 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: one decode step. State [B, H, Nv, Nk] in TS; vectors [B, H, N] fp32.
+// K2 / K4: one decode step. Vectors [B, H, N] fp32; state in TS, laid out
+// [B, H, Nv, Nk] (K2) or, with FLAT, [B, Nv, H*Nk] (K4).
 // ---------------------------------------------------------------------------
 constexpr int STEP_WARPS = 8;
 
-template <typename TS>
+template <typename TS, bool FLAT>
 __global__ void __launch_bounds__(STEP_WARPS * 32) wkv7_step_kernel(
-    const TS* __restrict__ s_in, const float* __restrict__ r, const float* __restrict__ w,
+    int H, const TS* __restrict__ s_in, const float* __restrict__ r, const float* __restrict__ w,
     const float* __restrict__ k, const float* __restrict__ v, const float* __restrict__ a,
     const float* __restrict__ b, TS* __restrict__ s_out, float* __restrict__ y) {
   const int bh = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int j0 = 2 * lane;
   const size_t vo = (size_t)bh * N;
+  // row i of this head's state starts at base + i * row_stride
+  const size_t base = FLAT ? ((size_t)(bh / H) * N * H + bh % H) * N : vo * N;
+  const size_t row_stride = FLAT ? (size_t)H * N : N;
   float r0, r1, w0, w1, k0, k1, a0, a1, b0, b1;
   load2(r + vo + j0, r0, r1);
   load2(w + vo + j0, w0, w1);
@@ -165,7 +194,7 @@ __global__ void __launch_bounds__(STEP_WARPS * 32) wkv7_step_kernel(
 #pragma unroll
   for (int ii = 0; ii < ROWS; ++ii) {
     const int i = warp * ROWS + ii;
-    const size_t so = (vo + i) * N + j0;
+    const size_t so = base + i * row_stride + j0;
     float s0, s1;
     load2(s_in + so, s0, s1);
     const float sai = warp_sum(s0 * a0 + s1 * a1);
@@ -186,46 +215,83 @@ extern "C" {
 
 const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-int wkv7_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
-             const void* k, const void* v, const void* a, const void* b,
-             const void* s0, void* y, void* s_out, void* stream) {
+}  // extern "C"
+
+namespace {
+
+template <bool SAVE>
+int launch_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+               const void* k, const void* v, const void* a, const void* b,
+               const void* s0, void* y, void* s_out, void* zin, void* stream) {
   if (n != N || B <= 0 || H <= 0 || T < 0) return (int)cudaErrorInvalidValue;
+  if (SAVE && (T % CHUNK != 0 || zin == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(B * H), block(N);
   const float* s0f = (const float*)s0;
   float* soutf = (float*)s_out;
   if (dtype == 0) {
-    wkv7_fwd_kernel<float><<<grid, block, 0, st>>>(
+    wkv7_fwd_kernel<float, SAVE><<<grid, block, 0, st>>>(
         T, H, (const float*)r, (const float*)w, (const float*)k, (const float*)v,
-        (const float*)a, (const float*)b, s0f, (float*)y, soutf);
+        (const float*)a, (const float*)b, s0f, (float*)y, soutf, (float*)zin);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
-    wkv7_fwd_kernel<bf><<<grid, block, 0, st>>>(
+    wkv7_fwd_kernel<bf, SAVE><<<grid, block, 0, st>>>(
         T, H, (const bf*)r, (const bf*)w, (const bf*)k, (const bf*)v, (const bf*)a,
-        (const bf*)b, s0f, (bf*)y, soutf);
+        (const bf*)b, s0f, (bf*)y, soutf, (float*)zin);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-int wkv7_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,
-              const float* w, const float* k, const float* v, const float* a,
-              const float* b, void* s_out, float* y, void* stream) {
+template <bool FLAT>
+int launch_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,
+                const float* w, const float* k, const float* v, const float* a,
+                const float* b, void* s_out, float* y, void* stream) {
   if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(B * H), block(STEP_WARPS * 32);
   if (state_dtype == 0) {
-    wkv7_step_kernel<float><<<grid, block, 0, st>>>((const float*)s_in, r, w, k, v, a, b,
-                                                    (float*)s_out, y);
+    wkv7_step_kernel<float, FLAT><<<grid, block, 0, st>>>(H, (const float*)s_in, r, w, k, v,
+                                                          a, b, (float*)s_out, y);
   } else if (state_dtype == 1) {
     using bf = __nv_bfloat16;
-    wkv7_step_kernel<bf><<<grid, block, 0, st>>>((const bf*)s_in, r, w, k, v, a, b,
-                                                 (bf*)s_out, y);
+    wkv7_step_kernel<bf, FLAT><<<grid, block, 0, st>>>(H, (const bf*)s_in, r, w, k, v, a, b,
+                                                       (bf*)s_out, y);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int wkv7_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+             const void* k, const void* v, const void* a, const void* b,
+             const void* s0, void* y, void* s_out, void* stream) {
+  return launch_fwd<false>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
+}
+
+// K5: T must be a multiple of 16; zin is fp32 [B*H, T/16, 64, 64].
+int wkv7_fwd_res(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+                 const void* k, const void* v, const void* a, const void* b,
+                 const void* s0, void* y, void* s_out, void* zin, void* stream) {
+  return launch_fwd<true>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
+}
+
+int wkv7_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,
+              const float* w, const float* k, const float* v, const float* a,
+              const float* b, void* s_out, float* y, void* stream) {
+  return launch_step<false>(state_dtype, B, H, n, s_in, r, w, k, v, a, b, s_out, y, stream);
+}
+
+// K4: state [B, 64, H*64].
+int wkv7_step_flat(int state_dtype, int B, int H, int n, const void* s_in, const float* r,
+                   const float* w, const float* k, const float* v, const float* a,
+                   const float* b, void* s_out, float* y, void* stream) {
+  return launch_step<true>(state_dtype, B, H, n, s_in, r, w, k, v, a, b, s_out, y, stream);
 }
 
 }  // extern "C"

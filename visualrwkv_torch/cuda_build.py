@@ -19,7 +19,7 @@ from typing import Dict, Iterable, Optional
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-SOURCES = ("wkv7", "attention")
+SOURCES = ("wkv7", "wkv7_train", "attention")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -27,6 +27,7 @@ from visualrwkv_torch.infer.sampling import (
 from visualrwkv_torch.models import lm
 from visualrwkv_torch.models.rwkv7 import LayerState
 from visualrwkv_torch.models.visualrwkv import encode_images, prepare_embeddings
+from visualrwkv_torch.ops.wkv7 import state_from_flat, state_to_flat
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -52,6 +53,9 @@ def _prefill(params: Params, cfg: VLMConfig, x_emb: Tensor,
     T = x_emb.shape[1]
     bulk = T - T % rcfg.chunk_len
     last_logits = None
+    # a carried decode state (flat layout, bf16) re-enters prefill in the head layout, fp32
+    states = [st._replace(wkv=state_from_flat(st.wkv, rcfg.n_head)) if st.wkv.dim() == 3 else st
+              for st in states]
     if bulk:
         states = [st._replace(wkv=st.wkv.float()) for st in states]
         logits, states = lm.lm_forward(params["rwkv"], rcfg, x_emb[:, :bulk], states=states)
@@ -110,17 +114,19 @@ class InferenceEngine:
                  state_layout: str = "head", device="cuda"):
         """state_dtype: dtype the WKV state is carried in during decode
         ("float32", or "bfloat16" to halve the decode state traffic; the step
-        math stays fp32). state_layout: only "head" ([B, H, 64, 64]) is
-        ported. ``params`` must be on ``device`` (CUDA unless the caller asks
-        for the CPU)."""
-        if state_layout != "head":
-            raise NotImplementedError(f"state_layout={state_layout!r} is not ported yet (head only)")
+        math stays fp32). state_layout: "head" carries the WKV state as
+        [B, H, 64, 64]; "flat" carries it as [B, 64, H*64] during decode
+        (``ops.wkv7.wkv7_step_flat``, kernel K4 on CUDA). ``params`` must be
+        on ``device`` (CUDA unless the caller asks for the CPU)."""
+        if state_layout not in ("head", "flat"):
+            raise ValueError(f"unknown state_layout {state_layout!r}")
         if state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown state_dtype {state_dtype!r}")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.state_dtype = getattr(torch, state_dtype)
+        self.state_layout = state_layout
         self._state_cache: Dict[str, List[LayerState]] = {}
         self._sample_counter = 0
 
@@ -170,7 +176,9 @@ class InferenceEngine:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self._sample_counter)
         first_logits, states = self.prefill_ids(input_ids, images, states)
-        states = [st._replace(wkv=st.wkv.to(self.state_dtype)) for st in states]
+        if self.state_layout == "flat":
+            states = [st._replace(wkv=state_to_flat(st.wkv)) for st in states]
+        states = [st._replace(wkv=st.wkv.to(self.state_dtype).contiguous()) for st in states]
         tokens, lengths, tls, tps = _decode_loop(
             self.params, self.cfg, first_logits, states, sp, max_new_tokens,
             tuple(stop_tokens), generator,

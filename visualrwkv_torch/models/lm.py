@@ -25,9 +25,9 @@ def init_lm_params(gen: torch.Generator, cfg: RWKVConfig, device="cuda",
 
 
 def lm_forward(params: Params, cfg: RWKVConfig, x: Tensor,
-               states: Optional[List[LayerState]] = None, return_hidden: bool = False
-               ) -> Tuple[Tensor, List[LayerState]]:
-    return rwkv7.rwkv7_forward(params, cfg, x, states, return_hidden)
+               states: Optional[List[LayerState]] = None, grad_cp=False,
+               return_hidden: bool = False) -> Tuple[Tensor, List[LayerState]]:
+    return rwkv7.rwkv7_forward(params, cfg, x, states, grad_cp, return_hidden)
 
 
 def lm_decode_step(params: Params, cfg: RWKVConfig, token: Tensor, states: List[LayerState]):

@@ -9,7 +9,9 @@ the embedding and head are ``[vocab, C]``.
 Compute policy: matmuls in ``cfg.compute_dtype`` with fp32 results;
 token-shift deltas, LoRA nonlinearities, norms and the WKV state in fp32.
 The WKV recurrence goes through :func:`visualrwkv_torch.ops.wkv7.wkv7`
-(kernel K1 on CUDA) and the decode step through ``wkv7_step_auto`` (K2).
+(on CUDA kernel K1, or K5 / K6 under autograd) and the decode step through
+``wkv7_step_auto`` (K2, or K4 on the flat state layout). The forward makes no
+in-place write, so autograd differentiates it as it stands.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from visualrwkv_torch.config import STOP_TOKEN_INDEX, RWKVConfig
 from visualrwkv_torch.ops.wkv7 import wkv7, wkv7_step_auto
@@ -296,16 +299,34 @@ def embed(params: Params, tokens: Tensor) -> Tensor:
     return params["emb"]["weight"][tokens]
 
 
+def _block_checkpointed(blk: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
+                        v_first: Optional[Tensor], state: Optional[LayerState]):
+    """:func:`block_x070` under activation checkpointing: only the block's
+    inputs are kept and the block runs again in the backward pass."""
+    def run(x, v_first, *st):
+        y, vf, ns = block_x070(blk, cfg, layer_id, x, v_first, LayerState(*st) if st else None)
+        return (y, vf, *ns)
+
+    y, vf, *ns = checkpoint(run, x, v_first, *(state or ()), use_reentrant=False,
+                            preserve_rng_state=False)
+    return y, vf, LayerState(*ns)
+
+
 def rwkv7_forward(params: Params, cfg: RWKVConfig, x: Tensor,
-                  states: Optional[List[LayerState]] = None, return_hidden: bool = False
-                  ) -> Tuple[Tensor, List[LayerState]]:
+                  states: Optional[List[LayerState]] = None, grad_cp=False,
+                  return_hidden: bool = False) -> Tuple[Tensor, List[LayerState]]:
     """Forward over input embeddings ``x`` [B, T, C].
 
     Without a state, pads LEFT with EOS-token embeddings to a multiple of
     ``cfg.chunk_len`` (the reference's training semantics); with a carried
-    state T must be a multiple of ``chunk_len``. Returns (logits [B, T, vocab]
-    fp32, or hidden [B, T, C] if ``return_hidden``, and the per-layer states).
+    state T must be a multiple of ``chunk_len``. ``grad_cp``: False, or True
+    for per-block activation checkpointing; the JAX package's "dots" and
+    "wkv" are XLA rematerialisation policies and are not ported. Returns
+    (logits [B, T, vocab] fp32, or hidden [B, T, C] after ``ln_out`` if
+    ``return_hidden``, and the per-layer states).
     """
+    if grad_cp not in (False, True):
+        raise NotImplementedError(f"grad_cp={grad_cp!r} is not ported (False or True only)")
     B, T, C = x.shape
     pad = (-T) % cfg.chunk_len
     if pad:
@@ -317,7 +338,8 @@ def rwkv7_forward(params: Params, cfg: RWKVConfig, x: Tensor,
     v_first = None
     new_states: List[LayerState] = []
     for i, blk in enumerate(params["blocks"]):
-        x, v_first, ns = block_x070(blk, cfg, i, x, v_first, states[i] if states is not None else None)
+        block = _block_checkpointed if grad_cp else block_x070
+        x, v_first, ns = block(blk, cfg, i, x, v_first, states[i] if states is not None else None)
         new_states.append(ns)
 
     x = layer_norm(params["ln_out"], x)

@@ -12,10 +12,16 @@ with ``w_t = exp(-exp(w_raw_t))``. Streams are ``[B, T, H, N]``; the state is
 * :func:`wkv7_reference` — the sequential scan, fp32.
 * :func:`wkv7_chunked` — the chunked matmul form of the JAX package
   (``visualrwkv_tpu/ops/wkv7.py::wkv7_chunked``), chunk <= 16.
-* :func:`wkv7_step` — one token.
+* :func:`wkv7_step` — one token; :func:`wkv7_step_flat` — the same on the
+  flat state layout ``[B, N_v, H*N_k]`` (:func:`state_to_flat`,
+  :func:`state_from_flat`).
+* :func:`wkv7_fwd_res_plain` / :func:`wkv7_bwd_plain` — the training
+  forward that also returns the state entering every chunk, and the
+  vector-Jacobian product from those states.
 * :func:`wkv7` / :func:`wkv7_step_auto` — dispatch on the tensors' device:
   the plain versions for CPU tensors, the CUDA kernels
-  (:mod:`visualrwkv_torch.ops.wkv7_cuda`) for CUDA tensors.
+  (:mod:`visualrwkv_torch.ops.wkv7_cuda`) for CUDA tensors. Under autograd
+  on CUDA, :class:`WKV7Function` runs kernel K5 forward and K6 backward.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ def _validate(r, w, k, v, a, b):
 def wkv7_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
               a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
     """Single-token update. state ``[..., H, Nv, Nk]``; vectors ``[..., H, N]``.
-    Returns (new_state fp32, y in r's dtype)."""
-    f32 = torch.float32
+    Returns (new_state fp32, y in r's dtype). The arithmetic is fp32, or
+    float64 when the state is float64 (finite-difference checks)."""
+    f32 = torch.float64 if state.dtype == torch.float64 else torch.float32
     out_dtype = r.dtype
     state = state.to(f32)
     r, k, v, a, b = (x.to(f32) for x in (r, k, v, a, b))
@@ -58,14 +65,38 @@ def wkv7_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
     return state, y.to(out_dtype)
 
 
+def wkv7_step_flat(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
+                   a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`wkv7_step` on the flat state ``[B, N_v, H*N_k]`` (element
+    ``[b, i, h*N + j]`` is ``S[b, h, i, j]``); vectors ``[B, H, N]``. Returns
+    (new state in the carried dtype and layout, y in r's dtype)."""
+    H = r.shape[-2]
+    s, y = wkv7_step(state_from_flat(state, H), r, w_raw, k, v, a, b)
+    return state_to_flat(s).to(state.dtype), y
+
+
+def state_to_flat(state: Tensor) -> Tensor:
+    """``[B, H, N_v, N_k]`` -> flat ``[B, N_v, H*N_k]`` (a decode carry)."""
+    B, H, Nv, Nk = state.shape
+    return state.transpose(1, 2).reshape(B, Nv, H * Nk)
+
+
+def state_from_flat(state: Tensor, n_head: int) -> Tensor:
+    """Flat ``[B, N_v, H*N_k]`` -> ``[B, H, N_v, N_k]``."""
+    B, Nv, HN = state.shape
+    return state.reshape(B, Nv, n_head, HN // n_head).transpose(1, 2)
+
+
 def wkv7_reference(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                    initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Sequential fp32 scan. Returns (y ``[B, T, H, N]`` in r's dtype, final state fp32)."""
+    """Sequential fp32 scan (float64 for float64 streams). Returns (y
+    ``[B, T, H, N]`` in r's dtype, final state fp32)."""
     _validate(r, w_raw, k, v, a, b)
     B, T, H, N = r.shape
+    sdt = torch.float64 if r.dtype == torch.float64 else torch.float32
     state = (
-        torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
-        if initial_state is None else initial_state.to(torch.float32)
+        torch.zeros(B, H, N, N, dtype=sdt, device=r.device)
+        if initial_state is None else initial_state.to(sdt)
     )
     ys = []
     for t in range(T):
@@ -173,24 +204,116 @@ def wkv7_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Ten
     return wkv7_reference(r, w_raw, k, v, a, b, initial_state)
 
 
+def wkv7_fwd_res_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                       initial_state: Optional[Tensor] = None,
+                       chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor, Tensor]:
+    """The sequential scan that also returns the state entering every chunk:
+    (y, final state, ``zin`` fp32 ``[B*H, T/chunk, N, N]``), where
+    ``zin[bh, c]`` is the TRANSPOSE of the state before step ``c * chunk``
+    (the layout kernel K5 writes and K6 reads coalesced, and the one the
+    JAX package's ``wkv7_pallas_fwd_res`` saves)."""
+    _validate(r, w_raw, k, v, a, b)
+    B, T, H, N = r.shape
+    if T == 0 or T % chunk:
+        raise ValueError(f"T={T} must be a positive multiple of chunk={chunk}")
+    state = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
+             if initial_state is None else initial_state.to(torch.float32))
+    ys, zs = [], []
+    for t in range(T):
+        if t % chunk == 0:
+            zs.append(state.transpose(-1, -2).reshape(B * H, N, N))
+        state, y = wkv7_step(state, r[:, t], w_raw[:, t], k[:, t], v[:, t], a[:, t], b[:, t])
+        ys.append(y)
+    return torch.stack(ys, 1).to(r.dtype), state, torch.stack(zs, 1)
+
+
+def wkv7_bwd_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                   zin: Tensor, dy: Tensor, dsfinal: Tensor,
+                   chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, ...]:
+    """Vector-Jacobian product of the recurrence from the saved chunk states
+    (the plain version of kernel K6): the chunks are walked in reverse, each
+    differentiated by fp32 autograd through :func:`wkv7_reference` from its
+    saved entering state, with the state cotangent carried between chunks.
+    Returns (dr, dw_raw, dk, dv, da, db) in the stream dtype and the fp32
+    cotangent of the initial state."""
+    _validate(r, w_raw, k, v, a, b)
+    B, T, H, N = r.shape
+    if T % chunk:
+        raise ValueError(f"T={T} must be a multiple of chunk={chunk}")
+    f32 = torch.float32
+    ds = dsfinal.to(f32)
+    pieces = []
+    for c in reversed(range(T // chunk)):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        with torch.enable_grad():
+            xs = [x[:, sl].detach().to(f32).requires_grad_(True) for x in (r, w_raw, k, v, a, b)]
+            s_in = zin[:, c].reshape(B, H, N, N).transpose(-1, -2).detach().to(f32).requires_grad_(True)
+            y, s_out = wkv7_reference(*xs, s_in)
+            grads = torch.autograd.grad((y, s_out), xs + [s_in], (dy[:, sl].to(f32), ds))
+        pieces.append(grads[:6])
+        ds = grads[6]
+    out = [torch.cat([p[i] for p in reversed(pieces)], 1).to(r.dtype) for i in range(6)]
+    return (*out, ds)
+
+
+class WKV7Function(torch.autograd.Function):
+    """The differentiable WKV7 on CUDA tensors: forward is kernel K5 (which
+    saves the chunk states), backward is kernel K6. Counterpart of the JAX
+    package's ``_wkv7_cv_pallas_blocked`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, r, w_raw, k, v, a, b, initial_state):
+        y, s, zin = wkv7_cuda.wkv7_fwd_res(r, w_raw, k, v, a, b, initial_state)
+        ctx.save_for_backward(r, w_raw, k, v, a, b, zin)
+        ctx.has_initial = initial_state is not None
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, w_raw, k, v, a, b, zin = ctx.saved_tensors
+        B, T, H, N = r.shape
+        # a cotangent that autograd did not materialise is zero
+        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype).contiguous()
+        ds = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device) if ds is None
+              else ds.to(torch.float32).contiguous())
+        grads = wkv7_cuda.wkv7_bwd(r, w_raw, k, v, a, b, zin, dy, ds)
+        return (*grads[:6], grads[6] if ctx.has_initial else None)
+
+
 def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
          initial_state: Optional[Tensor] = None,
          chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor]:
-    """Entry point of the models. CPU tensors take the plain path; CUDA
-    tensors launch kernel K1 (``csrc/wkv7.cu``), which has no chunk."""
+    """Entry point of the models. CPU tensors take the plain path, which
+    autograd differentiates through PyTorch ops. CUDA tensors launch kernel
+    K1 (``csrc/wkv7.cu``, no chunk) or, when grad mode is on and an input
+    needs a gradient, :class:`WKV7Function` (K5 forward, K6 backward; T must
+    be a multiple of 16)."""
     _validate(r, w_raw, k, v, a, b)
     if r.is_cuda:
+        inputs = (r, w_raw, k, v, a, b, initial_state)
+        if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
+            return WKV7Function.apply(*inputs)
         return wkv7_cuda.wkv7_fwd(r, w_raw, k, v, a, b, initial_state)
     return wkv7_plain(r, w_raw, k, v, a, b, initial_state, chunk)
 
 
 def wkv7_step_auto(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
                    a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
-    """Decode-step entry point on the head layout ``[B, H, Nv, Nk]``. CPU
-    tensors take :func:`wkv7_step`; CUDA tensors launch kernel K2, whose
-    new state keeps the carried dtype (fp32 or bf16)."""
-    if state.dim() != 4:
-        raise NotImplementedError("only the head state layout [B, H, Nv, Nk] is ported")
+    """Decode-step entry point. A 4-D state is the head layout
+    ``[B, H, Nv, Nk]``: CPU tensors take :func:`wkv7_step`, CUDA tensors
+    launch kernel K2. A 3-D state is the flat layout ``[B, Nv, H*Nk]``:
+    :func:`wkv7_step_flat` or kernel K4. The kernels' new state keeps the
+    carried dtype (fp32 or bf16)."""
+    if state.dim() == 3:
+        H, N = r.shape[-2], r.shape[-1]
+        if state.shape[-2:] != (N, H * N):
+            raise ValueError(
+                f"wkv7_step_auto: 3-D state {tuple(state.shape)} is not the flat "
+                f"[B, {N}, {H * N}] wkv7 layout"
+            )
+        if state.is_cuda:
+            return wkv7_cuda.wkv7_step_flat(state, r, w_raw, k, v, a, b)
+        return wkv7_step_flat(state, r, w_raw, k, v, a, b)
     if state.is_cuda:
         return wkv7_cuda.wkv7_step(state, r, w_raw, k, v, a, b)
     return wkv7_step(state, r, w_raw, k, v, a, b)
