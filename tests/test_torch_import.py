@@ -70,12 +70,16 @@ def test_unported_options_raise():
     from visualrwkv_torch.config import RWKVConfig, VLMConfig
     from visualrwkv_torch.infer.engine import InferenceEngine
 
-    with pytest.raises(NotImplementedError):
-        RWKVConfig(version="x060")
-    for kw in ({"uhd_fusion": True}, {"n_vtc_layer": 1}, {"grid_size": 4},
+    for version in ("x052", "x040"):
+        with pytest.raises(NotImplementedError):
+            RWKVConfig(version=version)
+    for kw in ({"uhd_fusion": True}, {"n_vtc_layer": 1},
                {"bidirectional_image": True}, {"image_scanning": "zigzag"}):
         with pytest.raises(NotImplementedError):
             VLMConfig(**kw)
     with pytest.raises(ValueError):
         InferenceEngine({}, VLMConfig(), state_layout="rows", device="cpu")
     assert InferenceEngine({}, VLMConfig(), state_layout="flat", device="cpu").state_layout == "flat"
+    x060 = VLMConfig(rwkv=RWKVConfig(version="x060"))
+    with pytest.raises(NotImplementedError):  # the flat decode state is x070's only
+        InferenceEngine({}, x060, state_layout="flat", device="cpu")

@@ -31,11 +31,11 @@ def port_cfg(jcfg):
     vision = pcfg.VisionConfig(
         towers=jv.towers, image_size=jv.image_size, sam_image_size=jv.sam_image_size,
         dino_dim=jv.dino_dim, siglip_dim=jv.siglip_dim, sam_dim=jv.sam_dim,
-        tower_config_overrides=overrides,
+        clip_dim=jv.clip_dim, tower_config_overrides=overrides,
     )
     return pcfg.VLMConfig(
         rwkv=_mirror(jcfg.rwkv, pcfg.RWKVConfig), vision=vision, proj_type=jcfg.proj_type,
-        num_token_per_image=jcfg.num_token_per_image,
+        num_token_per_image=jcfg.num_token_per_image, grid_size=jcfg.grid_size,
     )
 
 

@@ -1,5 +1,6 @@
 """Configuration of the port: the fields of the JAX configuration tree that
-the VisualRWKV-7 serving and training paths read, plus the token constants.
+the VisualRWKV-7 and VisualRWKV-6 serving and training paths read, plus the
+token constants.
 
 Options of the JAX configuration that select paths the port does not have
 yet raise ``NotImplementedError`` when the configuration is built, so that a
@@ -25,7 +26,7 @@ def _round_up(x: float, m: int) -> int:
 
 @dataclass(frozen=True)
 class RWKVConfig:
-    """RWKV-7 ("x070") language model configuration."""
+    """RWKV language model configuration: RWKV-7 ("x070") or RWKV-6 ("x060")."""
 
     n_layer: int = 12
     n_embd: int = 768
@@ -35,19 +36,20 @@ class RWKVConfig:
     head_size_divisor: int = 8
     ctx_len: int = 2048
     dim_att: int = 0  # 0 -> n_embd
-    dim_ffn: int = 0  # 0 -> 4 * n_embd
+    dim_ffn: int = 0  # 0 -> 4 * n_embd (x070), 3.5 * n_embd rounded to 32 (x060)
     chunk_len: int = 16  # WKV chunk length (T is left-padded to a multiple)
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
-        if self.version != "x070":
+        if self.version not in ("x070", "x060"):
             raise NotImplementedError(
-                f"RWKV version {self.version!r} is not ported yet (x070 only)"
+                f"RWKV version {self.version!r} is not ported yet (x070, x060)"
             )
         if self.dim_att == 0:
             object.__setattr__(self, "dim_att", self.n_embd)
         if self.dim_ffn == 0:
-            object.__setattr__(self, "dim_ffn", self.n_embd * 4)
+            ffn = self.n_embd * 4 if self.version == "x070" else _round_up(self.n_embd * 3.5, 32)
+            object.__setattr__(self, "dim_ffn", ffn)
 
     @property
     def n_head(self) -> int:
@@ -81,24 +83,26 @@ class RWKVConfig:
 class VisionConfig:
     """Vision backbone ensemble configuration."""
 
-    towers: Tuple[str, ...] = ("dino", "siglip", "sam")
+    towers: Tuple[str, ...] = ("dino", "siglip", "sam")  # or ("clip",)
     image_size: int = 448
     sam_image_size: int = 1024
     dino_dim: int = 1024
     siglip_dim: int = 1152
     sam_dim: int = 1024
+    clip_dim: int = 1024
     # tower name -> ViTConfig / SAMConfig replacing the default architecture
     tower_config_overrides: Any = None
 
     @property
     def embed_dim(self) -> int:
-        dims = {"dino": self.dino_dim, "siglip": self.siglip_dim, "sam": self.sam_dim}
+        dims = {"dino": self.dino_dim, "siglip": self.siglip_dim, "sam": self.sam_dim,
+                "clip": self.clip_dim}
         return sum(dims[t] for t in self.towers)
 
 
 @dataclass(frozen=True)
 class VLMConfig:
-    """VisualRWKV-7 multimodal assembly configuration."""
+    """VisualRWKV multimodal assembly configuration."""
 
     rwkv: RWKVConfig = field(default_factory=RWKVConfig)
     vision: VisionConfig = field(default_factory=VisionConfig)
@@ -107,14 +111,13 @@ class VLMConfig:
     n_vtc_layer: int = 0
     bidirectional_image: bool = False
     image_scanning: str = "unidirection"
-    grid_size: int = -2
+    grid_size: int = -2  # CLIP grid pooling (v5/v6.0); -2 = adaptive pooling instead
     uhd_fusion: bool = False
 
     def __post_init__(self):
         unported = {
             "uhd_fusion": self.uhd_fusion,
             "n_vtc_layer > 0": self.n_vtc_layer > 0,
-            "grid_size != -2": self.grid_size != -2,
             "bidirectional_image": self.bidirectional_image,
             "image_scanning != 'unidirection'": self.image_scanning != "unidirection",
         }
@@ -122,7 +125,7 @@ class VLMConfig:
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
         for t in self.vision.towers:
-            if t not in ("dino", "siglip", "sam"):
+            if t not in ("dino", "siglip", "sam", "clip"):
                 raise NotImplementedError(f"vision tower {t!r} is not ported yet")
 
     @property

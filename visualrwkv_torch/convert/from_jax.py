@@ -7,12 +7,14 @@ The input is the JAX tree with every leaf a numpy array (a caller turns
 changes, so that both packages compute the same function:
 
 - linears ``{"weight": [in, out]}`` -> ``[out, in]`` (the RWKV projections,
-  the head, the ViT / SAM qkv, proj, fc1, fc2, and the projector);
+  x060's ``att.gate`` and ``ffn.receptance`` among them, the head, the ViT /
+  SAM qkv, proj, fc1, fc2, and the projector);
 - patch embeddings ``[p*p*3, C]`` in (ph, pw, c) raster order -> a Conv2d
   weight ``[C, 3, p, p]``;
 - the SAM neck convolutions HWIO -> OIHW;
-- everything else (LoRA factors ``[in, out]``, embeddings, norms, tokens,
-  rel-pos tables, mixing vectors) unchanged.
+- everything else (LoRA factors ``[in, out]``, x060's ``time_maa_w2``
+  ``[5, dm, C]``, ``time_decay_w1/w2`` and ``time_faaaa`` ``[H, N]``,
+  embeddings, norms, tokens, rel-pos tables, mixing vectors) unchanged.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from visualrwkv_torch.vision.sam import SAMConfig
 Params = Dict[str, Any]
 
 _RWKV_LINEARS = {("att", "receptance"), ("att", "key"), ("att", "value"), ("att", "output"),
-                 ("ffn", "key"), ("ffn", "value")}
+                 ("att", "gate"), ("ffn", "key"), ("ffn", "value"), ("ffn", "receptance")}
 _VIT_LINEARS = {("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")}
 
 
@@ -63,8 +65,9 @@ def _rwkv(tree: Params) -> Params:
     for blk in tree["blocks"]:
         nb = {k: v for k, v in blk.items()}
         for part, name in _RWKV_LINEARS:
-            nb[part] = dict(nb[part])
-            nb[part][name] = _linear_T(blk[part][name])
+            if name in blk[part]:  # x070 has no att.gate or ffn.receptance
+                nb[part] = dict(nb[part])
+                nb[part][name] = _linear_T(blk[part][name])
         blocks.append(nb)
     return {"emb": tree["emb"], "blocks": blocks, "ln_out": tree["ln_out"],
             "head": _linear_T(tree["head"])}

@@ -1,6 +1,7 @@
 """Image normalisation per tower (the reference's transform statistics).
 
-DINOv2 and SAM use the ImageNet statistics; SigLIP uses 0.5 / 0.5.
+DINOv2 and SAM use the ImageNet statistics; SigLIP uses 0.5 / 0.5; CLIP its
+own (OpenAI CLIP's).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ TOWER_STATS = {
     "dino": (IMAGENET_MEAN, IMAGENET_STD),
     "siglip": (SIGLIP_MEAN, SIGLIP_STD),
     "sam": (IMAGENET_MEAN, IMAGENET_STD),
+    "clip": ((0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)),
 }
 
 

@@ -1,10 +1,12 @@
-"""VisualRWKV-7: vision ensemble -> projector -> token scatter -> RWKV LM,
-and the training loss (shifted cross-entropy with the L2Wrap logit penalty).
+"""VisualRWKV: vision ensemble -> projector -> token scatter -> RWKV LM
+(RWKV-7 or RWKV-6), and the training loss (shifted cross-entropy with the
+L2Wrap logit penalty).
 
 Counterpart of ``visualrwkv_tpu/models/visualrwkv.py`` (the unidirectional
-v7.00 path) over a parameter dict ``{"rwkv", "vit", "proj"}``. The vision
-towers are frozen feature extractors: they run without autograd and their
-features are detached before the projector, which is trained.
+v7.00 path, and the v6.0 CLIP grid pooling) over a parameter dict
+``{"rwkv", "vit", "proj"}``. The vision towers are frozen feature
+extractors: they run without autograd and their features are detached
+before the projector, which is trained.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from visualrwkv_torch.models import lm, rwkv7
 from visualrwkv_torch.multimodal.projector import (
     adaptive_pool_tokens,
     apply_projector,
+    grid_pooling,
     init_projector_params,
     scatter_image_features,
 )
@@ -47,12 +50,18 @@ def init_visualrwkv_params(cfg: VLMConfig, seed: int = 0, device="cuda",
 
 def encode_images(params: Params, cfg: VLMConfig, images: Dict[str, Tensor],
                   normalized: bool = False) -> Tensor:
-    """Per-tower pixel batches -> [N_img, num_token_per_image, n_embd]. No
-    gradient reaches the towers; the projector is differentiable."""
+    """Per-tower pixel batches -> [N_img, tokens, n_embd]: adaptive pooling
+    to ``num_token_per_image`` tokens, or CLIP grid pooling when
+    ``grid_size != -2``. No gradient reaches the towers; the projector is
+    differentiable."""
     with torch.no_grad():
         feats = backbone_features(params["vit"], cfg.vision, images, cfg.rwkv.compute_dtype,
                                   normalized)
-    feats = adaptive_pool_tokens(feats.detach(), cfg.num_token_per_image)
+    feats = feats.detach()
+    if cfg.grid_size != -2:  # expects a CLS-keeping tower (CLIP, keep_cls_feature)
+        feats = grid_pooling(feats, cfg.grid_size)
+    else:
+        feats = adaptive_pool_tokens(feats, cfg.num_token_per_image)
     return apply_projector(params["proj"], cfg.proj_type, feats, cfg.rwkv.dtype)
 
 

@@ -1,7 +1,7 @@
 """Vision -> language projector and token-space utilities.
 Counterpart of ``visualrwkv_tpu/multimodal/projector.py``: linear / gated-MLP
-projector, exact adaptive average pooling, and the scatter of image features
-into ``IMAGE_TOKEN_INDEX`` positions."""
+projector, exact adaptive average pooling, CLIP grid pooling, and the scatter
+of image features into ``IMAGE_TOKEN_INDEX`` positions."""
 
 from __future__ import annotations
 
@@ -56,6 +56,28 @@ def adaptive_pool_tokens(x: Tensor, num_tokens: int) -> Tensor:
     f = src // dst
     xf = x.float().reshape(N, dst, f, dst, f, D)
     return xf.mean(dim=(2, 4)).reshape(N, num_tokens, D).to(x.dtype)
+
+
+def grid_pooling(image_features: Tensor, grid_size: int) -> Tensor:
+    """CLIP-style pooling of ``[N, 1 + L, D]`` features with the CLS token at
+    position 0 (the v5 / v6.0 grid pooling). ``grid_size``: -1 = no pooling
+    (patches, then CLS: 1 + L tokens), 0 = CLS only, 1 = the patches' mean
+    and CLS, g > 1 = g x g average pooling of the patch grid and CLS."""
+    cls_features, patches = image_features[:, :1], image_features[:, 1:]
+    if grid_size == -1:
+        return torch.cat([patches, cls_features], dim=1)
+    if grid_size == 0:
+        return cls_features
+    if grid_size == 1:
+        return torch.cat([patches.mean(dim=1, keepdim=True), cls_features], dim=1)
+    B, L, D = patches.shape
+    hw = int(round(L**0.5))
+    if grid_size < 0 or hw * hw != L or hw % grid_size:
+        raise ValueError(f"grid pooling needs a square grid divisible by {grid_size}: L={L}")
+    s = hw // grid_size
+    pooled = patches.float().reshape(B, grid_size, s, grid_size, s, D).mean(dim=(2, 4))
+    return torch.cat([pooled.reshape(B, grid_size * grid_size, D).to(image_features.dtype),
+                      cls_features], dim=1)
 
 
 def scatter_image_features(input_ids: Tensor, input_embeds: Tensor, image_features: Tensor) -> Tensor:

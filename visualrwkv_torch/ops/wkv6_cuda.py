@@ -1,0 +1,179 @@
+"""Wrappers of the WKV6 CUDA kernels: K7 ``wkv6_fwd``, K8 ``wkv6_fwd_res``
+and K10 ``wkv6_step`` (``csrc/wkv6.cu``) and K9 ``wkv6_bwd``
+(``csrc/wkv6_train.cu``). They take CUDA tensors only; the dispatchers in
+:mod:`visualrwkv_torch.ops.wkv6` send CPU tensors to the plain versions.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current stream, raises on a
+CUDA error, and adds one to its entry of ``cuda_build.LAUNCHES``. The bonus
+``u`` is fp32 ``[H, 64]``. ``chunk`` sets the decay floor ``-80 / chunk`` of
+the sequence kernels (K7-K9); the step (K10) has none.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from visualrwkv_torch import cuda_build
+from visualrwkv_torch.ops.wkv7_cuda import _DTYPE_CODE, _check_cuda, _check_streams, _ptr, _stream
+
+Tensor = torch.Tensor
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+CHUNK = 16  # K8 saves, and K9 reads, the state entering every 16 steps
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("wkv6")
+    if lib.wkv6_fwd.argtypes is None:
+        lib.wkv6_fwd.argtypes = [_I, _I, _I, _I, _I, _F] + [_P] * 9
+        lib.wkv6_fwd.restype = _I
+        lib.wkv6_fwd_res.argtypes = [_I, _I, _I, _I, _I, _F] + [_P] * 10
+        lib.wkv6_fwd_res.restype = _I
+        lib.wkv6_step.argtypes = [_I, _I, _I, _I] + [_P] * 9
+        lib.wkv6_step.restype = _I
+    return lib
+
+
+def _train_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("wkv6_train")
+    if lib.wkv6_bwd.argtypes is None:
+        lib.wkv6_bwd.argtypes = [_I, _I, _I, _I, _I, _F] + [_P] * 15
+        lib.wkv6_bwd.restype = _I
+    return lib
+
+
+def _check_u(name: str, u: Tensor, H: int, device) -> None:
+    _check_cuda(name, (u,), device)
+    if u.dtype != torch.float32 or u.shape != (H, 64):
+        raise ValueError(f"{name}: u must be fp32 {(H, 64)}; got {u.dtype} {tuple(u.shape)}")
+
+
+def _floor(chunk: int) -> float:
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive; got {chunk}")
+    return -80.0 / chunk
+
+
+def wkv6_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
+             initial_state: Optional[Tensor] = None, chunk: int = 16) -> Tuple[Tensor, Tensor]:
+    """K7: streams ``[B, T, H, 64]`` (all fp32 or all bf16), u fp32 ``[H, 64]``,
+    optional fp32 initial state ``[B, H, 64, 64]``. Returns (y in the stream
+    dtype, final fp32 state)."""
+    B, T, H, N = r.shape
+    dev = r.device
+    streams = (r, w_raw, k, v)
+    _check_streams("wkv6_fwd", streams, (initial_state,))
+    _check_u("wkv6_fwd", u, H, dev)
+    y = torch.empty_like(r)
+    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.wkv6_fwd(
+            _DTYPE_CODE[r.dtype], B, T, H, N, _floor(chunk), *(x.data_ptr() for x in streams),
+            u.data_ptr(), _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), _stream(dev),
+        )
+    cuda_build.check(lib, err, "wkv6_fwd")
+    cuda_build.LAUNCHES["wkv6_fwd"] += 1
+    return y, s_out
+
+
+def wkv6_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
+                 initial_state: Optional[Tensor] = None,
+                 chunk: int = 16) -> Tuple[Tensor, Tensor, Tensor]:
+    """K8: K7 that also saves the state entering every 16-step chunk. T must
+    be a multiple of 16. Returns (y, final fp32 state, ``zin`` fp32
+    ``[B*H, T/16, 64, 64]`` with ``zin[bh, c]`` the TRANSPOSE of the state
+    before step ``16 c``)."""
+    B, T, H, N = r.shape
+    dev = r.device
+    streams = (r, w_raw, k, v)
+    _check_streams("wkv6_fwd_res", streams, (initial_state,))
+    _check_u("wkv6_fwd_res", u, H, dev)
+    if T == 0 or T % CHUNK:
+        raise ValueError(f"wkv6_fwd_res: T={T} must be a positive multiple of {CHUNK}")
+    y = torch.empty_like(r)
+    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    zin = torch.empty(B * H, T // CHUNK, N, N, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.wkv6_fwd_res(
+            _DTYPE_CODE[r.dtype], B, T, H, N, _floor(chunk), *(x.data_ptr() for x in streams),
+            u.data_ptr(), _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), zin.data_ptr(),
+            _stream(dev),
+        )
+    cuda_build.check(lib, err, "wkv6_fwd_res")
+    cuda_build.LAUNCHES["wkv6_fwd_res"] += 1
+    return y, s_out, zin
+
+
+def wkv6_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor, zin: Tensor,
+             dy: Tensor, dsfinal: Tensor, chunk: int = 16) -> Tuple[Tensor, ...]:
+    """K9: the vector-Jacobian product of the recurrence from K8's saved
+    states. ``dy`` in the stream dtype ``[B, T, H, 64]``, ``dsfinal`` (the
+    cotangent of the final state) fp32 ``[B, H, 64, 64]``. Returns (dr,
+    dw_raw, dk, dv) in the stream dtype, du fp32 ``[H, 64]`` (the kernel's
+    per-(b, h) sums added over the batch here) and the fp32 cotangent of the
+    initial state; all arithmetic fp32."""
+    B, T, H, N = r.shape
+    dev = r.device
+    streams = (r, w_raw, k, v, dy)
+    _check_streams("wkv6_bwd", streams, (dsfinal,))
+    _check_u("wkv6_bwd", u, H, dev)
+    if T == 0 or T % CHUNK:
+        raise ValueError(f"wkv6_bwd: T={T} must be a positive multiple of {CHUNK}")
+    _check_cuda("wkv6_bwd", (zin,), dev)
+    if zin.dtype != torch.float32 or zin.shape != (B * H, T // CHUNK, N, N):
+        raise ValueError(
+            f"wkv6_bwd: zin must be fp32 {(B * H, T // CHUNK, N, N)}; got {zin.dtype} {tuple(zin.shape)}"
+        )
+    grads = [torch.empty_like(r) for _ in range(4)]
+    du_bh = torch.empty(B, H, N, dtype=torch.float32, device=dev)
+    ds0 = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    lib = _train_lib()
+    with torch.cuda.device(dev):
+        err = lib.wkv6_bwd(
+            _DTYPE_CODE[r.dtype], B, T, H, N, _floor(chunk), *(x.data_ptr() for x in streams[:4]),
+            u.data_ptr(), zin.data_ptr(), dy.data_ptr(), dsfinal.data_ptr(),
+            *(g.data_ptr() for g in grads), du_bh.data_ptr(), ds0.data_ptr(), _stream(dev),
+        )
+    cuda_build.check(lib, err, "wkv6_bwd")
+    cuda_build.LAUNCHES["wkv6_bwd"] += 1
+    return (*grads, du_bh.sum(0), ds0)
+
+
+def wkv6_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
+              u: Tensor) -> Tuple[Tensor, Tensor]:
+    """K10: state ``[B, H, 64, 64]`` fp32 or bf16, vectors ``[B, H, 64]`` fp32
+    (the decode step's dtype), u fp32 ``[H, 64]``; no decay floor. Returns
+    (new state in the state's dtype, fp32 y)."""
+    vecs = (r, w_raw, k, v)
+    dev = state.device
+    _check_cuda("wkv6_step", (state,) + vecs, dev)
+    if r.dim() != 3 or r.shape[-1] != 64:
+        raise ValueError(f"wkv6_step: vectors must be [B, H, 64]; got {tuple(r.shape)}")
+    B, H, N = r.shape
+    _check_u("wkv6_step", u, H, dev)
+    if state.shape != (B, H, N, N):
+        raise ValueError(f"wkv6_step: state must be {(B, H, N, N)}; got {tuple(state.shape)}")
+    if state.dtype not in _DTYPE_CODE:
+        raise ValueError(f"wkv6_step: state must be fp32 or bf16; got {state.dtype}")
+    if any(x.dtype != torch.float32 or x.shape != (B, H, N) for x in vecs):
+        raise ValueError(f"wkv6_step: vectors must be fp32 {(B, H, N)}; got "
+                         f"{[(x.dtype, tuple(x.shape)) for x in vecs]}")
+    s_out = torch.empty_like(state)
+    y = torch.empty_like(r)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.wkv6_step(
+            _DTYPE_CODE[state.dtype], B, H, N, state.data_ptr(), *(x.data_ptr() for x in vecs),
+            u.data_ptr(), s_out.data_ptr(), y.data_ptr(), _stream(dev),
+        )
+    cuda_build.check(lib, err, "wkv6_step")
+    cuda_build.LAUNCHES["wkv6_step"] += 1
+    return s_out, y

@@ -1,6 +1,7 @@
 """Vision backbone ensemble: DINOv2-L + SigLIP-so400m + SAM-B features
-concatenated on the channel dim (1024 + 1152 + 1024 = 3200 at full size).
-Counterpart of ``visualrwkv_tpu/vision/backbone.py``."""
+concatenated on the channel dim (1024 + 1152 + 1024 = 3200 at full size), or
+the single CLIP-L/336 tower of VisualRWKV-6. Counterpart of
+``visualrwkv_tpu/vision/backbone.py``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,13 @@ import torch
 from visualrwkv_torch.config import VisionConfig
 from visualrwkv_torch.data.transforms import normalize_uint8
 from visualrwkv_torch.vision.sam import SAM_VIT_B, SAMConfig, init_sam_params, sam_features
-from visualrwkv_torch.vision.vit import DINOV2_L_REG4, SIGLIP_SO400M, init_vit_params, vit_features
+from visualrwkv_torch.vision.vit import (
+    CLIP_L_336,
+    DINOV2_L_REG4,
+    SIGLIP_SO400M,
+    init_vit_params,
+    vit_features,
+)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -25,6 +32,7 @@ def tower_configs(cfg: VisionConfig, compute_dtype: str = "bfloat16") -> Dict[st
         "dino": dataclasses.replace(DINOV2_L_REG4, img_size=cfg.image_size),
         "siglip": dataclasses.replace(SIGLIP_SO400M, img_size=cfg.image_size),
         "sam": dataclasses.replace(SAM_VIT_B, img_size=cfg.sam_image_size),
+        "clip": CLIP_L_336,
     }
     out: Dict[str, Any] = {}
     for t in cfg.towers:

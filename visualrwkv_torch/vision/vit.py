@@ -1,11 +1,12 @@
-"""Generic ViT encoder (DINOv2-with-registers and SigLIP towers).
+"""Generic ViT encoder (DINOv2-with-registers, SigLIP and CLIP towers).
 
 Counterpart of ``visualrwkv_tpu/vision/vit.py``. Parameters are plain dicts
 of tensors in PyTorch layouts: linears ``[out, in]``, the patch embedding a
 ``Conv2d`` weight ``[C, 3, p, p]``. Pixels enter as ``[B, H, W, 3]``;
 features leave as ``[B, num_patches, width]`` at ``feature_layer`` (prefix
-tokens stripped, no final norm). LayerNorm and softmax run fp32, matmuls in
-the compute dtype.
+tokens stripped, no final norm), or ``[B, 1 + num_patches, width]`` with the
+CLS token first under ``keep_cls_feature`` (CLIP's grid pooling). LayerNorm
+and softmax run fp32, matmuls in the compute dtype.
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ class ViTConfig:
     depth: int = 24
     heads: int = 16
     mlp_dim: int = 4096
-    act: str = "gelu"  # "gelu" | "gelu_tanh"
+    act: str = "gelu"  # "gelu" | "gelu_tanh" | "quick_gelu"
     use_cls: bool = True
     num_reg: int = 0
     layerscale: bool = False
+    pre_ln: bool = False  # CLIP: LayerNorm after the embeddings
     patch_bias: bool = True
+    keep_cls_feature: bool = False  # CLIP grid pooling wants [cls, patches]
     ln_eps: float = 1e-6
     feature_layer: int = -2
     compute_dtype: str = "bfloat16"
@@ -61,6 +64,11 @@ DINOV2_L_REG4 = ViTConfig(
 SIGLIP_SO400M = ViTConfig(
     img_size=448, patch_size=14, width=1152, depth=27, heads=16, mlp_dim=4304,
     act="gelu_tanh", use_cls=False, num_reg=0, layerscale=False,
+)
+CLIP_L_336 = ViTConfig(
+    img_size=336, patch_size=14, width=1024, depth=24, heads=16, mlp_dim=4096,
+    act="quick_gelu", use_cls=True, num_reg=0, layerscale=False,
+    pre_ln=True, patch_bias=False, keep_cls_feature=True, ln_eps=1e-5,
 )
 
 MHA_MIN_TOKENS = 256  # below this the plain attention runs (as the JAX package does)
@@ -92,6 +100,8 @@ def init_vit_params(gen: torch.Generator, cfg: ViTConfig, device="cuda",
     }
     if cfg.patch_bias:
         params["patch_embed"]["bias"] = torch.zeros(C, device=device, dtype=dtype)
+    if cfg.pre_ln:
+        params["pre_ln"] = _ln_init(C, device, dtype)
     if cfg.use_cls:
         params["cls_token"] = torch.zeros(C, device=device, dtype=dtype)
     if cfg.num_reg:
@@ -129,6 +139,8 @@ def _act(x: Tensor, kind: str) -> Tensor:
         return F.gelu(x)
     if kind == "gelu_tanh":
         return F.gelu(x, approximate="tanh")
+    if kind == "quick_gelu":  # CLIP: x * sigmoid(1.702 x)
+        return x * torch.sigmoid(1.702 * x)
     raise ValueError(kind)
 
 
@@ -165,7 +177,8 @@ def vit_block(p: Params, cfg: ViTConfig, x: Tensor, dt: torch.dtype) -> Tensor:
 
 def vit_features(params: Params, cfg: ViTConfig, pixels: Tensor,
                  feature_layer: Optional[int] = None) -> Tensor:
-    """Patch features [B, num_patches, width] at ``feature_layer``."""
+    """Patch features [B, num_patches, width] at ``feature_layer`` ([cls,
+    patches] under ``keep_cls_feature``)."""
     dt = getattr(torch, cfg.compute_dtype)
     fl = (cfg.feature_layer if feature_layer is None else feature_layer) % cfg.depth
     x = patchify(params["patch_embed"], pixels, cfg.patch_size, dt)
@@ -180,9 +193,11 @@ def vit_features(params: Params, cfg: ViTConfig, pixels: Tensor,
         reg = params["reg_tokens"].to(x.dtype).expand(B, cfg.num_reg, cfg.width)
         x = torch.cat([x[:, :n_prefix], reg, x[:, n_prefix:]], dim=1)
         n_prefix += cfg.num_reg
+    if cfg.pre_ln:
+        x = layer_norm(params["pre_ln"], x, cfg.ln_eps)
     for i in range(fl + 1):
         x = vit_block(params["blocks"][i], cfg, x, dt)
-    return x[:, n_prefix:]
+    return x if cfg.keep_cls_feature else x[:, n_prefix:]
 
 
 def blocks_run(cfg: ViTConfig) -> int:
