@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught):
    shapes of the serving and training paths below, with kernel, plain
    and library (one PyTorch call computing the same function, timed as a
    yardstick only) times and the least time the card could take
-   (``bound_ms``).
+   (``bound_ms``). The head-pair ("packed") kernels K11-K13 are held
+   against their plain versions too, and K11 and K12 beside K1 and K5.
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -22,13 +23,17 @@ Phases (any failure exits non-zero; nothing is caught):
    run must be the ones the path implies. Then the prefill logits of the
    kernel path are held against the plain path on the CPU, at a reduced
    LM depth. The four-request batch runs once more with the flat decode
-   state (``state_layout="flat"``, kernel K4): the same greedy ids.
+   state (``state_layout="flat"``, kernel K4), and once more under
+   ``set_wkv_impl("packed")`` (prefill on K11): the same greedy ids.
 4. Training at full width: the same model through ``Trainer`` (bf16
    parameters, fp32 masters, activation checkpointing, chunked head +
    cross-entropy), micro-batch 2 x 2048 tokens with one image a sample, one
    warm-up step and three counted steps; then one step's loss and three
    gradients of the kernel path held against the plain path on the CPU in
-   fp32, at a reduced LM depth.
+   fp32, at a reduced LM depth. Then three more runs of the same model
+   through ``Trainer``: (a) under ``set_wkv_impl("packed")`` (K12 / K13),
+   1 + 3 steps, with its own plain check; (b) ``grad_cp="wkv"`` (K5 once
+   a layer), 1 + 2 steps; (c) ``grad_cp="dots"``, 1 + 1 steps.
 5. VisualRWKV-6 7B serving: RWKV-6 World 7B (x060 L32 D4096, dim_ffn 14336)
    behind one CLIP-L/14 @336 tower, all 576 patches and the CLS token
    (``grid_size=-1``, 577 image tokens) through a linear projector, on
@@ -38,8 +43,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the towers and projector of phase 3, through ``Trainer`` as in phase 4,
    with its launch counts and plain check.
 
-The profiler breakdowns of phases 3-6 come after all counted runs, each
-model built again from its seed: once the profiler has been used in a
+The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step)
+come after all counted runs, each model built again from its seed: once the profiler has been used in a
 process it slows every later launch of a host-bound loop.
 
 The line before the last is the JSON list of kernels; the last line is
@@ -78,10 +83,14 @@ REPLACES = {
     "wkv6_fwd_res": "visualrwkv_tpu/ops/wkv6_pallas.py:134",
     "wkv6_bwd": "visualrwkv_tpu/ops/wkv6_pallas.py:281",
     "wkv6_step": "visualrwkv_tpu/ops/wkv6_pallas.py:370",
+    "wkv7_fwd_packed": "visualrwkv_tpu/ops/wkv7_pallas.py:374",
+    "wkv7_fwd_res_packed": "visualrwkv_tpu/ops/wkv7_pallas.py:461",
+    "wkv7_bwd_packed": "visualrwkv_tpu/ops/wkv7_pallas.py:565",
 }
 # the WKV kernels each LM family launches: (prefill, decode step, training
-# forward, training backward)
+# forward, training backward); "x070 packed" under set_wkv_impl("packed")
 WKV_KERNELS = {"x070": ("wkv7_fwd", "wkv7_step", "wkv7_fwd_res", "wkv7_bwd"),
+               "x070 packed": ("wkv7_fwd_packed", "wkv7_step", "wkv7_fwd_res_packed", "wkv7_bwd_packed"),
                "x060": ("wkv6_fwd", "wkv6_step", "wkv6_fwd_res", "wkv6_bwd")}
 # Greedy tokens a request generates in the counted run.
 NEW_TOKENS = 32
@@ -95,6 +104,10 @@ PLAIN_CHECK_TOL = 2e-3
 TRAIN_CTX = 2048
 TRAIN_MICRO_BSZ = 2
 TRAIN_STEPS = 3
+# The kernel-option runs of phase 4 after the main one: (name, grad_cp,
+# packed, counted steps after the warm-up step).
+TRAIN_OPTION_RUNS = (("training_packed", True, True, 3), ("training_remat_wkv", "wkv", False, 2),
+                     ("training_remat_dots", "dots", False, 1))
 # The training plain check (one loss and three gradients, kernels on the card
 # against the plain path on the CPU in fp32, same bf16 weights): limits on
 # the relative difference of the loss and on each gradient's relative RMS.
@@ -127,6 +140,9 @@ SOURCES = {
     "wkv6_fwd_res": "visualrwkv_torch/csrc/wkv6.cu",
     "wkv6_bwd": "visualrwkv_torch/csrc/wkv6_train.cu",
     "wkv6_step": "visualrwkv_torch/csrc/wkv6.cu",
+    "wkv7_fwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
+    "wkv7_fwd_res_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
+    "wkv7_bwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
 }
 
 
@@ -414,6 +430,105 @@ def check_wkv7_train(gen, dev):
     return fwd, bwd
 
 
+def check_wkv7_fwd_packed(gen, dev):
+    """K11 at the prefill's shapes (B=1 T=1056 H=32) with an initial state,
+    in bf16 and with fp32 streams, against its plain version on the same
+    values in fp32 (the plain version run in bf16 rounds intermediates of
+    its chunked form to bf16, which the kernel does not), and beside K1 on
+    the same inputs: the largest difference from K1 is logged (the
+    per-thread arithmetic is K1's, so 0 is expected)."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    B, T, H, N = 1, 1056, 32, 64
+    out = []
+    for sdt in (torch.bfloat16, torch.float32):
+        dname = str(sdt)[6:]
+        case = f"B={B} T={T} H={H} N={N} {dname} streams, with initial state"
+        xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+        c = Check("wkv7_fwd_packed", case)
+        y, s = wkv7_cuda.wkv7_fwd_packed(*xs, s0)
+        y_ref, s_ref = pw.wkv7_packed_plain(*[x.float() for x in xs], s0)
+        y1, s1 = wkv7_cuda.wkv7_fwd(*xs, s0)
+        torch.cuda.synchronize()
+        c.compare(f"y ({dname}) vs fp32 plain", y.float(), y_ref, 1e-2 if sdt == torch.bfloat16 else 1e-3)
+        c.compare("final state (fp32)", s, s_ref, 1e-3)
+        k1_diff = max(max_abs(y, y1), max_abs(s, s1))
+        log(f"  wkv7_fwd_packed [{case}] largest difference from K1: {k1_diff:.3e}")
+        fn = lambda: wkv7_cuda.wkv7_fwd_packed(*xs, s0)
+        k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
+        p_ms = cuda_ms(lambda: pw.wkv7_packed_plain(*xs, s0), reps=1, warmup=1)
+        k1_ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd(*xs, s0))
+        nbytes = 7 * B * T * H * N * xs[0].element_size() + 2 * B * H * N * N * 4
+        rec = c.record(k_ms, p_ms, None, nbytes, 9 * B * T * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(k1_same_inputs_ms=k1_ms, max_abs_diff_from_k1=k1_diff)
+        log(f"  wkv7_fwd_packed [{case}] K1 on the same inputs: {k1_ms:.4f} ms")
+        out.append(rec)
+    return out
+
+
+def check_wkv7_packed_train(gen, dev):
+    """K12 (forward saving the packed chunk states) and K13 (backward from
+    them) at the training path's shapes, as :func:`check_wkv7_train` holds
+    K5 and K6: K12 against the packed plain scan, K13 against the packed
+    plain backward on the same values in fp32. K12's ``zin`` is held beside
+    K5's, repacked, and its time beside K5's."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    B, T, H, N = 2, 2048, 32, 64
+    fwd, bwd = [], []
+    names = ("dr", "dw_raw", "dk", "dv", "da", "db")
+    for sdt in (torch.bfloat16, torch.float32):
+        dname = str(sdt)[6:]
+        bf = sdt == torch.bfloat16
+        case = f"B={B} T={T} H={H} N={N} {dname} streams, initial state, non-zero final-state cotangent"
+        xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+        dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(sdt)
+        dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
+
+        c = Check("wkv7_fwd_res_packed", case)
+        y, s, zin = wkv7_cuda.wkv7_fwd_res_packed(*xs, s0)
+        (y_ref, s_ref, zin_ref), t_plain = timed_once(lambda: pw.wkv7_fwd_res_packed_plain(*xs, s0))
+        c.compare(f"y ({dname})", y.float(), y_ref.float(), 1e-2 if bf else 1e-3)
+        c.compare("final state (fp32)", s, s_ref, 1e-3)
+        c.compare("saved packed chunk states zin (fp32)", zin, zin_ref, 1e-3)
+        y5, _, zin5 = wkv7_cuda.wkv7_fwd_res(*xs, s0)
+        k5_diff = max(max_abs(zin, pw._pack_zin(zin5, B, H)), max_abs(y, y5))
+        log(f"  wkv7_fwd_res_packed [{case}] largest difference from K5 (y, zin repacked): {k5_diff:.3e}")
+        del y5, zin5
+        fn = lambda: wkv7_cuda.wkv7_fwd_res_packed(*xs, s0)
+        k_ms, k_eager = cuda_ms(fn, reps=5), eager_ms(fn, reps=5)
+        k5_ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd_res(*xs, s0), reps=5)
+        esz = xs[0].element_size()
+        nbytes = 7 * B * T * H * N * esz + 2 * B * H * N * N * 4 + zin.numel() * 4
+        rec = c.record(k_ms, t_plain, None, nbytes, 9 * B * T * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(k5_same_inputs_ms=k5_ms, max_abs_diff_from_k5=k5_diff)
+        log(f"  wkv7_fwd_res_packed [{case}] K5 on the same inputs: {k5_ms:.4f} ms")
+        fwd.append(rec)
+
+        c = Check("wkv7_bwd_packed", case)
+        grads = wkv7_cuda.wkv7_bwd_packed(*xs, zin, dy, dsf)
+        xs32 = [x.float() for x in xs]
+        ref, t_plain = timed_once(lambda: pw.wkv7_bwd_packed_plain(*xs32, zin_ref, dy.float(), dsf))
+        for name, g, g_ref in zip(names, grads, ref):
+            assert g.dtype == sdt
+            c.compare(f"{name} ({dname}) vs fp32 plain backward", g.float(), g_ref, 2e-2 if bf else 1e-3)
+        c.compare("d(initial state) (fp32)", grads[6], ref[6], 2e-2 if bf else 1e-3)
+        fn = lambda: wkv7_cuda.wkv7_bwd_packed(*xs, zin, dy, dsf)
+        k_ms, k_eager = cuda_ms(fn, reps=3), eager_ms(fn, reps=3)
+        nbytes = 13 * B * T * H * N * esz + zin.numel() * 4 + 2 * B * H * N * N * 4
+        bwd.append(c.record(k_ms, t_plain, None, nbytes, 27 * B * T * H * N * N, FP32_FLOPS, k_eager))
+        del xs, xs32, zin, zin_ref, grads, ref
+    return fwd, bwd
+
+
 def _wkv6_streams(gen, shape, dtype, dev):
     """RWKV-6-shaped streams (r, w_raw, k, v) and the bonus u [H, 64] fp32.
     w_raw is uniform in [-3, 2.5], so that exp(w_raw) crosses the decay floor
@@ -607,6 +722,28 @@ def check_attention(gen, dev):
     return relpos, mha
 
 
+def reckon_unported():
+    """The least time the card could take for the two TPU kernels still to
+    port, reckoned from their shapes as ``Check.record`` reckons a ported
+    kernel's (no kernel runs): row 5, the SAM flash backward at the global
+    blocks' shape of phase 3's SAM-B @1024 (G=12 heads, N=4096 tokens, hd
+    64, bf16), five products of G*N*N*hd multiply-adds (the scores again,
+    dP, dV, dQ, dK) with q, k, v, o, dO, lse and the fp32 rel-pos tables
+    read, dq, dk, dv and the tables' gradients written; row 12,
+    ``wkv7_pallas_v2``, a WKV7 forward, at the shape its own note measured
+    (B=8 T=512 H=32 N=64 bf16), with row 1's operation count."""
+    G, N, hd, Hk, Wk = 12, 4096, 64, 64, 64
+    nbytes = 5 * G * N * hd * 2 + G * N * 4 + 2 * G * N * (Hk + Wk) * 4 + 3 * G * N * hd * 2
+    row5 = bound(nbytes, 10 * G * N * N * hd, BF16_TENSOR_FLOPS)
+    B, T, H, Nh = 8, 512, 32, 64
+    row12 = bound(7 * B * T * H * Nh * 2 + 2 * B * H * Nh * Nh * 4, 9 * B * T * H * Nh * Nh, FP32_FLOPS)
+    out = {"row 5 vision/flash.py:394 _sam_flash_bwd_impl (G=12 N=4096 hd=64 bf16)": row5,
+           "row 12 ops/wkv7_pallas.py:1142 wkv7_pallas_v2 (B=8 T=512 H=32 N=64 bf16)": row12}
+    for what, (ms, by) in out.items():
+        log(f"  still to port: {what}: bound {ms:.4f} ms ({by})")
+    return {k: {"bound_ms": ms, "bound_by": by} for k, (ms, by) in out.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the flagship serving path
 # ---------------------------------------------------------------------------
@@ -692,16 +829,17 @@ def make_request(cfg, batch: int, text_tokens: int, seed: int, device):
 
 def expected_launches(cfg, prefills: int = 0, decode_steps: int = 0, encodes: int = 0,
                       flat_decode_steps: int = 0, train_micro_batches: int = 0,
-                      grad_cp: bool = True):
+                      grad_cp=True, packed: bool = False):
     """Launches of each kernel that a run implies: ``prefills`` stateless
     prompts, ``decode_steps`` / ``flat_decode_steps`` one-token steps on the
     head / flat state, ``encodes`` passes of the vision towers, and
     ``train_micro_batches`` loss-and-gradient passes; every other kernel 0.
-    The WKV kernels are those of the model's family (``WKV_KERNELS``). Under
-    activation checkpointing (non-reentrant: the first pass runs with
-    autograd on) every block's forward runs twice, both times through the
-    training forward (K5 or K8); the prefill kernel (K1 or K7) never runs in
-    training."""
+    The WKV kernels are those of the model's family (``WKV_KERNELS``; the
+    head-pair kernels of x070 when ``packed``). Under activation
+    checkpointing (non-reentrant: the first pass runs with autograd on)
+    every block's forward runs twice, both times through the training
+    forward (K5, K12 or K8), but once under ``grad_cp="wkv"``, which keeps
+    its outputs; the prefill kernel (K1, K11 or K7) never runs in training."""
     from visualrwkv_torch.vision import sam, vit
     from visualrwkv_torch.vision.backbone import tower_configs
 
@@ -710,12 +848,14 @@ def expected_launches(cfg, prefills: int = 0, decode_steps: int = 0, encodes: in
                          and c.num_patches + c.use_cls + c.num_reg >= vit.MHA_MIN_TOKENS)
     relpos_per_encode = sum(sam.global_blocks(c) for c in tc.values() if isinstance(c, sam.SAMConfig))
     L = cfg.rwkv.n_layer
-    fwd, step, fwd_res, bwd = WKV_KERNELS[cfg.rwkv.version]
+    family = cfg.rwkv.version + (" packed" if packed else "")
+    fwd, step, fwd_res, bwd = WKV_KERNELS[family]
+    fwd_res_per_block = 2 if grad_cp and grad_cp != "wkv" else 1
     want = dict.fromkeys(REPLACES, 0)
     want.update({
         fwd: L * prefills,
         step: L * decode_steps,
-        fwd_res: L * train_micro_batches * (2 if grad_cp else 1),
+        fwd_res: L * train_micro_batches * fwd_res_per_block,
         bwd: L * train_micro_batches,
         "attention_fwd_relpos": relpos_per_encode * encodes,
         "attention_fwd_mha": mha_per_encode * encodes,
@@ -837,16 +977,63 @@ def run_serving_flat(cfg, params, device, new_tokens: int, seed: int, head_token
             "head_layout_again_ms": head_ms, "first_ids": res.tokens[0, :8].tolist()}, launches, want
 
 
+def run_serving_packed(cfg, params, device, new_tokens: int, seed: int, head_tokens):
+    """The four-request batch of :func:`run_serving` again under
+    ``set_wkv_impl("packed")``: the prefill runs on K11 (one block per head
+    pair) in K1's place, and the greedy ids must be those of the head
+    layout. The mode is set back to "auto" before returning."""
+    import numpy as np
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.infer.engine import InferenceEngine
+    from visualrwkv_torch.ops.wkv7 import set_wkv_impl
+
+    b = 4
+    eng = InferenceEngine(params, cfg, state_dtype="bfloat16", device=device)
+    ids, images = make_request(cfg, b, 32, seed + b, device)
+    set_wkv_impl("packed")
+    try:
+        eng.generate(ids, images, max_new_tokens=2)
+        ttft = sorted(timed(lambda: eng.prefill_ids(ids, images))[1] for _ in range(3))[1]
+        reset_launches()
+        res, ms = timed(lambda: eng.generate(ids, images, max_new_tokens=new_tokens, stop_tokens=(-1,)))
+        launches = dict(cuda_build.LAUNCHES)
+    finally:
+        set_wkv_impl("auto")
+    assert res.tokens.shape == (b, new_tokens) and np.isfinite(res.logits).all()
+    assert np.array_equal(res.tokens, head_tokens), "packed greedy ids differ from the head layout's"
+    want = expected_launches(cfg, prefills=1, decode_steps=new_tokens, encodes=1, packed=True)
+    assert launches["wkv7_fwd_packed"] == cfg.rwkv.n_layer and launches.get("wkv7_fwd", 0) == 0
+    _, head_ttft = timed(lambda: InferenceEngine(params, cfg, state_dtype="bfloat16", device=device)
+                         .prefill_ids(ids, images))
+    return {"run": "4 requests, bf16 state, set_wkv_impl('packed')", "batch": b, "ttft_ms": ttft,
+            "head_layout_ttft_again_ms": head_ttft, "generate_ms": ms,
+            "first_ids": res.tokens[0, :8].tolist()}, launches, want
+
+
+def _template_flags(name: str, kernel: str):
+    """The template arguments after the type of ``kernel<T, ...>`` in a
+    profiler's kernel name, as booleans or integers."""
+    args = name.split(kernel + "<", 1)[1].split(">", 1)[0].split(",")[1:]
+    out = []
+    for a in args:
+        a = a.strip().replace("(bool)", "").replace("(int)", "")
+        out.append({"true": 1, "false": 0}.get(a, int(a) if a.isdigit() else a))
+    return out
+
+
 def _category(kernel_name: str) -> str:
     n = kernel_name.lower()
-    # the second template argument tells K5 from K1, K4 from K2 and K8 from K7
+    if "wkv7_fwd_kernel<" in n:  # <T, SAVE, HEADS>
+        save, heads = _template_flags(n, "wkv7_fwd_kernel")
+        return {(0, 1): "K1 wkv7_fwd", (1, 1): "K5 wkv7_fwd_res",
+                (0, 2): "K11 wkv7_fwd_packed", (1, 2): "K12 wkv7_fwd_res_packed"}[(save, heads)]
+    if "wkv7_bwd_kernel<" in n:  # <T, ZHEADS>
+        return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_kernel")[0] == 2 else "K6 wkv7_bwd"
+    # the second template argument tells K4 from K2 and K8 from K7
     flag = "true>" in n.replace(" ", "") or "(bool)1>" in n.replace(" ", "")
-    if "wkv7_fwd_kernel" in n:
-        return "K5 wkv7_fwd_res" if flag else "K1 wkv7_fwd"
     if "wkv7_step_kernel" in n:
         return "K4 wkv7_step_flat" if flag else "K2 wkv7_step"
-    if "wkv7_bwd_kernel" in n:
-        return "K6 wkv7_bwd"
     if "wkv6_fwd_kernel" in n:
         return "K8 wkv6_fwd_res" if flag else "K7 wkv6_fwd"
     if "wkv6_step_kernel" in n:
@@ -967,10 +1154,10 @@ def train_batch(cfg, batch: int, ctx: int, seed: int):
     return {"input_ids": ids, "labels": labels, "images": images}
 
 
-def train_cfg(steps: int):
+def train_cfg(steps: int, grad_cp=True):
     from visualrwkv_torch.config import TrainConfig
 
-    return TrainConfig(param_dtype="bfloat16", optim_precision="master_fp32", grad_cp=True,
+    return TrainConfig(param_dtype="bfloat16", optim_precision="master_fp32", grad_cp=grad_cp,
                        ce_chunk_t=128, micro_bsz=TRAIN_MICRO_BSZ, accumulate_grad_batches=1,
                        grad_clip=1.0, epoch_steps=steps, epoch_count=1)
 
@@ -1007,10 +1194,22 @@ def _checksums(tree):
 SLOW_LEAVES = {"x070": ("x_w",), "x060": ("time_maa_x", "time_maa_w")}
 
 
-def run_training(cfg, params, device, seed: int):
+def run_training(cfg, params, device, seed: int, steps: int = TRAIN_STEPS, grad_cp=True,
+                 packed: bool = False):
     """The main path of training: ``Trainer`` on ``cfg`` for one warm-up
-    step and ``TRAIN_STEPS`` counted steps. ``params`` (bf16) are updated in
-    place."""
+    step and ``steps`` counted steps, under the checkpoint policy
+    ``grad_cp`` and, when ``packed``, ``set_wkv_impl("packed")`` (set back
+    to "auto" before returning). ``params`` (bf16) are updated in place."""
+    from visualrwkv_torch.ops.wkv7 import set_wkv_impl
+
+    set_wkv_impl("packed" if packed else "auto")
+    try:
+        return _run_training(cfg, params, device, seed, steps, grad_cp, packed)
+    finally:
+        set_wkv_impl("auto")
+
+
+def _run_training(cfg, params, device, seed, steps, grad_cp, packed):
     import numpy as np
     import torch
 
@@ -1018,7 +1217,7 @@ def run_training(cfg, params, device, seed: int):
     from visualrwkv_torch.train.optim import tree_leaves, tree_leaves_with_path
     from visualrwkv_torch.train.trainer import Trainer
 
-    tcfg = train_cfg(TRAIN_STEPS + 1)
+    tcfg = train_cfg(steps + 1, grad_cp)
     trainer = Trainer(cfg, tcfg, params, device=device, log_every=1)
     reckoned = reckon_train_memory(cfg, tcfg, trainer.params, trainer.leaves)
     log("  memory reckoned from the shapes (GB): "
@@ -1030,7 +1229,7 @@ def run_training(cfg, params, device, seed: int):
     sums_before = _checksums(tree_leaves(trainer.params))
     master_before = _checksums(masters())
     batches = [train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100 + i)
-               for i in range(TRAIN_STEPS + 2)]
+               for i in range(steps + 2)]
     tokens = TRAIN_MICRO_BSZ * TRAIN_CTX
 
     loss, warm_ms = timed(lambda: float(trainer.train_step(batches[0])))
@@ -1038,17 +1237,18 @@ def run_training(cfg, params, device, seed: int):
     log(f"  warm-up step: loss {loss:.4f}, {warm_ms:.0f} ms")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    steps = []
-    for i in range(1, TRAIN_STEPS + 1):
+    counted = []
+    for i in range(1, steps + 1):
         loss, ms = timed(lambda: float(trainer.train_step(batches[i])))
         assert np.isfinite(loss), (i, loss)
-        steps.append({"step": i, "loss": loss, "step_ms": ms, "tok_per_s": tokens / (ms / 1e3),
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
-        log(f"  step {i}: loss {loss:.4f}, {ms:.1f} ms, {steps[-1]['tok_per_s']:.0f} tok/s, "
-            f"peak {steps[-1]['peak_gib']:.2f} GiB")
+        counted.append({"step": i, "loss": loss, "step_ms": ms, "tok_per_s": tokens / (ms / 1e3),
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        log(f"  step {i}: loss {loss:.4f}, {ms:.1f} ms, {counted[-1]['tok_per_s']:.0f} tok/s, "
+            f"peak {counted[-1]['peak_gib']:.2f} GiB")
     launches = dict(cuda_build.LAUNCHES)
-    want = expected_launches(cfg, encodes=TRAIN_STEPS, train_micro_batches=TRAIN_STEPS, grad_cp=True)
-    assert trainer.state.step == TRAIN_STEPS + 1
+    want = expected_launches(cfg, encodes=steps, train_micro_batches=steps, grad_cp=grad_cp,
+                             packed=packed)
+    assert trainer.state.step == steps + 1
 
     # frozen leaves are bit for bit what they were; trainable ones moved. The
     # fp32 master is what moves: an update below a bf16 ulp leaves the stored
@@ -1069,17 +1269,17 @@ def run_training(cfg, params, device, seed: int):
                  ("rwkv", "blocks", 0, "att", "output", "weight"), ("proj", "o_proj", "weight")):
         assert moved[paths.index(path)], path
     del trainer
-    return {"steps": steps, "warmup_ms": warm_ms, "reckoned_gb": reckoned,
-            "peak_gib": max(s["peak_gib"] for s in steps)}, launches, want
+    return {"grad_cp": grad_cp, "packed": packed, "steps": counted, "warmup_ms": warm_ms,
+            "reckoned_gb": reckoned, "peak_gib": max(s["peak_gib"] for s in counted)}, launches, want
 
 
-def profile_training(cfg, params, device, seed: int):
+def profile_training(cfg, params, device, seed: int, grad_cp=True):
     """Where the training time goes: a fresh ``Trainer`` takes one step, then
     one more step runs under the profiler, the gradient pass and the
     optimizer apart."""
     from visualrwkv_torch.train.trainer import Trainer, loss_and_grads
 
-    trainer = Trainer(cfg, train_cfg(2), params, device=device, log_every=1)
+    trainer = Trainer(cfg, train_cfg(2, grad_cp), params, device=device, log_every=1)
     batch = train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100)
     trainer.train_step(batch)
     out = {}
@@ -1194,10 +1394,10 @@ def plain_check_serving(serving, cfg, params, seed: int, device):
     torch.cuda.empty_cache()
 
 
-def train(cfg, params, device, seed: int):
+def train(cfg, params, device, seed: int, **kw):
     import torch
 
-    training, launches, want = run_training(cfg, params, device, seed)
+    training, launches, want = run_training(cfg, params, device, seed, **kw)
     log(f"  peak memory over the counted steps: {training['peak_gib']:.2f} GiB "
         f"(reckoned {training['reckoned_gb']['sum']:.2f} GB before activations and temporaries)")
     torch.cuda.empty_cache()
@@ -1222,6 +1422,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops.wkv7 import set_wkv_impl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1250,9 +1451,12 @@ def main(argv=None) -> int:
     kernels = {"wkv7_fwd": check_wkv7_fwd(gen, dev), "wkv7_step": check_wkv7_step(gen, dev),
                "wkv7_step_flat": check_wkv7_step_flat(gen, dev)}
     kernels["wkv7_fwd_res"], kernels["wkv7_bwd"] = check_wkv7_train(gen, dev)
+    kernels["wkv7_fwd_packed"] = check_wkv7_fwd_packed(gen, dev)
+    kernels["wkv7_fwd_res_packed"], kernels["wkv7_bwd_packed"] = check_wkv7_packed_train(gen, dev)
     kernels["attention_fwd_relpos"], kernels["attention_fwd_mha"] = check_attention(gen, dev)
     kernels["wkv6_fwd"], kernels["wkv6_step"] = check_wkv6_fwd(gen, dev), check_wkv6_step(gen, dev)
     kernels["wkv6_fwd_res"], kernels["wkv6_bwd"] = check_wkv6_train(gen, dev)
+    to_port = reckon_unported()
     torch.cuda.empty_cache()
 
     # phase 3 --------------------------------------------------------------
@@ -1268,6 +1472,14 @@ def main(argv=None) -> int:
         f"equal to the head layout's, first ids {flat_run['first_ids']}")
     assert_launches("serving, flat layout", flat_launches, flat_want)
     serving["runs"].append(flat_run)
+    packed_run, packed_launches, packed_want = run_serving_packed(cfg, params, dev, NEW_TOKENS,
+                                                                  args.seed, head_tokens)
+    log(f"  {packed_run['run']}: TTFT {packed_run['ttft_ms']:.1f} ms (the head layout again, right "
+        f"after: {packed_run['head_layout_ttft_again_ms']:.1f} ms), generate({NEW_TOKENS}) "
+        f"{packed_run['generate_ms']:.1f} ms, greedy ids equal to the head layout's, first ids "
+        f"{packed_run['first_ids']}")
+    assert_launches("serving, packed", packed_launches, packed_want)
+    serving["runs"].append(packed_run)
     plain_check_serving(serving, cfg, params, args.seed, dev)
 
     # phase 4 --------------------------------------------------------------
@@ -1276,6 +1488,22 @@ def main(argv=None) -> int:
     training, train_launches, train_want = train(cfg, params, dev, args.seed)
     assert_launches("training", train_launches, train_want)
     training["plain_check"] = check_training_against_plain(cfg, params, PLAIN_LAYERS, args.seed + 11, dev)
+    # the training CLI's kernel options on the same model: --wkv_impl packed, --remat wkv|dots
+    option_runs, option_launches = {}, {}
+    for name, grad_cp, packed, steps in TRAIN_OPTION_RUNS:
+        log(f"  {name}: grad_cp={grad_cp!r}, set_wkv_impl({'packed' if packed else 'auto'!r}), "
+            f"1 warm-up + {steps} counted steps")
+        option_runs[name], option_launches[name], want_opt = train(
+            cfg, params, dev, args.seed, steps=steps, grad_cp=grad_cp, packed=packed)
+        assert_launches(name, option_launches[name], want_opt)
+        if packed:
+            set_wkv_impl("packed")
+            try:
+                option_runs[name]["plain_check"] = check_training_against_plain(
+                    cfg, params, PLAIN_LAYERS, args.seed + 11, dev)
+            finally:
+                set_wkv_impl("auto")
+    training["option_runs"] = option_runs
     del params
     torch.cuda.empty_cache()
 
@@ -1307,6 +1535,8 @@ def main(argv=None) -> int:
     log("profiles: one prefill and 9 decode steps a serving model, one step a training model")
     for what, c, out, prof in (("x070 serving", cfg, serving, profile_serving),
                                ("x070 training", cfg, training, profile_training),
+                               ("x070 training, grad_cp='wkv'", cfg, option_runs["training_remat_wkv"],
+                                lambda *a: profile_training(*a, grad_cp="wkv")),
                                ("x060 7B serving", cfg6, serving6, profile_serving),
                                ("x060 1.6B training", cfg6t, training6, profile_training)):
         params = init_model(c, args.seed, dev)
@@ -1316,8 +1546,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     # results --------------------------------------------------------------
-    # launches of each kernel over the counted runs of the five paths
-    by_path = {"serving_head": launches, "serving_flat": flat_launches, "training": train_launches,
+    # launches of each kernel over the counted runs of the nine paths
+    by_path = {"serving_head": launches, "serving_flat": flat_launches,
+               "serving_packed": packed_launches, "training": train_launches, **option_launches,
                "serving_x060": launches6, "training_x060": train_launches6}
     rows = []
     for name, cases in kernels.items():
@@ -1331,7 +1562,8 @@ def main(argv=None) -> int:
                                               "plain_ms", "bound_ms", "bound_by", "library_ms")},
                      "case": first["case"], "cases": cases})
     log(json.dumps({"card": card, "build_s": build_s, "serving": serving, "training": training,
-                    "serving_x060": serving6, "training_x060": training6}))
+                    "serving_x060": serving6, "training_x060": training6, "to_port": to_port}))
+    log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

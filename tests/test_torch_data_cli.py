@@ -98,8 +98,32 @@ def test_cli_dummy_run_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--n_seq", "2"], ["--num_nodes", "2"], ["--n_data", "2"],
-                                   ["--wkv_impl", "packed"], ["--model_path", "x.pth"],
-                                   ["--remat", "dots"], ["--remat", "wkv"]])
+                                   ["--model_path", "x.pth"]])
 def test_cli_flags_of_unported_paths_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         pcli.main(["--dummy", "--device", "cpu", "--proj_dir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--wkv_impl", "packed"], ["--wkv_impl", "pallas"],
+                                   ["--wkv_impl", "chunked"], ["--remat", "dots"],
+                                   ["--remat", "wkv"]])
+def test_cli_kernel_options_run_on_cpu(tmp_path, flags):
+    """``--wkv_impl`` and ``--remat`` select the WKV implementation and the
+    checkpoint policy, as in the JAX CLI: the dummy run takes its 4 steps
+    with a finite loss under each (with a 1024-token head, to keep the five
+    runs short; the tokenizer's ids beyond it are clamped in the loss)."""
+    from visualrwkv_torch.ops import wkv7 as pw
+
+    try:
+        trainer = pcli.main(["--dummy", "--device", "cpu", "--proj_dir", str(tmp_path),
+                             "--vocab_size", "1024"] + flags)
+        mode = pw.get_wkv_impl()
+    finally:
+        pw.set_wkv_impl("auto")  # the mode is process-wide, as the JAX package's
+    losses = [h["loss"] for h in trainer.history]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert trainer.state.step == 4
+    if flags[0] == "--wkv_impl":
+        assert mode == flags[1]
+    else:
+        assert mode == "auto" and trainer.cfg.grad_cp == flags[1]

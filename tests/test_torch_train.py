@@ -291,8 +291,7 @@ def test_checkpoint_resume_takes_the_same_next_step(model, tmp_path, param_dtype
 
 
 def test_unported_train_options_raise():
-    for kw in ({"offload_optimizer": True}, {"zero_stage": 3}, {"enable_state_tuning": True},
-               {"grad_cp": "dots"}, {"grad_cp": "wkv"}):
+    for kw in ({"offload_optimizer": True}, {"zero_stage": 3}, {"enable_state_tuning": True}):
         with pytest.raises(NotImplementedError):
             pcfg_mod.TrainConfig(**kw)
     # accepted and ignored: they shape the TPU compilation, not the result

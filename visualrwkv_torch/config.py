@@ -161,7 +161,9 @@ class TrainConfig:
     epoch_count: int = 2
     epoch_begin: int = 0
     epoch_save: int = 1
-    grad_cp: Any = True  # False | True (per-block activation checkpointing)
+    # False | True (per-block activation checkpointing) | "dots" | "wkv"
+    # (selective policies of the checkpoint: models/rwkv7.py::_remat_context)
+    grad_cp: Any = True
     ce_chunk_t: int = 128  # T-chunk of the chunked head + cross-entropy
     freeze_rwkv_layers: int = 0
     freeze_emb: bool = False
@@ -183,11 +185,12 @@ class TrainConfig:
             "offload_optimizer": self.offload_optimizer,
             "zero_stage >= 3": self.zero_stage >= 3,
             "enable_state_tuning": self.enable_state_tuning,
-            f"grad_cp={self.grad_cp!r}": self.grad_cp not in (False, True),
         }
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
+        if self.grad_cp not in (False, True, "dots", "wkv"):
+            raise ValueError(f"grad_cp must be False, True, 'dots' or 'wkv'; got {self.grad_cp!r}")
         if self.optim_precision not in ("master_fp32", "bf16_sr"):
             raise ValueError(f"unknown optim_precision {self.optim_precision!r}")
         if self.param_dtype not in ("float32", "bfloat16"):

@@ -2,12 +2,8 @@
 // one-token decode step on the head layout (K2) and on the flat layout (K4),
 // and the training forward that also saves the chunk states (K5). Plain C
 // interface, loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py. The
-// backward (K6) is in wkv7_train.cu.
-//
-// Recurrence per (batch, head), fp32 state S of shape [Nv, Nk] = [64, 64]:
-//   sa_i = sum_j S_ij a_j
-//   S_ij = S_ij * exp(-exp(w_raw_j)) + sa_i * b_j + v_i * k_j
-//   y_i  = sum_j S_ij r_j
+// backward (K6) is in wkv7_train.cu; K1, K5 and K6 are the kernels of
+// wkv7_seq.cuh with one head a block.
 //
 // K1 wkv7_fwd replaces visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_pallas (the
 // chunked forward, kernel _wkv7_kernel). The Pallas kernel solves a chunk of
@@ -46,22 +42,9 @@
 // backward's row owners read Z the same way. Bound: as K1 (latency of the T
 // dependent steps); the extra bytes are B*H*(T/16)*16 KiB.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wkv7_seq.cuh"
 
 namespace {
-
-constexpr int N = 64;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ void load2(const float* p, float& x, float& y) {
   const float2 q = *reinterpret_cast<const float2*>(p);
@@ -84,83 +67,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// ---------------------------------------------------------------------------
-// K1: sequence forward. Streams [B, T, H, N]; state [B, H, Nv, Nk] fp32.
-// ---------------------------------------------------------------------------
-constexpr int CHUNK = 16;  // K5 saves the state entering every CHUNK steps
-
-template <typename T, bool SAVE>
-__global__ void __launch_bounds__(N) wkv7_fwd_kernel(
-    int Tlen, int H, const T* __restrict__ r, const T* __restrict__ w,
-    const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ a,
-    const T* __restrict__ b, const float* __restrict__ s0, T* __restrict__ y,
-    float* __restrict__ s_out, float* __restrict__ zin) {
-  const int bh = blockIdx.x;
-  const int bb = bh / H, hh = bh % H;
-  const int i = threadIdx.x;
-  __shared__ float sr[2][N], sw[2][N], sk[2][N], sa[2][N], sb[2][N];
-
-  float S[N];
-  if (s0 != nullptr) {
-    const float4* row = reinterpret_cast<const float4*>(s0 + ((size_t)bh * N + i) * N);
-#pragma unroll
-    for (int j = 0; j < N / 4; ++j) {
-      const float4 q = row[j];
-      S[4 * j] = q.x;
-      S[4 * j + 1] = q.y;
-      S[4 * j + 2] = q.z;
-      S[4 * j + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) S[j] = 0.f;
-  }
-
-  const size_t stride = (size_t)H * N;  // one time step
-  size_t off = ((size_t)bb * Tlen * H + hh) * N + i;
-  float nr = 0.f, nw = 0.f, nk = 0.f, nv = 0.f, na = 0.f, nb = 0.f;
-  if (Tlen > 0) {
-    nr = to_f(r[off]); nw = to_f(w[off]); nk = to_f(k[off]);
-    nv = to_f(v[off]); na = to_f(a[off]); nb = to_f(b[off]);
-  }
-  for (int t = 0; t < Tlen; ++t) {
-    if (SAVE && t % CHUNK == 0) {  // zin[bh, t / CHUNK, j, i] = S[i][j]
-      float* z = zin + ((size_t)bh * (Tlen / CHUNK) + t / CHUNK) * N * N + i;
-#pragma unroll
-      for (int j = 0; j < N; ++j) z[(size_t)j * N] = S[j];
-    }
-    const int p = t & 1;
-    sr[p][i] = nr;
-    sw[p][i] = expf(-expf(nw));
-    sk[p][i] = nk;
-    sa[p][i] = na;
-    sb[p][i] = nb;
-    const float vi = nv;
-    const size_t cur = off;
-    __syncthreads();
-    if (t + 1 < Tlen) {  // prefetch step t+1 while step t computes
-      off += stride;
-      nr = to_f(r[off]); nw = to_f(w[off]); nk = to_f(k[off]);
-      nv = to_f(v[off]); na = to_f(a[off]); nb = to_f(b[off]);
-    }
-    float sai = 0.f;
-#pragma unroll
-    for (int j = 0; j < N; ++j) sai = fmaf(S[j], sa[p][j], sai);
-    float yi = 0.f;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      S[j] = fmaf(S[j], sw[p][j], fmaf(sai, sb[p][j], vi * sk[p][j]));
-      yi = fmaf(S[j], sr[p][j], yi);
-    }
-    y[cur] = from_f<T>(yi);
-  }
-
-  float4* out = reinterpret_cast<float4*>(s_out + ((size_t)bh * N + i) * N);
-#pragma unroll
-  for (int j = 0; j < N / 4; ++j)
-    out[j] = make_float4(S[4 * j], S[4 * j + 1], S[4 * j + 2], S[4 * j + 3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -219,31 +125,6 @@ const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t
 
 namespace {
 
-template <bool SAVE>
-int launch_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
-               const void* k, const void* v, const void* a, const void* b,
-               const void* s0, void* y, void* s_out, void* zin, void* stream) {
-  if (n != N || B <= 0 || H <= 0 || T < 0) return (int)cudaErrorInvalidValue;
-  if (SAVE && (T % CHUNK != 0 || zin == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(B * H), block(N);
-  const float* s0f = (const float*)s0;
-  float* soutf = (float*)s_out;
-  if (dtype == 0) {
-    wkv7_fwd_kernel<float, SAVE><<<grid, block, 0, st>>>(
-        T, H, (const float*)r, (const float*)w, (const float*)k, (const float*)v,
-        (const float*)a, (const float*)b, s0f, (float*)y, soutf, (float*)zin);
-  } else if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    wkv7_fwd_kernel<bf, SAVE><<<grid, block, 0, st>>>(
-        T, H, (const bf*)r, (const bf*)w, (const bf*)k, (const bf*)v, (const bf*)a,
-        (const bf*)b, s0f, (bf*)y, soutf, (float*)zin);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 template <bool FLAT>
 int launch_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,
                 const float* w, const float* k, const float* v, const float* a,
@@ -271,14 +152,14 @@ extern "C" {
 int wkv7_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
              const void* k, const void* v, const void* a, const void* b,
              const void* s0, void* y, void* s_out, void* stream) {
-  return launch_fwd<false>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
+  return launch_fwd<false, 1>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
 }
 
 // K5: T must be a multiple of 16; zin is fp32 [B*H, T/16, 64, 64].
 int wkv7_fwd_res(int dtype, int B, int T, int H, int n, const void* r, const void* w,
                  const void* k, const void* v, const void* a, const void* b,
                  const void* s0, void* y, void* s_out, void* zin, void* stream) {
-  return launch_fwd<true>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
+  return launch_fwd<true, 1>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
 }
 
 int wkv7_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,

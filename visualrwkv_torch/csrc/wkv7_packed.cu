@@ -1,0 +1,69 @@
+// RWKV-7 ("x070") WKV on head pairs (the "packed" implementation) on Hopper:
+// K11 wkv7_fwd_packed, K12 wkv7_fwd_res_packed and K13 wkv7_bwd_packed.
+// Plain C interface, loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py.
+// The head count must be even.
+//
+// They replace visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_pallas_packed (K11),
+// wkv7_pallas_fwd_res_packed (K12) and wkv7_pallas_bwd_packed (K13). On the
+// TPU a head's 64 lanes pad to 128, so the Pallas kernels transpose every
+// stream into [B*H/2, T, 128], a head pair side by side, to make each DMA
+// full-width. On the H100 nothing pads: a head pair is already 128
+// contiguous elements of each [b, t] row of the [B, T, H, 64] streams, so the
+// kernels read it in place and keep the streams' public layout. What the
+// packing leaves is the layout of the saved chunk states, which K12 writes
+// and K13 reads as the JAX package does:
+//   zin[p, c, j, h2 * 64 + i] = S_{2p+h2}[i, j]   (fp32 [B*H/2, T/16, 64, 128])
+// before step 16c, with p = b * H/2 + head pair.
+//
+// K11 / K12: wkv7_fwd_kernel<T, SAVE, 2> of wkv7_seq.cuh, one block of 128
+// threads per (b, head pair): thread h2 * 64 + i owns value row i of head
+// 2p + h2 in registers, each step stages the pair's 128-wide r, w, k, a, b
+// rows (256 bytes a bf16 stream, one coalesced load of the block), and for a
+// fixed j the block writes zin[p, c, j, 0:128], one 512-byte store (K5
+// writes 256). The arithmetic of a thread is K1's, so the outputs are
+// bit-equal to K1 / K5. Bound: latency, as K1 (T dependent steps), now over
+// B*H/2 blocks, half of K1's: 16 at B=1, H=32.
+//
+// K13: wkv7_bwd_kernel<T, 2>, the per-step adjoint of K6 reading the packed
+// zin. Two heads in one block would need about 340 KB of shared memory
+// (K6 parks 170,496 bytes of states and streams per head), more than the
+// 227 KB a block may have, so K13 keeps K6's block of 128 threads per
+// (b, h): each block reads its head's half of every packed zin row, 64
+// adjacent floats at the packed row stride of 128, which is still one
+// coalesced 256-byte access, and keeps K6's B*H blocks, which the
+// latency-bound kernel needs more than it needs wider loads. dstate comes
+// out per head in [B, H, 64, 64]. WKV7 has no bonus u, so no sum over B is
+// needed. Bit-equal to K6 on the same states.
+
+#include "wkv7_seq.cuh"
+
+extern "C" {
+
+// dtype codes: 0 = float32, 1 = bfloat16
+
+const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// K11: streams [B, T, H, 64], H even; s0 (may be null) and s_out fp32 [B, H, 64, 64].
+int wkv7_fwd_packed(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+                    const void* k, const void* v, const void* a, const void* b,
+                    const void* s0, void* y, void* s_out, void* stream) {
+  return launch_fwd<false, 2>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
+}
+
+// K12: K11 that also writes the packed zin; T a multiple of 16.
+int wkv7_fwd_res_packed(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+                        const void* k, const void* v, const void* a, const void* b,
+                        const void* s0, void* y, void* s_out, void* zin, void* stream) {
+  return launch_fwd<true, 2>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
+}
+
+// K13: as wkv7_bwd (wkv7_train.cu), with zin packed as K12 wrote it.
+int wkv7_bwd_packed(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+                    const void* k, const void* v, const void* a, const void* b, const void* zin,
+                    const void* dy, const void* dsf, void* dr, void* dw, void* dk, void* dv,
+                    void* da, void* db, void* ds0, void* stream) {
+  return launch_bwd<2>(dtype, B, T, H, n, r, w, k, v, a, b, zin, dy, dsf, dr, dw, dk, dv, da,
+                       db, ds0, stream);
+}
+
+}  // extern "C"

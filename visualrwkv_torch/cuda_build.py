@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>.so`` beside the package at first use,
-and loaded with ``ctypes``. A library is rebuilt when its source is newer
-than the built file. Nothing here runs at import time.
+and loaded with ``ctypes``. A library is rebuilt when its source, or a
+header under ``csrc/``, is newer than the built file. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Dict, Iterable, Optional
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-SOURCES = ("wkv7", "wkv7_train", "wkv6", "wkv6_train", "attention")
+SOURCES = ("wkv7", "wkv7_train", "wkv7_packed", "wkv6", "wkv6_train", "attention")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,7 +53,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(f) for f in [src, *headers])
 
 
 def _start(name: str, nvcc: str):

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from visualrwkv_torch.config import STOP_TOKEN_INDEX, RWKVConfig
 from visualrwkv_torch.models.rwkv7 import (
+    GRAD_CP,
     LayerState,
     _cast_tree,
     _ln_init,
@@ -228,10 +229,11 @@ def rwkv6_forward(params: Params, cfg: RWKVConfig, x: Tensor,
                   return_hidden: bool = False) -> Tuple[Tensor, List[LayerState]]:
     """Forward over input embeddings ``x`` [B, T, C], with the semantics of
     :func:`visualrwkv_torch.models.rwkv7.rwkv7_forward`: EOS left padding to
-    a multiple of ``cfg.chunk_len`` when stateless, ``grad_cp`` False or True
-    (per-block non-reentrant checkpointing), ``return_hidden``."""
-    if grad_cp not in (False, True):
-        raise NotImplementedError(f"grad_cp={grad_cp!r} is not ported (False or True only)")
+    a multiple of ``cfg.chunk_len`` when stateless, ``grad_cp`` (any policy
+    but False gives the per-block non-reentrant checkpoint: the JAX
+    package's x060 forward has no selective policy), ``return_hidden``."""
+    if grad_cp not in GRAD_CP:
+        raise ValueError(f"grad_cp must be one of {GRAD_CP}; got {grad_cp!r}")
     B, T, C = x.shape
     pad = (-T) % cfg.chunk_len
     if pad:

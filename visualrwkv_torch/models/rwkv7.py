@@ -9,19 +9,21 @@ the embedding and head are ``[vocab, C]``.
 Compute policy: matmuls in ``cfg.compute_dtype`` with fp32 results;
 token-shift deltas, LoRA nonlinearities, norms and the WKV state in fp32.
 The WKV recurrence goes through :func:`visualrwkv_torch.ops.wkv7.wkv7`
-(on CUDA kernel K1, or K5 / K6 under autograd) and the decode step through
-``wkv7_step_auto`` (K2, or K4 on the flat state layout). The forward makes no
-in-place write, so autograd differentiates it as it stands.
+(on CUDA kernel K1, or K5 / K6 under autograd; K11, K12 / K13 in the
+"packed" mode) and the decode step through ``wkv7_step_auto`` (K2, or K4 on
+the flat state layout). The forward makes no in-place write, so autograd
+differentiates it as it stands.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from visualrwkv_torch.config import STOP_TOKEN_INDEX, RWKVConfig
 from visualrwkv_torch.ops.wkv7 import wkv7, wkv7_step_auto
@@ -264,7 +266,8 @@ def tmix_x070(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor, v_first: Opt
         initial_state=wkv_state, chunk=cfg.chunk_len,
     )
     out = _tmix_output(p, cfg, y.reshape(B, T, C), r, k, v, g)
-    return out, v_first, xf[:, -1], new_wkv
+    # a copy: a view of the last row would keep the whole fp32 [B, T, C] input alive
+    return out, v_first, xf[:, -1].clone(), new_wkv
 
 
 def cmix_x070(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tensor] = None
@@ -274,7 +277,7 @@ def cmix_x070(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tenso
     xx = _token_shift(xf, shift_state) - xf
     kx = (xf + xx * p["x_k"].float()).to(dt)
     k = torch.relu(linear(p["key"], kx, dt).to(dt)).square()  # relu^2 in the compute dtype
-    return linear(p["value"], k, dt), xf[:, -1]
+    return linear(p["value"], k, dt), xf[:, -1].clone()
 
 
 def block_x070(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor, v_first: Optional[Tensor],
@@ -299,16 +302,48 @@ def embed(params: Params, tokens: Tensor) -> Tensor:
     return params["emb"]["weight"][tokens]
 
 
+GRAD_CP = (False, True, "dots", "wkv")
+
+# The operators whose outputs a selective checkpoint policy saves: "dots" the
+# products of the projections and LoRA factors (``linear`` and ``_lora``
+# lower to ``mm``), as ``dots_with_no_batch_dims_saveable`` saves XLA's dots
+# without batch dimensions; "wkv" the WKV training forward's y, final state
+# and chunk states, as ``save_only_these_names("wkv_y", "wkv_res")`` does.
+_SAVED_OPS = {
+    "dots": {torch.ops.aten.mm.default, torch.ops.aten.addmm.default},
+    "wkv": {torch.ops.visualrwkv_torch.wkv7_fwd_res.default},  # registered by ops.wkv7
+}
+
+
+def _remat_context(grad_cp):
+    """The ``context_fn`` of the checkpoint for a ``grad_cp`` policy (the
+    JAX package's ``_remat_policy``): None for the full per-block
+    checkpoint (True), else a selective checkpoint that saves the outputs
+    of ``_SAVED_OPS[grad_cp]`` and recomputes everything else."""
+    if grad_cp not in GRAD_CP:
+        raise ValueError(f"grad_cp must be one of {GRAD_CP}; got {grad_cp!r}")
+    if not isinstance(grad_cp, str):
+        return None
+    saved = _SAVED_OPS[grad_cp]
+
+    def policy(ctx, func, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if func in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def _block_checkpointed(blk: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
-                        v_first: Optional[Tensor], state: Optional[LayerState]):
-    """:func:`block_x070` under activation checkpointing: only the block's
-    inputs are kept and the block runs again in the backward pass."""
+                        v_first: Optional[Tensor], state: Optional[LayerState], context_fn=None):
+    """:func:`block_x070` under activation checkpointing: the block's inputs
+    are kept (and, with a selective ``context_fn``, the outputs its policy
+    saves) and the rest of the block runs again in the backward pass."""
     def run(x, v_first, *st):
         y, vf, ns = block_x070(blk, cfg, layer_id, x, v_first, LayerState(*st) if st else None)
         return (y, vf, *ns)
 
+    kw = {} if context_fn is None else {"context_fn": context_fn}
     y, vf, *ns = checkpoint(run, x, v_first, *(state or ()), use_reentrant=False,
-                            preserve_rng_state=False)
+                            preserve_rng_state=False, **kw)
     return y, vf, LayerState(*ns)
 
 
@@ -319,14 +354,14 @@ def rwkv7_forward(params: Params, cfg: RWKVConfig, x: Tensor,
 
     Without a state, pads LEFT with EOS-token embeddings to a multiple of
     ``cfg.chunk_len`` (the reference's training semantics); with a carried
-    state T must be a multiple of ``chunk_len``. ``grad_cp``: False, or True
-    for per-block activation checkpointing; the JAX package's "dots" and
-    "wkv" are XLA rematerialisation policies and are not ported. Returns
-    (logits [B, T, vocab] fp32, or hidden [B, T, C] after ``ln_out`` if
+    state T must be a multiple of ``chunk_len``. ``grad_cp``: False; True
+    for per-block activation checkpointing; "dots" to keep the projections'
+    products across it; "wkv" to keep the WKV forward's outputs, so that the
+    WKV kernel runs once a layer (:func:`_remat_context`). Returns (logits
+    [B, T, vocab] fp32, or hidden [B, T, C] after ``ln_out`` if
     ``return_hidden``, and the per-layer states).
     """
-    if grad_cp not in (False, True):
-        raise NotImplementedError(f"grad_cp={grad_cp!r} is not ported (False or True only)")
+    context_fn = _remat_context(grad_cp)
     B, T, C = x.shape
     pad = (-T) % cfg.chunk_len
     if pad:
@@ -338,8 +373,11 @@ def rwkv7_forward(params: Params, cfg: RWKVConfig, x: Tensor,
     v_first = None
     new_states: List[LayerState] = []
     for i, blk in enumerate(params["blocks"]):
-        block = _block_checkpointed if grad_cp else block_x070
-        x, v_first, ns = block(blk, cfg, i, x, v_first, states[i] if states is not None else None)
+        st = states[i] if states is not None else None
+        if grad_cp:
+            x, v_first, ns = _block_checkpointed(blk, cfg, i, x, v_first, st, context_fn)
+        else:
+            x, v_first, ns = block_x070(blk, cfg, i, x, v_first, st)
         new_states.append(ns)
 
     x = layer_norm(params["ln_out"], x)

@@ -18,10 +18,18 @@ with ``w_t = exp(-exp(w_raw_t))``. Streams are ``[B, T, H, N]``; the state is
 * :func:`wkv7_fwd_res_plain` / :func:`wkv7_bwd_plain` — the training
   forward that also returns the state entering every chunk, and the
   vector-Jacobian product from those states.
-* :func:`wkv7` / :func:`wkv7_step_auto` — dispatch on the tensors' device:
-  the plain versions for CPU tensors, the CUDA kernels
-  (:mod:`visualrwkv_torch.ops.wkv7_cuda`) for CUDA tensors. Under autograd
-  on CUDA, :class:`WKV7Function` runs kernel K5 forward and K6 backward.
+* :func:`wkv7_packed_plain`, :func:`wkv7_fwd_res_packed_plain`,
+  :func:`wkv7_bwd_packed_plain` — the same functions for head pairs (an
+  even head count), with the chunk states in the packed layout of the JAX
+  package (:func:`_pack_state_z`); :func:`_pack_stream` and the other
+  layout functions are the JAX package's.
+* :func:`wkv7` / :func:`wkv7_step_auto` — dispatch on the tensors' device
+  and on :func:`set_wkv_impl`: the plain versions for CPU tensors, the CUDA
+  kernels (:mod:`visualrwkv_torch.ops.wkv7_cuda`) for CUDA tensors. Under
+  autograd, :class:`WKV7Function` (K5 forward, K6 backward) or, packed,
+  :class:`WKV7PackedFunction` (K12, K13); both run their forward through
+  the operator ``visualrwkv_torch::wkv7_fwd_res``, which the selective
+  checkpoint policy ``grad_cp="wkv"`` saves.
 """
 
 from __future__ import annotations
@@ -36,6 +44,27 @@ Tensor = torch.Tensor
 
 DEFAULT_CHUNK = 16
 MAX_STABLE_CHUNK = 16  # docs/wkv_chunk_stability.md: the solve amplifies rounding above 16
+
+WKV_IMPLS = ("auto", "pallas", "chunked", "packed")
+_IMPL_MODE = "auto"
+
+
+def set_wkv_impl(mode: str) -> None:
+    """Select the implementation :func:`wkv7` runs, as the JAX package's
+    ``set_wkv_impl`` (and the training CLI's ``--wkv_impl``) does. "auto"
+    and "pallas": the head-layout kernels (K1; K5 / K6 under autograd) on
+    CUDA tensors. "packed": the head-pair kernels (K11; K12 / K13) when the
+    head count is even, else the head layout. "chunked": the plain chunked
+    form on any device, differentiated by autograd (the JAX package's jnp
+    path). CPU tensors take the plain versions in every mode."""
+    global _IMPL_MODE
+    assert mode in WKV_IMPLS, mode
+    _IMPL_MODE = mode
+
+
+def get_wkv_impl() -> str:
+    """The mode :func:`set_wkv_impl` selected."""
+    return _IMPL_MODE
 
 
 def _validate(r, w, k, v, a, b):
@@ -127,11 +156,13 @@ def _mm(x: Tensor, y: Tensor) -> Tensor:
 
 def wkv7_chunked(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                  initial_state: Optional[Tensor] = None,
-                 chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor]:
+                 chunk: int = DEFAULT_CHUNK, return_states: bool = False):
     """Chunked matmul form, T % chunk == 0 (same semantics as the reference).
 
     Decay-adjusted intermediates are stored in the input dtype (bf16 on the
-    serving path); cumulative decays and the carried state stay fp32."""
+    serving path); cumulative decays and the carried state stay fp32.
+    Returns (y, final state), and with ``return_states`` also the transposed
+    state entering every chunk, fp32 ``[B*H, T/chunk, N, N]``."""
     _validate(r, w_raw, k, v, a, b)
     B, T, H, N = r.shape
     if T % chunk:
@@ -183,12 +214,15 @@ def wkv7_chunked(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: T
 
     # scan over chunks in fp32: Y_c = q_eff_c Z + y_loc_c; Z <- p_L Z + bta_c Z + h_loc_c
     z = z0
-    ys = []
+    ys, zs = [], []
     for c in range(nc):
+        zs.append(z)
         ys.append((q_eff[:, :, c].float() @ z + y_loc[:, :, c].float()).to(idt))
         z = (p_last[:, :, c].reshape(B, H, N, 1) * z + bta[:, :, c].float() @ z
              + h_loc[:, :, c].float())
     y = torch.stack(ys, 2).reshape(B, H, T, N).permute(0, 2, 1, 3)
+    if return_states:
+        return y.to(r.dtype), z.transpose(-1, -2), torch.stack(zs, 2).reshape(B * H, nc, N, N)
     return y.to(r.dtype), z.transpose(-1, -2)
 
 
@@ -207,94 +241,217 @@ def wkv7_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Ten
 def wkv7_fwd_res_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                        initial_state: Optional[Tensor] = None,
                        chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor, Tensor]:
-    """The sequential scan that also returns the state entering every chunk:
-    (y, final state, ``zin`` fp32 ``[B*H, T/chunk, N, N]``), where
-    ``zin[bh, c]`` is the TRANSPOSE of the state before step ``c * chunk``
-    (the layout kernel K5 writes and K6 reads coalesced, and the one the
-    JAX package's ``wkv7_pallas_fwd_res`` saves)."""
+    """The forward that also returns the state entering every chunk: (y,
+    final state, ``zin`` fp32 ``[B*H, T/chunk, N, N]``), where ``zin[bh, c]``
+    is the TRANSPOSE of the state before step ``c * chunk`` (the layout
+    kernel K5 writes and K6 reads coalesced, and the one the JAX package's
+    ``wkv7_pallas_fwd_res`` saves). The chunked form computed in fp32
+    whatever the stream dtype (the kernel's arithmetic is fp32); y is cast
+    back to the stream dtype."""
     _validate(r, w_raw, k, v, a, b)
-    B, T, H, N = r.shape
-    if T == 0 or T % chunk:
-        raise ValueError(f"T={T} must be a positive multiple of chunk={chunk}")
-    state = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
-             if initial_state is None else initial_state.to(torch.float32))
-    ys, zs = [], []
-    for t in range(T):
-        if t % chunk == 0:
-            zs.append(state.transpose(-1, -2).reshape(B * H, N, N))
-        state, y = wkv7_step(state, r[:, t], w_raw[:, t], k[:, t], v[:, t], a[:, t], b[:, t])
-        ys.append(y)
-    return torch.stack(ys, 1).to(r.dtype), state, torch.stack(zs, 1)
+    T = r.shape[1]
+    if T == 0 or T % chunk or chunk > MAX_STABLE_CHUNK:
+        raise ValueError(f"T={T} must be a positive multiple of chunk={chunk} (<= {MAX_STABLE_CHUNK})")
+    f32 = torch.float32
+    y, s, zin = wkv7_chunked(*(x.to(f32) for x in (r, w_raw, k, v, a, b)), initial_state,
+                             chunk=chunk, return_states=True)
+    return y.to(r.dtype), s, zin
 
 
 def wkv7_bwd_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                    zin: Tensor, dy: Tensor, dsfinal: Tensor,
                    chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, ...]:
-    """Vector-Jacobian product of the recurrence from the saved chunk states
-    (the plain version of kernel K6): the chunks are walked in reverse, each
-    differentiated by fp32 autograd through :func:`wkv7_reference` from its
-    saved entering state, with the state cotangent carried between chunks.
-    Returns (dr, dw_raw, dk, dv, da, db) in the stream dtype and the fp32
-    cotangent of the initial state."""
+    """Vector-Jacobian product of the recurrence (the plain version of
+    kernel K6): fp32 autograd through :func:`wkv7_chunked` from the state
+    entering the first chunk, ``zin[:, 0]`` (the later saved states are the
+    same function of it, which K6 reads instead of recomputing them), as
+    the JAX package's CPU path differentiates its chunked form. Returns
+    (dr, dw_raw, dk, dv, da, db) in the stream dtype and the fp32 cotangent
+    of the initial state."""
     _validate(r, w_raw, k, v, a, b)
     B, T, H, N = r.shape
     if T % chunk:
         raise ValueError(f"T={T} must be a multiple of chunk={chunk}")
     f32 = torch.float32
-    ds = dsfinal.to(f32)
-    pieces = []
-    for c in reversed(range(T // chunk)):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        with torch.enable_grad():
-            xs = [x[:, sl].detach().to(f32).requires_grad_(True) for x in (r, w_raw, k, v, a, b)]
-            s_in = zin[:, c].reshape(B, H, N, N).transpose(-1, -2).detach().to(f32).requires_grad_(True)
-            y, s_out = wkv7_reference(*xs, s_in)
-            grads = torch.autograd.grad((y, s_out), xs + [s_in], (dy[:, sl].to(f32), ds))
-        pieces.append(grads[:6])
-        ds = grads[6]
-    out = [torch.cat([p[i] for p in reversed(pieces)], 1).to(r.dtype) for i in range(6)]
-    return (*out, ds)
+    with torch.enable_grad():
+        xs = [x.detach().to(f32).requires_grad_(True) for x in (r, w_raw, k, v, a, b)]
+        s_in = zin[:, 0].reshape(B, H, N, N).transpose(-1, -2).detach().to(f32).requires_grad_(True)
+        y, s_out = wkv7_chunked(*xs, s_in, chunk=chunk)
+        grads = torch.autograd.grad((y, s_out), xs + [s_in], (dy.to(f32), dsfinal.to(f32)))
+    return (*(g.to(r.dtype) for g in grads[:6]), grads[6])
+
+
+def _check_pairs(H: int) -> None:
+    if H % 2:
+        raise ValueError(f"packed layout needs an even head count, got H={H}")
+
+
+def _pack_stream(x: Tensor, B: int, T: int, H: int, N: int) -> Tensor:
+    """``[B, T, H, N]`` -> ``[B*H/2, T, 2N]`` (head pairs side by side)."""
+    x = x.reshape(B, T, H // 2, 2 * N)
+    return x.permute(0, 2, 1, 3).reshape(B * H // 2, T, 2 * N)
+
+
+def _unpack_stream(x: Tensor, B: int, T: int, H: int, N: int) -> Tensor:
+    return x.reshape(B, H // 2, T, 2 * N).permute(0, 2, 1, 3).reshape(B, T, H, N)
+
+
+def _pack_state_z(s: Tensor, B: int, H: int, N: int) -> Tensor:
+    """S ``[B, H, Nv, Nk]`` -> packed Z = S^T ``[B*H/2, Nk, 2*Nv]``: element
+    ``[p, j, h2*N + i]`` is ``S_{2p+h2}[i, j]``."""
+    z = s.float().transpose(-1, -2).reshape(B, H // 2, 2, N, N)
+    return z.permute(0, 1, 3, 2, 4).reshape(B * H // 2, N, 2 * N)
+
+
+def _unpack_state_z(z: Tensor, B: int, H: int, N: int) -> Tensor:
+    z = z.reshape(B, H // 2, N, 2, N)
+    return z.permute(0, 1, 3, 2, 4).reshape(B, H, N, N).transpose(-1, -2)
+
+
+def _pack_zin(zin: Tensor, B: int, H: int) -> Tensor:
+    """Head-layout chunk states ``[B*H, nc, N, N]`` (Z = S^T) -> packed
+    ``[B*H/2, nc, N, 2N]``."""
+    _, nc, N, _ = zin.shape
+    z = zin.reshape(B, H // 2, 2, nc, N, N).permute(0, 1, 3, 4, 2, 5)
+    return z.reshape(B * H // 2, nc, N, 2 * N)
+
+
+def _unpack_zin(zin: Tensor, B: int, H: int) -> Tensor:
+    _, nc, N, _ = zin.shape
+    z = zin.reshape(B, H // 2, nc, N, 2, N).permute(0, 1, 4, 2, 3, 5)
+    return z.reshape(B * H, nc, N, N)
+
+
+def wkv7_packed_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                      initial_state: Optional[Tensor] = None,
+                      chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor]:
+    """The plain version of kernel K11 (the JAX package's
+    ``wkv7_pallas_packed``): :func:`wkv7_plain` for an even head count. The
+    pairing changes where a head's values lie in the TPU kernel's streams,
+    not what is computed; the public layouts are the head layout's."""
+    _validate(r, w_raw, k, v, a, b)
+    _check_pairs(r.shape[2])
+    return wkv7_plain(r, w_raw, k, v, a, b, initial_state, chunk)
+
+
+def wkv7_fwd_res_packed_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor,
+                              b: Tensor, initial_state: Optional[Tensor] = None,
+                              chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor, Tensor]:
+    """The plain version of kernel K12 (``wkv7_pallas_fwd_res_packed``): (y,
+    final state, packed ``zin`` fp32 ``[B*H/2, T/chunk, N, 2N]``, element
+    ``[p, c, j, h2*N + i]`` the state ``S_{2p+h2}[i, j]`` before step
+    ``c * chunk``)."""
+    _validate(r, w_raw, k, v, a, b)
+    B, _, H, _ = r.shape
+    _check_pairs(H)
+    y, s, zin = wkv7_fwd_res_plain(r, w_raw, k, v, a, b, initial_state, chunk)
+    return y, s, _pack_zin(zin, B, H)
+
+
+def wkv7_bwd_packed_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                          zin: Tensor, dy: Tensor, dsfinal: Tensor,
+                          chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, ...]:
+    """The plain version of kernel K13 (``wkv7_pallas_bwd_packed``):
+    :func:`wkv7_bwd_plain` from the packed ``zin``. ``dsfinal`` and the
+    returned initial-state cotangent are ``[B, H, N, N]``."""
+    _validate(r, w_raw, k, v, a, b)
+    B, _, H, _ = r.shape
+    _check_pairs(H)
+    return wkv7_bwd_plain(r, w_raw, k, v, a, b, _unpack_zin(zin, B, H), dy, dsfinal, chunk)
+
+
+@torch.library.custom_op(
+    "visualrwkv_torch::wkv7_fwd_res", mutates_args=(),
+    schema="(Tensor r, Tensor w_raw, Tensor k, Tensor v, Tensor a, Tensor b, "
+           "Tensor? initial_state, bool packed) -> (Tensor, Tensor, Tensor)",
+)
+def wkv7_fwd_res_op(r, w_raw, k, v, a, b, initial_state, packed):
+    """The training forward as one operator, so that a selective checkpoint
+    policy can save its outputs (``grad_cp="wkv"``). CUDA tensors launch K5
+    (K12 when ``packed``), CPU tensors take the plain versions. Returns (y,
+    final state, zin)."""
+    if r.is_cuda:
+        fn = wkv7_cuda.wkv7_fwd_res_packed if packed else wkv7_cuda.wkv7_fwd_res
+    else:
+        fn = wkv7_fwd_res_packed_plain if packed else wkv7_fwd_res_plain
+    return fn(r, w_raw, k, v, a, b, initial_state)
+
+
+def _fwd_saving(ctx, packed: bool, r, w_raw, k, v, a, b, initial_state):
+    y, s, zin = torch.ops.visualrwkv_torch.wkv7_fwd_res(r, w_raw, k, v, a, b, initial_state, packed)
+    ctx.save_for_backward(r, w_raw, k, v, a, b, zin)
+    ctx.has_initial = initial_state is not None
+    return y, s
+
+
+def _bwd_from_saved(ctx, packed: bool, dy, ds):
+    r, w_raw, k, v, a, b, zin = ctx.saved_tensors
+    B, T, H, N = r.shape
+    # a cotangent that autograd did not materialise is zero
+    dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype).contiguous()
+    ds = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device) if ds is None
+          else ds.to(torch.float32).contiguous())
+    if r.is_cuda:
+        bwd = wkv7_cuda.wkv7_bwd_packed if packed else wkv7_cuda.wkv7_bwd
+    else:
+        bwd = wkv7_bwd_packed_plain if packed else wkv7_bwd_plain
+    grads = bwd(r, w_raw, k, v, a, b, zin, dy, ds)
+    return (*grads[:6], grads[6] if ctx.has_initial else None)
 
 
 class WKV7Function(torch.autograd.Function):
-    """The differentiable WKV7 on CUDA tensors: forward is kernel K5 (which
-    saves the chunk states), backward is kernel K6. Counterpart of the JAX
-    package's ``_wkv7_cv_pallas_blocked`` custom VJP."""
+    """The differentiable WKV7 from the saved chunk states: forward is
+    :func:`wkv7_fwd_res_op` (kernel K5 on CUDA, which saves the chunk
+    states), backward is kernel K6 (the plain versions on the CPU).
+    Counterpart of the JAX package's ``_wkv7_cv_pallas_blocked`` custom
+    VJP."""
 
     @staticmethod
     def forward(ctx, r, w_raw, k, v, a, b, initial_state):
-        y, s, zin = wkv7_cuda.wkv7_fwd_res(r, w_raw, k, v, a, b, initial_state)
-        ctx.save_for_backward(r, w_raw, k, v, a, b, zin)
-        ctx.has_initial = initial_state is not None
-        return y, s
+        return _fwd_saving(ctx, False, r, w_raw, k, v, a, b, initial_state)
 
     @staticmethod
     def backward(ctx, dy, ds):
-        r, w_raw, k, v, a, b, zin = ctx.saved_tensors
-        B, T, H, N = r.shape
-        # a cotangent that autograd did not materialise is zero
-        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype).contiguous()
-        ds = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device) if ds is None
-              else ds.to(torch.float32).contiguous())
-        grads = wkv7_cuda.wkv7_bwd(r, w_raw, k, v, a, b, zin, dy, ds)
-        return (*grads[:6], grads[6] if ctx.has_initial else None)
+        return _bwd_from_saved(ctx, False, dy, ds)
+
+
+class WKV7PackedFunction(torch.autograd.Function):
+    """:class:`WKV7Function` on head pairs: kernel K12 forward, saving the
+    packed chunk states, and K13 backward (the packed plain versions on the
+    CPU). Counterpart of the JAX package's ``_wkv7_cv_packed``."""
+
+    @staticmethod
+    def forward(ctx, r, w_raw, k, v, a, b, initial_state):
+        return _fwd_saving(ctx, True, r, w_raw, k, v, a, b, initial_state)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        return _bwd_from_saved(ctx, True, dy, ds)
 
 
 def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
          initial_state: Optional[Tensor] = None,
          chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor]:
-    """Entry point of the models. CPU tensors take the plain path, which
-    autograd differentiates through PyTorch ops. CUDA tensors launch kernel
-    K1 (``csrc/wkv7.cu``, no chunk) or, when grad mode is on and an input
-    needs a gradient, :class:`WKV7Function` (K5 forward, K6 backward; T must
-    be a multiple of 16)."""
+    """Entry point of the models, by the mode of :func:`set_wkv_impl`.
+    "chunked": :func:`wkv7_plain` on any device, which autograd
+    differentiates. Otherwise, with grad mode on and an input that needs a
+    gradient, :class:`WKV7Function` (K5 forward, K6 backward on CUDA; T must
+    be a multiple of 16), or :class:`WKV7PackedFunction` in "packed" mode
+    with an even head count (K12, K13); on the CPU a T that is not a
+    multiple of 16 is differentiated through the plain path instead.
+    Without a gradient, CUDA tensors launch K1 (K11 when packed) and CPU
+    tensors take :func:`wkv7_plain` (:func:`wkv7_packed_plain`)."""
     _validate(r, w_raw, k, v, a, b)
+    if _IMPL_MODE == "chunked":
+        return wkv7_plain(r, w_raw, k, v, a, b, initial_state, chunk)
+    packed = _IMPL_MODE == "packed" and r.shape[2] % 2 == 0
+    inputs = (r, w_raw, k, v, a, b, initial_state)
+    grad = torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs)
+    if grad and (r.is_cuda or r.shape[1] % wkv7_cuda.CHUNK == 0):
+        return (WKV7PackedFunction if packed else WKV7Function).apply(*inputs)
     if r.is_cuda:
-        inputs = (r, w_raw, k, v, a, b, initial_state)
-        if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
-            return WKV7Function.apply(*inputs)
-        return wkv7_cuda.wkv7_fwd(r, w_raw, k, v, a, b, initial_state)
-    return wkv7_plain(r, w_raw, k, v, a, b, initial_state, chunk)
+        return (wkv7_cuda.wkv7_fwd_packed if packed else wkv7_cuda.wkv7_fwd)(*inputs)
+    return (wkv7_packed_plain if packed else wkv7_plain)(*inputs, chunk)
 
 
 def wkv7_step_auto(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,

@@ -1,7 +1,9 @@
 """Wrappers of the WKV7 CUDA kernels: K1 ``wkv7_fwd``, K2 ``wkv7_step``,
-K4 ``wkv7_step_flat`` and K5 ``wkv7_fwd_res`` (``csrc/wkv7.cu``) and K6
-``wkv7_bwd`` (``csrc/wkv7_train.cu``). They take CUDA tensors only; the
-dispatchers in :mod:`visualrwkv_torch.ops.wkv7` send CPU tensors to the
+K4 ``wkv7_step_flat`` and K5 ``wkv7_fwd_res`` (``csrc/wkv7.cu``), K6
+``wkv7_bwd`` (``csrc/wkv7_train.cu``), and the head-pair ("packed") kernels
+K11 ``wkv7_fwd_packed``, K12 ``wkv7_fwd_res_packed`` and K13
+``wkv7_bwd_packed`` (``csrc/wkv7_packed.cu``). They take CUDA tensors only;
+the dispatchers in :mod:`visualrwkv_torch.ops.wkv7` send CPU tensors to the
 plain versions.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
@@ -23,16 +25,24 @@ Tensor = torch.Tensor
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-CHUNK = 16  # K5 saves, and K6 reads, the state entering every 16 steps
+CHUNK = 16  # K5 / K12 save, and K6 / K13 read, the state entering every 16 steps
+
+
+def _declare(lib: ctypes.CDLL, fwd: str, fwd_res: str, bwd: Optional[str]) -> None:
+    getattr(lib, fwd).argtypes = [_I, _I, _I, _I, _I] + [_P] * 10
+    getattr(lib, fwd_res).argtypes = [_I, _I, _I, _I, _I] + [_P] * 11
+    names = [fwd, fwd_res]
+    if bwd is not None:
+        getattr(lib, bwd).argtypes = [_I, _I, _I, _I, _I] + [_P] * 17
+        names.append(bwd)
+    for n in names:
+        getattr(lib, n).restype = _I
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("wkv7")
     if lib.wkv7_fwd.argtypes is None:
-        lib.wkv7_fwd.argtypes = [_I, _I, _I, _I, _I] + [_P] * 10
-        lib.wkv7_fwd.restype = _I
-        lib.wkv7_fwd_res.argtypes = [_I, _I, _I, _I, _I] + [_P] * 11
-        lib.wkv7_fwd_res.restype = _I
+        _declare(lib, "wkv7_fwd", "wkv7_fwd_res", None)
         for fn in (lib.wkv7_step, lib.wkv7_step_flat):
             fn.argtypes = [_I, _I, _I, _I] + [_P] * 10
             fn.restype = _I
@@ -45,6 +55,21 @@ def _train_lib() -> ctypes.CDLL:
         lib.wkv7_bwd.argtypes = [_I, _I, _I, _I, _I] + [_P] * 17
         lib.wkv7_bwd.restype = _I
     return lib
+
+
+def _packed_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("wkv7_packed")
+    if lib.wkv7_fwd_packed.argtypes is None:
+        _declare(lib, "wkv7_fwd_packed", "wkv7_fwd_res_packed", "wkv7_bwd_packed")
+    return lib
+
+
+def zin_shape(B: int, T: int, H: int, N: int, packed: bool) -> Tuple[int, int, int, int]:
+    """Shape of the saved chunk states: ``[B*H, T/16, N, N]`` (head layout,
+    ``zin[bh, c]`` the transposed state before step 16c) or, packed,
+    ``[B*H/2, T/16, N, 2N]`` (``zin[p, c, j, h2*N + i]`` is
+    ``S_{2p+h2}[i, j]``)."""
+    return (B * H // 2, T // CHUNK, N, 2 * N) if packed else (B * H, T // CHUNK, N, N)
 
 
 def _check_cuda(name: str, xs, device) -> None:
@@ -85,26 +110,72 @@ def _ptr(x: Optional[Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _check_pairs(name: str, H: int) -> None:
+    if H % 2:
+        raise ValueError(f"{name}: the packed kernels need an even head count; got H={H}")
+
+
+def _fwd(name: str, get_lib, save: bool, streams, initial_state):
+    """K1 / K5 / K11 / K12: (y, final state[, zin])."""
+    r = streams[0]
+    B, T, H, N = r.shape
+    dev = r.device
+    packed = name.endswith("_packed")
+    _check_streams(name, streams, (initial_state,))
+    if packed:
+        _check_pairs(name, H)
+    if save and (T == 0 or T % CHUNK):
+        raise ValueError(f"{name}: T={T} must be a positive multiple of {CHUNK}")
+    y = torch.empty_like(r)
+    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    zin = torch.empty(zin_shape(B, T, H, N, packed), dtype=torch.float32, device=dev) if save else None
+    lib = get_lib()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(
+            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams),
+            _ptr(initial_state), y.data_ptr(), s_out.data_ptr(),
+            *((zin.data_ptr(),) if save else ()), _stream(dev),
+        )
+    cuda_build.check(lib, err, name)
+    cuda_build.LAUNCHES[name] += 1
+    return (y, s_out, zin) if save else (y, s_out)
+
+
+def _bwd(name: str, get_lib, streams, zin: Tensor, dsfinal: Tensor) -> Tuple[Tensor, ...]:
+    """K6 / K13: the seven gradients."""
+    r = streams[0]
+    B, T, H, N = r.shape
+    dev = r.device
+    packed = name.endswith("_packed")
+    _check_streams(name, streams, (dsfinal,))
+    if packed:
+        _check_pairs(name, H)
+    if T == 0 or T % CHUNK:
+        raise ValueError(f"{name}: T={T} must be a positive multiple of {CHUNK}")
+    _check_cuda(name, (zin,), dev)
+    want = zin_shape(B, T, H, N, packed)
+    if zin.dtype != torch.float32 or zin.shape != want:
+        raise ValueError(f"{name}: zin must be fp32 {want}; got {zin.dtype} {tuple(zin.shape)}")
+    grads = [torch.empty_like(r) for _ in range(6)]
+    ds0 = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    lib = get_lib()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(
+            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams[:6]),
+            zin.data_ptr(), streams[6].data_ptr(), dsfinal.data_ptr(),
+            *(g.data_ptr() for g in grads), ds0.data_ptr(), _stream(dev),
+        )
+    cuda_build.check(lib, err, name)
+    cuda_build.LAUNCHES[name] += 1
+    return (*grads, ds0)
+
+
 def wkv7_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
              initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """K1: streams ``[B, T, H, 64]`` (all fp32 or all bf16), optional fp32
     initial state ``[B, H, 64, 64]``. Returns (y in the stream dtype, final
     fp32 state)."""
-    B, T, H, N = r.shape
-    dev = r.device
-    streams = (r, w_raw, k, v, a, b)
-    _check_streams("wkv7_fwd", streams, (initial_state,))
-    y = torch.empty_like(r)
-    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.wkv7_fwd(
-            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams),
-            _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), _stream(dev),
-        )
-    cuda_build.check(lib, err, "wkv7_fwd")
-    cuda_build.LAUNCHES["wkv7_fwd"] += 1
-    return y, s_out
+    return _fwd("wkv7_fwd", _lib, False, (r, w_raw, k, v, a, b), initial_state)
 
 
 def wkv7_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
@@ -113,24 +184,7 @@ def wkv7_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: T
     be a multiple of 16. Returns (y, final fp32 state, ``zin`` fp32
     ``[B*H, T/16, 64, 64]`` with ``zin[bh, c]`` the TRANSPOSE of the state
     before step ``16 c``, so ``zin[:, 0]`` is the transposed initial state)."""
-    B, T, H, N = r.shape
-    dev = r.device
-    streams = (r, w_raw, k, v, a, b)
-    _check_streams("wkv7_fwd_res", streams, (initial_state,))
-    if T == 0 or T % CHUNK:
-        raise ValueError(f"wkv7_fwd_res: T={T} must be a positive multiple of {CHUNK}")
-    y = torch.empty_like(r)
-    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
-    zin = torch.empty(B * H, T // CHUNK, N, N, dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.wkv7_fwd_res(
-            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams),
-            _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), zin.data_ptr(), _stream(dev),
-        )
-    cuda_build.check(lib, err, "wkv7_fwd_res")
-    cuda_build.LAUNCHES["wkv7_fwd_res"] += 1
-    return y, s_out, zin
+    return _fwd("wkv7_fwd_res", _lib, True, (r, w_raw, k, v, a, b), initial_state)
 
 
 def wkv7_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
@@ -140,29 +194,28 @@ def wkv7_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tenso
     cotangent of the final state) fp32 ``[B, H, 64, 64]``. Returns (dr,
     dw_raw, dk, dv, da, db) in the stream dtype and the fp32 cotangent of
     the initial state; all arithmetic fp32."""
-    B, T, H, N = r.shape
-    dev = r.device
-    streams = (r, w_raw, k, v, a, b, dy)
-    _check_streams("wkv7_bwd", streams, (dsfinal,))
-    if T == 0 or T % CHUNK:
-        raise ValueError(f"wkv7_bwd: T={T} must be a positive multiple of {CHUNK}")
-    _check_cuda("wkv7_bwd", (zin,), dev)
-    if zin.dtype != torch.float32 or zin.shape != (B * H, T // CHUNK, N, N):
-        raise ValueError(
-            f"wkv7_bwd: zin must be fp32 {(B * H, T // CHUNK, N, N)}; got {zin.dtype} {tuple(zin.shape)}"
-        )
-    grads = [torch.empty_like(r) for _ in range(6)]
-    ds0 = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
-    lib = _train_lib()
-    with torch.cuda.device(dev):
-        err = lib.wkv7_bwd(
-            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams[:6]),
-            zin.data_ptr(), dy.data_ptr(), dsfinal.data_ptr(),
-            *(g.data_ptr() for g in grads), ds0.data_ptr(), _stream(dev),
-        )
-    cuda_build.check(lib, err, "wkv7_bwd")
-    cuda_build.LAUNCHES["wkv7_bwd"] += 1
-    return (*grads, ds0)
+    return _bwd("wkv7_bwd", _train_lib, (r, w_raw, k, v, a, b, dy), zin, dsfinal)
+
+
+def wkv7_fwd_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                    initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """K11: :func:`wkv7_fwd` with one block per head pair (H even); the same
+    layouts and the same values."""
+    return _fwd("wkv7_fwd_packed", _packed_lib, False, (r, w_raw, k, v, a, b), initial_state)
+
+
+def wkv7_fwd_res_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                        initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
+    """K12: K11 that also saves the state entering every 16-step chunk in
+    the packed layout (:func:`zin_shape`). T a multiple of 16, H even."""
+    return _fwd("wkv7_fwd_res_packed", _packed_lib, True, (r, w_raw, k, v, a, b), initial_state)
+
+
+def wkv7_bwd_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                    zin: Tensor, dy: Tensor, dsfinal: Tensor) -> Tuple[Tensor, ...]:
+    """K13: :func:`wkv7_bwd` from the packed ``zin`` K12 saved; ``dsfinal``
+    and the returned initial-state cotangent are ``[B, H, 64, 64]``."""
+    return _bwd("wkv7_bwd_packed", _packed_lib, (r, w_raw, k, v, a, b, dy), zin, dsfinal)
 
 
 def _step(name: str, flat: bool, state: Tensor, vecs) -> Tuple[Tensor, Tensor]:

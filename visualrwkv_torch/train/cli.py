@@ -8,8 +8,9 @@ flags.
 
 ``--dummy`` synthesises a tiny dataset with random images on the fly (it needs
 PIL) and trains a 2-layer, 128-wide model with tiny towers for 4 steps.
-Flags that select paths the port does not have are parsed and raise when
-used.
+``--wkv_impl`` selects the WKV implementation (``ops.wkv7.set_wkv_impl``) and
+``--remat`` the checkpoint policy (``grad_cp``). Flags that select paths the
+port does not have are parsed and raise when used.
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay_final", default=-1.0, type=float)
     p.add_argument("--grad_cp", default=1, type=int)
     p.add_argument("--remat", default="", choices=["", "none", "full", "dots", "wkv"],
-                   help="activation checkpointing policy (overrides --grad_cp); "
-                   "dots and wkv are not ported")
+                   help="activation checkpointing policy (overrides --grad_cp): full per-block, "
+                   "or selective keeping the projections' products (dots) or the WKV outputs (wkv)")
     p.add_argument("--grad_clip", default=1.0, type=float)
     p.add_argument("--freeze_rwkv", default=0, type=int, help="freeze first N layers")
     p.add_argument("--freeze_emb", default=0, type=int)
@@ -68,7 +69,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dummy", action="store_true", help="dummy-data smoke run")
     p.add_argument("--dtype", default="bfloat16", type=str)
     p.add_argument("--wkv_impl", default="auto", choices=["auto", "pallas", "chunked", "packed"],
-                   help="only auto: the CUDA kernels on the card, the plain path on the CPU")
+                   help="WKV implementation: auto and pallas the head-layout CUDA kernels, packed "
+                   "the head-pair kernels, chunked the plain chunked form (the plain versions on "
+                   "the CPU)")
     p.add_argument("--chunk_len", default=16, type=int, help="WKV chunk length (T is padded to it)")
     p.add_argument("--param_dtype", default="float32", choices=["float32", "bfloat16"],
                    help="parameter storage dtype; bfloat16 keeps fp32 masters in the optimizer")
@@ -84,7 +87,6 @@ def check_ported(args) -> None:
         "--n_seq > 1": args.n_seq > 1,
         "--n_data > 1": (args.n_data or 1) > 1,
         "--num_nodes > 1": args.num_nodes > 1,
-        f"--wkv_impl {args.wkv_impl}": args.wkv_impl != "auto",
         "--model_path": bool(args.model_path),
     }
     for name, on in unported.items():
@@ -194,8 +196,10 @@ def main(argv=None):
     from visualrwkv_torch.data.dataset import DatasetConfig, VisualRWKVDataset, batches_for_epoch
     from visualrwkv_torch.data.tokenizer import get_tokenizer
     from visualrwkv_torch.models.visualrwkv import init_visualrwkv_params
+    from visualrwkv_torch.ops.wkv7 import set_wkv_impl
     from visualrwkv_torch.train.trainer import Trainer
 
+    set_wkv_impl(args.wkv_impl)
     vlm_cfg, tcfg = make_configs(args)
     if args.dummy:
         vlm_cfg = vlm_cfg.replace(vision=dummy_vision_config())

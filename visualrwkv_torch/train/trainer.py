@@ -6,8 +6,9 @@ optimizer state.
   micro-batches of ``micro_bsz`` samples (a loop; the mean of the losses and
   of the gradients), then one optimizer update
   (:mod:`visualrwkv_torch.train.optim`);
-- per-block activation checkpointing (``grad_cp``), the chunked head +
-  cross-entropy (``ce_chunk_t``);
+- per-block activation checkpointing (``grad_cp``: True, or the selective
+  policies "dots" and "wkv"), the chunked head + cross-entropy
+  (``ce_chunk_t``);
 - the vision towers are frozen: they run without autograd and their leaves
   never change;
 - checkpoints carry the parameters, the optimizer state and the step, so
@@ -27,6 +28,7 @@ import torch
 
 from visualrwkv_torch.config import TrainConfig, VLMConfig, resolve_device
 from visualrwkv_torch.models.visualrwkv import training_loss
+from visualrwkv_torch.ops.wkv7 import get_wkv_impl
 from visualrwkv_torch.train.optim import OptState, Optimizer, make_optimizer, tree_map
 
 log = logging.getLogger(__name__)
@@ -126,6 +128,8 @@ class Trainer:
             p.requires_grad_(True)
         self.loss_fn = make_loss_fn(train_cfg, vlm_cfg, self.device)
         self.history: List[Dict[str, Any]] = []
+        log.info("trainer: %s on %s, WKV mode %s, grad_cp %r", vlm_cfg.rwkv.version, self.device,
+                 get_wkv_impl(), train_cfg.grad_cp)
 
     @property
     def params(self) -> Params:
