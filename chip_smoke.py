@@ -14,7 +14,10 @@ Phases (any failure exits non-zero; nothing is caught):
    and library (one PyTorch call computing the same function, timed as a
    yardstick only) times and the least time the card could take
    (``bound_ms``). The head-pair ("packed") kernels K11-K13 are held
-   against their plain versions too, and K11 and K12 beside K1 and K5.
+   against their plain versions too, and K11 and K12 beside K1 and K5;
+   K3 with its log-sum-exp output; the attention backward K14 / K15 with
+   and without the rel-pos bias (beside the SDPA backward); the chunked
+   WKV7 forward K16 beside K1.
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -42,6 +45,14 @@ Phases (any failure exits non-zero; nothing is caught):
 6. VisualRWKV-6 1.6B training: RWKV-6 World 1.6B (x060 L24 D2048) behind
    the towers and projector of phase 3, through ``Trainer`` as in phase 4,
    with its launch counts and plain check.
+
+7. Gradients through the vision towers at full width (SAM-B @1024,
+   DINOv2-L/14-reg4 and SigLIP-so400m/14 @448, one image, seeded random
+   bf16 weights): forward + backward to every parameter through K3 with
+   lse, K14 and K15, with launch counts, time and peak memory, and every
+   parameter gradient against the plain path on the CPU at a cut depth.
+8. ``ops.wkv7.wkv7_v2``, the chunk-batched WKV7 forward (K16), once through
+   its public entry point.
 
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step)
 come after all counted runs, each model built again from its seed: once the profiler has been used in a
@@ -86,6 +97,11 @@ REPLACES = {
     "wkv7_fwd_packed": "visualrwkv_tpu/ops/wkv7_pallas.py:374",
     "wkv7_fwd_res_packed": "visualrwkv_tpu/ops/wkv7_pallas.py:461",
     "wkv7_bwd_packed": "visualrwkv_tpu/ops/wkv7_pallas.py:565",
+    "attention_bwd_dq_relpos": "visualrwkv_tpu/vision/flash.py:419",
+    "attention_bwd_dkv_relpos": "visualrwkv_tpu/vision/flash.py:442",
+    "attention_bwd_dq_mha": "visualrwkv_tpu/vision/flash.py:101",
+    "attention_bwd_dkv_mha": "visualrwkv_tpu/vision/flash.py:101",
+    "wkv7_fwd_v2": "visualrwkv_tpu/ops/wkv7_pallas.py:1142",
 }
 # the WKV kernels each LM family launches: (prefill, decode step, training
 # forward, training backward); "x070 packed" under set_wkv_impl("packed")
@@ -126,6 +142,14 @@ TRAIN_OPTION_RUNS = (("training_packed", True, True, 3), ("training_remat_wkv", 
 # times those readings.
 TRAIN_CHECK_LOSS_TOL = 5e-5
 TRAIN_CHECK_GRAD_TOL = {"x070": 6e-2, "x060": 2.5e-1}
+# Phase 7: timed forward + backward passes a tower, and the limit on each
+# parameter gradient's relative RMS, kernel path (card, bf16) against the
+# plain path (CPU, fp32) on the tower cut to its first blocks: about four
+# times the worst readings on an H100 (SAM-B 1.35e-2, a global block's
+# rel_pos_w; DINOv2-L 9.1e-3 and SigLIP 9.9e-3, an attention projection),
+# which are bf16 rounding, as in the training check above.
+TOWER_GRAD_REPS = 3
+TOWER_GRAD_TOL = 5e-2
 TRAIN_CHECK_FP32_LOSS_TOL = 1e-6
 TRAIN_CHECK_FP32_GRAD_TOL = 1e-2
 SOURCES = {
@@ -143,6 +167,11 @@ SOURCES = {
     "wkv7_fwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
     "wkv7_fwd_res_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
     "wkv7_bwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
+    "attention_bwd_dq_relpos": "visualrwkv_torch/csrc/attention_bwd.cu",
+    "attention_bwd_dkv_relpos": "visualrwkv_torch/csrc/attention_bwd.cu",
+    "attention_bwd_dq_mha": "visualrwkv_torch/csrc/attention_bwd.cu",
+    "attention_bwd_dkv_mha": "visualrwkv_torch/csrc/attention_bwd.cu",
+    "wkv7_fwd_v2": "visualrwkv_torch/csrc/wkv7_v2.cu",
 }
 
 
@@ -703,6 +732,19 @@ def check_attention(gen, dev):
     del mask
     nbytes = 4 * G * N * hd * 2 + G * N * (Hk + Wk) * 4
     relpos.append(c.record(k_ms, p_ms, lib_ms, nbytes, 4 * G * N * N * hd, BF16_TENSOR_FLOPS, k_eager))
+    # K3 with its lse output, as AttentionFunction runs it under autograd
+    c = Check("attention_fwd_relpos", f"G={G} N={N} hd={hd} bf16, with the lse output")
+    o, lse = pf.attention_fwd(q, k, v, rel_h, rel_w, scale, "sam")
+    o_ref, lse_ref = pf.attention_fwd_plain(q, k, v, rel_h, rel_w, scale, "sam")
+    torch.cuda.synchronize()
+    c.compare("out (bf16)", o.float(), o_ref.float(), 1e-2)
+    c.compare("lse (fp32)", lse, lse_ref, 1e-3)
+    fn = lambda: pf.attention_fwd(q, k, v, rel_h, rel_w, scale, "sam")
+    k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
+    p_ms = cuda_ms(lambda: pf.attention_fwd_plain(q, k, v, rel_h, rel_w, scale, "sam"), reps=3,
+                   warmup=1)
+    relpos.append(c.record(k_ms, p_ms, None, nbytes + G * N * 4, 4 * G * N * N * hd,
+                           BF16_TENSOR_FLOPS, k_eager))
 
     B, h = 1, 16
     for N, hd, tower in ((1029, 64, "DINOv2-L"), (1024, 72, "SigLIP-so400m"), (577, 64, "CLIP-L/336")):
@@ -722,26 +764,157 @@ def check_attention(gen, dev):
     return relpos, mha
 
 
-def reckon_unported():
-    """The least time the card could take for the two TPU kernels still to
-    port, reckoned from their shapes as ``Check.record`` reckons a ported
-    kernel's (no kernel runs): row 5, the SAM flash backward at the global
-    blocks' shape of phase 3's SAM-B @1024 (G=12 heads, N=4096 tokens, hd
-    64, bf16), five products of G*N*N*hd multiply-adds (the scores again,
-    dP, dV, dQ, dK) with q, k, v, o, dO, lse and the fp32 rel-pos tables
-    read, dq, dk, dv and the tables' gradients written; row 12,
-    ``wkv7_pallas_v2``, a WKV7 forward, at the shape its own note measured
-    (B=8 T=512 H=32 N=64 bf16), with row 1's operation count."""
-    G, N, hd, Hk, Wk = 12, 4096, 64, 64, 64
-    nbytes = 5 * G * N * hd * 2 + G * N * 4 + 2 * G * N * (Hk + Wk) * 4 + 3 * G * N * hd * 2
-    row5 = bound(nbytes, 10 * G * N * N * hd, BF16_TENSOR_FLOPS)
-    B, T, H, Nh = 8, 512, 32, 64
-    row12 = bound(7 * B * T * H * Nh * 2 + 2 * B * H * Nh * Nh * 4, 9 * B * T * H * Nh * Nh, FP32_FLOPS)
-    out = {"row 5 vision/flash.py:394 _sam_flash_bwd_impl (G=12 N=4096 hd=64 bf16)": row5,
-           "row 12 ops/wkv7_pallas.py:1142 wkv7_pallas_v2 (B=8 T=512 H=32 N=64 bf16)": row12}
-    for what, (ms, by) in out.items():
-        log(f"  still to port: {what}: bound {ms:.4f} ms ({by})")
-    return {k: {"bound_ms": ms, "bound_by": by} for k, (ms, by) in out.items()}
+def _sdpa_bwd_ms(q, k, v, do, mask=None, scale=None, reps=5):
+    """Device time of the backward of one ``scaled_dot_product_attention``
+    call ([B, h, N, d]; the mask added to the logits): its forward and
+    backward captured together in a CUDA graph, less its forward alone.
+    Returns (backward, forward + backward, forward) in ms."""
+    import torch
+    import torch.nn.functional as F
+
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    fwd = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (qs, ks, vs), do), reps=reps)
+    fwd_ms = cuda_ms(fwd, reps=reps)
+    return both_ms - fwd_ms, both_ms, fwd_ms
+
+
+def check_attention_bwd(gen, dev):
+    """K14 (dq and the rel-pos tables' gradients) and K15 (dk, dv) against
+    ``attention_bwd_plain`` on the same inputs on the card: o and lse from
+    K3, a random output cotangent. SAM's global shape (G=12 heads, N=4096 =
+    64 x 64 grid, hd 64, bf16, fp32 tables) and the no-bias MHA of the ViT
+    towers (DINOv2-L N=1029 hd 64, SigLIP N=1024 hd 72, CLIP-L N=577 hd 64).
+    Each kernel timed alone (K15 from K14's delta) and beside the SDPA
+    backward (row 5: the bias as a mask), which computes dq, dk and dv
+    together: its time is the pair's yardstick."""
+    import torch
+
+    from visualrwkv_torch.vision import flash as pf
+
+    bf = torch.bfloat16
+    out = {"relpos": ([], []), "mha": ([], [])}
+    cases = [("sam", 12, 64, 64, 64, "SAM-B global"),
+             # a grid narrower than a key tile: K14's shared-memory table sums
+             ("sam", 2, 48, 48, 64, "SAM-B global at 768 pixels")]
+    cases += [("mha", 16, N, 0, hd, tower) for N, hd, tower in
+              ((1029, 64, "DINOv2-L"), (1024, 72, "SigLIP-so400m"), (577, 64, "CLIP-L/336"))]
+    for layout, G, a1, a2, hd, tower in cases:
+        if layout == "sam":
+            Hk, Wk = a1, a2
+            N = Hk * Wk
+            shape = (G, N, hd)
+            rel_h = torch.randn(G, N, Hk, generator=gen, device=dev)
+            rel_w = torch.randn(G, N, Wk, generator=gen, device=dev)
+            case = f"{tower}: G={G} N={N} ({Hk}x{Wk} grid) hd={hd} bf16, fp32 rel tables"
+        else:
+            N, Hk, Wk = a1, 0, 0
+            shape = (1, N, G, hd)
+            rel_h = rel_w = None
+            case = f"{tower}: B=1 N={N} h={G} hd={hd} bf16, no bias"
+        scale = hd**-0.5
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf) for _ in range(3))
+        do = torch.randn(shape, generator=gen, device=dev).to(bf)
+        o, lse = pf.attention_fwd(q, k, v, rel_h, rel_w, scale, layout)
+        dq, drh, drw, delta = pf.attention_bwd_dq_cuda(q, k, v, rel_h, rel_w, o, lse, do, scale, layout)
+        dk, dv = pf.attention_bwd_dkv_cuda(q, k, v, rel_h, rel_w, do, lse, delta, scale, layout)
+        t_plain = cuda_ms(lambda: pf.attention_bwd_plain(q, k, v, rel_h, rel_w, o, lse, do, scale,
+                                                         layout), reps=1, warmup=1)
+        ref = pf.attention_bwd_plain(q, k, v, rel_h, rel_w, o, lse, do, scale, layout)
+        torch.cuda.synchronize()
+        key = "relpos" if layout == "sam" else "mha"
+        c14 = Check(f"attention_bwd_dq_{key}", case)
+        c14.compare("dq (bf16)", dq.float(), ref[0].float(), 1e-2)
+        if drh is not None:
+            c14.compare("d rel_h (fp32)", drh, ref[3], 1e-3)
+            c14.compare("d rel_w (fp32)", drw, ref[4], 1e-3)
+        c15 = Check(f"attention_bwd_dkv_{key}", case)
+        c15.compare("dk (bf16)", dk.float(), ref[1].float(), 1e-2)
+        c15.compare("dv (bf16)", dv.float(), ref[2].float(), 1e-2)
+        reps = 5 if layout == "sam" else 30
+        f14 = lambda: pf.attention_bwd_dq_cuda(q, k, v, rel_h, rel_w, o, lse, do, scale, layout)
+        f15 = lambda: pf.attention_bwd_dkv_cuda(q, k, v, rel_h, rel_w, do, lse, delta, scale, layout)
+        ms14, ms15 = cuda_ms(f14, reps=reps), cuda_ms(f15, reps=reps)
+        e14, e15 = eager_ms(f14, reps=reps), eager_ms(f15, reps=reps)
+        if layout == "sam":
+            mask = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(1, G, N, N).to(bf)
+            lib_ms, lib_both, lib_fwd = _sdpa_bwd_ms(*(x[None] for x in (q, k, v, do)), mask=mask,
+                                                     scale=scale)
+            del mask
+        else:
+            lib_ms, lib_both, lib_fwd = _sdpa_bwd_ms(*(x.transpose(1, 2) for x in (q, k, v, do)),
+                                                     reps=20)
+        tables = G * N * (Hk + Wk) * 4
+        elt = G * N * hd * 2  # one bf16 [G, N, hd] tensor
+        # K14: read q, k, v, o, dO, lse (and the tables), write dq, delta (and
+        # the tables' gradients); S, dP and dq are 3 products. K15: read q, k,
+        # v, dO, lse, delta (and the tables), write dk, dv; S, dP, dv and dk
+        # are 4. The function as a whole needs 5 (S, dP, dq, dk, dv).
+        b14 = 6 * elt + 2 * G * N * 4 + 2 * tables
+        b15 = 6 * elt + 2 * G * N * 4 + tables
+        mn = 2 * G * N * N * hd  # operations of one N x N x hd product
+        r14 = c14.record(ms14, t_plain, lib_ms, b14, 3 * mn, BF16_TENSOR_FLOPS, e14)
+        r15 = c15.record(ms15, t_plain, lib_ms, b15, 4 * mn, BF16_TENSOR_FLOPS, e15)
+        pair_bound, pair_by = bound(8 * elt + G * N * 4 + 2 * tables, 5 * mn, BF16_TENSOR_FLOPS)
+        for rec in (r14, r15):
+            rec.update(pair_ms=ms14 + ms15, pair_bound_ms=pair_bound, pair_bound_by=pair_by,
+                       library_fwd_bwd_ms=lib_both, library_fwd_ms=lib_fwd,
+                       library_is="SDPA backward (its forward + backward less its forward, "
+                       "CUDA graphs): dq, dk and dv together (K14 + K15)",
+                       plain_is="attention_bwd_plain: all five gradients (K14 + K15)")
+        log(f"  attention backward [{case}] K14 + K15 {ms14 + ms15:.4f} ms, bound "
+            f"{pair_bound:.4f} ms ({pair_by}), SDPA backward {lib_ms:.4f} ms")
+        out[key][0].append(r14)
+        out[key][1].append(r15)
+        del q, k, v, do, o, lse, dq, dk, dv, ref
+    return out
+
+
+def check_wkv7_v2(gen, dev):
+    """K16 against its plain version (the fp32 chunked form at chunk 32 with
+    length-16 block solves) on the same values, and beside K1 on the same
+    inputs: the reference kernel's own shape (B=8 T=512 H=32 bf16) and one
+    prefill's (B=1 T=1024 H=32), with an initial state, in bf16 and with
+    fp32 streams. y is held at the convention's limits (bf16 1e-2, fp32
+    1e-3). The final state is fp32; with bf16 streams its products take bf16
+    tensor-core operands (bta Z's input terms, h_loc), as the reference's
+    v2 kernel rounds them, so it is held at the bf16 limit, and at 1e-3 with
+    fp32 streams (all FMA)."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    N = 64
+    out = []
+    for B, T, H, sdt in ((8, 512, 32, torch.bfloat16), (1, 1024, 32, torch.bfloat16),
+                         (1, 1024, 32, torch.float32)):
+        dname = str(sdt)[6:]
+        bf = sdt == torch.bfloat16
+        case = f"B={B} T={T} H={H} N={N} {dname} streams, with initial state"
+        xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+        c = Check("wkv7_fwd_v2", case)
+        y, s = wkv7_cuda.wkv7_fwd_v2(*xs, s0)
+        y_ref, s_ref = pw.wkv7_v2_plain(*[x.float() for x in xs], s0)
+        y1, s1 = wkv7_cuda.wkv7_fwd(*xs, s0)
+        torch.cuda.synchronize()
+        c.compare(f"y ({dname}) vs fp32 plain", y.float(), y_ref, 1e-2 if bf else 1e-3)
+        c.compare("final state (fp32)", s, s_ref, 1e-2 if bf else 1e-3)
+        k1_err = {"y": rel_rms(y.float(), y1.float()), "state": rel_rms(s, s1)}
+        log(f"  wkv7_fwd_v2 [{case}] relative RMS from K1: y {k1_err['y']:.3e}, "
+            f"state {k1_err['state']:.3e}")
+        fn = lambda: wkv7_cuda.wkv7_fwd_v2(*xs, s0)
+        k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
+        p_ms = cuda_ms(lambda: pw.wkv7_v2_plain(*xs, s0), reps=1, warmup=1)
+        k1_ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd(*xs, s0))
+        nbytes = 7 * B * T * H * N * xs[0].element_size() + 2 * B * H * N * N * 4
+        rec = c.record(k_ms, p_ms, None, nbytes, 9 * B * T * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(k1_same_inputs_ms=k1_ms, rel_rms_from_k1=k1_err)
+        log(f"  wkv7_fwd_v2 [{case}] K1 on the same inputs: {k1_ms:.4f} ms")
+        out.append(rec)
+        del xs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1042,6 +1215,12 @@ def _category(kernel_name: str) -> str:
         return "K9 wkv6_bwd"
     if "attention_fwd_kernel" in n:
         return "K3 attention_fwd"
+    if "attention_bwd_dq_kernel" in n:
+        return "K14 attention_bwd_dq"
+    if "attention_bwd_dkv_kernel" in n:
+        return "K15 attention_bwd_dkv"
+    if "wkv7_v2_" in n:  # both launches of K16
+        return "K16 wkv7_fwd_v2"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")):
         return "matmul (cuBLAS)"
     if "conv" in n or "cudnn" in n:
@@ -1358,6 +1537,176 @@ def check_training_against_plain(cfg, params, n_layer: int, seed: int, device="c
 
 
 # ---------------------------------------------------------------------------
+# phase 7: gradients through the vision towers; phase 8: wkv7_v2
+# ---------------------------------------------------------------------------
+
+
+def tower_grad_cfgs():
+    """The flagship's towers at their full geometry (bf16 compute)."""
+    from visualrwkv_torch.vision.sam import SAM_VIT_B
+    from visualrwkv_torch.vision.vit import DINOV2_L_REG4, SIGLIP_SO400M
+
+    return {"sam": SAM_VIT_B, "dino": DINOV2_L_REG4, "siglip": SIGLIP_SO400M}
+
+
+def _tower_fns(cfg):
+    from visualrwkv_torch.vision import sam, vit
+
+    if isinstance(cfg, sam.SAMConfig):
+        return sam.init_sam_params, sam.sam_features
+    return vit.init_vit_params, vit.vit_features
+
+
+def tower_grad_launches(name, cfg, passes: int = 1):
+    """Launches of a tower's forward + backward: K3, K14 and K15 once for
+    every attention that runs the kernels (SAM's global blocks, every block
+    of a ViT); every other kernel 0."""
+    from visualrwkv_torch.vision import sam, vit
+
+    n, key = (sam.global_blocks(cfg), "relpos") if name == "sam" else (vit.blocks_run(cfg), "mha")
+    want = dict.fromkeys(REPLACES, 0)
+    for kernel in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv"):
+        want[f"{kernel}_{key}"] = n * passes
+    return want
+
+
+def cut_tower(name, cfg, params):
+    """The tower cut to its first blocks for the plain comparison: SAM's
+    first three (the third is global), a ViT's first two."""
+    if name == "sam":
+        c = dataclasses.replace(cfg, depth=3, global_attn_indexes=(2,))
+    else:
+        c = dataclasses.replace(cfg, depth=2, feature_layer=-1)
+    return c, dict(params, blocks=params["blocks"][:c.depth])
+
+
+def tower_grads(fn, params, cfg, pixels, seed: int):
+    """(features, d <features, cotangent> / d every parameter leaf): the
+    cotangent is seeded normal noise of the features' shape."""
+    import torch
+
+    leaves = list(_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    feats = fn(params, cfg, pixels)
+    gen = torch.Generator()  # on the CPU, so that the card and the CPU draw the same cotangent
+    gen.manual_seed(seed)
+    cot = torch.randn(feats.shape, generator=gen).to(feats.device)
+    grads = torch.autograd.grad((feats.float() * cot).sum(), leaves, allow_unused=True)
+    for t in leaves:
+        t.requires_grad_(False)
+    return feats.detach(), grads
+
+
+def tower_setup(cfg, seed: int, device):
+    """(features function, seeded bf16 parameters with noise on every leaf,
+    so that the zero-initialised ones carry signal, one image's pixels)."""
+    import torch
+
+    init, fn = _tower_fns(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init(gen, cfg, device=device, dtype=torch.bfloat16)
+    for leaf in _leaves(params):
+        leaf.add_(torch.randn(leaf.shape, generator=gen, device=device).to(leaf.dtype) * 0.02)
+    S = cfg.img_size
+    return fn, params, torch.randn(1, S, S, 3, generator=gen, device=device)
+
+
+def profile_tower_grad(cfg, seed: int, device):
+    """Where a tower's gradient pass goes: one pass after a warm-up pass,
+    under the profiler."""
+    fn, params, pixels = tower_setup(cfg, seed, device)
+    tower_grads(fn, params, cfg, pixels, seed + 1)
+    return {"forward + backward": device_breakdown(lambda: tower_grads(fn, params, cfg, pixels,
+                                                                        seed + 1))}
+
+
+def run_tower_grad(name, cfg, seed: int, device):
+    """One tower's forward + backward to its parameters at full width, B=1:
+    launch counts over one counted pass, time (median of TOWER_GRAD_REPS)
+    and peak memory, then the gradients of the kernel path (card, bf16)
+    against the plain path (CPU, fp32) on the tower cut by :func:`cut_tower`."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+
+    fn, params, pixels = tower_setup(cfg, seed, device)
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    reset_launches()
+    feats, grads = tower_grads(fn, params, cfg, pixels, seed + 1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    assert torch.isfinite(feats).all()
+    # leaves past the feature layer (a ViT's last block and final norm) get none
+    assert all(g is None or torch.isfinite(g).all() for g in grads), name
+    del feats, grads
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = [timed(lambda: tower_grads(fn, params, cfg, pixels, seed + 1))[1]
+             for _ in range(TOWER_GRAD_REPS)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    c, p = cut_tower(name, cfg, params)
+    c32 = dataclasses.replace(c, compute_dtype="float32")
+    _, g_card = tower_grads(fn, p, c, pixels, seed + 1)
+    t0 = time.perf_counter()
+    p_cpu = to_device(p, "cpu", torch.float32)
+    _, g_cpu = tower_grads(fn, p_cpu, c32, pixels.cpu(), seed + 1)
+    cpu_s = time.perf_counter() - t0
+    names = [f"{path}" for path, _ in _named_leaves(p)]
+    errs = {}
+    for n, a, b in zip(names, g_card, g_cpu):
+        if b is None or not float(b.abs().max()) > 0:
+            assert a is None or not float(a.abs().max()) > 0, n
+            continue
+        errs[n] = rel_rms(a.float().cpu(), b)
+    worst = max(errs, key=errs.get)
+    rec = {"tower": name, "params": n_params, "fwd_bwd_ms": times, "peak_gib": peak_gib,
+           "base_gib": base / 2**30, "launches": launches,
+           "plain_check": {"blocks": c.depth, "cpu_s": cpu_s, "leaves": len(errs),
+                           "worst_leaf": worst, "worst_rel_rms": errs[worst],
+                           "tol": TOWER_GRAD_TOL}}
+    log(f"  {name}: {n_params / 1e6:.1f} M parameters, forward + backward "
+        f"{sorted(times)[len(times) // 2]:.1f} ms (runs {[round(t, 1) for t in times]}), peak "
+        f"{peak_gib:.2f} GiB; gradients of {len(errs)} leaves, tower cut to {c.depth} blocks, card "
+        f"bf16 vs CPU fp32 (CPU {cpu_s:.1f} s): worst rel_rms {errs[worst]:.3e} ({worst}), "
+        f"tol {TOWER_GRAD_TOL:g}")
+    assert errs[worst] <= TOWER_GRAD_TOL, (name, worst, errs[worst])
+    del params, p, g_card, g_cpu
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def run_wkv7_v2_path(seed: int, device):
+    """``ops.wkv7.wkv7_v2``, the public entry point of the chunk-batched
+    forward (no dispatcher calls it, as in the JAX package), on one
+    flagship-width prefill's streams (B=1, T=1024, H=32, bf16, with a
+    state): K16 once, y and state beside K1's on the same inputs."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    xs = _wkv_streams(gen, (1, 1024, 32, 64), torch.bfloat16, device)
+    s0 = torch.randn(1, 32, 64, 64, generator=gen, device=device) * 0.3
+    reset_launches()
+    y, s = pw.wkv7_v2(*xs, s0)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    y1, s1 = wkv7_cuda.wkv7_fwd(*xs, s0)
+    err = {"y": rel_rms(y.float(), y1.float()), "state": rel_rms(s, s1)}
+    log(f"  wkv7_v2 (B=1 T=1024 H=32 bf16): relative RMS from K1 y {err['y']:.3e}, "
+        f"state {err['state']:.3e}")
+    assert torch.isfinite(y).all() and err["y"] <= 1e-2 and err["state"] <= 1e-2, err
+    return {"rel_rms_from_k1": err}, launches
+
+
+# ---------------------------------------------------------------------------
 # the phases' steps
 # ---------------------------------------------------------------------------
 
@@ -1456,7 +1805,10 @@ def main(argv=None) -> int:
     kernels["attention_fwd_relpos"], kernels["attention_fwd_mha"] = check_attention(gen, dev)
     kernels["wkv6_fwd"], kernels["wkv6_step"] = check_wkv6_fwd(gen, dev), check_wkv6_step(gen, dev)
     kernels["wkv6_fwd_res"], kernels["wkv6_bwd"] = check_wkv6_train(gen, dev)
-    to_port = reckon_unported()
+    bwd = check_attention_bwd(gen, dev)
+    for key, (dq_cases, dkv_cases) in bwd.items():
+        kernels[f"attention_bwd_dq_{key}"], kernels[f"attention_bwd_dkv_{key}"] = dq_cases, dkv_cases
+    kernels["wkv7_fwd_v2"] = check_wkv7_v2(gen, dev)
     torch.cuda.empty_cache()
 
     # phase 3 --------------------------------------------------------------
@@ -1531,8 +1883,26 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    # phase 7 --------------------------------------------------------------
+    log("phase 7: gradients through the vision towers at full width (SAM-B @1024, DINOv2-L/14-reg4 "
+        "@448, SigLIP-so400m/14 @448), one image, seeded random bf16 weights")
+    towers, tower_launches = {}, {}
+    for name, tcfg in tower_grad_cfgs().items():
+        towers[name], tower_launches[f"tower_grad_{name}"] = run_tower_grad(name, tcfg, args.seed, dev)
+        assert_launches(f"{name} forward + backward", tower_launches[f"tower_grad_{name}"],
+                        tower_grad_launches(name, tcfg))
+
+    # phase 8 --------------------------------------------------------------
+    log("phase 8: ops.wkv7.wkv7_v2, the chunk-batched WKV7 forward, through its public entry point")
+    v2_run, v2_launches = run_wkv7_v2_path(args.seed, dev)
+    want_v2 = dict.fromkeys(REPLACES, 0)
+    want_v2["wkv7_fwd_v2"] = 1
+    assert_launches("wkv7_v2", v2_launches, want_v2)
+    torch.cuda.empty_cache()
+
     # profiles, after every counted run: each model built again from its seed
-    log("profiles: one prefill and 9 decode steps a serving model, one step a training model")
+    log("profiles: one prefill and 9 decode steps a serving model, one step a training model, "
+        "one forward + backward a tower")
     for what, c, out, prof in (("x070 serving", cfg, serving, profile_serving),
                                ("x070 training", cfg, training, profile_training),
                                ("x070 training, grad_cp='wkv'", cfg, option_runs["training_remat_wkv"],
@@ -1544,12 +1914,17 @@ def main(argv=None) -> int:
         log_breakdown(what, out["breakdown"])
         del params
         torch.cuda.empty_cache()
+    for name, tcfg in tower_grad_cfgs().items():
+        towers[name]["breakdown"] = profile_tower_grad(tcfg, args.seed, dev)
+        log_breakdown(f"{name} tower gradient", towers[name]["breakdown"])
+        torch.cuda.empty_cache()
 
     # results --------------------------------------------------------------
-    # launches of each kernel over the counted runs of the nine paths
+    # launches of each kernel over the counted runs of the paths
     by_path = {"serving_head": launches, "serving_flat": flat_launches,
                "serving_packed": packed_launches, "training": train_launches, **option_launches,
-               "serving_x060": launches6, "training_x060": train_launches6}
+               "serving_x060": launches6, "training_x060": train_launches6, **tower_launches,
+               "wkv7_v2": v2_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -1562,12 +1937,25 @@ def main(argv=None) -> int:
                                               "plain_ms", "bound_ms", "bound_by", "library_ms")},
                      "case": first["case"], "cases": cases})
     log(json.dumps({"card": card, "build_s": build_s, "serving": serving, "training": training,
-                    "serving_x060": serving6, "training_x060": training6, "to_port": to_port}))
+                    "serving_x060": serving6, "training_x060": training6, "tower_grads": towers,
+                    "wkv7_v2": v2_run}))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _named_leaves(tree, path=""):
+    """(path, leaf) pairs in :func:`_leaves`'s order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}.{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
 
 
 def _leaves(tree):

@@ -98,7 +98,8 @@ def test_cli_dummy_run_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--n_seq", "2"], ["--num_nodes", "2"], ["--n_data", "2"],
-                                   ["--model_path", "x.pth"]])
+                                   ["--model_path", "x.pth"],
+                                   ["--coordinator_address", "localhost:1234"]])
 def test_cli_flags_of_unported_paths_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         pcli.main(["--dummy", "--device", "cpu", "--proj_dir", str(tmp_path)] + flags)
@@ -127,3 +128,19 @@ def test_cli_kernel_options_run_on_cpu(tmp_path, flags):
         assert mode == flags[1]
     else:
         assert mode == "auto" and trainer.cfg.grad_cp == flags[1]
+
+
+@pytest.mark.parametrize("flags", [["--node_rank", "0"], ["--coordinator_address", ""],
+                                   ["--param_dtype", "float16"], ["--zero_stage", "3"]])
+def test_cli_reference_flags_parse_as_in_jax(flags):
+    """Flags the JAX CLI parses and runs in one process: the port parses
+    them to the same values and builds its configurations (one process,
+    fp16 storage with fp32 masters, stage 3 as the one-device replicated
+    layout)."""
+    pa = pcli.build_argparser().parse_args(flags)
+    ja = jcli.build_argparser().parse_args(flags)
+    name = flags[0][2:]
+    assert getattr(pa, name) == getattr(ja, name)
+    pcli.check_ported(pa)
+    _, tcfg = pcli.make_configs(pa)
+    assert tcfg.param_dtype == pa.param_dtype and tcfg.zero_stage == pa.zero_stage

@@ -83,3 +83,27 @@ def test_unported_options_raise():
     x060 = VLMConfig(rwkv=RWKVConfig(version="x060"))
     with pytest.raises(NotImplementedError):  # the flat decode state is x070's only
         InferenceEngine({}, x060, state_layout="flat", device="cpu")
+
+
+_IMPORT_SCRIPTS = """
+import sys
+import chip_ab, chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "visualrwkv_tpu"))
+assert not bad, bad
+"""
+
+
+def test_chip_scripts_import_no_jax_and_refuse_without_cuda():
+    """The card's scripts import neither JAX nor the JAX package, and
+    without CUDA ``chip_smoke.py`` exits non-zero and prints no result."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPTS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    if torch.cuda.is_available():
+        return
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout, out.stdout + out.stderr

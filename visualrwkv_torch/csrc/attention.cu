@@ -24,33 +24,16 @@
 // two lanes per row. The bias is read straight from the rel_h / rel_w tables
 // (no one-hot products, which were a Mosaic lowering workaround). Keys and
 // queries past N (DINOv2's 1029 tokens) are masked / not written. This is the
-// simple correct form: no wgmma, TMA or pipelining yet.
+// simple correct form: no wgmma, TMA or pipelining yet. Under autograd the
+// kernel also writes lse = m + log l of every query row (a null pointer
+// otherwise, as on the serving path), which the backward K14 / K15
+// (attention_bwd.cu) recomputes the probabilities from.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int BQ = 64;     // query rows per block, 16 per warp
-constexpr int BK = 64;     // keys per tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDP = BK + 8;  // bf16 row stride of a warp's P tile
-
-template <int HD>
-struct Geom {
-  static constexpr int HDP = (HD + 15) / 16 * 16;  // head dim padded for 16x16x16 WMMA
-  static constexpr int LDB = HDP + 8;              // bf16 row stride of the Q/K/V tiles
-  static constexpr int LDX = (HDP > BK ? HDP : BK) + 4;  // fp32 stride of the S / PV tile
-  static constexpr int COLS = HDP / 2;             // output columns a lane owns
-  static_assert(HD % 8 == 0, "rows are copied 16 bytes at a time");
-};
+using namespace vattn;
 
 template <int HD>
 struct Smem {
@@ -63,26 +46,11 @@ struct Smem {
 };
 
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int N,
-                                          size_t row_stride, int tid) {
-  // 64 rows x HDP bf16, 16 bytes per thread per pass; rows >= N and the
-  // padding columns >= HD are zero
-  using G = Geom<HD>;
-  constexpr int CHUNKS = G::HDP / 8;
-  for (int c = tid; c < 64 * CHUNKS; c += THREADS) {
-    const int row = c / CHUNKS, col = (c % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < N && col < HD)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + row) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + row * G::LDB + col) = val;
-  }
-}
-
-template <int HD>
 __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
     int N, int heads, float scale, const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ rel_h,
-    const float* __restrict__ rel_w, int Hk, int Wk, bf16* __restrict__ o) {
+    const float* __restrict__ rel_w, int Hk, int Wk, bf16* __restrict__ o,
+    float* __restrict__ lse) {
   using G = Geom<HD>;
   constexpr int HDP = G::HDP, LDB = G::LDB, LDX = G::LDX, COLS = G::COLS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -91,7 +59,7 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t row_stride = (size_t)heads * HD;
-  const size_t base = ((size_t)(g / heads) * N * heads + (g % heads)) * HD;
+  const size_t base = group_base(g, heads, N, HD);
 
   load_tile<HD>(sm.q, q + base, q0, N, row_stride, tid);
 
@@ -200,12 +168,15 @@ __global__ void __launch_bounds__(THREADS) attention_fwd_kernel(
       if (ohalf + c < HD)
         *reinterpret_cast<__nv_bfloat162*>(out + ohalf + c) =
             __floats2bfloat162_rn(acc[c] * inv, acc[c + 1] * inv);
+    // the log-sum-exp of the row's logits, for the backward (K14 / K15)
+    if (lse != nullptr && (lane & 1) == 0) lse[(size_t)g * N + qrow] = m + logf(l);
   }
 }
 
 template <int HD>
 int launch(int G, int N, int heads, float scale, const void* q, const void* k, const void* v,
-           const void* rel_h, const void* rel_w, int Hk, int Wk, void* o, cudaStream_t st) {
+           const void* rel_h, const void* rel_w, int Hk, int Wk, void* o, void* lse,
+           cudaStream_t st) {
   // The shared-memory opt-in is per device, so it is set on every launch
   // (a host-side attribute write, cheap next to the launch).
   const cudaError_t e = cudaFuncSetAttribute(
@@ -214,7 +185,7 @@ int launch(int G, int N, int heads, float scale, const void* q, const void* k, c
   const dim3 grid((N + BQ - 1) / BQ, G), block(THREADS);
   attention_fwd_kernel<HD><<<grid, block, sizeof(Smem<HD>), st>>>(
       N, heads, scale, (const bf16*)q, (const bf16*)k, (const bf16*)v,
-      (const float*)rel_h, (const float*)rel_w, Hk, Wk, (bf16*)o);
+      (const float*)rel_h, (const float*)rel_w, Hk, Wk, (bf16*)o, (float*)lse);
   return (int)cudaGetLastError();
 }
 
@@ -226,16 +197,16 @@ const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t
 
 // q, k, v, o: bf16, token row stride heads*hd, (batch, head) = (g / heads,
 // g % heads); hd is 64 or 72. rel_h [G, N, Hk] and rel_w [G, N, Wk] fp32,
-// or both null.
+// or both null. lse [G, N] fp32 (m + log l of every query row), or null.
 int attention_fwd(int G, int N, int heads, int hd, float scale, const void* q,
                   const void* k, const void* v, const void* rel_h, const void* rel_w,
-                  int Hk, int Wk, void* o, void* stream) {
+                  int Hk, int Wk, void* o, void* lse, void* stream) {
   if (G <= 0 || N <= 0 || heads <= 0 || G % heads) return (int)cudaErrorInvalidValue;
   if ((rel_h == nullptr) != (rel_w == nullptr)) return (int)cudaErrorInvalidValue;
   if (rel_h != nullptr && (Hk <= 0 || Wk <= 0 || Hk * Wk != N)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (hd == 64) return launch<64>(G, N, heads, scale, q, k, v, rel_h, rel_w, Hk, Wk, o, st);
-  if (hd == 72) return launch<72>(G, N, heads, scale, q, k, v, rel_h, rel_w, Hk, Wk, o, st);
+  if (hd == 64) return launch<64>(G, N, heads, scale, q, k, v, rel_h, rel_w, Hk, Wk, o, lse, st);
+  if (hd == 72) return launch<72>(G, N, heads, scale, q, k, v, rel_h, rel_w, Hk, Wk, o, lse, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,6 +23,9 @@ with ``w_t = exp(-exp(w_raw_t))``. Streams are ``[B, T, H, N]``; the state is
   even head count), with the chunk states in the packed layout of the JAX
   package (:func:`_pack_state_z`); :func:`_pack_stream` and the other
   layout functions are the JAX package's.
+* :func:`wkv7_v2` — the chunk-batched forward of the JAX package's
+  ``wkv7_pallas_v2`` (chunk 32): kernel K16 on CUDA tensors, its plain
+  version :func:`wkv7_v2_plain` on the CPU. No dispatcher calls it.
 * :func:`wkv7` / :func:`wkv7_step_auto` — dispatch on the tensors' device
   and on :func:`set_wkv_impl`: the plain versions for CPU tensors, the CUDA
   kernels (:mod:`visualrwkv_torch.ops.wkv7_cuda`) for CUDA tensors. Under
@@ -147,6 +150,24 @@ def _tri_inverse_unit_lower(m_strict: Tensor) -> Tensor:
     return t
 
 
+def _block_solve(m_strict: Tensor, rhs: Tensor, solve: int) -> Tensor:
+    """u = (I - M)^{-1} rhs by block forward substitution with length-``solve``
+    diagonal blocks, u_i = T_ii (rhs_i + sum_{j<i} M_ij u_j): only the
+    diagonal blocks' inverses are formed, so the stability envelope is that
+    of ``solve``, not of the chunk (the JAX package's ``_btri_solve``,
+    ``docs/wkv_chunk_stability.md``)."""
+    L = m_strict.shape[-1]
+    S = solve
+    us = []
+    for i in range(L // S):
+        q = rhs[..., i * S:(i + 1) * S, :]
+        for j in range(i):
+            q = q + _mm(m_strict[..., i * S:(i + 1) * S, j * S:(j + 1) * S], us[j])
+        t_ii = _tri_inverse_unit_lower(m_strict[..., i * S:(i + 1) * S, i * S:(i + 1) * S])
+        us.append(_mm(t_ii, q))
+    return torch.cat(us, dim=-2)
+
+
 def _mm(x: Tensor, y: Tensor) -> Tensor:
     """Matmul with fp32 output (operands in their stored dtype)."""
     if x.dtype == torch.float32 and y.dtype == torch.float32:
@@ -156,13 +177,16 @@ def _mm(x: Tensor, y: Tensor) -> Tensor:
 
 def wkv7_chunked(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                  initial_state: Optional[Tensor] = None,
-                 chunk: int = DEFAULT_CHUNK, return_states: bool = False):
+                 chunk: int = DEFAULT_CHUNK, return_states: bool = False, solve: int = 0):
     """Chunked matmul form, T % chunk == 0 (same semantics as the reference).
 
     Decay-adjusted intermediates are stored in the input dtype (bf16 on the
     serving path); cumulative decays and the carried state stay fp32.
-    Returns (y, final state), and with ``return_states`` also the transposed
-    state entering every chunk, fp32 ``[B*H, T/chunk, N, N]``."""
+    ``solve`` below the chunk solves each chunk's triangular system by block
+    forward substitution with length-``solve`` blocks (:func:`_block_solve`)
+    instead of forming the whole inverse. Returns (y, final state), and with
+    ``return_states`` also the transposed state entering every chunk, fp32
+    ``[B*H, T/chunk, N, N]``."""
     _validate(r, w_raw, k, v, a, b)
     B, T, H, N = r.shape
     if T % chunk:
@@ -199,10 +223,14 @@ def wkv7_chunked(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: T
 
     m_mat = _mm(a_t, tt(b_h)) * strict
     n_mat = _mm(a_t, tt(k_h)) * strict
-    t_inv = _tri_inverse_unit_lower(m_mat).to(idt)
-
-    u0 = _mm(t_inv, _mm(n_mat.to(idt), vc).to(idt)).to(idt)
-    ta = _mm(t_inv, a_t).to(idt)
+    nv = _mm(n_mat.to(idt), vc).to(idt)
+    if 0 < solve < L:
+        u0 = _block_solve(m_mat, nv.float(), solve).to(idt)
+        ta = _block_solve(m_mat, a_t.float(), solve).to(idt)
+    else:
+        t_inv = _tri_inverse_unit_lower(m_mat).to(idt)
+        u0 = _mm(t_inv, nv).to(idt)
+        ta = _mm(t_inv, a_t).to(idt)
     sb = (_mm(r_t, tt(b_h)) * incl).to(idt)
     sk = (_mm(r_t, tt(k_h)) * incl).to(idt)
 
@@ -236,6 +264,50 @@ def wkv7_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Ten
         if c <= min(chunk, MAX_STABLE_CHUNK) and T % c == 0:
             return wkv7_chunked(r, w_raw, k, v, a, b, initial_state, chunk=c)
     return wkv7_reference(r, w_raw, k, v, a, b, initial_state)
+
+
+def _check_v2(T: int, chunk: int, t_block: int, g_heads: int) -> None:
+    """The reference's conditions on its grid: T tiles by ``t_block`` and
+    ``t_block`` by ``chunk``; ``g_heads`` (heads a TPU program) is a
+    positive count."""
+    if T % t_block or t_block % chunk:
+        raise ValueError(f"T={T} must tile by t_block={t_block} (chunk {chunk})")
+    if g_heads < 1:
+        raise ValueError(f"g_heads must be a positive head count; got {g_heads}")
+
+
+def wkv7_v2_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                  initial_state: Optional[Tensor] = None,
+                  chunk: int = wkv7_cuda.V2_CHUNK) -> Tuple[Tensor, Tensor]:
+    """The plain version of K16: the chunked form in fp32 at ``chunk`` (32),
+    each chunk's system solved by block forward substitution with length-16
+    diagonal blocks (the JAX package's ``_btri_solve``; the full chunk-32
+    inverse of ``wkv7_pallas_v2`` amplifies bf16 rounding,
+    ``docs/wkv_chunk_stability.md``). Returns (y in r's dtype, final fp32
+    state)."""
+    _validate(r, w_raw, k, v, a, b)
+    f32 = torch.float32
+    y, s = wkv7_chunked(*(x.to(f32) for x in (r, w_raw, k, v, a, b)), initial_state,
+                        chunk=chunk, solve=MAX_STABLE_CHUNK)
+    return y.to(r.dtype), s
+
+
+def wkv7_v2(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+            initial_state: Optional[Tensor] = None, chunk: int = wkv7_cuda.V2_CHUNK,
+            t_block: int = 256, g_heads: int = 4) -> Tuple[Tensor, Tensor]:
+    """The chunk-batched forward, counterpart of the JAX package's
+    ``wkv7_pallas_v2`` (same semantics as :func:`wkv7`; it raises for the
+    same inputs: T must tile by ``t_block`` and ``t_block`` by ``chunk``).
+    ``t_block`` and ``g_heads`` shape the TPU grid and do not change the
+    result. CUDA tensors launch kernel K16 (chunk 32), CPU tensors take
+    :func:`wkv7_v2_plain`. No dispatcher calls it, as in the JAX package."""
+    _validate(r, w_raw, k, v, a, b)
+    _check_v2(r.shape[1], chunk, t_block, g_heads)
+    if r.is_cuda:
+        if chunk != wkv7_cuda.V2_CHUNK:
+            raise ValueError(f"wkv7_v2: kernel K16 runs chunk {wkv7_cuda.V2_CHUNK}; got {chunk}")
+        return wkv7_cuda.wkv7_fwd_v2(r, w_raw, k, v, a, b, initial_state)
+    return wkv7_v2_plain(r, w_raw, k, v, a, b, initial_state, chunk)
 
 
 def wkv7_fwd_res_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,

@@ -1,8 +1,9 @@
 """Wrappers of the WKV7 CUDA kernels: K1 ``wkv7_fwd``, K2 ``wkv7_step``,
 K4 ``wkv7_step_flat`` and K5 ``wkv7_fwd_res`` (``csrc/wkv7.cu``), K6
-``wkv7_bwd`` (``csrc/wkv7_train.cu``), and the head-pair ("packed") kernels
+``wkv7_bwd`` (``csrc/wkv7_train.cu``), the head-pair ("packed") kernels
 K11 ``wkv7_fwd_packed``, K12 ``wkv7_fwd_res_packed`` and K13
-``wkv7_bwd_packed`` (``csrc/wkv7_packed.cu``). They take CUDA tensors only;
+``wkv7_bwd_packed`` (``csrc/wkv7_packed.cu``), and K16 ``wkv7_fwd_v2``, the
+chunked matrix form of the forward (``csrc/wkv7_v2.cu``). They take CUDA tensors only;
 the dispatchers in :mod:`visualrwkv_torch.ops.wkv7` send CPU tensors to the
 plain versions.
 
@@ -26,6 +27,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 CHUNK = 16  # K5 / K12 save, and K6 / K13 read, the state entering every 16 steps
+V2_CHUNK = 32  # K16's chunk, the default of the JAX package's wkv7_pallas_v2
 
 
 def _declare(lib: ctypes.CDLL, fwd: str, fwd_res: str, bwd: Optional[str]) -> None:
@@ -54,6 +56,16 @@ def _train_lib() -> ctypes.CDLL:
     if lib.wkv7_bwd.argtypes is None:
         lib.wkv7_bwd.argtypes = [_I, _I, _I, _I, _I] + [_P] * 17
         lib.wkv7_bwd.restype = _I
+    return lib
+
+
+def _v2_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("wkv7_v2")
+    if lib.wkv7_fwd_v2.argtypes is None:
+        lib.wkv7_fwd_v2.argtypes = [_I, _I, _I, _I, _I] + [_P] * 11
+        lib.wkv7_fwd_v2.restype = _I
+        lib.wkv7_v2_scratch_floats.argtypes = []
+        lib.wkv7_v2_scratch_floats.restype = _I
     return lib
 
 
@@ -195,6 +207,35 @@ def wkv7_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tenso
     dw_raw, dk, dv, da, db) in the stream dtype and the fp32 cotangent of
     the initial state; all arithmetic fp32."""
     return _bwd("wkv7_bwd", _train_lib, (r, w_raw, k, v, a, b, dy), zin, dsfinal)
+
+
+def wkv7_fwd_v2(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """K16: the chunked matrix form of :func:`wkv7_fwd` (chunk 32, two
+    launches: the chunk-local products of every chunk in parallel, then the
+    boundary recurrence), counterpart of the JAX package's
+    ``wkv7_pallas_v2``. Streams ``[B, T, H, 64]`` (all fp32 or all bf16),
+    T a positive multiple of 32, optional fp32 initial state. Returns (y in
+    the stream dtype, final fp32 state). One call counts one launch of K16."""
+    streams = (r, w_raw, k, v, a, b)
+    B, T, H, N = r.shape
+    dev = r.device
+    _check_streams("wkv7_fwd_v2", streams, (initial_state,))
+    if T == 0 or T % V2_CHUNK:
+        raise ValueError(f"wkv7_fwd_v2: T={T} must be a positive multiple of {V2_CHUNK}")
+    y = torch.empty_like(r)
+    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    lib = _v2_lib()
+    scratch = torch.empty(B * H * (T // V2_CHUNK) * lib.wkv7_v2_scratch_floats(),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.wkv7_fwd_v2(
+            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams),
+            _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), scratch.data_ptr(), _stream(dev),
+        )
+    cuda_build.check(lib, err, "wkv7_fwd_v2")
+    cuda_build.LAUNCHES["wkv7_fwd_v2"] += 1
+    return y, s_out
 
 
 def wkv7_fwd_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,

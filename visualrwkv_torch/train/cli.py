@@ -66,6 +66,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--n_data", default=None, type=int, help="data-parallel size (not ported)")
     p.add_argument("--n_seq", default=1, type=int, help="context-parallel size (not ported)")
     p.add_argument("--num_nodes", default=1, type=int, help="host processes (not ported)")
+    p.add_argument("--coordinator_address", default="", type=str,
+                   help="host:port of process 0 of a multi-process run (not ported; empty: one process)")
+    p.add_argument("--node_rank", default=-1, type=int,
+                   help="this process's id; one process ignores it, as the reference does")
     p.add_argument("--dummy", action="store_true", help="dummy-data smoke run")
     p.add_argument("--dtype", default="bfloat16", type=str)
     p.add_argument("--wkv_impl", default="auto", choices=["auto", "pallas", "chunked", "packed"],
@@ -73,8 +77,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    "the head-pair kernels, chunked the plain chunked form (the plain versions on "
                    "the CPU)")
     p.add_argument("--chunk_len", default=16, type=int, help="WKV chunk length (T is padded to it)")
-    p.add_argument("--param_dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="parameter storage dtype; bfloat16 keeps fp32 masters in the optimizer")
+    p.add_argument("--param_dtype", default="float32", choices=["float32", "bfloat16", "float16"],
+                   help="parameter storage dtype; below fp32 keeps fp32 masters in the optimizer")
     p.add_argument("--optim_precision", default="master_fp32", choices=["master_fp32", "bf16_sr"])
     p.add_argument("--stacked_layers", default=0, type=int, help="accepted and ignored")
     p.add_argument("--split_step", default=-1, type=int, help="accepted and ignored")
@@ -87,6 +91,7 @@ def check_ported(args) -> None:
         "--n_seq > 1": args.n_seq > 1,
         "--n_data > 1": (args.n_data or 1) > 1,
         "--num_nodes > 1": args.num_nodes > 1,
+        "--coordinator_address": bool(args.coordinator_address),
         "--model_path": bool(args.model_path),
     }
     for name, on in unported.items():
