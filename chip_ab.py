@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one card, in turns: the serving and training
-runs of their own ``chip_smoke.py`` and its K3 check, each side in a fresh
-process.
+runs of their own ``chip_smoke.py``, its K3 and K14 / K15 checks and its
+SAM-B gradient pass, each side in a fresh process.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR     # parent, change, change, parent
 
-Each side builds its kernels into its own ``build/``, then measures on the
-flagship VisualRWKV-7 1B5 (seeded random bf16 weights, full width): K3's
-device time at the phase-2 shapes, the TTFT and decode rate of one request
-and of four, and the step times of the main training run (1 + 3 steps),
-the packed run (1 + 3) and ``grad_cp="wkv"`` (1 + 2). One ``AB {json}``
-line a side; the card's name and power limit first.
+Each side builds its kernels into its own ``build/``, then measures: K3's
+device time at the phase-2 shapes; K14, K15 and the pair at every case of
+its ``check_attention_bwd`` (with the SDPA backward beside them, and each
+kernel's eager time: device time or the host's cost of a call, whichever
+is larger); SAM-B
+@1024's forward + backward to every parameter (phase 7's
+``run_tower_grad``: times and peak memory); and on the flagship
+VisualRWKV-7 1B5 (seeded random bf16 weights, full width) the TTFT and
+decode rate of one request and of four, and the step times of the main
+training run (1 + 3 steps), the packed run (1 + 3) and ``grad_cp="wkv"``
+(1 + 2). One ``AB {json}`` line a side; the card's name and power limit
+first.
 """
 
 from __future__ import annotations
@@ -32,13 +38,26 @@ def child(tree: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cuda_build.build(force=True)
+    for name, log in cuda_build.build(force=True).items():
+        if hasattr(cs, "parse_ptxas"):
+            cs.parse_ptxas(name, log)
     dev = torch.device("cuda", 0)
     out = {"tree": tree}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     relpos, mha = cs.check_attention(gen, dev)
     out["k3_ms"] = [r["kernel_ms"] for r in relpos[:1] + mha]
+    bwd = cs.check_attention_bwd(gen, dev)
+    out["attention_bwd"] = [
+        {"case": r14["case"], "k14_ms": r14["kernel_ms"], "k15_ms": r15["kernel_ms"],
+         "pair_ms": r14["pair_ms"], "pair_bound_ms": r14["pair_bound_ms"],
+         "sdpa_bwd_ms": r14["library_ms"], "k14_eager_ms": r14["kernel_eager_ms"],
+         "k15_eager_ms": r15["kernel_eager_ms"]}
+        for dq_cases, dkv_cases in bwd.values() for r14, r15 in zip(dq_cases, dkv_cases)]
+    torch.cuda.empty_cache()
+    sam, _ = cs.run_tower_grad("sam", cs.tower_grad_cfgs()["sam"], 0, dev)
+    out["sam_grad"] = {k: sam[k] for k in ("fwd_bwd_ms", "peak_gib")}
+    torch.cuda.empty_cache()
     cfg = cs.flagship_cfg()
     params = cs.build(cfg, 0, dev)
     runs, _, _, _ = cs.run_serving(cfg, params, dev, cs.NEW_TOKENS, 0)

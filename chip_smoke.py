@@ -16,8 +16,11 @@ Phases (any failure exits non-zero; nothing is caught):
    (``bound_ms``). The head-pair ("packed") kernels K11-K13 are held
    against their plain versions too, and K11 and K12 beside K1 and K5;
    K3 with its log-sum-exp output; the attention backward K14 / K15 with
-   and without the rel-pos bias (beside the SDPA backward); the chunked
-   WKV7 forward K16 beside K1.
+   the rel-pos bias (SAM-B at 1024, 768 and 512 pixels) and without (the
+   ViTs), beside the SDPA backward, each case logging its plan (K14's path
+   and key tile, K15's table staging, registers, spills, shared memory),
+   and at three more grid geometries against the plain version only; the
+   chunked WKV7 forward K16 beside K1.
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -779,15 +782,112 @@ def _sdpa_bwd_ms(q, k, v, do, mask=None, scale=None, reps=5):
     return both_ms - fwd_ms, both_ms, fwd_ms
 
 
+# ptxas's report of each kernel instantiation built in phase 1, by
+# (library, kernel, template arguments): {"registers": n, "spill_bytes": n}
+PTXAS = {}
+
+
+def parse_ptxas(name: str, out: str) -> None:
+    """Fill :data:`PTXAS` from one library's ``-Xptxas -v`` output."""
+    import re
+
+    key = None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:  # Itanium mangling: <length><identifier>, then I<template args>E
+            key, mangled, i = None, m.group(1), 0
+            while key is None:
+                part = re.compile(r"(\d+)[A-Za-z_]").search(mangled, i)
+                if part is None:
+                    break
+                start = part.start() + len(part.group(1))
+                ident = mangled[start:start + int(part.group(1))]
+                i = start + len(ident)
+                if ident.endswith("_kernel"):
+                    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+                    args = tuple(int(x) for x in re.findall(r"Li(-?\d+)E", targs.group(1))) if targs else ()
+                    key = (name, ident, args)
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            PTXAS.setdefault(key, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            PTXAS.setdefault(key, {})["registers"] = int(m.group(1))
+
+
+# Geometries of K14 / K15 held against the plain version but not timed: the
+# paths no tower at its published size takes (a grid width that is not a
+# multiple of 16, tables staged by plain loads, a grid wider than 64).
+ATTN_BWD_PATH_CASES = ((2, 12, 12), (2, 6, 9), (1, 80, 80))
+
+
+def _attention_bwd_inputs(gen, dev, layout, G, a1, a2, hd):
+    import torch
+
+    from visualrwkv_torch.vision import flash as pf
+
+    bf = torch.bfloat16
+    if layout == "sam":
+        Hk, Wk = a1, a2
+        N = Hk * Wk
+        shape = (G, N, hd)
+        rel_h = torch.randn(G, N, Hk, generator=gen, device=dev)
+        rel_w = torch.randn(G, N, Wk, generator=gen, device=dev)
+    else:
+        N, Hk, Wk = a1, 0, 0
+        shape = (1, N, G, hd)
+        rel_h = rel_w = None
+    scale = hd**-0.5
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf) for _ in range(3))
+    do = torch.randn(shape, generator=gen, device=dev).to(bf)
+    o, lse = pf.attention_fwd(q, k, v, rel_h, rel_w, scale, layout)
+    return N, Hk, Wk, scale, q, k, v, do, rel_h, rel_w, o, lse
+
+
+def attention_bwd_plan(hd, Hk, Wk):
+    """K14 / K15's plan for a geometry as the library reports it, held equal
+    to ``flash.bwd_plan`` (the Python side that tests reach), with ptxas's
+    registers and spills of the two instantiations it launches."""
+    from visualrwkv_torch.vision import flash as pf
+
+    plan, kplan = pf.bwd_plan(hd, Hk, Wk), pf.bwd_plan_kernel(hd, Hk, Wk)
+    for key in ("dq_path", "dq_key_tile", "dkv_hspan", "dkv_tables"):
+        assert plan[key] == kplan[key], (hd, Hk, Wk, plan, kplan)
+    plan.update(dq_smem=kplan["dq_smem"], dkv_smem=kplan["dkv_smem"])
+    dq_args = (hd, plan["dq_key_tile"], pf.BWD_PATHS.index(plan["dq_path"]))
+    dkv_args = (hd, pf.BWD_TABLES.index(plan["dkv_tables"]))
+    plan["dq_ptxas"] = PTXAS.get(("attention_bwd", "attention_bwd_dq_kernel", dq_args))
+    plan["dkv_ptxas"] = PTXAS.get(("attention_bwd", "attention_bwd_dkv_kernel", dkv_args))
+    return plan
+
+
+def _log_plan(case, plan):
+    def regs(p):
+        return "not parsed" if p is None else (f"{p.get('registers')} registers at entry, "
+                                               f"{p.get('spill_bytes', 0)} B spilled")
+
+    log(f"  attention backward [{case}] K14 path {plan['dq_path']} (key tile "
+        f"{plan['dq_key_tile']}), {regs(plan['dq_ptxas'])}, {plan['dq_smem']} B shared; K15 tables "
+        f"{plan['dkv_tables']} (rel_h columns {plan['dkv_hspan']}, {plan['dkv_table_bytes']} B a "
+        f"query tile), {regs(plan['dkv_ptxas'])}, {plan['dkv_smem']} B shared")
+
+
 def check_attention_bwd(gen, dev):
     """K14 (dq and the rel-pos tables' gradients) and K15 (dk, dv) against
     ``attention_bwd_plain`` on the same inputs on the card: o and lse from
     K3, a random output cotangent. SAM's global shape (G=12 heads, N=4096 =
-    64 x 64 grid, hd 64, bf16, fp32 tables) and the no-bias MHA of the ViT
-    towers (DINOv2-L N=1029 hd 64, SigLIP N=1024 hd 72, CLIP-L N=577 hd 64).
-    Each kernel timed alone (K15 from K14's delta) and beside the SDPA
-    backward (row 5: the bias as a mask), which computes dq, dk and dv
-    together: its time is the pair's yardstick."""
+    64 x 64 grid, hd 64, bf16, fp32 tables), SAM at 768 and 512 pixels (48
+    and 32 wide grids, G=2) and the no-bias MHA of the ViT towers (DINOv2-L
+    N=1029 hd 64, SigLIP N=1024 hd 72, CLIP-L N=577 hd 64). Each kernel
+    timed alone (K15 from K14's delta) and beside the SDPA backward (row 5:
+    the bias as a mask), which computes dq, dk and dv together: its time is
+    the pair's yardstick. Then the geometries of ``ATTN_BWD_PATH_CASES``,
+    held against the plain version only. Each case logs its plan: K14's
+    path and key tile, K15's table staging, registers, spills and shared
+    memory."""
     import torch
 
     from visualrwkv_torch.vision import flash as pf
@@ -795,27 +895,35 @@ def check_attention_bwd(gen, dev):
     bf = torch.bfloat16
     out = {"relpos": ([], []), "mha": ([], [])}
     cases = [("sam", 12, 64, 64, 64, "SAM-B global"),
-             # a grid narrower than a key tile: K14's shared-memory table sums
-             ("sam", 2, 48, 48, 64, "SAM-B global at 768 pixels")]
+             # grids narrower than 64: a key tile of K14 is one grid row of 48 / 32
+             ("sam", 2, 48, 48, 64, "SAM-B global at 768 pixels"),
+             ("sam", 2, 32, 32, 64, "SAM-B global at 512 pixels")]
     cases += [("mha", 16, N, 0, hd, tower) for N, hd, tower in
               ((1029, 64, "DINOv2-L"), (1024, 72, "SigLIP-so400m"), (577, 64, "CLIP-L/336"))]
+    for G, Hk, Wk in ATTN_BWD_PATH_CASES:
+        N, Hk, Wk, scale, q, k, v, do, rel_h, rel_w, o, lse = _attention_bwd_inputs(
+            gen, dev, "sam", G, Hk, Wk, 64)
+        case = f"path check: G={G} N={N} ({Hk}x{Wk} grid) hd=64 bf16, fp32 rel tables"
+        _log_plan(case, attention_bwd_plan(64, Hk, Wk))
+        dq, drh, drw, delta = pf.attention_bwd_dq_cuda(q, k, v, rel_h, rel_w, o, lse, do, scale, "sam")
+        dk, dv = pf.attention_bwd_dkv_cuda(q, k, v, rel_h, rel_w, do, lse, delta, scale, "sam")
+        ref = pf.attention_bwd_plain(q, k, v, rel_h, rel_w, o, lse, do, scale, "sam")
+        torch.cuda.synchronize()
+        c = Check("attention_bwd_dq_relpos + attention_bwd_dkv_relpos", case)
+        for what, got, want, tol in (("dq (bf16)", dq, ref[0], 1e-2), ("d rel_h (fp32)", drh, ref[3], 1e-3),
+                                     ("d rel_w (fp32)", drw, ref[4], 1e-3), ("dk (bf16)", dk, ref[1], 1e-2),
+                                     ("dv (bf16)", dv, ref[2], 1e-2)):
+            c.compare(what, got.float(), want.float(), tol)
+        del q, k, v, do, o, lse, dq, dk, dv, ref
     for layout, G, a1, a2, hd, tower in cases:
+        N, Hk, Wk, scale, q, k, v, do, rel_h, rel_w, o, lse = _attention_bwd_inputs(
+            gen, dev, layout, G, a1, a2, hd)
         if layout == "sam":
-            Hk, Wk = a1, a2
-            N = Hk * Wk
-            shape = (G, N, hd)
-            rel_h = torch.randn(G, N, Hk, generator=gen, device=dev)
-            rel_w = torch.randn(G, N, Wk, generator=gen, device=dev)
             case = f"{tower}: G={G} N={N} ({Hk}x{Wk} grid) hd={hd} bf16, fp32 rel tables"
         else:
-            N, Hk, Wk = a1, 0, 0
-            shape = (1, N, G, hd)
-            rel_h = rel_w = None
             case = f"{tower}: B=1 N={N} h={G} hd={hd} bf16, no bias"
-        scale = hd**-0.5
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf) for _ in range(3))
-        do = torch.randn(shape, generator=gen, device=dev).to(bf)
-        o, lse = pf.attention_fwd(q, k, v, rel_h, rel_w, scale, layout)
+        plan = attention_bwd_plan(hd, Hk, Wk)
+        _log_plan(case, plan)
         dq, drh, drw, delta = pf.attention_bwd_dq_cuda(q, k, v, rel_h, rel_w, o, lse, do, scale, layout)
         dk, dv = pf.attention_bwd_dkv_cuda(q, k, v, rel_h, rel_w, do, lse, delta, scale, layout)
         t_plain = cuda_ms(lambda: pf.attention_bwd_plain(q, k, v, rel_h, rel_w, o, lse, do, scale,
@@ -858,12 +966,14 @@ def check_attention_bwd(gen, dev):
         pair_bound, pair_by = bound(8 * elt + G * N * 4 + 2 * tables, 5 * mn, BF16_TENSOR_FLOPS)
         for rec in (r14, r15):
             rec.update(pair_ms=ms14 + ms15, pair_bound_ms=pair_bound, pair_bound_by=pair_by,
+                       pair_share_of_bound=pair_bound / (ms14 + ms15), plan=plan,
                        library_fwd_bwd_ms=lib_both, library_fwd_ms=lib_fwd,
                        library_is="SDPA backward (its forward + backward less its forward, "
                        "CUDA graphs): dq, dk and dv together (K14 + K15)",
                        plain_is="attention_bwd_plain: all five gradients (K14 + K15)")
         log(f"  attention backward [{case}] K14 + K15 {ms14 + ms15:.4f} ms, bound "
-            f"{pair_bound:.4f} ms ({pair_by}), SDPA backward {lib_ms:.4f} ms")
+            f"{pair_bound:.4f} ms ({pair_by}; share of bound {pair_bound / (ms14 + ms15):.3f}), "
+            f"SDPA backward {lib_ms:.4f} ms")
         out[key][0].append(r14)
         out[key][1].append(r15)
         del q, k, v, do, o, lse, dq, dk, dv, ref
@@ -1789,6 +1899,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"phase 1: built {sorted(build_logs)} with nvcc in {build_s:.1f} s (parallel, sm_90a)")
     for name, out in sorted(build_logs.items()):
+        parse_ptxas(name, out)
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{name}] {line.strip()}")

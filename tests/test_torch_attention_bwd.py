@@ -68,6 +68,62 @@ def test_sam_attention_gradients_match_jax_flash(G, H, W, hd):
         assert rel_rms(g, r) < TOL, (name, rel_rms(g, r))
 
 
+@pytest.mark.parametrize("G,H,W,hd", [(2, 12, 12, 16), (1, 6, 8, 16)], ids=["12x12", "6x8"])
+def test_sam_attention_gradients_narrow_grids_match_jax(G, H, W, hd):
+    """Grids narrower than 64, whose width is not a multiple of 16: K14 pads
+    a key tile of one grid row to 16 keys and masks the rest, K15 stages a
+    block's rel_h columns over several grid rows. N = 144 and 48 are not
+    multiples of 128, which ``sam_flash_attention`` needs, so the reference
+    is ``jax.grad`` of the JAX package's chunked ``sam_attend_reference``."""
+    xs = _sam_inputs(G, H, W, hd, seed=H * W)
+    scale = hd**-0.5
+    assert not jf.sam_flash_supported(H * W, W)
+
+    def loss(q, k, v, rh, rw):
+        return jnp.sum(jnp.sin(jf.sam_attend_reference(q, k, v, rh, rw, scale)))
+
+    ref = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(x) for x in xs))
+    got = _port_grads(lambda *t: pf.sam_attention(*t, scale), xs)
+    for name, g, r in zip(("q", "k", "v", "rel_h", "rel_w"), got, ref):
+        assert g.shape == r.shape
+        assert rel_rms(g, r) < TOL, (name, rel_rms(g, r))
+
+
+# (hd, Hk, Wk) -> what K14 / K15 launch: the cases of chip_smoke.py's
+# check_attention_bwd (SAM-B at 1024, 768 and 512 pixels; DINOv2-L, SigLIP,
+# CLIP-L without a bias) and of its ATTN_BWD_PATH_CASES
+_PLANS = {
+    (64, 64, 64): ("rows", 64, 3, "tma", 64 * (12 + 64) * 4),
+    (64, 48, 48): ("rows", 48, 4, "tma", 64 * (12 + 48) * 4),
+    (64, 32, 32): ("rows", 32, 5, "tma", 64 * (12 + 32) * 4),
+    (64, 0, 0): ("mha", 64, 0, "none", 0),
+    (72, 0, 0): ("mha", 64, 0, "none", 0),
+    (64, 12, 12): ("rows", 16, 12, "tma", 64 * (20 + 12) * 4),
+    (64, 6, 9): ("rows", 16, 6, "loads", 64 * (6 + 9) * 4),
+    (64, 80, 80): ("general", 64, 3, "tma", 64 * (12 + 80) * 4),
+    (72, 16, 16): ("general", 64, 9, "tma", 64 * (12 + 16) * 4),
+}
+
+
+@pytest.mark.parametrize("hd,Hk,Wk", list(_PLANS), ids=[f"{a}-{b}x{c}" for a, b, c in _PLANS])
+def test_bwd_plan(hd, Hk, Wk):
+    """``bwd_plan``, the Python side of the kernels' ``make_plan``: with a
+    bias and a grid at most 64 wide, a K14 key tile is one grid row padded
+    to a multiple of 16; a K15 block of 128 keys stages the rel_h columns of
+    the grid rows its keys can span (TMA from a column rounded down to a
+    multiple of 4, at least 3 more, 4 mod 8) and all of rel_w. ``chip_smoke.py`` holds it
+    equal to the compiled library's plan on the card."""
+    plan = pf.bwd_plan(hd, Hk, Wk)
+    path, tile, hspan, tables, nbytes = _PLANS[hd, Hk, Wk]
+    assert (plan["dq_path"], plan["dq_key_tile"], plan["dkv_hspan"], plan["dkv_tables"],
+            plan["dkv_table_bytes"]) == (path, tile, hspan, tables, nbytes)
+    if Hk:  # every grid row a block's 128 keys touch lies in its span
+        for k0 in range(0, Hk * Wk, pf.BWD_BLOCK_ROWS):
+            last = min(Hk * Wk, k0 + pf.BWD_BLOCK_ROWS) - 1
+            assert last // Wk - k0 // Wk < hspan
+        assert path != "rows" or tile >= Wk > tile - 16
+
+
 @pytest.mark.parametrize("N,hd", [(256, 32), (133, 32), (256, 72), (133, 72)])
 def test_mha_gradients_match_jax(N, hd):
     """133: a ragged tail, masked in K14 / K15; hd 72: SigLIP-so400m's head

@@ -107,3 +107,27 @@ def test_chip_scripts_import_no_jax_and_refuse_without_cuda():
     out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout, out.stdout + out.stderr
+
+
+def test_chip_smoke_reads_ptxas_report():
+    """``chip_smoke.parse_ptxas`` keys each kernel instantiation of an
+    ``-Xptxas -v`` report by its name and template arguments (the
+    attention backward's case log reads registers and spills from it)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    report = (
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__d8087c1d_16_attention_bwd_cu_"
+        "e1c8fcb123attention_bwd_dq_kernelILi64ELi48ELi1EEEvNS_4MapsEiif' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN49_GLOBAL__N__d8087c1d\n"
+        "    56 bytes stack frame, 52 bytes spill stores, 52 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 16 barriers, 56 bytes cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Z16wkv7_step_kernelIfLb1EEviii' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\n"
+    )
+    chip_smoke.PTXAS.clear()
+    chip_smoke.parse_ptxas("attention_bwd", report)
+    assert chip_smoke.PTXAS[("attention_bwd", "attention_bwd_dq_kernel", (64, 48, 1))] == {
+        "spill_bytes": 52, "registers": 168}
+    assert chip_smoke.PTXAS[("attention_bwd", "wkv7_step_kernel", ())] == {"registers": 40}
+    chip_smoke.PTXAS.clear()

@@ -1,5 +1,5 @@
-// Tiles shared by the vision towers' attention kernels: the forward K3
-// (attention.cu) and the backward K14 / K15 (attention_bwd.cu). A block has
+// Tiles of the vision towers' attention forward K3 (attention.cu; the
+// backward K14 / K15 build on hopper_tiles.cuh instead). A block has
 // 4 warps and covers 64 rows of one (batch, head) group g; tiles of 64 rows
 // x the head dim are staged in shared memory as bf16, the head dim
 // zero-padded to a multiple of 16 for the 16x16x16 WMMA fragments. Both
@@ -52,17 +52,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + row) * row_stride + col);
     *reinterpret_cast<uint4*>(dst + row * G::LDB + col) = val;
   }
-}
-
-// A lane's half of one output row: columns [ohalf, ohalf + COLS) of the
-// fp32 row ``x`` times ``mul``, as bf16, the padding columns >= HD dropped.
-template <int HD>
-__device__ __forceinline__ void store_row_half(bf16* out, const float* x, int ohalf, float mul) {
-#pragma unroll
-  for (int c = 0; c < Geom<HD>::COLS; c += 2)
-    if (ohalf + c < HD)
-      *reinterpret_cast<__nv_bfloat162*>(out + ohalf + c) =
-          __floats2bfloat162_rn(x[ohalf + c] * mul, x[ohalf + c + 1] * mul);
 }
 
 }  // namespace vattn

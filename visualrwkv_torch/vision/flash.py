@@ -189,8 +189,50 @@ def _bwd_lib() -> ctypes.CDLL:
         head = [_I, _I, _I, _I, ctypes.c_float] + [_P] * 5 + [_I, _I]
         lib.attention_bwd_dq.argtypes = head + [_P] * 8
         lib.attention_bwd_dkv.argtypes = head + [_P] * 6
+        lib.attention_bwd_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
         lib.attention_bwd_dq.restype = lib.attention_bwd_dkv.restype = _I
+        lib.attention_bwd_plan.restype = _I
     return lib
+
+
+BWD_BLOCK_ROWS = 128  # query rows of a K14 block, keys of a K15 block
+BWD_PATHS = ("mha", "rows", "general")  # K14's modes, in the kernel's numbering
+BWD_TABLES = ("none", "tma", "loads")  # how K15 stages the tables, likewise
+
+
+def bwd_plan(hd: int, Hk: int = 0, Wk: int = 0) -> dict:
+    """How K14 / K15 (``csrc/attention_bwd.cu``, ``make_plan``) tile a call;
+    ``Hk = Wk = 0`` without a bias. ``dq_path``: "mha" (no bias, 64-key
+    tiles), "rows" (a key tile is one grid row, ``Wk`` keys padded to
+    ``dq_key_tile``, a multiple of 16; head dim 64 and ``Wk <= 64``) or
+    "general" (64-key tiles, the tables' gradients summed in shared
+    memory). ``dkv_hspan``: the rel_h columns a K15 block of 128 keys
+    stages per query (the grid rows its keys can span; by TMA, from a
+    column rounded down to a multiple of 4, a box of at least ``hspan + 3``
+    columns, 4 mod 8); ``dkv_tables``:
+    "tma" (``Hk`` and ``Wk`` multiples of 4) or "loads" (the producer
+    threads copy them); ``dkv_table_bytes``: what a K15 block reads of both
+    tables per 64-query tile."""
+    if not Hk:
+        return {"dq_path": "mha", "dq_key_tile": 64, "dkv_hspan": 0, "dkv_tables": "none",
+                "dkv_table_bytes": 0}
+    hspan = min(Hk, (BWD_BLOCK_ROWS - 1) // Wk + 2)
+    rows = hd == 64 and Wk <= 64
+    tma = Hk % 4 == 0 and Wk % 4 == 0
+    return {"dq_path": "rows" if rows else "general",
+            "dq_key_tile": -(-Wk // 16) * 16 if rows else 64, "dkv_hspan": hspan,
+            "dkv_tables": "tma" if tma else "loads",
+            "dkv_table_bytes": 64 * (((hspan + 6) // 8 * 8 + 4 if tma else hspan) + Wk) * 4}
+
+
+def bwd_plan_kernel(hd: int, Hk: int = 0, Wk: int = 0) -> dict:
+    """The plan as the compiled library reports it (``attention_bwd_plan``):
+    the keys of :func:`bwd_plan` but ``dkv_table_bytes``, and each kernel's
+    dynamic shared memory (``dq_smem``, ``dkv_smem``, bytes)."""
+    out = (_I * 6)()
+    _bwd_lib().attention_bwd_plan(hd, int(Hk > 0), Hk, Wk, out)
+    return {"dq_path": BWD_PATHS[out[0]], "dq_key_tile": out[1], "dkv_hspan": out[2],
+            "dkv_tables": BWD_TABLES[out[3]], "dq_smem": out[4], "dkv_smem": out[5]}
 
 
 def _check_inputs(what: str, q: Tensor, k: Tensor, v: Tensor, G: int, N: int,
