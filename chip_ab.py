@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Two checkouts of the port on one card, in turns: the serving and training
-runs of their own ``chip_smoke.py``, its K3 and K14 / K15 checks and its
-SAM-B gradient pass, each side in a fresh process.
+runs of their own ``chip_smoke.py``, K3 at its timed cases, its K14 / K15
+checks and its SAM-B gradient pass, each side in a fresh process.
 
     python3 chip_ab.py PARENT_DIR CHANGE_DIR     # parent, change, change, parent
 
 Each side builds its kernels into its own ``build/``, then measures: K3's
-device time at the phase-2 shapes; K14, K15 and the pair at every case of
+device time and eager time through its own wrappers (``sam_attention``,
+``mha``) at every timed case of phase 2 (``K3_CASES``: SAM-B global at 1024,
+768 and 512 pixels with the rel-pos bias; DINOv2-L, SigLIP and CLIP-L
+without); K14, K15 and the pair at every case of
 its ``check_attention_bwd`` (with the SDPA backward beside them, and each
 kernel's eager time: device time or the host's cost of a call, whichever
 is larger); SAM-B
@@ -15,8 +18,8 @@ is larger); SAM-B
 VisualRWKV-7 1B5 (seeded random bf16 weights, full width) the TTFT and
 decode rate of one request and of four, and the step times of the main
 training run (1 + 3 steps), the packed run (1 + 3) and ``grad_cp="wkv"``
-(1 + 2). One ``AB {json}`` line a side; the card's name and power limit
-first.
+(1 + 2). One ``AB {json}`` line a side (with ptxas's registers and spills
+of its attention kernels); the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -25,6 +28,42 @@ import json
 import os
 import subprocess
 import sys
+
+# K3's timed cases: (layout, groups or heads, grid rows or N, grid columns,
+# head dim, name), B=1
+K3_CASES = (("sam", 12, 64, 64, 64, "SAM-B global"), ("sam", 2, 48, 48, 64, "SAM-B at 768 px"),
+            ("sam", 2, 32, 32, 64, "SAM-B at 512 px"), ("mha", 16, 1029, 0, 64, "DINOv2-L"),
+            ("mha", 16, 1024, 0, 72, "SigLIP-so400m"), ("mha", 16, 577, 0, 64, "CLIP-L/336"))
+
+
+def k3_times(cs, dev) -> list:
+    """K3 at every case of ``K3_CASES`` through the tree's own wrappers:
+    device time (CUDA graphs) and eager time, ms; then the eager time of a
+    call too small for the card to bound it (the host's cost of a call)."""
+    import torch
+
+    from visualrwkv_torch.vision import flash as pf
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    bf, out = torch.bfloat16, []
+    for layout, G, a1, a2, hd, name in K3_CASES:
+        if layout == "sam":
+            N = a1 * a2
+            q, k, v = (torch.randn(G, N, hd, generator=gen, device=dev).to(bf) for _ in range(3))
+            rel_h = torch.randn(G, N, a1, generator=gen, device=dev)
+            rel_w = torch.randn(G, N, a2, generator=gen, device=dev)
+            fn = lambda: pf.sam_attention(q, k, v, rel_h, rel_w, hd**-0.5)
+        else:
+            q, k, v = (torch.randn(1, a1, G, hd, generator=gen, device=dev).to(bf) for _ in range(3))
+            fn = lambda: pf.mha(q, k, v)
+        reps = 20 if G == 12 else 50
+        out.append({"case": name, "ms": cs.cuda_ms(fn, reps=reps), "eager_ms": cs.eager_ms(fn, reps=reps)})
+    # the host's cost of a call: back-to-back eager calls at a shape whose
+    # kernel takes less (B=1, N=64, one head)
+    q, k, v = (torch.randn(1, 64, 1, 64, generator=gen, device=dev).to(bf) for _ in range(3))
+    out.append({"case": "host cost: B=1 N=64 h=1 hd=64", "eager_ms": cs.eager_ms(lambda: pf.mha(q, k, v), reps=500)})
+    return out
 
 
 def child(tree: str) -> None:
@@ -42,11 +81,12 @@ def child(tree: str) -> None:
         if hasattr(cs, "parse_ptxas"):
             cs.parse_ptxas(name, log)
     dev = torch.device("cuda", 0)
-    out = {"tree": tree}
+    out = {"tree": tree,
+           "ptxas": {f"{kern}{list(args)}": v for (lib, kern, args), v in getattr(cs, "PTXAS", {}).items()
+                     if lib.startswith("attention")}}
+    out["k3"] = k3_times(cs, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    relpos, mha = cs.check_attention(gen, dev)
-    out["k3_ms"] = [r["kernel_ms"] for r in relpos[:1] + mha]
     bwd = cs.check_attention_bwd(gen, dev)
     out["attention_bwd"] = [
         {"case": r14["case"], "k14_ms": r14["kernel_ms"], "k15_ms": r15["kernel_ms"],

@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; nothing is caught):
    yardstick only) times and the least time the card could take
    (``bound_ms``). The head-pair ("packed") kernels K11-K13 are held
    against their plain versions too, and K11 and K12 beside K1 and K5;
-   K3 with its log-sum-exp output; the attention backward K14 / K15 with
+   K3 beside the SDPA forward with the rel-pos bias (SAM-B at 1024, 768
+   and 512 pixels) and without (the ViTs), with and without its
+   log-sum-exp output, each case logging its plan (path, key tile, block
+   rows, registers, spills: none may spill), and at five more geometries
+   against the plain version only; the attention backward K14 / K15 with
    the rel-pos bias (SAM-B at 1024, 768 and 512 pixels) and without (the
    ViTs), beside the SDPA backward, each case logging its plan (K14's path
    and key tile, K15's table staging, registers, spills, shared memory),
@@ -707,52 +711,111 @@ def check_wkv6_train(gen, dev):
     return fwd, bwd
 
 
+# Geometries of K14 / K15 held against the plain version but not timed: the
+# paths no tower at its published size takes (a grid width that is not a
+# multiple of 16, tables staged by plain loads, a grid wider than 64).
+ATTN_BWD_PATH_CASES = ((2, 12, 12), (2, 6, 9), (1, 80, 80))
+# Geometries of K3 held against the plain version but not timed, (G, Hk, Wk,
+# hd): those of ATTN_BWD_PATH_CASES (the "rows" path with a 16-key tile, and
+# "general" past 64 columns), a bias with hd 72 and a grid taller than
+# flash.FWD_ROWS_MAX_HK (both "general").
+ATTN_FWD_PATH_CASES = tuple((G, Hk, Wk, 64) for G, Hk, Wk in ATTN_BWD_PATH_CASES) + (
+    (2, 16, 16, 72), (1, 300, 4, 64))
+
+
+def attention_fwd_plan(hd, Hk, Wk, case):
+    """K3's plan for a geometry as the library reports it, held equal to
+    ``flash.fwd_plan`` (the Python side that tests reach), with ptxas's
+    registers and spills of the instantiation it launches; logged."""
+    from visualrwkv_torch.vision import flash as pf
+
+    plan, kplan = pf.fwd_plan(hd, Hk, Wk), pf.fwd_plan_kernel(hd, Hk, Wk)
+    for key in ("path", "key_tile", "block_rows"):
+        assert plan[key] == kplan[key], (hd, Hk, Wk, plan, kplan)
+    plan["smem"] = kplan["smem"]
+    p = PTXAS.get(("attention", "attention_fwd_kernel",
+                   (hd, plan["key_tile"], pf.PATHS.index(plan["path"]), plan["block_rows"] // 64)))
+    plan["ptxas"] = p
+    regs = "not parsed" if p is None else (f"{p.get('registers')} registers at entry, "
+                                           f"{p.get('spill_bytes', 0)} B spilled")
+    log(f"  attention forward [{case}] K3 path {plan['path']} (key tile {plan['key_tile']}, "
+        f"{plan['block_rows']} query rows a block), {regs}, {plan['smem']} B shared")
+    return plan
+
+
 def check_attention(gen, dev):
+    """K3 against its plain version on the card, and timed beside the SDPA
+    forward (with the rel-pos bias as its mask): SAM-B's global shape (G=12,
+    N=4096 = 64 x 64 grid, hd 64, bf16, fp32 tables), with and without the
+    lse output; SAM-B at 768 and 512 pixels (G=2, 48 x 48 and 32 x 32 grids:
+    the "rows" path with 48- and 32-key tiles); the no-bias MHA of the ViT
+    towers (DINOv2-L N=1029 hd 64, SigLIP N=1024 hd 72, CLIP-L N=577 hd 64,
+    B=1, 16 heads), without and with the lse output (as AttentionFunction
+    runs them). Then the geometries of ``ATTN_FWD_PATH_CASES``, held against
+    the plain version only. Each case logs its plan; no K3 instantiation
+    may spill (ptxas's report of phase 1)."""
     import torch
     import torch.nn.functional as F
 
     from visualrwkv_torch.vision import flash as pf
 
+    k3 = {k: v for k, v in PTXAS.items() if k[:2] == ("attention", "attention_fwd_kernel")}
+    assert all(v.get("spill_bytes", 0) == 0 for v in k3.values()), f"K3 spills: {k3}"
     bf = torch.bfloat16
     relpos, mha = [], []
 
-    G, Hk, Wk, hd = 12, 64, 64, 64
-    N = Hk * Wk
-    q, k, v = (torch.randn(G, N, hd, generator=gen, device=dev).to(bf) for _ in range(3))
-    rel_h = torch.randn(G, N, Hk, generator=gen, device=dev)
-    rel_w = torch.randn(G, N, Wk, generator=gen, device=dev)
-    scale = hd**-0.5
-    c = Check("attention_fwd_relpos", f"G={G} N={N} ({Hk}x{Wk} grid) hd={hd} bf16, fp32 rel tables")
-    o = pf.sam_attention(q, k, v, rel_h, rel_w, scale)
-    o_ref = pf.sam_attend_reference(q, k, v, rel_h, rel_w, scale)
-    torch.cuda.synchronize()
-    c.compare("out (bf16)", o.float(), o_ref.float(), 1e-2)
-    fn = lambda: pf.sam_attention(q, k, v, rel_h, rel_w, scale)
-    k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
-    p_ms = cuda_ms(lambda: pf.sam_attend_reference(q, k, v, rel_h, rel_w, scale), reps=3, warmup=1)
-    mask = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(G, N, N).to(bf)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), reps=5)
-    del mask
-    nbytes = 4 * G * N * hd * 2 + G * N * (Hk + Wk) * 4
-    relpos.append(c.record(k_ms, p_ms, lib_ms, nbytes, 4 * G * N * N * hd, BF16_TENSOR_FLOPS, k_eager))
-    # K3 with its lse output, as AttentionFunction runs it under autograd
-    c = Check("attention_fwd_relpos", f"G={G} N={N} hd={hd} bf16, with the lse output")
-    o, lse = pf.attention_fwd(q, k, v, rel_h, rel_w, scale, "sam")
-    o_ref, lse_ref = pf.attention_fwd_plain(q, k, v, rel_h, rel_w, scale, "sam")
-    torch.cuda.synchronize()
-    c.compare("out (bf16)", o.float(), o_ref.float(), 1e-2)
-    c.compare("lse (fp32)", lse, lse_ref, 1e-3)
-    fn = lambda: pf.attention_fwd(q, k, v, rel_h, rel_w, scale, "sam")
-    k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
-    p_ms = cuda_ms(lambda: pf.attention_fwd_plain(q, k, v, rel_h, rel_w, scale, "sam"), reps=3,
-                   warmup=1)
-    relpos.append(c.record(k_ms, p_ms, None, nbytes + G * N * 4, 4 * G * N * N * hd,
-                           BF16_TENSOR_FLOPS, k_eager))
+    def sam_inputs(G, Hk, Wk, hd):
+        N = Hk * Wk
+        q, k, v = (torch.randn(G, N, hd, generator=gen, device=dev).to(bf) for _ in range(3))
+        rel_h = torch.randn(G, N, Hk, generator=gen, device=dev)
+        rel_w = torch.randn(G, N, Wk, generator=gen, device=dev)
+        return N, q, k, v, rel_h, rel_w, hd**-0.5
+
+    for G, Hk, Wk, tower in ((12, 64, 64, "SAM-B global"), (2, 48, 48, "SAM-B global at 768 pixels"),
+                             (2, 32, 32, "SAM-B global at 512 pixels")):
+        hd = 64
+        N, q, k, v, rel_h, rel_w, scale = sam_inputs(G, Hk, Wk, hd)
+        case = f"{tower}: G={G} N={N} ({Hk}x{Wk} grid) hd={hd} bf16, fp32 rel tables"
+        attention_fwd_plan(hd, Hk, Wk, case)
+        c = Check("attention_fwd_relpos", case)
+        o = pf.sam_attention(q, k, v, rel_h, rel_w, scale)
+        o_ref = pf.sam_attend_reference(q, k, v, rel_h, rel_w, scale)
+        torch.cuda.synchronize()
+        c.compare("out (bf16)", o.float(), o_ref.float(), 1e-2)
+        fn = lambda: pf.sam_attention(q, k, v, rel_h, rel_w, scale)
+        reps = 20 if G == 12 else 50
+        k_ms, k_eager = cuda_ms(fn, reps=reps), eager_ms(fn, reps=reps)
+        p_ms = cuda_ms(lambda: pf.sam_attend_reference(q, k, v, rel_h, rel_w, scale), reps=3, warmup=1)
+        mask = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(G, N, N).to(bf)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+                         reps=5 if G == 12 else 20)
+        del mask
+        nbytes = 4 * G * N * hd * 2 + G * N * (Hk + Wk) * 4
+        relpos.append(c.record(k_ms, p_ms, lib_ms, nbytes, 4 * G * N * N * hd, BF16_TENSOR_FLOPS, k_eager))
+        if G != 12:
+            continue
+        # K3 with its lse output, as AttentionFunction runs it under autograd
+        c = Check("attention_fwd_relpos", f"G={G} N={N} hd={hd} bf16, with the lse output")
+        o, lse = pf.attention_fwd(q, k, v, rel_h, rel_w, scale, "sam")
+        o_ref, lse_ref = pf.attention_fwd_plain(q, k, v, rel_h, rel_w, scale, "sam")
+        torch.cuda.synchronize()
+        c.compare("out (bf16)", o.float(), o_ref.float(), 1e-2)
+        c.compare("lse (fp32)", lse, lse_ref, 1e-3)
+        fn = lambda: pf.attention_fwd(q, k, v, rel_h, rel_w, scale, "sam")
+        k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
+        p_ms = cuda_ms(lambda: pf.attention_fwd_plain(q, k, v, rel_h, rel_w, scale, "sam"), reps=3,
+                       warmup=1)
+        relpos.append(c.record(k_ms, p_ms, None, nbytes + G * N * 4, 4 * G * N * N * hd,
+                               BF16_TENSOR_FLOPS, k_eager))
 
     B, h = 1, 16
-    for N, hd, tower in ((1029, 64, "DINOv2-L"), (1024, 72, "SigLIP-so400m"), (577, 64, "CLIP-L/336")):
+    vits = ((1029, 64, "DINOv2-L"), (1024, 72, "SigLIP-so400m"), (577, 64, "CLIP-L/336"))
+    lse_cases = []
+    for N, hd, tower in vits:
         q, k, v = (torch.randn(B, N, h, hd, generator=gen, device=dev).to(bf) for _ in range(3))
-        c = Check("attention_fwd_mha", f"{tower}: B={B} N={N} h={h} hd={hd} bf16")
+        case = f"{tower}: B={B} N={N} h={h} hd={hd} bf16"
+        attention_fwd_plan(hd, 0, 0, case)
+        c = Check("attention_fwd_mha", case)
         o = pf.mha(q, k, v)
         o_ref = pf.mha_reference(q, k, v)
         torch.cuda.synchronize()
@@ -764,6 +827,32 @@ def check_attention(gen, dev):
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=50)
         nbytes = 4 * B * N * h * hd * 2
         mha.append(c.record(k_ms, p_ms, lib_ms, nbytes, 4 * B * h * N * N * hd, BF16_TENSOR_FLOPS, k_eager))
+        # with the lse output, as AttentionFunction runs it under autograd
+        scale = hd**-0.5
+        c = Check("attention_fwd_mha", f"{case}, with the lse output")
+        o, lse = pf.attention_fwd(q, k, v, None, None, scale, "mha")
+        o_ref, lse_ref = pf.attention_fwd_plain(q, k, v, None, None, scale, "mha")
+        torch.cuda.synchronize()
+        c.compare("out (bf16)", o.float(), o_ref.float(), 1e-2)
+        c.compare("lse (fp32)", lse, lse_ref, 1e-3)
+        fn = lambda: pf.attention_fwd(q, k, v, None, None, scale, "mha")
+        k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
+        p_ms = cuda_ms(lambda: pf.attention_fwd_plain(q, k, v, None, None, scale, "mha"), reps=20)
+        lse_cases.append(c.record(k_ms, p_ms, None, nbytes + B * h * N * 4, 4 * B * h * N * N * hd,
+                                  BF16_TENSOR_FLOPS, k_eager))
+    mha += lse_cases
+
+    for G, Hk, Wk, hd in ATTN_FWD_PATH_CASES:
+        N, q, k, v, rel_h, rel_w, scale = sam_inputs(G, Hk, Wk, hd)
+        case = f"path check: G={G} N={N} ({Hk}x{Wk} grid) hd={hd} bf16, fp32 rel tables"
+        attention_fwd_plan(hd, Hk, Wk, case)
+        c = Check("attention_fwd_relpos", case)
+        o, lse = pf.attention_fwd(q, k, v, rel_h, rel_w, scale, "sam")
+        o_ref, lse_ref = pf.attention_fwd_plain(q, k, v, rel_h, rel_w, scale, "sam")
+        torch.cuda.synchronize()
+        c.compare("out (bf16)", o.float(), o_ref.float(), 1e-2)
+        c.compare("lse (fp32)", lse, lse_ref, 1e-3)
+        del q, k, v, rel_h, rel_w, o, o_ref, lse, lse_ref
     return relpos, mha
 
 
@@ -818,12 +907,6 @@ def parse_ptxas(name: str, out: str) -> None:
             PTXAS.setdefault(key, {})["registers"] = int(m.group(1))
 
 
-# Geometries of K14 / K15 held against the plain version but not timed: the
-# paths no tower at its published size takes (a grid width that is not a
-# multiple of 16, tables staged by plain loads, a grid wider than 64).
-ATTN_BWD_PATH_CASES = ((2, 12, 12), (2, 6, 9), (1, 80, 80))
-
-
 def _attention_bwd_inputs(gen, dev, layout, G, a1, a2, hd):
     import torch
 
@@ -857,7 +940,7 @@ def attention_bwd_plan(hd, Hk, Wk):
     for key in ("dq_path", "dq_key_tile", "dkv_hspan", "dkv_tables"):
         assert plan[key] == kplan[key], (hd, Hk, Wk, plan, kplan)
     plan.update(dq_smem=kplan["dq_smem"], dkv_smem=kplan["dkv_smem"])
-    dq_args = (hd, plan["dq_key_tile"], pf.BWD_PATHS.index(plan["dq_path"]))
+    dq_args = (hd, plan["dq_key_tile"], pf.PATHS.index(plan["dq_path"]))
     dkv_args = (hd, pf.BWD_TABLES.index(plan["dkv_tables"]))
     plan["dq_ptxas"] = PTXAS.get(("attention_bwd", "attention_bwd_dq_kernel", dq_args))
     plan["dkv_ptxas"] = PTXAS.get(("attention_bwd", "attention_bwd_dkv_kernel", dkv_args))

@@ -87,7 +87,7 @@ def test_unported_options_raise():
 
 _IMPORT_SCRIPTS = """
 import sys
-import chip_ab, chip_smoke
+import chip_ab, chip_smoke, chip_variants
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "visualrwkv_tpu"))
 assert not bad, bad
 """

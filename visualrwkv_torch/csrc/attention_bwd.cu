@@ -89,8 +89,6 @@ constexpr int ROWS = 64 * NC;         // query rows (K14) or keys (K15) a block
 constexpr int DQ_STAGES = 3;
 constexpr float LOG2E = 1.4426950408889634f;
 
-enum Mode { NOBIAS = 0, GRID_ROWS = 1, GENERAL = 2 };
-
 // K15's two consumer warpgroups take turns to issue a tile's first
 // products (named barriers 3 and 4, over both): while one warpgroup's
 // products run on the tensor cores, the other computes p and dS. Each issue
@@ -110,93 +108,14 @@ Plan make_plan(int hd, bool bias, int Hk, int Wk) {
   if (!bias) return {NOBIAS, 64, 0, 0};
   const int hspan = (127 / Wk + 2) < Hk ? (127 / Wk + 2) : Hk;
   const int tables = Hk % 4 == 0 && Wk % 4 == 0 ? 1 : 2;
-  if (hd == 64 && Wk <= 64) return {GRID_ROWS, (Wk + 15) / 16 * 16, hspan, tables};
+  if (hd == 64 && Wk <= 64) return {GRID_ROWS, grid_rows_tile(Wk), hspan, tables};
   return {GENERAL, 64, hspan, tables};
-}
-
-// The swizzled tiles need 1024-byte aligned bases: the launch asks for
-// 1024 bytes more than the layout and the kernel aligns its pointer.
-constexpr int SMEM_ALIGN = 1024;
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((SMEM_ALIGN - (smem_u32(p) & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1));
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x on the multi-function unit; 0 at -inf
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Tiles of a [rows x hd] bf16 block: the first 64 columns with the 128-byte
-// swizzle (128 bytes a row) and, for hd 72, columns 64..79 with the 32-byte
-// swizzle (32 bytes a row).
-template <int HD>
-struct Cols {
-  static constexpr bool TAIL = HD > 64;
-  static constexpr int KSTEPS = TAIL ? 5 : 4;     // 16-column steps of a product over hd
-  __host__ __device__ static constexpr int tile_bytes(int rows) { return rows * 128; }
-  __host__ __device__ static constexpr int tail_bytes(int rows) { return TAIL ? rows * 32 : 0; }
-};
-
-// K-major descriptor of 16-column step kk of a [rows x hd] tile whose row r0
-// starts the operand (main tile at `m`, tail at `t`).
-template <int HD>
-__device__ __forceinline__ uint64_t desc_k(const unsigned char* m, const unsigned char* t, int r0,
-                                           int kk) {
-  if (Cols<HD>::TAIL && kk == 4) return make_desc(t + r0 * 32, SW32);
-  return make_desc(m + r0 * 128 + kk * 32, SW128);
-}
-
-// MN-major descriptors of 16-row step kb (rows are the reduction dimension):
-// the first 64 columns, and the tail's 16.
-__device__ __forceinline__ uint64_t desc_mn(const unsigned char* m, int kb) {
-  return make_desc(m + kb * 16 * 128, SW128);
-}
-__device__ __forceinline__ uint64_t desc_mn_tail(const unsigned char* t, int kb) {
-  return make_desc(t + kb * 16 * 32, SW32);
 }
 
 struct Maps {
   CUtensorMap q[2], dout[2], k[2], v[2];  // [0] columns 0..63, [1] 64..79 (hd 72)
   CUtensorMap rh, rw;                     // K15's table slices (TAB_TMA)
 };
-
-// Issue the TMA loads of `rows` rows from row `row0` of one tensor's maps
-// into a main tile and a tail tile.
-template <int HD>
-__device__ __forceinline__ void load_rows(const CUtensorMap (&m)[2], unsigned char* main,
-                                          unsigned char* tail, uint64_t* bar, int head, int row0,
-                                          int b) {
-  tma_load_4d(main, &m[0], bar, 0, head, row0, b);
-  if (Cols<HD>::TAIL) tma_load_4d(tail, &m[1], bar, 64, head, row0, b);
-}
-
-// Store a 64 x HD accumulator (its first 64 columns in d, the tail's 16 in
-// dt) times `mul` as bf16 rows `row0 + r` of `out`, rows past N dropped.
-template <int HD>
-__device__ __forceinline__ void store_acc(bf16* out, size_t row_stride, int N, int row0,
-                                          const float (&d)[32], const float (&dt)[8], float mul) {
-  const int t = threadIdx.x & 127, r = 16 * (t >> 5) + ((t & 31) >> 2), c = t & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + r + 8 * h;
-    if (row >= N) continue;
-    bf16* o = out + (size_t)row * row_stride;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + 2 * c) =
-          __floats2bfloat162_rn(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
-    if (Cols<HD>::TAIL) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = 64 + 8 * j + 2 * c;
-        if (col < HD)
-          *reinterpret_cast<__nv_bfloat162*>(o + col) =
-              __floats2bfloat162_rn(dt[4 * j + 2 * h] * mul, dt[4 * j + 2 * h + 1] * mul);
-      }
-    }
-  }
-}
 
 // ------------------------------------------------------------------ K14
 
@@ -480,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, 1) attention_bwd_dq_kernel(
     ring.advance();
   }
 
-  store_acc<HD>(dq + base, row_stride, N, q0, dqa, dqt, scale);
+  store_acc<HD>(dq + base, row_stride, N, q0, dqa, dqt, scale, scale);
   if (MODE == GRID_ROWS) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -784,42 +703,22 @@ __global__ void __launch_bounds__(THREADS, 1) attention_bwd_dkv_kernel(
 
   const size_t row_stride = (size_t)heads * HD;
   const size_t base = ((size_t)b * N * heads + head) * HD;
-  store_acc<HD>(dk + base, row_stride, N, kw0, dka, dkt, scale);
-  store_acc<HD>(dv + base, row_stride, N, kw0, dva, dvt, 1.f);
+  store_acc<HD>(dk + base, row_stride, N, kw0, dka, dkt, scale, scale);
+  store_acc<HD>(dv + base, row_stride, N, kw0, dva, dvt, 1.f, 1.f);
 }
 
 // ------------------------------------------------------------------ host
-
-int check_geometry(int G, int N, int heads, int hd, const void* rel_h, const void* rel_w, int Hk,
-                   int Wk) {
-  if (G <= 0 || N <= 0 || heads <= 0 || G % heads || (hd != 64 && hd != 72))
-    return (int)cudaErrorInvalidValue;
-  if ((rel_h == nullptr) != (rel_w == nullptr)) return (int)cudaErrorInvalidValue;
-  if (rel_h != nullptr && (Hk <= 0 || Wk <= 0 || Hk * Wk != N)) return (int)cudaErrorInvalidValue;
-  return 0;
-}
 
 // Tensor maps of q, dout, k, v with boxes of `qrows` (q, dout) and `krows`
 // (k, v) tokens.
 int make_maps(Maps* m, int G, int N, int heads, int hd, const void* q, const void* dout,
               const void* k, const void* v, int qrows, int krows) {
   const int B = G / heads;
-  const void* ptrs[4] = {q, dout, k, v};
-  CUtensorMap* maps[4] = {m->q, m->dout, m->k, m->v};
-  for (int i = 0; i < 4; ++i) {
-    const int rows = i < 2 ? qrows : krows;
-    if (ptrs[i] == nullptr) continue;
-    int e = hopper_host::make_rows_map(&maps[i][0], ptrs[i], B, N, heads, hd, rows, 64);
-    if (!e && hd > 64) e = hopper_host::make_rows_map(&maps[i][1], ptrs[i], B, N, heads, hd, rows, 16);
-    if (e) return e;
-  }
-  return 0;
-}
-
-template <typename K>
-int set_smem(K kernel, size_t smem) {
-  if (smem > 232448) return (int)cudaErrorInvalidValue;  // more than a block can have
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int e = hopper_host::make_head_maps(m->q, q, B, N, heads, hd, qrows);
+  if (!e) e = hopper_host::make_head_maps(m->dout, dout, B, N, heads, hd, qrows);
+  if (!e) e = hopper_host::make_head_maps(m->k, k, B, N, heads, hd, krows);
+  if (!e) e = hopper_host::make_head_maps(m->v, v, B, N, heads, hd, krows);
+  return e;
 }
 
 // Dynamic shared memory of a K14 / K15 launch (the layouts' arithmetic at
@@ -848,7 +747,8 @@ int launch_dq(const Maps& maps, int G, int N, int heads, float scale, const void
   static_assert(DqLayout<HD, BKN>::TABLES == dq_tables(HD, BKN), "K14 layout");
   const size_t smem = dq_smem(HD, BKN, MODE, Hk, Wk);
   auto kernel = attention_bwd_dq_kernel<HD, BKN, MODE>;
-  const int e = set_smem(kernel, smem);
+  static hopper_host::SmemOptIn opt_in;
+  const int e = opt_in(kernel, smem);
   if (e) return e;
   const dim3 grid((N + ROWS - 1) / ROWS, G);
   kernel<<<grid, THREADS, smem, st>>>(maps, N, heads, scale, (const float*)rel_h,
@@ -865,7 +765,8 @@ int launch_dkv(const Maps& maps, int G, int N, int heads, float scale, const voi
   static_assert(DkvLayout<HD>::TABLES == dkv_tables(HD), "K15 layout");
   const size_t smem = dkv_smem(HD, TAB, Wk, hspan);
   auto kernel = attention_bwd_dkv_kernel<HD, TAB>;
-  const int e = set_smem(kernel, smem);
+  static hopper_host::SmemOptIn opt_in;
+  const int e = opt_in(kernel, smem);
   if (e) return e;
   const dim3 grid((N + ROWS - 1) / ROWS, G);
   kernel<<<grid, THREADS, smem, st>>>(maps, N, heads, scale, (const float*)rel_h,
@@ -901,7 +802,7 @@ int attention_bwd_dq(int G, int N, int heads, int hd, float scale, const void* q
                      const void* k, const void* v, const void* rel_h, const void* rel_w,
                      int Hk, int Wk, const void* o, const void* dout, const void* lse,
                      void* delta, void* dq, void* drh, void* drw, void* stream) {
-  const int bad = check_geometry(G, N, heads, hd, rel_h, rel_w, Hk, Wk);
+  const int bad = hopper_host::check_geometry(G, N, heads, hd, rel_h, rel_w, Hk, Wk);
   if (bad) return bad;
   if ((rel_h == nullptr) != (drh == nullptr) || (rel_w == nullptr) != (drw == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -935,7 +836,7 @@ int attention_bwd_dkv(int G, int N, int heads, int hd, float scale, const void* 
                       const void* k, const void* v, const void* rel_h, const void* rel_w,
                       int Hk, int Wk, const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, void* stream) {
-  const int bad = check_geometry(G, N, heads, hd, rel_h, rel_w, Hk, Wk);
+  const int bad = hopper_host::check_geometry(G, N, heads, hd, rel_h, rel_w, Hk, Wk);
   if (bad) return bad;
   const cudaStream_t st = (cudaStream_t)stream;
   const Plan p = make_plan(hd, rel_h != nullptr, Hk, Wk);

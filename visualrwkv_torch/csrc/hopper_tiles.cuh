@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
 // tile loads and their tensor maps, the shared-memory matrix descriptors of
-// wgmma and the wgmma instructions themselves, and a ring of stages shared
-// by a producer and its consumers. Used by the attention backward K14 / K15
-// (attention_bwd.cu); written to be taken up by the forward K3 as well.
+// wgmma and the wgmma instructions themselves, a ring of stages shared by a
+// producer and its consumers, and the tiles of the vision towers' attention
+// over [B, N, heads, hd] read in place. Used by the attention forward K3
+// (attention.cu) and backward K14 / K15 (attention_bwd.cu).
 //
 // Layouts. A tile of bf16 rows is brought in by TMA with a 128-byte swizzle
 // (CU_TENSOR_MAP_SWIZZLE_128B, 64 columns a row) or, for the 16 columns of a
@@ -260,6 +261,101 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
 
+
+// ---------------------------------------------------------------- attention tiles
+
+// The swizzled tiles need 1024-byte aligned bases: a launch asks for
+// SMEM_ALIGN bytes more than its layout and the kernel aligns its pointer.
+constexpr int SMEM_ALIGN = 1024;
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((SMEM_ALIGN - (smem_u32(p) & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the multi-function unit; 0 at -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// How a kernel with the decomposed bias walks the keys: NOBIAS and GENERAL
+// take 64-key tiles; GRID_ROWS (head dim 64, a grid at most 64 wide) takes
+// one grid row of Wk keys a tile, padded to a multiple of 16 and masked, so
+// that a thread owns the same grid columns in every tile.
+enum Mode { NOBIAS = 0, GRID_ROWS = 1, GENERAL = 2 };
+
+__host__ __device__ constexpr int grid_rows_tile(int Wk) { return (Wk + 15) / 16 * 16; }
+
+// Tiles of a [rows x hd] bf16 block: the first 64 columns with the 128-byte
+// swizzle (128 bytes a row) and, for hd 72, columns 64..79 with the 32-byte
+// swizzle (32 bytes a row; TMA's zero fill pads columns 72..79).
+template <int HD>
+struct Cols {
+  static_assert(HD == 64 || HD == 72, "head dims 64 and 72");
+  static constexpr bool TAIL = HD > 64;
+  static constexpr int KSTEPS = TAIL ? 5 : 4;     // 16-column steps of a product over hd
+  __host__ __device__ static constexpr int tile_bytes(int rows) { return rows * 128; }
+  __host__ __device__ static constexpr int tail_bytes(int rows) { return TAIL ? rows * 32 : 0; }
+};
+
+// K-major descriptor of 16-column step kk of a [rows x hd] tile whose row r0
+// starts the operand (main tile at `m`, tail at `t`).
+template <int HD>
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* m, const unsigned char* t, int r0,
+                                           int kk) {
+  if (Cols<HD>::TAIL && kk == 4) return make_desc(t + r0 * 32, SW32);
+  return make_desc(m + r0 * 128 + kk * 32, SW128);
+}
+
+// MN-major descriptors of 16-row step kb (rows are the reduction dimension):
+// the first 64 columns, and the tail's 16.
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* m, int kb) {
+  return make_desc(m + kb * 16 * 128, SW128);
+}
+__device__ __forceinline__ uint64_t desc_mn_tail(const unsigned char* t, int kb) {
+  return make_desc(t + kb * 16 * 32, SW32);
+}
+
+// Issue the TMA loads of a box of rows from token `row0` of one head's
+// maps (hopper_host::make_head_maps) into a main tile and a tail tile.
+template <int HD>
+__device__ __forceinline__ void load_rows(const CUtensorMap (&m)[2], unsigned char* main,
+                                          unsigned char* tail, uint64_t* bar, int head, int row0,
+                                          int b) {
+  tma_load_4d(main, &m[0], bar, 0, head, row0, b);
+  if (Cols<HD>::TAIL) tma_load_4d(tail, &m[1], bar, 64, head, row0, b);
+}
+
+// Store a 64 x HD accumulator of a warpgroup (its first 64 columns in d, the
+// tail's 16 in dt) as bf16 rows `row0 + r` of `out`, row r times mul0 and
+// row r + 8 times mul1 (the two rows a thread holds), rows past N dropped
+// and columns past HD never written.
+template <int HD>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t row_stride, int N, int row0,
+                                          const float (&d)[32], const float (&dt)[8], float mul0,
+                                          float mul1) {
+  const int t = threadIdx.x & 127, r = 16 * (t >> 5) + ((t & 31) >> 2), c = t & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r + 8 * h;
+    const float mul = h ? mul1 : mul0;
+    if (row >= N) continue;
+    __nv_bfloat16* o = out + (size_t)row * row_stride;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + 2 * c) =
+          __floats2bfloat162_rn(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
+    if (Cols<HD>::TAIL) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 64 + 8 * j + 2 * c;
+        if (col < HD)
+          *reinterpret_cast<__nv_bfloat162*>(o + col) =
+              __floats2bfloat162_rn(dt[4 * j + 2 * h] * mul, dt[4 * j + 2 * h + 1] * mul);
+      }
+    }
+  }
+}
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------- host side
@@ -309,6 +405,47 @@ inline int make_rows_map(CUtensorMap* map, const void* base, int B, int N, int h
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
+
+// The two maps of one [B][N][heads][hd] tensor: m[0] columns 0..63 (128-byte
+// swizzle), m[1] columns 64..79 (32-byte swizzle; hd 72 only), boxes of
+// `rows` tokens. Returns a CUDA error or 0.
+inline int make_head_maps(CUtensorMap (&m)[2], const void* base, int B, int N, int heads, int hd,
+                          int rows) {
+  int e = make_rows_map(&m[0], base, B, N, heads, hd, rows, 64);
+  if (!e && hd > 64) e = make_rows_map(&m[1], base, B, N, heads, hd, rows, 16);
+  return e;
+}
+
+// The geometry the attention kernels take: G groups of `heads` heads,
+// head dim 64 or 72, and both rel-pos tables or neither, Hk * Wk = N.
+inline int check_geometry(int G, int N, int heads, int hd, const void* rel_h, const void* rel_w,
+                          int Hk, int Wk) {
+  if (G <= 0 || N <= 0 || heads <= 0 || G % heads || (hd != 64 && hd != 72))
+    return (int)cudaErrorInvalidValue;
+  if ((rel_h == nullptr) != (rel_w == nullptr)) return (int)cudaErrorInvalidValue;
+  if (rel_h != nullptr && (Hk <= 0 || Wk <= 0 || Hk * Wk != N)) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// The opt-in of one kernel to dynamic shared memory above 48 KB, set once a
+// device (the largest asked for so far): the attribute is per device, and
+// setting it on every launch costs host time. A launcher keeps one as a
+// function-local static for its kernel.
+struct SmemOptIn {
+  static constexpr int DEVICES = 64;
+  size_t set[DEVICES] = {};
+  template <typename K>
+  int operator()(K kernel, size_t smem) {
+    if (smem > 232448) return (int)cudaErrorInvalidValue;  // more than a block can have
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < DEVICES && set[dev] >= smem) return 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess && dev < DEVICES) set[dev] = smem;
+    return (int)e;
+  }
+};
 
 // Tensor map of an fp32 matrix [rows][cols] (row stride cols, a multiple of
 // 4): boxes of `box_rows` x `box_cols`, with the 128-byte swizzle

@@ -179,7 +179,8 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("attention")
     if lib.attention_fwd.argtypes is None:
         lib.attention_fwd.argtypes = [_I, _I, _I, _I, ctypes.c_float] + [_P] * 5 + [_I, _I] + [_P] * 3
-        lib.attention_fwd.restype = _I
+        lib.attention_fwd_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+        lib.attention_fwd.restype = lib.attention_fwd_plan.restype = _I
     return lib
 
 
@@ -195,9 +196,36 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+PATHS = ("mha", "rows", "general")  # K3's and K14's modes, in the kernels' numbering
+FWD_ROWS_MAX_HK = 256  # K3's "rows" path stages rel_h of a block's query rows in shared memory
 BWD_BLOCK_ROWS = 128  # query rows of a K14 block, keys of a K15 block
-BWD_PATHS = ("mha", "rows", "general")  # K14's modes, in the kernel's numbering
 BWD_TABLES = ("none", "tma", "loads")  # how K15 stages the tables, likewise
+
+
+def fwd_plan(hd: int, Hk: int = 0, Wk: int = 0) -> dict:
+    """How K3 (``csrc/attention.cu``, ``make_plan``) tiles a call; ``Hk =
+    Wk = 0`` without a bias. ``path``: "mha" (no bias, 64-key tiles),
+    "rows" (head dim 64 and a grid at most 64 wide and ``FWD_ROWS_MAX_HK``
+    tall: a key tile is one grid row, ``Wk`` keys padded to ``key_tile``, a
+    multiple of 16; rel_w stays in registers, rel_h is staged in shared
+    memory) or "general" (64-key tiles, the bias read from the tables);
+    ``block_rows``: the query rows of a block, 64 a consumer warpgroup: 64
+    for head dim 64 without a bias (three blocks a multiprocessor), else
+    128 (one)."""
+    if not Hk:
+        return {"path": "mha", "key_tile": 64, "block_rows": 64 if hd == 64 else 128}
+    rows = hd == 64 and Wk <= 64 and Hk <= FWD_ROWS_MAX_HK
+    return {"path": "rows" if rows else "general", "key_tile": -(-Wk // 16) * 16 if rows else 64,
+            "block_rows": 128}
+
+
+def fwd_plan_kernel(hd: int, Hk: int = 0, Wk: int = 0) -> dict:
+    """K3's plan as the compiled library reports it (``attention_fwd_plan``):
+    the keys of :func:`fwd_plan` and the dynamic shared memory (``smem``,
+    bytes)."""
+    out = (_I * 4)()
+    _lib().attention_fwd_plan(hd, int(Hk > 0), Hk, Wk, out)
+    return {"path": PATHS[out[0]], "key_tile": out[1], "block_rows": out[2], "smem": out[3]}
 
 
 def bwd_plan(hd: int, Hk: int = 0, Wk: int = 0) -> dict:
@@ -231,7 +259,7 @@ def bwd_plan_kernel(hd: int, Hk: int = 0, Wk: int = 0) -> dict:
     dynamic shared memory (``dq_smem``, ``dkv_smem``, bytes)."""
     out = (_I * 6)()
     _bwd_lib().attention_bwd_plan(hd, int(Hk > 0), Hk, Wk, out)
-    return {"dq_path": BWD_PATHS[out[0]], "dq_key_tile": out[1], "dkv_hspan": out[2],
+    return {"dq_path": PATHS[out[0]], "dq_key_tile": out[1], "dkv_hspan": out[2],
             "dkv_tables": BWD_TABLES[out[3]], "dq_smem": out[4], "dkv_smem": out[5]}
 
 
