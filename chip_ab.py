@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Two checkouts of the port on one card, in turns: the serving and training
-runs of their own ``chip_smoke.py``, K3 at its timed cases, its K14 / K15
-checks and its SAM-B gradient pass, each side in a fresh process.
+"""Two checkouts of the port on one card, in turns: kernels and paths of
+their own ``chip_smoke.py``, each side in a fresh process.
 
-    python3 chip_ab.py PARENT_DIR CHANGE_DIR     # parent, change, change, parent
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [SECTION ...]   # parent, change, change, parent
 
-Each side builds its kernels into its own ``build/``, then measures: K3's
-device time and eager time through its own wrappers (``sam_attention``,
-``mha``) at every timed case of phase 2 (``K3_CASES``: SAM-B global at 1024,
-768 and 512 pixels with the rel-pos bias; DINOv2-L, SigLIP and CLIP-L
-without); K14, K15 and the pair at every case of
-its ``check_attention_bwd`` (with the SDPA backward beside them, and each
-kernel's eager time: device time or the host's cost of a call, whichever
-is larger); SAM-B
-@1024's forward + backward to every parameter (phase 7's
-``run_tower_grad``: times and peak memory); and on the flagship
-VisualRWKV-7 1B5 (seeded random bf16 weights, full width) the TTFT and
-decode rate of one request and of four, and the step times of the main
-training run (1 + 3 steps), the packed run (1 + 3) and ``grad_cp="wkv"``
-(1 + 2). One ``AB {json}`` line a side (with ptxas's registers and spills
-of its attention kernels); the card's name and power limit first.
+Each side builds its kernels into its own ``build/``, then measures the
+sections asked for (default: all of ``SECTIONS``), through its own wrappers:
+
+- ``k3``: K3's device time and eager time (``sam_attention``, ``mha``) at
+  every timed case of phase 2 (``K3_CASES``: SAM-B global at 1024, 768 and
+  512 pixels with the rel-pos bias; DINOv2-L, SigLIP and CLIP-L without),
+  then the eager time of a call too small for the card to bound it;
+- ``attention_bwd``: K14, K15 and the pair at every case of its
+  ``check_attention_bwd`` (with the SDPA backward beside them, and each
+  kernel's eager time: device time or the host's cost of a call, whichever
+  is larger);
+- ``sam_grad``: SAM-B @1024's forward + backward to every parameter (phase
+  7's ``run_tower_grad``: times and peak memory);
+- ``x070``: on the flagship VisualRWKV-7 1B5 (seeded random bf16 weights,
+  full width) the TTFT and decode rate of one request and of four, and the
+  step times of the main training run (1 + 3 steps), the packed run (1 + 3)
+  and ``grad_cp="wkv"`` (1 + 2);
+- ``wkv6``: K7 and K8 at every timed case of ``check_wkv6_fwd`` and
+  ``check_wkv6_train`` (``WKV6_CASES``), device and eager time;
+- ``x060_serving``: VisualRWKV-6 7B (``x060_serving_cfg``) TTFT and decode
+  rate at B=1 and B=4 (``run_serving``);
+- ``x060_training``: VisualRWKV-6 1.6B (``x060_training_cfg``) step times,
+  1 + 3 steps (``run_training``).
+
+One ``AB {json}`` line a side (with ptxas's registers and spills of its
+attention and K7 / K8 kernels); the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -66,7 +76,38 @@ def k3_times(cs, dev) -> list:
     return out
 
 
-def child(tree: str) -> None:
+SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "x060_serving", "x060_training")
+# K7 / K8 timed: (kernel, B, T, H, stream dtype, initial state), the timed
+# cases of chip_smoke's check_wkv6_fwd (the x060 7B prefill) and
+# check_wkv6_train (the 1.6B training step; K7 at the same shape beside K8)
+WKV6_CASES = (("wkv6_fwd", 1, 624, 64, "bfloat16", False), ("wkv6_fwd", 4, 624, 64, "bfloat16", True),
+              ("wkv6_fwd", 1, 624, 64, "float32", True), ("wkv6_fwd_res", 2, 2048, 32, "bfloat16", True),
+              ("wkv6_fwd", 2, 2048, 32, "bfloat16", True), ("wkv6_fwd_res", 2, 2048, 32, "float32", True),
+              ("wkv6_fwd", 2, 2048, 32, "float32", True))
+
+
+def wkv6_times(cs, dev) -> list:
+    """K7 / K8 at every case of ``WKV6_CASES`` through the tree's own
+    wrappers: device time (CUDA graphs) and eager time, ms."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv6_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = []
+    for kernel, B, T, H, dname, with_state in WKV6_CASES:
+        xs, u = cs._wkv6_streams(gen, (B, T, H, 64), getattr(torch, dname), dev)
+        s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3 if with_state else None
+        fn = lambda kernel=kernel, xs=xs, u=u, s0=s0: getattr(wkv6_cuda, kernel)(*xs, u, s0, 16)
+        reps = 5 if T == 2048 else 20
+        out.append({"case": f"{kernel} B={B} T={T} H={H} {dname}", "ms": cs.cuda_ms(fn, reps=reps),
+                    "eager_ms": cs.eager_ms(fn, reps=reps)})
+        del xs, s0
+    return out
+
+
+def child(tree: str, sections) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -83,47 +124,71 @@ def child(tree: str) -> None:
     dev = torch.device("cuda", 0)
     out = {"tree": tree,
            "ptxas": {f"{kern}{list(args)}": v for (lib, kern, args), v in getattr(cs, "PTXAS", {}).items()
-                     if lib.startswith("attention")}}
-    out["k3"] = k3_times(cs, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    bwd = cs.check_attention_bwd(gen, dev)
-    out["attention_bwd"] = [
-        {"case": r14["case"], "k14_ms": r14["kernel_ms"], "k15_ms": r15["kernel_ms"],
-         "pair_ms": r14["pair_ms"], "pair_bound_ms": r14["pair_bound_ms"],
-         "sdpa_bwd_ms": r14["library_ms"], "k14_eager_ms": r14["kernel_eager_ms"],
-         "k15_eager_ms": r15["kernel_eager_ms"]}
-        for dq_cases, dkv_cases in bwd.values() for r14, r15 in zip(dq_cases, dkv_cases)]
-    torch.cuda.empty_cache()
-    sam, _ = cs.run_tower_grad("sam", cs.tower_grad_cfgs()["sam"], 0, dev)
-    out["sam_grad"] = {k: sam[k] for k in ("fwd_bwd_ms", "peak_gib")}
-    torch.cuda.empty_cache()
-    cfg = cs.flagship_cfg()
-    params = cs.build(cfg, 0, dev)
-    runs, _, _, _ = cs.run_serving(cfg, params, dev, cs.NEW_TOKENS, 0)
-    out["serving"] = [{k: r[k] for k in ("run", "ttft_ms", "decode_tok_per_s")} for r in runs]
-    for name, grad_cp, packed, steps in (("main", True, False, 3), ("packed", True, True, 3),
-                                         ("wkv", "wkv", False, 2)):
-        training, _, _ = cs.run_training(cfg, params, dev, 0, steps=steps, grad_cp=grad_cp,
-                                         packed=packed)
-        out[name] = [s["step_ms"] for s in training["steps"]]
+                     if lib.startswith("attention") or kern == "wkv6_fwd_kernel"}}
+    if "k3" in sections:
+        out["k3"] = k3_times(cs, dev)
+    if "attention_bwd" in sections:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        bwd = cs.check_attention_bwd(gen, dev)
+        out["attention_bwd"] = [
+            {"case": r14["case"], "k14_ms": r14["kernel_ms"], "k15_ms": r15["kernel_ms"],
+             "pair_ms": r14["pair_ms"], "pair_bound_ms": r14["pair_bound_ms"],
+             "sdpa_bwd_ms": r14["library_ms"], "k14_eager_ms": r14["kernel_eager_ms"],
+             "k15_eager_ms": r15["kernel_eager_ms"]}
+            for dq_cases, dkv_cases in bwd.values() for r14, r15 in zip(dq_cases, dkv_cases)]
+        torch.cuda.empty_cache()
+    if "sam_grad" in sections:
+        sam, _ = cs.run_tower_grad("sam", cs.tower_grad_cfgs()["sam"], 0, dev)
+        out["sam_grad"] = {k: sam[k] for k in ("fwd_bwd_ms", "peak_gib")}
+        torch.cuda.empty_cache()
+    if "x070" in sections:
+        cfg = cs.flagship_cfg()
+        params = cs.build(cfg, 0, dev)
+        runs, _, _, _ = cs.run_serving(cfg, params, dev, cs.NEW_TOKENS, 0)
+        out["serving"] = [{k: r[k] for k in ("run", "ttft_ms", "decode_tok_per_s")} for r in runs]
+        for name, grad_cp, packed, steps in (("main", True, False, 3), ("packed", True, True, 3),
+                                             ("wkv", "wkv", False, 2)):
+            training, _, _ = cs.run_training(cfg, params, dev, 0, steps=steps, grad_cp=grad_cp,
+                                             packed=packed)
+            out[name] = [s["step_ms"] for s in training["steps"]]
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    if "wkv6" in sections:
+        out["wkv6"] = wkv6_times(cs, dev)
+        torch.cuda.empty_cache()
+    if "x060_serving" in sections:
+        cfg = cs.x060_serving_cfg()
+        params = cs.build(cfg, 0, dev)
+        runs, _, _, _ = cs.run_serving(cfg, params, dev, cs.NEW_TOKENS, 0)
+        out["x060_serving"] = [{k: r[k] for k in ("run", "ttft_ms", "decode_tok_per_s")} for r in runs]
+        del params
+        torch.cuda.empty_cache()
+    if "x060_training" in sections:
+        cfg = cs.x060_training_cfg()
+        params = cs.build(cfg, 0, dev)
+        training, _, _ = cs.run_training(cfg, params, dev, 0, steps=3)
+        out["x060_training"] = [s["step_ms"] for s in training["steps"]]
+        del params
         torch.cuda.empty_cache()
     print("AB " + json.dumps(out), flush=True)
 
 
 def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--child":
-        child(argv[1])
+    if len(argv) >= 2 and argv[0] == "--child":
+        child(argv[1], argv[2:])
         return 0
-    if len(argv) != 2:
+    sections = argv[2:] or list(SECTIONS)
+    if len(argv) < 2 or any(x not in SECTIONS for x in sections):
         print(__doc__, file=sys.stderr)
         return 2
-    parent, change = argv
+    parent, change = argv[:2]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     for tree in (parent, change, change, parent):
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree],
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree, *sections],
                            capture_output=True, text=True)
         print("\n".join(l for l in r.stdout.splitlines() if l.startswith("AB ")), flush=True)
         if r.returncode:

@@ -24,7 +24,12 @@ Phases (any failure exits non-zero; nothing is caught):
    ViTs), beside the SDPA backward, each case logging its plan (K14's path
    and key tile, K15's table staging, registers, spills, shared memory),
    and at three more grid geometries against the plain version only; the
-   chunked WKV7 forward K16 beside K1.
+   chunked WKV7 forward K16 beside K1; the chunked WKV6 forward K7 / K8 at
+   the 7B prefill's and the 1.6B step's shapes, each case logging its plan
+   (value rows a block, blocks, threads, shared memory held equal to the
+   library's count, registers, spills: no K7 / K8 instantiation may spill),
+   and at six more geometries against the plain scan only
+   (``WKV6_FWD_PATH_CASES``).
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -607,6 +612,7 @@ def check_wkv6_fwd(gen, dev):
         xs, u = _wkv6_streams(gen, (B, T, H, N), sdt, dev)
         s0 = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3) if with_state else None
         c = Check("wkv6_fwd", case)
+        plan = wkv6_fwd_plan(case, B, H, sdt)
         y, s = wkv6_cuda.wkv6_fwd(*xs, u, s0, 16)
         y_ref, s_ref = pw.wkv6_reference(*xs, u, s0, chunk=16)
         torch.cuda.synchronize()
@@ -617,8 +623,81 @@ def check_wkv6_fwd(gen, dev):
         p_ms = cuda_ms(lambda: pw.wkv6_reference(*xs, u, s0, chunk=16), reps=1, warmup=1)
         nbytes = 5 * B * T * H * N * xs[0].element_size() + H * N * 4 + B * H * N * N * 4 * (2 if with_state else 1)
         ops = 5 * B * T * H * N * N  # y (2) and the update (3) per state element
-        out.append(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager))
+        out.append(dict(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager), plan=plan))
     return out
+
+
+# K7 / K8 geometries held against the fp32 plain scan but not timed: (what,
+# B, T, H, stream dtype, initial state, K8 too). The decay floor binding on
+# every channel with |r| <= 1e-3 on a quarter of them (the factors of a
+# chunk reach 2^+-58 there), a T that is not a multiple of 16 (K7 only: the
+# last chunk is masked), B * H = 15 heads (16 value rows a block, 60 blocks,
+# which no timed case takes), and B * H = 128 (64 rows, 128 blocks).
+WKV6_FWD_PATH_CASES = (
+    ("floor on every channel, |r| <= 1e-3 on a quarter", 2, 256, 32, "bfloat16", True, True),
+    ("floor on every channel, |r| <= 1e-3 on a quarter", 2, 256, 32, "float32", True, True),
+    ("ragged T", 1, 601, 64, "bfloat16", False, False),
+    ("ragged T", 1, 601, 64, "bfloat16", True, False),
+    ("B*H = 15", 3, 96, 5, "float32", True, True),
+    ("B*H = 128", 2, 96, 64, "bfloat16", False, True),
+)
+
+
+def wkv6_fwd_plan(case, B, H, dtype):
+    """K7 / K8's plan for B * H heads (``wkv6_cuda.fwd_plan``: value rows a
+    block, blocks, threads, shared memory, held equal to the library's own
+    count), logged with ptxas's registers and spills of the K7 and K8
+    instantiations it launches."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv6_cuda
+
+    plan = wkv6_cuda.fwd_plan(B, H, dtype)
+    assert plan["smem_bytes"] == wkv6_cuda.kernel_smem_bytes(dtype, plan["rows"]), plan
+    code = int(dtype == torch.bfloat16)
+    for save, name in ((0, "k7"), (1, "k8")):
+        plan[f"{name}_ptxas"] = PTXAS.get(("wkv6", "wkv6_fwd_kernel", (code, save, plan["rows"])))
+    regs = lambda p: "not parsed" if p is None else (f"{p.get('registers')} registers, "
+                                                     f"{p.get('spill_bytes', 0)} B spilled")
+    log(f"  wkv6 forward [{case}] plan: {plan['rows']} value rows a block, {plan['blocks']} blocks "
+        f"of {plan['threads']} threads, {plan['smem_bytes']} B shared; K7 {regs(plan['k7_ptxas'])}, "
+        f"K8 {regs(plan['k8_ptxas'])}")
+    return plan
+
+
+def check_wkv6_paths(gen, dev):
+    """K7 and K8 at ``WKV6_FWD_PATH_CASES`` against the fp32 floored scan
+    (K8's saved states against ``wkv6_fwd_res_plain``), under the limits of
+    the timed cases: y 1e-2 (bf16 streams) or 1e-3 (fp32), states 1e-3."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv6 as pw
+    from visualrwkv_torch.ops import wkv6_cuda
+
+    N = 64
+    for what, B, T, H, dname, with_state, k8 in WKV6_FWD_PATH_CASES:
+        sdt = getattr(torch, dname)
+        case = f"{what}: B={B} T={T} H={H} {dname} streams, {'with' if with_state else 'no'} initial state"
+        wkv6_fwd_plan(case, B, H, sdt)
+        xs, u = _wkv6_streams(gen, (B, T, H, N), torch.float32, dev)
+        if what.startswith("floor"):
+            xs[1] = torch.rand(xs[1].shape, generator=gen, device=dev) * 0.5 + 2.0  # exp > 7.4 > 5
+            xs[0][..., ::4] = (torch.rand(xs[0][..., ::4].shape, generator=gen, device=dev) * 2 - 1) * 1e-3
+        xs = [x.to(sdt).contiguous() for x in xs]
+        s0 = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3) if with_state else None
+        ytol = 1e-2 if sdt == torch.bfloat16 else 1e-3
+        c = Check("wkv6_fwd", case)
+        y, s = wkv6_cuda.wkv6_fwd(*xs, u, s0, 16)
+        y_ref, s_ref = pw.wkv6_reference(*xs, u, s0, chunk=16)
+        c.compare(f"y ({dname})", y.float(), y_ref.float(), ytol)
+        c.compare("final state (fp32)", s, s_ref, 1e-3)
+        if k8:
+            c = Check("wkv6_fwd_res", case)
+            y, s, zin = wkv6_cuda.wkv6_fwd_res(*xs, u, s0, 16)
+            y_ref, s_ref, zin_ref = pw.wkv6_fwd_res_plain(*xs, u, s0, chunk=16)
+            c.compare(f"y ({dname})", y.float(), y_ref.float(), ytol)
+            c.compare("final state (fp32)", s, s_ref, 1e-3)
+            c.compare("saved chunk states zin (fp32)", zin, zin_ref, 1e-3)
 
 
 def check_wkv6_step(gen, dev):
@@ -676,6 +755,7 @@ def check_wkv6_train(gen, dev):
         dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
 
         c = Check("wkv6_fwd_res", case)
+        plan = wkv6_fwd_plan(case, B, H, sdt)
         y, s, zin = wkv6_cuda.wkv6_fwd_res(*xs, u, s0, 16)
         (y_ref, s_ref, zin_ref), t_plain = timed_once(lambda: pw.wkv6_fwd_res_plain(*xs, u, s0, chunk=16))
         c.compare(f"y ({dname})", y.float(), y_ref.float(), 1e-2 if bf else 1e-3)
@@ -687,7 +767,7 @@ def check_wkv6_train(gen, dev):
         esz = xs[0].element_size()
         nbytes = 5 * B * T * H * N * esz + H * N * 4 + 2 * B * H * N * N * 4 + zin.numel() * 4
         rec = c.record(k_ms, t_plain, None, nbytes, 5 * B * T * H * N * N, FP32_FLOPS, k_eager)
-        rec["k7_same_shape_ms"] = k7_ms
+        rec["k7_same_shape_ms"], rec["plan"] = k7_ms, plan
         log(f"  wkv6_fwd_res [{case}] K7 (no saved states) at the same shape: {k7_ms:.4f} ms")
         fwd.append(rec)
 
@@ -1396,12 +1476,12 @@ def _category(kernel_name: str) -> str:
                 (0, 2): "K11 wkv7_fwd_packed", (1, 2): "K12 wkv7_fwd_res_packed"}[(save, heads)]
     if "wkv7_bwd_kernel<" in n:  # <T, ZHEADS>
         return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_kernel")[0] == 2 else "K6 wkv7_bwd"
-    # the second template argument tells K4 from K2 and K8 from K7
+    if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS>
+        return "K8 wkv6_fwd_res" if _template_flags(n, "wkv6_fwd_kernel")[0] else "K7 wkv6_fwd"
+    # the second template argument tells K4 from K2
     flag = "true>" in n.replace(" ", "") or "(bool)1>" in n.replace(" ", "")
     if "wkv7_step_kernel" in n:
         return "K4 wkv7_step_flat" if flag else "K2 wkv7_step"
-    if "wkv6_fwd_kernel" in n:
-        return "K8 wkv6_fwd_res" if flag else "K7 wkv6_fwd"
     if "wkv6_step_kernel" in n:
         return "K10 wkv6_step"
     if "wkv6_bwd_kernel" in n:
@@ -1986,6 +2066,9 @@ def main(argv=None) -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{name}] {line.strip()}")
+    k78 = {key: v for key, v in PTXAS.items() if key[:2] == ("wkv6", "wkv6_fwd_kernel")}
+    assert len(k78) == 12, f"K7 / K8: ptxas reported {sorted(k78)}, not 2 dtypes x 2 x 3 row counts"
+    assert not any(v.get("spill_bytes", 0) for v in k78.values()), f"a K7 / K8 instantiation spills: {k78}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
@@ -1999,6 +2082,7 @@ def main(argv=None) -> int:
     kernels["attention_fwd_relpos"], kernels["attention_fwd_mha"] = check_attention(gen, dev)
     kernels["wkv6_fwd"], kernels["wkv6_step"] = check_wkv6_fwd(gen, dev), check_wkv6_step(gen, dev)
     kernels["wkv6_fwd_res"], kernels["wkv6_bwd"] = check_wkv6_train(gen, dev)
+    check_wkv6_paths(gen, dev)
     bwd = check_attention_bwd(gen, dev)
     for key, (dq_cases, dkv_cases) in bwd.items():
         kernels[f"attention_bwd_dq_{key}"], kernels[f"attention_bwd_dkv_{key}"] = dq_cases, dkv_cases

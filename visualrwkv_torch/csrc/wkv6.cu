@@ -13,26 +13,51 @@
 // chunk_len), which the wrapper passes in; the decode step (K10) has none.
 //
 // K7 wkv6_fwd replaces visualrwkv_tpu/ops/wkv6_pallas.py::wkv6_pallas (the
-// chunked forward, kernel _wkv6_kernel). The Pallas kernel works a chunk at a
-// time with cumulative-decay matmuls for the TPU's matrix unit. Here the
-// design is the sequential recurrence, as K1's for WKV7 but simpler: there is
-// no a.b^T term, so each state row evolves on its own. One block of 64
-// threads per (b, h), thread i owns value row i of the state in 64 registers;
-// each step's r, decay, k and u.k.r products are staged in shared memory
-// (double-buffered, one barrier a step), and the next step's inputs are
-// loaded into registers while the current step computes.
-// Bound on the H100: the T steps are dependent and there are only B*H
-// blocks (64 at B=1, H=64), so the kernel is bound by the latency of the
-// step chain, far from both its byte bound (5 streams of B*T*H*64 elements
-// plus the states) and its fp32 operation bound (about 6 B*T*H*64*64).
+// chunked forward, kernel _wkv6_kernel) and K8 wkv6_fwd_res replaces
+// wkv6_pallas_fwd_res, which also saves the state entering every 16-step
+// chunk, zin[bh, c] = transpose of S before step 16c (fp32), the layout K9
+// reads. Both are one kernel, wkv6_fwd_kernel<DT, SAVE, ROWS>: the chunked
+// form of ops/wkv6.py::wkv6_chunked at chunk 16, with g the running sum of
+// the floored log decay inside a chunk, in log2 units:
+//   y_t  = (r_t e^{g_{t-1}}) S^T + sum_{s<t} A_ts v_s + bonus_t v_t
+//   A_ts = sum_j r_tj e^{g_{t-1,j} - g_m,j} k_sj e^{g_m,j - g_s,j}
+//   S   <- e^{g_15} (.) S + sum_s v_s (k_s e^{g_15 - g_s})
+// Bound on the H100: bytes, 5 streams of B*T*H*64 elements, two states and
+// for K8 zin (B*H*(T/16)*16 KiB, most of it); the fp32 operations (about
+// 5 B*T*H*64*64) take less. The sequential form (one block a (b, h), one
+// step at a time) was bound by the latency of a chain of T dependent steps
+// over B*H blocks instead.
 //
-// K8 wkv6_fwd_res replaces wkv6_pallas_fwd_res: K7's recurrence behind a
-// template flag that also writes the state entering every 16-step chunk,
-// zin[bh, c] = transpose of S before step 16c (fp32), the layout the Pallas
-// kernel saves. With one thread a state row, column j of all rows is 64
-// adjacent floats of Z[j], so the stores are coalesced, and the backward's
-// row threads read them the same way. Bound: as K7; the extra bytes are
-// B*H*(T/16)*16 KiB.
+// Design. Each value row of the state evolves on its own (the decay is
+// diagonal in the key index and there is no a.b^T term), so a block owns a
+// slice of ROWS value rows of one (b, h): B*H*64/ROWS blocks, ROWS chosen by
+// the wrapper (ops/wkv6_cuda.py::fwd_plan) so that the grid fills the card
+// (32 rows, 128 blocks, at B*H = 64). The block walks the T/16 chunks in
+// order, its slice of S in registers (TPR = 8 threads a row, 4 at 64 rows;
+// thread (i, g) holds S[i][CPT g .. CPT g + CPT)) and in shared memory for
+// the outputs. Everything but the state is independent of the state, so the
+// chunk loop is a pipeline of two phases a chunk, one barrier each:
+//   phase 1: the factor tiles of chunk c+1 (a thread per (column, part):
+//            prefix sums of the log decay by shuffles across the parts, one
+//            exp and two exp2 an element), and y of chunk c (a thread per
+//            value row and 16 / TPR steps: 64 + 16 FMAs an output);
+//   phase 2: A of chunk c+1 (the ten 4 x 4 tiles on and below the diagonal
+//            by 80 threads, 8 columns each, summed by shuffles; the bonus on
+//            the diagonal by one warp), zin of chunk c (K8, before the
+//            update: each warp stores runs of 64 or 128 bytes of rows of Z)
+//            and the update of S.
+// r, w, k and the slice's v columns of chunk c+2 come in by cp.async into a
+// ring of three stages while chunks c and c+1 compute. All arithmetic is
+// fp32 FMA (no tensor cores: an fp32 stream, the state and zin are held to
+// 1e-3). The factorisation of A takes its reference at step m = 7, so that
+// every factor lies within 2^{+-58} under the floor of -5 a step (chunk_len
+// >= 16, which the launcher requires), and e^{g_{t-1} - g_m} is formed as
+// e^{g_{t-1}} e^{-g_m}, each a normal float, before r multiplies it: the
+// terms do not underflow even where |r| is small and the decay is at the
+// floor. Every slice of a head recomputes the factor tiles and A, which is
+// cheaper than exchanging them. T needs not be a multiple of 16 for K7: the
+// last chunk's missing steps load as zeros and take a log decay of 0, and
+// their y is not stored.
 //
 // K10 wkv6_step replaces wkv6_step_pallas (_wkv6_step_kernel): K2's body
 // without a, b and the S.a term. Bound: state bytes, B*H*64*64 read once and
@@ -44,6 +69,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -83,75 +112,343 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// K7 / K8: sequence forward. Streams [B, T, H, N]; u [H, N] fp32; state
-// [B, H, Nv, Nk] fp32.
+// K7 / K8: sequence forward. Streams [B, T, H, N] of DT (0 fp32, 1 bf16); u
+// [H, N] fp32; states [B, H, Nv, Nk] fp32; zin [B*H, T/16, N, N] fp32.
 // ---------------------------------------------------------------------------
-template <typename T, bool SAVE>
-__global__ void __launch_bounds__(N) wkv6_fwd_kernel(
-    int Tlen, int H, float wfloor, const T* __restrict__ r, const T* __restrict__ w,
-    const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ u,
-    const float* __restrict__ s0, T* __restrict__ y, float* __restrict__ s_out,
-    float* __restrict__ zin) {
-  const int bh = blockIdx.x;
-  const int bb = bh / H, hh = bh % H;
-  const int i = threadIdx.x;
-  __shared__ float sr[2][N], sw[2][N], sk[2][N], sb[2][N];  // sb: u_j k_j r_j
-  const float ui = u[hh * N + i];
+constexpr int LDP = N + 4;  // row stride of the fp32 tiles in shared memory
+constexpr int MID = 7;      // the reference step of A's factorisation
+constexpr int STAGES = 3;   // raw input stages: chunks c, c+1 and c+2 in flight
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
-  float S[N];
-  if (s0 != nullptr) {
-    const float4* row = reinterpret_cast<const float4*>(s0 + ((size_t)bh * N + i) * N);
-#pragma unroll
-    for (int j = 0; j < N / 4; ++j) {
-      const float4 q = row[j];
-      S[4 * j] = q.x;
-      S[4 * j + 1] = q.y;
-      S[4 * j + 2] = q.z;
-      S[4 * j + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) S[j] = 0.f;
-  }
+template <int DT>
+using Stream = std::conditional_t<DT == 1, __nv_bfloat16, float>;
 
-  const size_t stride = (size_t)H * N;  // one time step
-  size_t off = ((size_t)bb * Tlen * H + hh) * N + i;
-  float nr = 0.f, nw = 0.f, nk = 0.f, nv = 0.f;
-  if (Tlen > 0) {
-    nr = to_f(r[off]); nw = to_f(w[off]); nk = to_f(k[off]); nv = to_f(v[off]);
-  }
-  for (int t = 0; t < Tlen; ++t) {
-    if (SAVE && t % CHUNK == 0) {  // zin[bh, t / CHUNK, j, i] = S[i][j]
-      float* z = zin + ((size_t)bh * (Tlen / CHUNK) + t / CHUNK) * N * N + i;
+// Byte offsets of a block's shared memory.
+template <int DT, int ROWS>
+struct FwdSmem {
+  static constexpr int TILE = CHUNK * N;              // elements of an r, w or k tile
+  static constexpr int STAGE = 3 * TILE + CHUNK * ROWS;  // r, w, k and the slice's v columns
+  static constexpr int FTILE = CHUNK * LDP * 4;       // bytes of an fp32 factor tile
+  static constexpr size_t raw = 0;                                     // [STAGES][STAGE]
+  static constexpr size_t rq = raw + STAGES * STAGE * sizeof(Stream<DT>);  // [2] r e^{g_{t-1}}
+  static constexpr size_t kb = rq + 2 * FTILE;                         // [2] k e^{g_15 - g}
+  static constexpr size_t rm = kb + 2 * FTILE;                         // r e^{g_{t-1} - g_m}
+  static constexpr size_t km = rm + FTILE;                             // k e^{g_m - g}
+  static constexpr size_t st = km + FTILE;                             // [2][ROWS][LDP] S
+  static constexpr size_t dec = st + 2 * ROWS * LDP * 4;               // [2][N] e^{g_15}
+  static constexpr size_t amat = dec + 2 * N * 4;                      // [CHUNK][CHUNK]
+  static constexpr size_t u = amat + CHUNK * CHUNK * 4;                // [N]
+  static constexpr size_t bytes = u + N * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// Halves the NV partial sums in acc[0 .. 2 NV) across the lanes l and l ^ O:
+// the lane with O set keeps the upper half, the other the lower, each
+// summed with its partner's, in acc[0 .. NV).
+template <int O, int NV>
+__device__ __forceinline__ void reduce_scatter(float* acc, bool upper) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) z[(size_t)j * N] = S[j];
+  for (int m = 0; m < NV; ++m) {
+    const float send = upper ? acc[m] : acc[m + NV];
+    const float keep = upper ? acc[m + NV] : acc[m];
+    acc[m] = keep + __shfl_xor_sync(FULL, send, O);
+  }
+}
+
+// Threads a value row: 8 (8 columns of S and 2 output steps each), or 4 at 64
+// rows a block (16 columns and 4 steps), so that two blocks of 256 threads
+// fit on a multiprocessor without spilling.
+template <int ROWS>
+__host__ __device__ constexpr int threads_a_row() { return ROWS == 64 ? 4 : 8; }
+
+template <int DT, int SAVE, int ROWS>
+__global__ void __launch_bounds__(ROWS * threads_a_row<ROWS>(), 2) wkv6_fwd_kernel(
+    int Tlen, int H, float wfloor, const Stream<DT>* __restrict__ r,
+    const Stream<DT>* __restrict__ w, const Stream<DT>* __restrict__ k,
+    const Stream<DT>* __restrict__ v, const float* __restrict__ u, const float* __restrict__ s0,
+    Stream<DT>* __restrict__ y, float* __restrict__ s_out, float* __restrict__ zin) {
+  using T = Stream<DT>;
+  using L = FwdSmem<DT, ROWS>;
+  constexpr int TPR = threads_a_row<ROWS>();
+  constexpr int NT = ROWS * TPR;    // threads
+  constexpr int CPT = N / TPR;      // columns of S a thread
+  constexpr int Q4 = CPT / 4;       // ... as float4
+  constexpr int OPT = CHUNK / TPR;  // output steps a thread
+  constexpr int P = NT / N;         // factor pass: threads a column
+  constexpr int TP = CHUNK / P;     // factor pass: steps a thread
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int FT = CHUNK * LDP;   // floats of a factor tile
+  // the outputs' and the bonus's dot-product loops unrolled 4 deep (in full
+  // ran slower: chip_variants.py --wkv6 unroll16); not at 64 rows, where 4
+  // deep spilled when a row had 8 threads
+  constexpr int UNROLL = ROWS == 64 ? 1 : 4;
+  static_assert((ROWS == 16 || ROWS == 32 || ROWS == 64) && NT >= 128, "ROWS");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* raw = reinterpret_cast<T*>(smem + L::raw);
+  float* rq = reinterpret_cast<float*>(smem + L::rq);
+  float* kb = reinterpret_cast<float*>(smem + L::kb);
+  float* rm = reinterpret_cast<float*>(smem + L::rm);
+  float* km = reinterpret_cast<float*>(smem + L::km);
+  float* st = reinterpret_cast<float*>(smem + L::st);
+  float* dec = reinterpret_cast<float*>(smem + L::dec);
+  float* am = reinterpret_cast<float*>(smem + L::amat);
+  float* su = reinterpret_cast<float*>(smem + L::u);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x / (N / ROWS), i0 = (blockIdx.x % (N / ROWS)) * ROWS;
+  const int h = bh % H;
+  const int nc = (Tlen + CHUNK - 1) / CHUNK;
+  const size_t tstride = (size_t)H * N;                            // one time step
+  const size_t base = ((size_t)(bh / H) * Tlen * H + h) * N;       // (b, 0, h, 0)
+  // state and outputs: value row si of the slice; columns CPT sg .. CPT sg +
+  // CPT, and the output steps 2 TPR p + sg and 2 TPR p + 2 TPR - 1 - sg for
+  // p < OPT / 2
+  const int si = tid % ROWS, sg = tid / ROWS;
+  // factor pass: column fj, steps fp * TP .. fp * TP + TP
+  const int fj = tid / P, fp = tid % P;
+
+  float4 S[Q4];
+  const size_t srow = ((size_t)bh * N + i0 + si) * N + CPT * sg;  // in s0 and s_out
+#pragma unroll
+  for (int q = 0; q < Q4; ++q)
+    S[q] = s0 != nullptr ? reinterpret_cast<const float4*>(s0 + srow)[q]
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  auto put_state = [&](float* dst) {
+#pragma unroll
+    for (int q = 0; q < Q4; ++q) reinterpret_cast<float4*>(dst + si * LDP + CPT * sg)[q] = S[q];
+  };
+  put_state(st);
+  if (tid < N) su[tid] = u[h * N + tid];
+
+  // chunk c's r, w, k rows and v columns i0 .. i0 + ROWS into stage c % 3;
+  // steps past T read as zeros
+  auto load = [&](int c) {
+    T* dst = raw + (c % STAGES) * L::STAGE;
+    constexpr int ROW_SEGS = N / VEC, TILE_SEGS = CHUNK * ROW_SEGS, V_SEGS = ROWS / VEC;
+    for (int idx = tid; idx < 3 * TILE_SEGS + CHUNK * V_SEGS; idx += NT) {
+      int t, col, dcol, tile;
+      if (idx < 3 * TILE_SEGS) {
+        tile = idx / TILE_SEGS;
+        t = idx % TILE_SEGS / ROW_SEGS;
+        col = dcol = idx % ROW_SEGS * VEC;
+      } else {
+        tile = 3;
+        t = (idx - 3 * TILE_SEGS) / V_SEGS;
+        dcol = (idx - 3 * TILE_SEGS) % V_SEGS * VEC;
+        col = i0 + dcol;
+      }
+      const T* src = tile == 0 ? r : tile == 1 ? w : tile == 2 ? k : v;
+      const bool ok = c * CHUNK + t < Tlen;
+      cp_async16(dst + tile * L::TILE + t * (tile == 3 ? ROWS : N) + dcol,
+                 src + base + (ok ? (size_t)(c * CHUNK + t) * tstride + col : 0), ok);
     }
-    const int p = t & 1;
-    sr[p][i] = nr;
-    sw[p][i] = expf(fmaxf(-expf(nw), wfloor));
-    sk[p][i] = nk;
-    sb[p][i] = ui * nk * nr;
-    const float vi = nv;
-    const size_t cur = off;
+    cp_async_commit();
+  };
+
+  // phase 1 (a): chunk c's factor tiles and decay
+  auto factors = [&](int c) {
+    const T* x = raw + (c % STAGES) * L::STAGE;
+    const int nv = min(CHUNK, Tlen - c * CHUNK);
+    float lw[TP], g[TP], run = 0.f;
+#pragma unroll
+    for (int q = 0; q < TP; ++q) {
+      const int t = fp * TP + q;
+      lw[q] = t < nv ? fmaxf(-expf(to_f(x[L::TILE + t * N + fj])), wfloor) * LOG2E : 0.f;
+      run += lw[q];
+      g[q] = run;
+    }
+    float incl = run;  // inclusive sum over the parts of this column
+#pragma unroll
+    for (int d = 1; d < P; d <<= 1) {
+      const float o = __shfl_up_sync(FULL, incl, d, P);
+      if (fp >= d) incl += o;
+    }
+    const float excl = incl - run;
+    const float gm = __shfl_sync(FULL, excl + g[MID % TP], MID / TP, P);
+    const float gl = __shfl_sync(FULL, incl, P - 1, P);
+    // e^{g_{t-1} - g_m} = e^{g_{t-1}} e^{-g_m} and e^{g_m - g_t} = e^{g_15 - g_t}
+    // e^{g_m - g_15}: each factor and product is a normal float
+    const float to_m = exp2f(-gm), from_m = exp2f(gm - gl);
+    float* q_rq = rq + (c & 1) * FT;
+    float* q_kb = kb + (c & 1) * FT;
+#pragma unroll
+    for (int q = 0; q < TP; ++q) {
+      const int t = fp * TP + q, o = t * LDP + fj;
+      const float gt = excl + g[q], ep = exp2f(gt - lw[q]), el = exp2f(gl - gt);
+      const float rr = to_f(x[t * N + fj]), kk = to_f(x[2 * L::TILE + t * N + fj]);
+      q_rq[o] = rr * ep;
+      rm[o] = rr * (ep * to_m);
+      km[o] = kk * (el * from_m);
+      q_kb[o] = kk * el;
+    }
+    if (fp == P - 1) dec[(c & 1) * N + fj] = exp2f(gl);
+  };
+
+  // phase 2 (a): chunk c's A. Warps 0-2: the ten 4 x 4 tiles of A on and
+  // below the diagonal, eight lanes a tile, each over 8 columns j (4 jc ..
+  // 4 jc + 4 and 32 more), summed by shuffles (lane jc keeps the tile's
+  // entries 2 jc and 2 jc + 1); lanes 80-95 redo tile 9 and store nothing.
+  // Warp 3: the bonus on the diagonal, two lanes a step.
+  auto amatrix = [&](int c) {
+    if (tid < 96) {
+      const int tile = min(tid / 8, 9), jc = tid % 8;
+      int bt = 0;
+      while ((bt + 1) * (bt + 2) / 2 <= tile) ++bt;
+      const int bs = tile - bt * (bt + 1) / 2;
+      float acc[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float4 ra[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          ra[a] = *reinterpret_cast<const float4*>(rm + (4 * bt + a) * LDP + 4 * jc + 32 * hh);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const float4 kk =
+              *reinterpret_cast<const float4*>(km + (4 * bs + b) * LDP + 4 * jc + 32 * hh);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) acc[4 * a + b] = dot4(ra[a], kk, acc[4 * a + b]);
+        }
+      }
+      reduce_scatter<4, 8>(acc, jc & 4);
+      reduce_scatter<2, 4>(acc, jc & 2);
+      reduce_scatter<1, 2>(acc, jc & 1);
+      if (tid < 80) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int t = 4 * bt + (2 * jc + m) / 4, s = 4 * bs + (2 * jc + m) % 4;
+          if (s < t) am[t * CHUNK + s] = acc[m];
+        }
+      }
+    } else if (tid < 128) {
+      const T* x = raw + (c % STAGES) * L::STAGE;
+      const int t = (tid - 96) / 2, j0 = (tid & 1) * (N / 2);
+      float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll UNROLL
+      for (int j = j0; j < j0 + N / 2; j += 2) {
+        float r0, r1, k0, k1;
+        load2(x + t * N + j, r0, r1);
+        load2(x + 2 * L::TILE + t * N + j, k0, k1);
+        acc0 = fmaf(su[j] * r0, k0, acc0);
+        acc1 = fmaf(su[j + 1] * r1, k1, acc1);
+      }
+      float sum = acc0 + acc1;
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      if ((tid & 1) == 0) am[t * CHUNK + t] = sum;
+    }
+  };
+
+  // phase 1 (b): y of chunk c at the thread's OPT steps, value row i0 + si
+  auto outputs = [&](int c) {
+    const T* vx = raw + (c % STAGES) * L::STAGE + 3 * L::TILE + si;
+    const float4* srow4 = reinterpret_cast<const float4*>(st + (c & 1) * ROWS * LDP + si * LDP);
+    int ts[OPT];
+    const float4* qs[OPT];
+    float ys[OPT];
+#pragma unroll
+    for (int o = 0; o < OPT; ++o) {
+      ts[o] = 2 * TPR * (o / 2) + (o % 2 ? 2 * TPR - 1 - sg : sg);
+      qs[o] = reinterpret_cast<const float4*>(rq + (c & 1) * FT + ts[o] * LDP);
+      ys[o] = 0.f;
+    }
+#pragma unroll UNROLL
+    for (int jj = 0; jj < N / 4; ++jj) {
+      const float4 sv = srow4[jj];
+#pragma unroll
+      for (int o = 0; o < OPT; ++o) ys[o] = dot4(qs[o][jj], sv, ys[o]);
+    }
+#pragma unroll
+    for (int s = 0; s < CHUNK; ++s) {
+      const float vs = to_f(vx[s * ROWS]);
+#pragma unroll
+      for (int o = 0; o < OPT; ++o)
+        if (s <= ts[o]) ys[o] = fmaf(am[ts[o] * CHUNK + s], vs, ys[o]);
+    }
+#pragma unroll
+    for (int o = 0; o < OPT; ++o)
+      if (c * CHUNK + ts[o] < Tlen)
+        y[base + (size_t)(c * CHUNK + ts[o]) * tstride + i0 + si] = from_f<T>(ys[o]);
+  };
+
+  // phase 2 (b): zin of chunk c (the state before it), then S through chunk c
+  auto update = [&](int c) {
+    if (SAVE) {  // zin[bh, c, j, i0 + si] = S[i0 + si][j]
+      float* z = zin + (((size_t)bh * nc + c) * N + CPT * sg) * N + i0 + si;
+#pragma unroll
+      for (int q = 0; q < Q4; ++q) {
+        z[(size_t)(4 * q) * N] = S[q].x;
+        z[(size_t)(4 * q + 1) * N] = S[q].y;
+        z[(size_t)(4 * q + 2) * N] = S[q].z;
+        z[(size_t)(4 * q + 3) * N] = S[q].w;
+      }
+    }
+    const T* vx = raw + (c % STAGES) * L::STAGE + 3 * L::TILE + si;
+    const float4* kq = reinterpret_cast<const float4*>(kb + (c & 1) * FT + CPT * sg);
+    const float4* dq = reinterpret_cast<const float4*>(dec + (c & 1) * N + CPT * sg);
+#pragma unroll
+    for (int q = 0; q < Q4; ++q) {
+      const float4 d = dq[q];
+      S[q] = make_float4(S[q].x * d.x, S[q].y * d.y, S[q].z * d.z, S[q].w * d.w);
+    }
+#pragma unroll
+    for (int s = 0; s < CHUNK; ++s) {
+      const float vs = to_f(vx[s * ROWS]);
+#pragma unroll
+      for (int q = 0; q < Q4; ++q) {
+        const float4 kk = kq[s * (LDP / 4) + q];
+        S[q] = make_float4(fmaf(vs, kk.x, S[q].x), fmaf(vs, kk.y, S[q].y), fmaf(vs, kk.z, S[q].z),
+                           fmaf(vs, kk.w, S[q].w));
+      }
+    }
+    put_state(st + ((c + 1) & 1) * ROWS * LDP);
+  };
+
+  if (nc > 0) {
+    load(0);
+    if (nc > 1) {
+      load(1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    if (t + 1 < Tlen) {  // prefetch step t+1 while step t computes
-      off += stride;
-      nr = to_f(r[off]); nw = to_f(w[off]); nk = to_f(k[off]); nv = to_f(v[off]);
-    }
-    float bonus = 0.f, yi = 0.f;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      bonus += sb[p][j];
-      yi = fmaf(S[j], sr[p][j], yi);
-      S[j] = fmaf(S[j], sw[p][j], vi * sk[p][j]);
-    }
-    y[cur] = from_f<T>(fmaf(bonus, vi, yi));
+    factors(0);
+    __syncthreads();
+    amatrix(0);
+  }
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<0>();  // chunk c + 1's inputs
+    __syncthreads();
+    if (c + 2 < nc) load(c + 2);
+    if (c + 1 < nc) factors(c + 1);
+    outputs(c);
+    __syncthreads();
+    if (c + 1 < nc) amatrix(c + 1);
+    update(c);
   }
 
-  float4* out = reinterpret_cast<float4*>(s_out + ((size_t)bh * N + i) * N);
 #pragma unroll
-  for (int j = 0; j < N / 4; ++j)
-    out[j] = make_float4(S[4 * j], S[4 * j + 1], S[4 * j + 2], S[4 * j + 3]);
+  for (int q = 0; q < Q4; ++q) reinterpret_cast<float4*>(s_out + srow)[q] = S[q];
 }
 
 // ---------------------------------------------------------------------------
@@ -195,30 +492,58 @@ __global__ void __launch_bounds__(STEP_WARPS * 32) wkv6_step_kernel(
   }
 }
 
-template <bool SAVE>
-int launch_fwd(int dtype, int B, int T, int H, int n, float wfloor, const void* r,
+template <int DT, int SAVE, int ROWS>
+int launch_rows(int B, int T, int H, float wfloor, const void* r, const void* w, const void* k,
+                const void* v, const void* u, const void* s0, void* y, void* s_out, void* zin,
+                cudaStream_t st) {
+  using X = Stream<DT>;
+  const auto kernel = wkv6_fwd_kernel<DT, SAVE, ROWS>;
+  constexpr size_t smem = FwdSmem<DT, ROWS>::bytes;
+  static hopper_host::SmemOptIn opt_in;
+  const int e = opt_in(kernel, smem);
+  if (e != 0) return e;
+  kernel<<<B * H * (N / ROWS), ROWS * threads_a_row<ROWS>(), smem, st>>>(
+      T, H, wfloor, (const X*)r, (const X*)w, (const X*)k, (const X*)v, (const float*)u,
+      (const float*)s0, (X*)y, (float*)s_out, (float*)zin);
+  return (int)cudaGetLastError();
+}
+
+template <int DT, int SAVE>
+int launch_dt(int rows, int B, int T, int H, float wfloor, const void* r, const void* w,
+              const void* k, const void* v, const void* u, const void* s0, void* y, void* s_out,
+              void* zin, cudaStream_t st) {
+  switch (rows) {
+    case 16: return launch_rows<DT, SAVE, 16>(B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st);
+    case 32: return launch_rows<DT, SAVE, 32>(B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st);
+    case 64: return launch_rows<DT, SAVE, 64>(B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int SAVE>
+int launch_fwd(int dtype, int rows, int B, int T, int H, int n, float wfloor, const void* r,
                const void* w, const void* k, const void* v, const void* u, const void* s0,
                void* y, void* s_out, void* zin, void* stream) {
   if (n != N || B <= 0 || H <= 0 || T < 0) return (int)cudaErrorInvalidValue;
   if (SAVE && (T % CHUNK != 0 || zin == nullptr)) return (int)cudaErrorInvalidValue;
+  // the factorisation needs the floor of chunk_len >= 16: at most -5 a step
+  if (!(wfloor >= -80.f / CHUNK && wfloor < 0.f)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(B * H), block(N);
-  const float* uf = (const float*)u;
-  const float* s0f = (const float*)s0;
-  float* soutf = (float*)s_out;
-  if (dtype == 0) {
-    wkv6_fwd_kernel<float, SAVE><<<grid, block, 0, st>>>(
-        T, H, wfloor, (const float*)r, (const float*)w, (const float*)k, (const float*)v, uf,
-        s0f, (float*)y, soutf, (float*)zin);
-  } else if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    wkv6_fwd_kernel<bf, SAVE><<<grid, block, 0, st>>>(
-        T, H, wfloor, (const bf*)r, (const bf*)w, (const bf*)k, (const bf*)v, uf, s0f, (bf*)y,
-        soutf, (float*)zin);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_dt<0, SAVE>(rows, B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st);
+  if (dtype == 1)
+    return launch_dt<1, SAVE>(rows, B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int DT>
+int smem_bytes(int rows) {
+  switch (rows) {
+    case 16: return (int)FwdSmem<DT, 16>::bytes;
+    case 32: return (int)FwdSmem<DT, 32>::bytes;
+    case 64: return (int)FwdSmem<DT, 64>::bytes;
   }
-  return (int)cudaGetLastError();
+  return -1;
 }
 
 }  // namespace
@@ -230,19 +555,26 @@ extern "C" {
 const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // K7: streams [B, T, H, 64] in one dtype; u fp32 [H, 64]; s0 (may be null)
-// and s_out fp32 [B, H, 64, 64]; wfloor = -80 / chunk_len.
-int wkv6_fwd(int dtype, int B, int T, int H, int n, float wfloor, const void* r, const void* w,
-             const void* k, const void* v, const void* u, const void* s0, void* y, void* s_out,
-             void* stream) {
-  return launch_fwd<false>(dtype, B, T, H, n, wfloor, r, w, k, v, u, s0, y, s_out, nullptr,
-                           stream);
+// and s_out fp32 [B, H, 64, 64]; wfloor = -80 / chunk_len, chunk_len >= 16;
+// rows = the value rows a block owns (16, 32 or 64; 8 threads a row, 4 at 64).
+int wkv6_fwd(int dtype, int rows, int B, int T, int H, int n, float wfloor, const void* r,
+             const void* w, const void* k, const void* v, const void* u, const void* s0, void* y,
+             void* s_out, void* stream) {
+  return launch_fwd<0>(dtype, rows, B, T, H, n, wfloor, r, w, k, v, u, s0, y, s_out, nullptr,
+                       stream);
 }
 
-// K8: T must be a multiple of 16; zin is fp32 [B*H, T/16, 64, 64].
-int wkv6_fwd_res(int dtype, int B, int T, int H, int n, float wfloor, const void* r,
+// K8: K7 with T a multiple of 16; zin is fp32 [B*H, T/16, 64, 64].
+int wkv6_fwd_res(int dtype, int rows, int B, int T, int H, int n, float wfloor, const void* r,
                  const void* w, const void* k, const void* v, const void* u, const void* s0,
                  void* y, void* s_out, void* zin, void* stream) {
-  return launch_fwd<true>(dtype, B, T, H, n, wfloor, r, w, k, v, u, s0, y, s_out, zin, stream);
+  return launch_fwd<1>(dtype, rows, B, T, H, n, wfloor, r, w, k, v, u, s0, y, s_out, zin,
+                       stream);
+}
+
+// Dynamic shared memory of a K7 / K8 block, bytes (-1: no such instantiation).
+int wkv6_fwd_smem_bytes(int dtype, int rows) {
+  return dtype == 0 ? smem_bytes<0>(rows) : dtype == 1 ? smem_bytes<1>(rows) : -1;
 }
 
 // K10: state [B, H, 64, 64] fp32 (0) or bf16 (1); vectors fp32 [B, H, 64].

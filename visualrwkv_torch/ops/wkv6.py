@@ -241,7 +241,8 @@ def wkv6(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     (:func:`wkv6_plain`), which autograd differentiates through PyTorch ops.
     CUDA tensors launch kernel K7 (``csrc/wkv6.cu``) or, when grad mode is on
     and an input needs a gradient, :class:`WKV6Function` (K8 forward, K9
-    backward; T must be a multiple of 16). ``u`` is taken in fp32 on CUDA."""
+    backward; T must be a multiple of 16); on CUDA ``chunk`` must be at
+    least 16 (K7 / K8's chunked form). ``u`` is taken in fp32 on CUDA."""
     _validate(r, w_raw, k, v, u)
     if r.is_cuda:
         u = u.float().contiguous()

@@ -7,7 +7,10 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises on a
 CUDA error, and adds one to its entry of ``cuda_build.LAUNCHES``. The bonus
 ``u`` is fp32 ``[H, 64]``. ``chunk`` sets the decay floor ``-80 / chunk`` of
-the sequence kernels (K7-K9); the step (K10) has none.
+the sequence kernels (K7-K9); the step (K10) has none. K7 and K8 work in
+16-step chunks whose factors span the decay of one chunk, so they take
+``chunk >= 16`` only (the models' ``chunk_len`` is 16); :func:`fwd_plan`
+chooses how many value rows of a head's state one of their blocks owns.
 """
 
 from __future__ import annotations
@@ -26,15 +29,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 CHUNK = 16  # K8 saves, and K9 reads, the state entering every 16 steps
+# K7 / K8: value rows of a head's state a block may own, the most first, and
+# the blocks to reach: about one for each of the H100's 132 multiprocessors
+# (at B*H = 64, 128 blocks of 32 rows ran 21 % faster than 256 of 16)
+FWD_ROWS = (64, 32, 16)
+FWD_BLOCKS = 128
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("wkv6")
     if lib.wkv6_fwd.argtypes is None:
-        lib.wkv6_fwd.argtypes = [_I, _I, _I, _I, _I, _F] + [_P] * 9
+        lib.wkv6_fwd.argtypes = [_I] * 6 + [_F] + [_P] * 9
         lib.wkv6_fwd.restype = _I
-        lib.wkv6_fwd_res.argtypes = [_I, _I, _I, _I, _I, _F] + [_P] * 10
+        lib.wkv6_fwd_res.argtypes = [_I] * 6 + [_F] + [_P] * 10
         lib.wkv6_fwd_res.restype = _I
+        lib.wkv6_fwd_smem_bytes.argtypes = [_I, _I]
+        lib.wkv6_fwd_smem_bytes.restype = _I
         lib.wkv6_step.argtypes = [_I, _I, _I, _I] + [_P] * 9
         lib.wkv6_step.restype = _I
     return lib
@@ -60,6 +70,38 @@ def _floor(chunk: int) -> float:
     return -80.0 / chunk
 
 
+def _chunked_floor(name: str, chunk: int) -> float:
+    """The decay floor of K7 / K8: their factors of a 16-step chunk stay in
+    fp32's range only for a floor of at least -5 a step (``chunk >= 16``)."""
+    if chunk < CHUNK:
+        raise ValueError(f"{name}: chunk={chunk}: the kernel takes a decay floor of -80 / chunk "
+                         f"with chunk >= {CHUNK} only")
+    return _floor(chunk)
+
+
+def fwd_plan(B: int, H: int, dtype: torch.dtype) -> dict:
+    """K7 / K8's launch for B * H heads: the value rows of a head's state a
+    block owns (the most of ``FWD_ROWS`` that still gives ``FWD_BLOCKS``
+    blocks, else the fewest), the blocks, the threads a block (8 a row, 4 at
+    64 rows) and the dynamic shared memory of a block, bytes, as ``csrc/wkv6.cu``'s
+    ``FwdSmem`` lays it out: three stages of r, w, k and the block's v
+    columns in the stream dtype, six fp32 16 x 68 factor tiles, two copies
+    of the slice of S, the decay (two), A and u."""
+    rows = next((n for n in FWD_ROWS if B * H * (64 // n) >= FWD_BLOCKS), FWD_ROWS[-1])
+    esz = 2 if dtype == torch.bfloat16 else 4
+    ldp = 64 + 4
+    smem = (3 * (3 * CHUNK * 64 + CHUNK * rows) * esz + 6 * CHUNK * ldp * 4 + 2 * rows * ldp * 4
+            + 2 * 64 * 4 + CHUNK * CHUNK * 4 + 64 * 4)
+    return {"rows": rows, "blocks": B * H * (64 // rows), "threads": rows * (4 if rows == 64 else 8),
+            "smem_bytes": smem}
+
+
+def kernel_smem_bytes(dtype: torch.dtype, rows: int) -> int:
+    """The library's own count of a K7 / K8 block's shared memory (-1: it has
+    no instantiation for ``rows``)."""
+    return _lib().wkv6_fwd_smem_bytes(_DTYPE_CODE[dtype], rows)
+
+
 def wkv6_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
              initial_state: Optional[Tensor] = None, chunk: int = 16) -> Tuple[Tensor, Tensor]:
     """K7: streams ``[B, T, H, 64]`` (all fp32 or all bf16), u fp32 ``[H, 64]``,
@@ -67,6 +109,7 @@ def wkv6_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     dtype, final fp32 state)."""
     B, T, H, N = r.shape
     dev = r.device
+    floor = _chunked_floor("wkv6_fwd", chunk)
     streams = (r, w_raw, k, v)
     _check_streams("wkv6_fwd", streams, (initial_state,))
     _check_u("wkv6_fwd", u, H, dev)
@@ -75,8 +118,9 @@ def wkv6_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.wkv6_fwd(
-            _DTYPE_CODE[r.dtype], B, T, H, N, _floor(chunk), *(x.data_ptr() for x in streams),
-            u.data_ptr(), _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), _stream(dev),
+            _DTYPE_CODE[r.dtype], fwd_plan(B, H, r.dtype)["rows"], B, T, H, N, floor,
+            *(x.data_ptr() for x in streams), u.data_ptr(), _ptr(initial_state), y.data_ptr(),
+            s_out.data_ptr(), _stream(dev),
         )
     cuda_build.check(lib, err, "wkv6_fwd")
     cuda_build.LAUNCHES["wkv6_fwd"] += 1
@@ -92,20 +136,21 @@ def wkv6_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     before step ``16 c``)."""
     B, T, H, N = r.shape
     dev = r.device
+    floor = _chunked_floor("wkv6_fwd_res", chunk)
+    if T == 0 or T % CHUNK:
+        raise ValueError(f"wkv6_fwd_res: T={T} must be a positive multiple of {CHUNK}")
     streams = (r, w_raw, k, v)
     _check_streams("wkv6_fwd_res", streams, (initial_state,))
     _check_u("wkv6_fwd_res", u, H, dev)
-    if T == 0 or T % CHUNK:
-        raise ValueError(f"wkv6_fwd_res: T={T} must be a positive multiple of {CHUNK}")
     y = torch.empty_like(r)
     s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
     zin = torch.empty(B * H, T // CHUNK, N, N, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.wkv6_fwd_res(
-            _DTYPE_CODE[r.dtype], B, T, H, N, _floor(chunk), *(x.data_ptr() for x in streams),
-            u.data_ptr(), _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), zin.data_ptr(),
-            _stream(dev),
+            _DTYPE_CODE[r.dtype], fwd_plan(B, H, r.dtype)["rows"], B, T, H, N, floor,
+            *(x.data_ptr() for x in streams), u.data_ptr(), _ptr(initial_state), y.data_ptr(),
+            s_out.data_ptr(), zin.data_ptr(), _stream(dev),
         )
     cuda_build.check(lib, err, "wkv6_fwd_res")
     cuda_build.LAUNCHES["wkv6_fwd_res"] += 1
