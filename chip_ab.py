@@ -23,13 +23,17 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   and ``grad_cp="wkv"`` (1 + 2);
 - ``wkv6``: K7 and K8 at every timed case of ``check_wkv6_fwd`` and
   ``check_wkv6_train`` (``WKV6_CASES``), device and eager time;
+- ``wkv7``: K5 and K12 at every timed case of ``check_wkv7_train`` and
+  ``check_wkv7_packed_train``, with K1 at the same shape (``WKV7_CASES``),
+  device and eager time;
 - ``x060_serving``: VisualRWKV-6 7B (``x060_serving_cfg``) TTFT and decode
   rate at B=1 and B=4 (``run_serving``);
 - ``x060_training``: VisualRWKV-6 1.6B (``x060_training_cfg``) step times,
   1 + 3 steps (``run_training``).
 
 One ``AB {json}`` line a side (with ptxas's registers and spills of its
-attention and K7 / K8 kernels); the card's name and power limit first.
+attention, K7 / K8 and K5 / K12 kernels); the card's name and power limit
+first.
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ def k3_times(cs, dev) -> list:
     return out
 
 
-SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "x060_serving", "x060_training")
+SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "x060_serving", "x060_training")
 # K7 / K8 timed: (kernel, B, T, H, stream dtype, initial state), the timed
 # cases of chip_smoke's check_wkv6_fwd (the x060 7B prefill) and
 # check_wkv6_train (the 1.6B training step; K7 at the same shape beside K8)
@@ -107,6 +111,33 @@ def wkv6_times(cs, dev) -> list:
     return out
 
 
+# K5 / K12 timed: (kernel, B, T, H, stream dtype), with an initial state: the
+# timed cases of chip_smoke's check_wkv7_train and check_wkv7_packed_train
+# (the x070 1B5 training step), K1 at the same shape beside them
+WKV7_CASES = tuple((kernel, 2, 2048, 32, dname) for dname in ("bfloat16", "float32")
+                   for kernel in ("wkv7_fwd_res", "wkv7_fwd_res_packed", "wkv7_fwd"))
+
+
+def wkv7_times(cs, dev) -> list:
+    """K5 / K12 (and K1) at every case of ``WKV7_CASES`` through the tree's
+    own wrappers: device time (CUDA graphs) and eager time, ms."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = []
+    for kernel, B, T, H, dname in WKV7_CASES:
+        xs = cs._wkv_streams(gen, (B, T, H, 64), getattr(torch, dname), dev)
+        s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
+        fn = lambda kernel=kernel, xs=xs, s0=s0: getattr(wkv7_cuda, kernel)(*xs, s0)
+        out.append({"case": f"{kernel} B={B} T={T} H={H} {dname}", "ms": cs.cuda_ms(fn, reps=5),
+                    "eager_ms": cs.eager_ms(fn, reps=5)})
+        del xs, s0
+    return out
+
+
 def child(tree: str, sections) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -124,7 +155,7 @@ def child(tree: str, sections) -> None:
     dev = torch.device("cuda", 0)
     out = {"tree": tree,
            "ptxas": {f"{kern}{list(args)}": v for (lib, kern, args), v in getattr(cs, "PTXAS", {}).items()
-                     if lib.startswith("attention") or kern == "wkv6_fwd_kernel"}}
+                     if lib.startswith("attention") or kern in ("wkv6_fwd_kernel", "wkv7_fwd_res_kernel")}}
     if "k3" in sections:
         out["k3"] = k3_times(cs, dev)
     if "attention_bwd" in sections:
@@ -157,6 +188,9 @@ def child(tree: str, sections) -> None:
         torch.cuda.empty_cache()
     if "wkv6" in sections:
         out["wkv6"] = wkv6_times(cs, dev)
+        torch.cuda.empty_cache()
+    if "wkv7" in sections:
+        out["wkv7"] = wkv7_times(cs, dev)
         torch.cuda.empty_cache()
     if "x060_serving" in sections:
         cfg = cs.x060_serving_cfg()

@@ -14,7 +14,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and library (one PyTorch call computing the same function, timed as a
    yardstick only) times and the least time the card could take
    (``bound_ms``). The head-pair ("packed") kernels K11-K13 are held
-   against their plain versions too, and K11 and K12 beside K1 and K5;
+   against their plain versions too, K11 beside K1, and K12 must equal K5
+   bit for bit; the chunked WKV7 training forward K5 / K12 at the 1B5
+   step's shape, each case logging its plan (value rows a block, blocks,
+   threads, shared memory held equal to the library's count, registers,
+   spills: no K5 / K12 instantiation may spill), and at ten more inputs
+   against the fp32 sequential scan (``WKV7_FWD_RES_PATH_CASES``);
    K3 beside the SDPA forward with the rel-pos bias (SAM-B at 1024, 768
    and 512 pixels) and without (the ViTs), with and without its
    log-sum-exp output, each case logging its plan (path, key tile, block
@@ -433,6 +438,7 @@ def check_wkv7_train(gen, dev):
         dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
 
         c = Check("wkv7_fwd_res", case)
+        plan = wkv7_fwd_res_plan(case, B, H, sdt)
         y, s, zin = wkv7_cuda.wkv7_fwd_res(*xs, s0)
         t_plain = eager_ms(lambda: pw.wkv7_fwd_res_plain(*xs, s0), reps=1, warmup=0)
         y_ref, s_ref, zin_ref = pw.wkv7_fwd_res_plain(*xs, s0)
@@ -446,7 +452,7 @@ def check_wkv7_train(gen, dev):
         esz = xs[0].element_size()
         nbytes = 7 * B * T * H * N * esz + 2 * B * H * N * N * 4 + zin.numel() * 4
         rec = c.record(k_ms, t_plain, None, nbytes, 9 * B * T * H * N * N, FP32_FLOPS, k_eager)
-        rec["k1_same_shape_ms"] = k1_ms
+        rec.update(k1_same_shape_ms=k1_ms, plan=plan)
         log(f"  wkv7_fwd_res [{case}] K1 (no saved states) at the same shape: {k1_ms:.4f} ms")
         fwd.append(rec)
 
@@ -515,8 +521,9 @@ def check_wkv7_packed_train(gen, dev):
     """K12 (forward saving the packed chunk states) and K13 (backward from
     them) at the training path's shapes, as :func:`check_wkv7_train` holds
     K5 and K6: K12 against the packed plain scan, K13 against the packed
-    plain backward on the same values in fp32. K12's ``zin`` is held beside
-    K5's, repacked, and its time beside K5's."""
+    plain backward on the same values in fp32. K12 is K5's kernel with the
+    packed ``zin`` addressing: its y, final state and ``zin`` must equal K5's
+    (repacked) bit for bit; its time stands beside K5's."""
     import torch
 
     from visualrwkv_torch.ops import wkv7 as pw
@@ -535,22 +542,25 @@ def check_wkv7_packed_train(gen, dev):
         dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
 
         c = Check("wkv7_fwd_res_packed", case)
+        plan = wkv7_fwd_res_plan(case, B, H, sdt)
         y, s, zin = wkv7_cuda.wkv7_fwd_res_packed(*xs, s0)
         (y_ref, s_ref, zin_ref), t_plain = timed_once(lambda: pw.wkv7_fwd_res_packed_plain(*xs, s0))
         c.compare(f"y ({dname})", y.float(), y_ref.float(), 1e-2 if bf else 1e-3)
         c.compare("final state (fp32)", s, s_ref, 1e-3)
         c.compare("saved packed chunk states zin (fp32)", zin, zin_ref, 1e-3)
-        y5, _, zin5 = wkv7_cuda.wkv7_fwd_res(*xs, s0)
-        k5_diff = max(max_abs(zin, pw._pack_zin(zin5, B, H)), max_abs(y, y5))
-        log(f"  wkv7_fwd_res_packed [{case}] largest difference from K5 (y, zin repacked): {k5_diff:.3e}")
-        del y5, zin5
+        y5, s5, zin5 = wkv7_cuda.wkv7_fwd_res(*xs, s0)
+        k5_diff = max(max_abs(zin, pw._pack_zin(zin5, B, H)), max_abs(y, y5), max_abs(s, s5))
+        log(f"  wkv7_fwd_res_packed [{case}] largest difference from K5 (y, final state, zin "
+            f"repacked): {k5_diff:.3e}")
+        assert k5_diff == 0, f"K12 differs from K5 by {k5_diff:.3e} [{case}]"
+        del y5, s5, zin5
         fn = lambda: wkv7_cuda.wkv7_fwd_res_packed(*xs, s0)
         k_ms, k_eager = cuda_ms(fn, reps=5), eager_ms(fn, reps=5)
         k5_ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd_res(*xs, s0), reps=5)
         esz = xs[0].element_size()
         nbytes = 7 * B * T * H * N * esz + 2 * B * H * N * N * 4 + zin.numel() * 4
         rec = c.record(k_ms, t_plain, None, nbytes, 9 * B * T * H * N * N, FP32_FLOPS, k_eager)
-        rec.update(k5_same_inputs_ms=k5_ms, max_abs_diff_from_k5=k5_diff)
+        rec.update(k5_same_inputs_ms=k5_ms, max_abs_diff_from_k5=k5_diff, plan=plan)
         log(f"  wkv7_fwd_res_packed [{case}] K5 on the same inputs: {k5_ms:.4f} ms")
         fwd.append(rec)
 
@@ -568,6 +578,126 @@ def check_wkv7_packed_train(gen, dev):
         bwd.append(c.record(k_ms, t_plain, None, nbytes, 27 * B * T * H * N * N, FP32_FLOPS, k_eager))
         del xs, xs32, zin, zin_ref, grads, ref
     return fwd, bwd
+
+
+def wkv7_fwd_res_plan(case, B, H, dtype):
+    """K5 / K12's plan for B * H heads (``wkv7_cuda.fwd_res_plan``: value rows
+    a block, blocks, threads, shared memory, held equal to the library's own
+    count), logged with ptxas's registers and spills of the K5 and K12
+    instantiations it launches."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    plan = wkv7_cuda.fwd_res_plan(B, H, dtype)
+    assert plan["smem_bytes"] == wkv7_cuda.kernel_smem_bytes(dtype, plan["rows"]), plan
+    code = int(dtype == torch.bfloat16)
+    for lib, zheads, name in (("wkv7", 1, "k5"), ("wkv7_packed", 2, "k12")):
+        plan[f"{name}_ptxas"] = PTXAS.get((lib, "wkv7_fwd_res_kernel", (code, plan["rows"], zheads)))
+    regs = lambda p: "not parsed" if p is None else (f"{p.get('registers')} registers, "
+                                                     f"{p.get('spill_bytes', 0)} B spilled")
+    log(f"  wkv7 training forward [{case}] plan: {plan['rows']} value rows a block, {plan['blocks']} "
+        f"blocks of {plan['threads']} threads, {plan['smem_bytes']} B shared; K5 "
+        f"{regs(plan['k5_ptxas'])}, K12 {regs(plan['k12_ptxas'])}")
+    return plan
+
+
+# K5 / K12 inputs held against the fp32 sequential scan but not timed: (what,
+# B, T, H, stream dtype). The chunk solve's adversarial construction
+# (sign-alternating unit kk, a gate 0.9, slow decay) and the first optimizer
+# step's (kk correlated over t with random sign flips, gate 0.85) of
+# tests/test_wkv7_stability.py; the models' strongest decay (w_raw = -0.5)
+# on every channel with |r| <= 1e-3 on a quarter of them; w_raw = 2.0 on
+# every channel (a decay of e^{-7.4} a step: the factors of a chunk reach
+# e^{+-59}); B * H = 18 (16 value rows a block, 72 blocks) and B * H = 128
+# (64 rows, 128 blocks), which no timed case takes.
+WKV7_FWD_RES_PATH_CASES = (
+    ("adversarial", 1, 256, 2, "float32"),
+    ("adversarial", 1, 256, 2, "bfloat16"),
+    ("first optimizer step", 1, 256, 2, "float32"),
+    ("first optimizer step", 1, 256, 2, "bfloat16"),
+    ("w_raw = -0.5 on every channel, |r| <= 1e-3 on a quarter", 2, 256, 32, "float32"),
+    ("w_raw = -0.5 on every channel, |r| <= 1e-3 on a quarter", 2, 256, 32, "bfloat16"),
+    ("w_raw = 2.0 on every channel", 2, 256, 32, "float32"),
+    ("w_raw = 2.0 on every channel", 2, 256, 32, "bfloat16"),
+    ("B*H = 18", 3, 96, 6, "float32"),
+    ("B*H = 128", 2, 96, 64, "bfloat16"),
+)
+
+
+def _wkv7_path_streams(gen, what, shape, dev):
+    """fp32 streams for a case of ``WKV7_FWD_RES_PATH_CASES``."""
+    import torch
+    import torch.nn.functional as F
+
+    B, T, H, N = shape
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    if what == "adversarial":
+        sign = (-1.0) ** torch.arange(T, device=dev).view(1, T, 1, 1)
+        kk = F.normalize(rn(1, 1, H, N), dim=-1) * sign
+        kk = kk.expand(B, T, H, N)
+        w_raw = torch.full(shape, -7.0, device=dev)
+        return [rn(*shape) * 0.5, w_raw, rn(*shape) * 0.05, rn(*shape) * 0.5, -kk, kk * 0.9]
+    if what == "first optimizer step":
+        kk = F.normalize(rn(1, 1, H, N) + 0.15 * rn(*shape), dim=-1)
+        flip = torch.where(torch.rand(B, T, 1, 1, generator=gen, device=dev) < 0.35, -1.0, 1.0)
+        kk = kk * flip
+        w_raw = torch.full(shape, -6.0, device=dev)
+        return [rn(*shape) * 0.5, w_raw, rn(*shape) * 0.05, rn(*shape) * 0.5, -kk, kk * 0.85]
+    xs = _wkv_streams(gen, shape, torch.float32, dev)
+    if what.startswith("w_raw = -0.5"):
+        xs[1] = torch.full(shape, -0.5, device=dev)
+        xs[0][..., ::4] = (torch.rand(xs[0][..., ::4].shape, generator=gen, device=dev) * 2 - 1) * 1e-3
+    elif what.startswith("w_raw = 2.0"):
+        xs[1] = torch.full(shape, 2.0, device=dev)
+    return xs
+
+
+def _reference_with_states(xs, s0):
+    """The fp32 sequential scan (``wkv7_reference``) run chunk by chunk:
+    (y, final state, zin ``[B*H, T/16, 64, 64]``, the transposed state
+    entering every 16-step chunk)."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+
+    B, T, H, N = xs[0].shape
+    s, ys, zs = s0, [], []
+    for t in range(0, T, 16):
+        zs.append(s.transpose(-1, -2).reshape(B * H, 1, N, N))
+        y, s = pw.wkv7_reference(*(x[:, t:t + 16] for x in xs), s)
+        ys.append(y)
+    return torch.cat(ys, 1), s, torch.cat(zs, 1)
+
+
+def check_wkv7_fwd_res_paths(gen, dev):
+    """K5 and K12 at ``WKV7_FWD_RES_PATH_CASES`` against the fp32 sequential
+    scan, with an initial state, under the limits of the timed cases: y 1e-2
+    (bf16 streams) or 1e-3 (fp32), the final state and ``zin`` 1e-3; K12
+    equal to K5 bit for bit."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    N = 64
+    for what, B, T, H, dname in WKV7_FWD_RES_PATH_CASES:
+        sdt = getattr(torch, dname)
+        case = f"{what}: B={B} T={T} H={H} {dname} streams, with initial state"
+        wkv7_fwd_res_plan(case, B, H, sdt)
+        xs = [x.to(sdt).contiguous() for x in _wkv7_path_streams(gen, what, (B, T, H, N), dev)]
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+        y_ref, s_ref, zin_ref = _reference_with_states([x.float() for x in xs], s0)
+        ytol = 1e-2 if sdt == torch.bfloat16 else 1e-3
+        c = Check("wkv7_fwd_res", case)
+        y, s, zin = wkv7_cuda.wkv7_fwd_res(*xs, s0)
+        c.compare(f"y ({dname}) vs fp32 sequential scan", y.float(), y_ref, ytol)
+        c.compare("final state (fp32)", s, s_ref, 1e-3)
+        c.compare("saved chunk states zin (fp32)", zin, zin_ref, 1e-3)
+        yp, sp, zinp = wkv7_cuda.wkv7_fwd_res_packed(*xs, s0)
+        diff = max(max_abs(yp, y), max_abs(sp, s), max_abs(zinp, pw._pack_zin(zin, B, H)))
+        log(f"  wkv7_fwd_res_packed [{case}] largest difference from K5: {diff:.3e}")
+        assert diff == 0, f"K12 differs from K5 by {diff:.3e} [{case}]"
 
 
 def _wkv6_streams(gen, shape, dtype, dev):
@@ -1470,10 +1600,11 @@ def _template_flags(name: str, kernel: str):
 
 def _category(kernel_name: str) -> str:
     n = kernel_name.lower()
-    if "wkv7_fwd_kernel<" in n:  # <T, SAVE, HEADS>
-        save, heads = _template_flags(n, "wkv7_fwd_kernel")
-        return {(0, 1): "K1 wkv7_fwd", (1, 1): "K5 wkv7_fwd_res",
-                (0, 2): "K11 wkv7_fwd_packed", (1, 2): "K12 wkv7_fwd_res_packed"}[(save, heads)]
+    if "wkv7_fwd_kernel<" in n:  # <T, HEADS>
+        return "K11 wkv7_fwd_packed" if _template_flags(n, "wkv7_fwd_kernel")[0] == 2 else "K1 wkv7_fwd"
+    if "wkv7_fwd_res_kernel<" in n:  # <DT, ROWS, ZHEADS>
+        return "K12 wkv7_fwd_res_packed" if _template_flags(n, "wkv7_fwd_res_kernel")[1] == 2 \
+            else "K5 wkv7_fwd_res"
     if "wkv7_bwd_kernel<" in n:  # <T, ZHEADS>
         return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_kernel")[0] == 2 else "K6 wkv7_bwd"
     if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS>
@@ -2069,6 +2200,11 @@ def main(argv=None) -> int:
     k78 = {key: v for key, v in PTXAS.items() if key[:2] == ("wkv6", "wkv6_fwd_kernel")}
     assert len(k78) == 12, f"K7 / K8: ptxas reported {sorted(k78)}, not 2 dtypes x 2 x 3 row counts"
     assert not any(v.get("spill_bytes", 0) for v in k78.values()), f"a K7 / K8 instantiation spills: {k78}"
+    k512 = {key: v for key, v in PTXAS.items() if key[1] == "wkv7_fwd_res_kernel"}
+    want512 = {(lib, "wkv7_fwd_res_kernel", (dt, rows, zh)) for lib, zh in (("wkv7", 1), ("wkv7_packed", 2))
+               for dt in (0, 1) for rows in (16, 32, 64)}
+    assert set(k512) == want512, f"K5 / K12: ptxas reported {sorted(k512)}, not {sorted(want512)}"
+    assert not any(v.get("spill_bytes", 0) for v in k512.values()), f"a K5 / K12 instantiation spills: {k512}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
@@ -2079,6 +2215,7 @@ def main(argv=None) -> int:
     kernels["wkv7_fwd_res"], kernels["wkv7_bwd"] = check_wkv7_train(gen, dev)
     kernels["wkv7_fwd_packed"] = check_wkv7_fwd_packed(gen, dev)
     kernels["wkv7_fwd_res_packed"], kernels["wkv7_bwd_packed"] = check_wkv7_packed_train(gen, dev)
+    check_wkv7_fwd_res_paths(gen, dev)
     kernels["attention_fwd_relpos"], kernels["attention_fwd_mha"] = check_attention(gen, dev)
     kernels["wkv6_fwd"], kernels["wkv6_step"] = check_wkv6_fwd(gen, dev), check_wkv6_step(gen, dev)
     kernels["wkv6_fwd_res"], kernels["wkv6_bwd"] = check_wkv6_train(gen, dev)

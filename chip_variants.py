@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Variants of a kernel against each other on one card, in turns: the
-attention forward K3 (``visualrwkv_torch/csrc/attention.cu``) or the WKV6
-forward K7 / K8 (``csrc/wkv6.cu``).
+attention forward K3 (``visualrwkv_torch/csrc/attention.cu``), the WKV6
+forward K7 / K8 (``csrc/wkv6.cu``) or the WKV7 training forward K5
+(``csrc/wkv7_chunk.cuh``, built through ``csrc/wkv7.cu``).
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
     python3 chip_variants.py base stages2          # some of them
     python3 chip_variants.py --wkv6 [names]        # K7 / K8: WKV6_VARIANTS
+    python3 chip_variants.py --wkv7 [names]        # K5: WKV7_VARIANTS
 
 A variant is the source with text substitutions (each names the design
 choice it undoes, or the part of the work it leaves out). Each is compiled
@@ -17,9 +19,12 @@ held against its plain version (out relative RMS <= 1e-2, lse <= 1e-3) and
 timed in CUDA graphs as the serving path calls it (``sam_attention``,
 ``mha``); or K8 and K7 run at ``WKV6_CASES`` through ``wkv6_cuda``, each
 exact variant held against the floored scan (y <= 1e-2 with bf16 streams,
-1e-3 with fp32, the final state 1e-3). The card's name and power limit come
-first, the SDPA forward's time at each no-bias case next (K3), and one
-``VARIANT {json}`` line a variant last (its times in turn order).
+1e-3 with fp32, the final state 1e-3); or K5 runs at ``WKV7_CASES`` through
+``wkv7_cuda``, each exact variant held against ``wkv7_fwd_res_plain`` (y
+<= 1e-2 with bf16 streams, 1e-3 with fp32, the final state and ``zin``
+1e-3). The card's name and power limit come first, the SDPA forward's time
+at each no-bias case next (K3), and one ``VARIANT {json}`` line a variant
+last (its times in turn order).
 """
 
 from __future__ import annotations
@@ -78,29 +83,149 @@ WKV6_VARIANTS = {
     "no_outputs": ([("    outputs(c);\n", "")], None, False),
     "no_update": ([("    update(c);\n", "")], None, False),
 }
+# K5's alternative for the four matrices that every slice of a head shares:
+# the slices of a head as a thread-block cluster that splits them (each block
+# computes its share and writes it into every block's shared memory), three
+# sets of them, and a cluster barrier a chunk split in two (arrive after the
+# matrices, wait at the next chunk's top) in place of the loop's first
+# __syncthreads. Measured slower than every slice recomputing them.
+_CLUSTER = [
+    ("#include <type_traits>\n", """#include <type_traits>
+
+#include <cooperative_groups.h>
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");
+}
+"""),
+    ("  static constexpr size_t st = mats + 2 * MATS * 4;", "  static constexpr size_t st = mats + 3 * MATS * 4;"),
+    ("  constexpr int ZROW = ZHEADS * N;   // zin's row stride\n",
+     "  constexpr int ZROW = ZHEADS * N;   // zin's row stride\n  constexpr int CL = N / ROWS;\n"),
+    ("idx < 2 * L::MATS; idx += NT", "idx < 3 * L::MATS; idx += NT"),
+    ("(c & 1) * L::MATS", "(c % 3) * L::MATS"),
+    ("""    float* out = mats + (c % 3) * L::MATS;
+    for (int task = tid; task < 4 * 10 * 8; task += NT) {  // a warp-uniform bound
+      const int mat = task / 80, tile = task % 80 / 8, jc = task % 8;""",
+     """    float* out = mats + (c % 3) * L::MATS;
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    const int rank = CL > 1 ? (int)cluster.block_rank() : 0;
+    float* outs[CL];
+    for (int q = 0; q < CL; ++q) outs[q] = q == rank ? out : cluster.map_shared_rank(out, q);
+    constexpr int TASKS = 4 * 10 * 8 / CL;
+    for (int lt = tid; lt < (TASKS + 31) / 32 * 32; lt += NT) {
+      const int task = min(lt, TASKS - 1);
+      const int mat = rank * (4 / CL) + task / 80, tile = task % 80 / 8, jc = task % 8;"""),
+    ("""        if (mat < 2 ? s < t : s <= t)
+          out[mat * CHUNK * CHUNK + (mat == 0 ? s * CHUNK + t : t * CHUNK + s)] = acc[m];""",
+     """        if (lt < TASKS && (mat < 2 ? s < t : s <= t))
+          for (int q = 0; q < CL; ++q)
+            outs[q][mat * CHUNK * CHUNK + (mat == 0 ? s * CHUNK + t : t * CHUNK + s)] = acc[m];"""),
+    ("""    __syncthreads();
+    factors(0);
+    __syncthreads();
+    matrices(0);
+  }""", """    if (CL > 1)
+      cooperative_groups::this_cluster().sync();
+    else
+      __syncthreads();
+    factors(0);
+    __syncthreads();
+    matrices(0);
+    if (CL > 1) cluster_arrive();
+  }"""),
+    ("""    cp_async_wait<0>();  // chunk c + 1's inputs
+    __syncthreads();""", """    cp_async_wait<0>();  // chunk c + 1's inputs
+    if (CL > 1) cluster_wait();
+    __syncthreads();"""),
+    ("""    if (c + 1 < nc) matrices(c + 1);
+    finish(c, yp);""", """    if (c + 1 < nc) {
+      matrices(c + 1);
+      if (CL > 1) cluster_arrive();
+    }
+    finish(c, yp);"""),
+    ("""  kernel<<<B * H * (N / ROWS), ROWS * chunk_threads_a_row<ROWS>(), smem, st>>>(
+      T, H, (const X*)r, (const X*)w, (const X*)k, (const X*)v, (const X*)a, (const X*)b,
+      (const float*)s0, (X*)y, (float*)s_out, (float*)zin);
+  return (int)cudaGetLastError();""", """  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H * (N / ROWS));
+  cfg.blockDim = dim3(ROWS * chunk_threads_a_row<ROWS>());
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = N / ROWS;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = N / ROWS > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, T, H, (const X*)r, (const X*)w, (const X*)k, (const X*)v, (const X*)a,
+      (const X*)b, (const float*)s0, (X*)y, (float*)s_out, (float*)zin);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());"""),
+]
+# K5: name -> ([(text in wkv7_chunk.cuh, replacement)], value of
+# wkv7_cuda.FWD_RES_BLOCKS or None, exact). The "no_*" variants leave a part
+# of the chunk loop's work out (their results are wrong), to show its share.
+WKV7_VARIANTS = {
+    "base": ([], None, True),
+    # the slices of a head as a cluster sharing the four matrices (of two at
+    # 32 rows a block; of four at 16)
+    "cluster": (_CLUSTER, None, True),
+    "rows16_cluster": (_CLUSTER, 256, True),
+    # 16 / 64 value rows a block at B*H = 64 (256 / 64 blocks)
+    "rows16": ([], 256, True),
+    "rows64": ([], 64, True),
+    # 4 threads a value row at 32 rows a block too (128 threads, 16 columns each)
+    "tpr4": ([("return ROWS == 64 ? 4 : 8;", "return ROWS >= 32 ? 4 : 8;")], None, True),
+    # 16 threads a value row at 32 rows a block (512 threads, 4 columns and 1 step each)
+    "tpr16": ([("return ROWS == 64 ? 4 : 8;", "return ROWS == 64 ? 4 : ROWS == 32 ? 16 : 8;"),
+               ("NT >= 128 && NT <= 256", "NT >= 128 && NT <= 512")], None, True),
+    # 64 rows a block with 8 threads a row (512 threads, a whole head, 64 blocks)
+    "rows64_tpr8": ([("return ROWS == 64 ? 4 : 8;", "return 8;"),
+                     ("NT >= 128 && NT <= 256", "NT >= 128 && NT <= 512")], 64, True),
+    # the products along j unrolled in full (4 deep in the source)
+    "unroll16": ([("#pragma unroll 4\n    for (int jj", "#pragma unroll\n    for (int jj")], None, True),
+    "no_factors": ([("    if (c + 1 < nc) factors(c + 1);\n", "")], None, False),
+    "no_matrices": ([("    if (c + 1 < nc) matrices(c + 1);\n", "")], None, False),
+    "no_products": ([("    products(c, yp);\n", "    for (int o = 0; o < OPT; ++o) yp[o] = 0.f;\n")], None, False),
+    "no_solve": ([("s < CHUNK - 1; ++s) {  // column s of M", "s < 0; ++s) {  // column s of M")], None, False),
+    "no_zin": ([("for (int q = 0; q < Q4; ++q) {\n      z[", "for (int q = 0; q < 0; ++q) {\n      z[")], None, False),
+    "no_update": ([("for (int s = 0; s < CHUNK; ++s) {\n      const float us", "for (int s = 0; s < 0; ++s) {\n      const float us")],
+                  None, False),
+}
+WKV7_CASES = (("wkv7_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv7_fwd_res", 2, 2048, 32, "float32"))
 # K8 and K7 timed: (kernel, B, T, H, stream dtype)
 WKV6_CASES = (("wkv6_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv6_fwd_res", 2, 2048, 32, "float32"),
               ("wkv6_fwd", 1, 624, 64, "bfloat16"), ("wkv6_fwd", 4, 624, 64, "bfloat16"))
 
 
-def build(names, source="attention", variants=VARIANTS):
+def build(names, source="attention", variants=VARIANTS, header=None):
     """Compile the variants of ``csrc/<source>.cu``, one nvcc each, all
-    started together; returns {name: loaded library}."""
+    started together; returns {name: loaded library}. With ``header``, the
+    substitutions apply to ``csrc/<header>``, which is written beside the
+    copy of the source (and so included in place of the original)."""
     from visualrwkv_torch import cuda_build
 
-    src = open(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")).read()
+    target = header or f"{source}.cu"
+    src = open(os.path.join(cuda_build.CSRC_DIR, target)).read()
     nvcc, procs = cuda_build.find_nvcc(), {}
     for name in names:
         out_dir = os.path.join(cuda_build.BUILD_DIR, "variants", name)
         os.makedirs(out_dir, exist_ok=True)
         s = src
-        subs = variants[name][0] if source == "wkv6" else variants[name]
+        subs = variants[name] if source == "attention" else variants[name][0]
         for old, new in subs:
             assert old in s, (name, old)
             s = s.replace(old, new)
-        path = os.path.join(out_dir, f"{source}.cu")
-        with open(path, "w") as f:
+        with open(os.path.join(out_dir, target), "w") as f:
             f.write(s)
+        path = os.path.join(out_dir, f"{source}.cu")
+        if header:
+            with open(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")) as f, open(path, "w") as g:
+                g.write(f.read())
         cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", cuda_build.CSRC_DIR,
                "-o", os.path.join(out_dir, f"lib{source}.so"), path]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -159,10 +284,49 @@ def time_wkv6(names, libs, dev) -> int:
     return 0
 
 
+def time_wkv7(names, libs, dev) -> int:
+    """K5 at ``WKV7_CASES`` under each variant, in turns."""
+    import torch
+
+    import chip_smoke as cs
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for kernel, B, T, H, dname in WKV7_CASES:
+        sdt = getattr(torch, dname)
+        xs = cs._wkv_streams(gen, (B, T, H, 64), sdt, dev)
+        s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
+        ref = pw.wkv7_fwd_res_plain(*xs, s0)
+        fn = getattr(wkv7_cuda, kernel)
+        cases.append((f"{kernel} B={B} T={T} H={H} {dname}", lambda fn=fn, xs=xs, s0=s0: fn(*xs, s0),
+                      ref, 1e-2 if sdt == torch.bfloat16 else 1e-3))
+    times = {n: {c[0]: [] for c in cases} for n in names}
+    blocks = wkv7_cuda.FWD_RES_BLOCKS
+    for name in names + names[::-1]:
+        cuda_build._LIBS["wkv7"] = libs[name]
+        _, plan_blocks, exact = WKV7_VARIANTS[name]
+        wkv7_cuda.FWD_RES_BLOCKS = blocks if plan_blocks is None else plan_blocks
+        for case, run, (y_ref, s_ref, zin_ref), ytol in cases:
+            y, s, zin = run()
+            torch.cuda.synchronize()
+            if exact:
+                e = (cs.rel_rms(y.float(), y_ref.float()), cs.rel_rms(s, s_ref), cs.rel_rms(zin, zin_ref))
+                assert e[0] <= ytol and e[1] <= 1e-3 and e[2] <= 1e-3, (name, case, e)
+            times[name][case].append(cs.cuda_ms(run, reps=10))
+    wkv7_cuda.FWD_RES_BLOCKS = blocks
+    for name in names:
+        print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
-    wkv6 = argv[:1] == ["--wkv6"]
-    argv = argv[1:] if wkv6 else argv
-    known = WKV6_VARIANTS if wkv6 else VARIANTS
+    kind = argv[0][2:] if argv[:1] in (["--wkv6"], ["--wkv7"]) else None
+    argv = argv[1:] if kind else argv
+    known = {"wkv6": WKV6_VARIANTS, "wkv7": WKV7_VARIANTS, None: VARIANTS}[kind]
     names = argv or list(known)
     bad = [n for n in names if n not in known]
     if bad:
@@ -183,8 +347,10 @@ def main(argv) -> int:
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
-    if wkv6:
+    if kind == "wkv6":
         return time_wkv6(names, build(names, "wkv6", WKV6_VARIANTS), dev)
+    if kind == "wkv7":
+        return time_wkv7(names, build(names, "wkv7", WKV7_VARIANTS, header="wkv7_chunk.cuh"), dev)
     libs = build(names)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

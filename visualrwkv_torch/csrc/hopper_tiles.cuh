@@ -3,7 +3,8 @@
 // wgmma and the wgmma instructions themselves, a ring of stages shared by a
 // producer and its consumers, and the tiles of the vision towers' attention
 // over [B, N, heads, hd] read in place. Used by the attention forward K3
-// (attention.cu) and backward K14 / K15 (attention_bwd.cu).
+// (attention.cu) and backward K14 / K15 (attention_bwd.cu); its cp.async
+// and small-sum helpers by the chunked WKV forwards (wkv6.cu, wkv7_chunk.cuh).
 //
 // Layouts. A tile of bf16 rows is brought in by TMA with a 128-byte swizzle
 // (CU_TENSOR_MAP_SWIZZLE_128B, 64 columns a row) or, for the 16 columns of a
@@ -25,6 +26,40 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------ cp.async and small sums
+// (the chunked WKV kernels: wkv6.cu's K7 / K8, wkv7_chunk.cuh's K5 / K12)
+
+// 16 bytes from device memory into shared memory; zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// Halves the NV partial sums in acc[0 .. 2 NV) across the lanes l and l ^ O:
+// the lane with O set keeps the upper half, the other the lower, each
+// summed with its partner's, in acc[0 .. NV).
+template <int O, int NV>
+__device__ __forceinline__ void reduce_scatter(float* acc, bool upper) {
+#pragma unroll
+  for (int m = 0; m < NV; ++m) {
+    const float send = upper ? acc[m] : acc[m + NV];
+    const float keep = upper ? acc[m + NV] : acc[m];
+    acc[m] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

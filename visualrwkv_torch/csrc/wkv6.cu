@@ -142,35 +142,11 @@ struct FwdSmem {
   static constexpr size_t bytes = u + N * 4;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(smem)),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-
-// Halves the NV partial sums in acc[0 .. 2 NV) across the lanes l and l ^ O:
-// the lane with O set keeps the upper half, the other the lower, each
-// summed with its partner's, in acc[0 .. NV).
-template <int O, int NV>
-__device__ __forceinline__ void reduce_scatter(float* acc, bool upper) {
-#pragma unroll
-  for (int m = 0; m < NV; ++m) {
-    const float send = upper ? acc[m] : acc[m + NV];
-    const float keep = upper ? acc[m + NV] : acc[m];
-    acc[m] = keep + __shfl_xor_sync(FULL, send, O);
-  }
-}
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::dot4;
+using hopper::reduce_scatter;
 
 // Threads a value row: 8 (8 columns of S and 2 output steps each), or 4 at 64
 // rows a block (16 columns and 4 steps), so that two blocks of 256 threads

@@ -2,8 +2,9 @@
 // one-token decode step on the head layout (K2) and on the flat layout (K4),
 // and the training forward that also saves the chunk states (K5). Plain C
 // interface, loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py. The
-// backward (K6) is in wkv7_train.cu; K1, K5 and K6 are the kernels of
-// wkv7_seq.cuh with one head a block.
+// backward (K6) is in wkv7_train.cu; K1 and K6 are the sequential kernels of
+// wkv7_seq.cuh with one head a block, K5 the chunked kernel of
+// wkv7_chunk.cuh.
 //
 // K1 wkv7_fwd replaces visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_pallas (the
 // chunked forward, kernel _wkv7_kernel). The Pallas kernel solves a chunk of
@@ -34,15 +35,14 @@
 // differs (H*64 instead of 64), so K4 is K2's body with that stride. Bound:
 // state bytes, as K2.
 //
-// K5 wkv7_fwd_res replaces wkv7_pallas_fwd_res: K1's recurrence that also
+// K5 wkv7_fwd_res replaces wkv7_pallas_fwd_res: the forward that also
 // writes the state entering every 16-step chunk, zin[bh, c] = transpose of S
-// before step 16c (fp32). The transpose (Z = S^T, as the Pallas kernel saves
-// it) is what makes the stores coalesced: thread i owns row i of S, so for a
-// fixed column j the 64 threads write 64 adjacent floats of Z[j, :]; the
-// backward's row owners read Z the same way. Bound: as K1 (latency of the T
-// dependent steps); the extra bytes are B*H*(T/16)*16 KiB.
+// before step 16c (fp32; Z = S^T, as the Pallas kernel saves it and K6 reads
+// it coalesced). It is wkv7_fwd_res_kernel<DT, ROWS, 1> of wkv7_chunk.cuh,
+// the Pallas kernel's chunk form with a block per slice of value rows of a
+// head; the design and its bound are described there.
 
-#include "wkv7_seq.cuh"
+#include "wkv7_chunk.cuh"
 
 namespace {
 
@@ -152,15 +152,19 @@ extern "C" {
 int wkv7_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
              const void* k, const void* v, const void* a, const void* b,
              const void* s0, void* y, void* s_out, void* stream) {
-  return launch_fwd<false, 1>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
+  return launch_fwd<1>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, stream);
 }
 
-// K5: T must be a multiple of 16; zin is fp32 [B*H, T/16, 64, 64].
-int wkv7_fwd_res(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+// K5: T a positive multiple of 16; zin is fp32 [B*H, T/16, 64, 64]; rows =
+// the value rows a block owns (16, 32 or 64).
+int wkv7_fwd_res(int dtype, int rows, int B, int T, int H, int n, const void* r, const void* w,
                  const void* k, const void* v, const void* a, const void* b,
                  const void* s0, void* y, void* s_out, void* zin, void* stream) {
-  return launch_fwd<true, 1>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
+  return launch_fwd_res<1>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
 }
+
+// Dynamic shared memory of a K5 / K12 block, bytes (-1: no such instantiation).
+int wkv7_fwd_res_smem_bytes(int dtype, int rows) { return fwd_res_smem_bytes(dtype, rows); }
 
 int wkv7_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,
               const float* w, const float* k, const float* v, const float* a,

@@ -15,14 +15,19 @@
 //   zin[p, c, j, h2 * 64 + i] = S_{2p+h2}[i, j]   (fp32 [B*H/2, T/16, 64, 128])
 // before step 16c, with p = b * H/2 + head pair.
 //
-// K11 / K12: wkv7_fwd_kernel<T, SAVE, 2> of wkv7_seq.cuh, one block of 128
-// threads per (b, head pair): thread h2 * 64 + i owns value row i of head
-// 2p + h2 in registers, each step stages the pair's 128-wide r, w, k, a, b
-// rows (256 bytes a bf16 stream, one coalesced load of the block), and for a
-// fixed j the block writes zin[p, c, j, 0:128], one 512-byte store (K5
-// writes 256). The arithmetic of a thread is K1's, so the outputs are
-// bit-equal to K1 / K5. Bound: latency, as K1 (T dependent steps), now over
-// B*H/2 blocks, half of K1's: 16 at B=1, H=32.
+// K11: wkv7_fwd_kernel<T, 2> of wkv7_seq.cuh, one block of 128 threads per
+// (b, head pair): thread h2 * 64 + i owns value row i of head 2p + h2 in
+// registers, and each step stages the pair's 128-wide r, w, k, a, b rows
+// (256 bytes a bf16 stream, one coalesced load of the block). The arithmetic
+// of a thread is K1's, so the outputs are bit-equal to K1. Bound: latency,
+// as K1 (T dependent steps), now over B*H/2 blocks, half of K1's: 16 at
+// B=1, H=32.
+//
+// K12: wkv7_fwd_res_kernel<DT, ROWS, 2> of wkv7_chunk.cuh, K5's chunked
+// kernel (a block per slice of value rows of one head) with zin addressed
+// in the packed layout: row stride 128 and column offset (h % 2) * 64, so
+// each warp's store is still a run of adjacent floats. Its y, final state
+// and zin values are bit-equal to K5's.
 //
 // K13: wkv7_bwd_kernel<T, 2>, the per-step adjoint of K6 reading the packed
 // zin. Two heads in one block would need about 340 KB of shared memory
@@ -35,7 +40,7 @@
 // out per head in [B, H, 64, 64]. WKV7 has no bonus u, so no sum over B is
 // needed. Bit-equal to K6 on the same states.
 
-#include "wkv7_seq.cuh"
+#include "wkv7_chunk.cuh"
 
 extern "C" {
 
@@ -47,14 +52,16 @@ const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t
 int wkv7_fwd_packed(int dtype, int B, int T, int H, int n, const void* r, const void* w,
                     const void* k, const void* v, const void* a, const void* b,
                     const void* s0, void* y, void* s_out, void* stream) {
-  return launch_fwd<false, 2>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
+  return launch_fwd<2>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, stream);
 }
 
-// K12: K11 that also writes the packed zin; T a multiple of 16.
-int wkv7_fwd_res_packed(int dtype, int B, int T, int H, int n, const void* r, const void* w,
-                        const void* k, const void* v, const void* a, const void* b,
-                        const void* s0, void* y, void* s_out, void* zin, void* stream) {
-  return launch_fwd<true, 2>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
+// K12: K5 (wkv7.cu) with the packed zin; T a positive multiple of 16, H
+// even; rows = the value rows a block owns (16, 32 or 64).
+int wkv7_fwd_res_packed(int dtype, int rows, int B, int T, int H, int n, const void* r,
+                        const void* w, const void* k, const void* v, const void* a,
+                        const void* b, const void* s0, void* y, void* s_out, void* zin,
+                        void* stream) {
+  return launch_fwd_res<2>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
 }
 
 // K13: as wkv7_bwd (wkv7_train.cu), with zin packed as K12 wrote it.

@@ -1,30 +1,25 @@
 // The sequential RWKV-7 ("x070") recurrence on Hopper, shared by the kernels
-// of wkv7.cu (K1, K5), wkv7_train.cu (K6) and wkv7_packed.cu (K11-K13).
-// Device code and launch helpers only; each .cu file defines its own plain C
-// entry points.
+// of wkv7.cu (K1), wkv7_train.cu (K6) and wkv7_packed.cu (K11, K13). The
+// training forwards K5 and K12, which save the chunk states, are the chunked
+// form of wkv7_chunk.cuh. Device code and launch helpers only; each .cu file
+// defines its own plain C entry points.
 //
 // Recurrence per (batch, head), fp32 state S of shape [Nv, Nk] = [64, 64]:
 //   sa_i = sum_j S_ij a_j
 //   S_ij = S_ij * exp(-exp(w_raw_j)) + sa_i * b_j + v_i * k_j
 //   y_i  = sum_j S_ij r_j
 //
-// wkv7_fwd_kernel<T, SAVE, HEADS> is the sequence forward. One block of
+// wkv7_fwd_kernel<T, HEADS> is the sequence forward. One block of
 // HEADS * 64 threads per (b, group of HEADS adjacent heads); thread
 // h2 * 64 + i owns value row i of head h0 + h2 in 64 registers, and each
 // step's r, w, k, a, b rows of the group are staged in shared memory
 // (double-buffered, so one barrier per step). The group's HEADS * 64
 // elements of each stream are contiguous in a [B, T, H, 64] row, so every
 // thread loads one element and the block's load is one coalesced access.
-// HEADS = 1 is K1 / K5, HEADS = 2 (a head pair, 256 bytes a bf16 stream
-// row) is K11 / K12; the per-thread arithmetic is the same, so both give
-// bit-equal outputs. There is no chunk solve, so the stability envelope of
-// docs/wkv_chunk_stability.md does not apply. With SAVE, the block also
-// writes the state entering every 16-step chunk,
-//   zin[g, c, j, h2 * 64 + i] = S_{h0+h2}[i, j]
-// (HEADS = 1: zin[bh, c] is Z = S^T, as K5 and the JAX package's
-// wkv7_pallas_fwd_res save it; HEADS = 2: the packed layout of
-// wkv7_pallas_fwd_res_packed). For a fixed j the block's threads write
-// HEADS * 64 adjacent floats: a coalesced 256- or 512-byte store.
+// HEADS = 1 is K1, HEADS = 2 (a head pair, 256 bytes a bf16 stream row) is
+// K11; the per-thread arithmetic is the same, so both give bit-equal
+// outputs. There is no chunk solve, so the stability envelope of
+// docs/wkv_chunk_stability.md does not apply.
 //
 // wkv7_bwd_kernel<T, ZHEADS> is the vector-Jacobian product (K6; K13 reads
 // the packed zin with ZHEADS = 2):
@@ -35,7 +30,9 @@
 //   da_j  = sum_i S_ij dsa_i
 //   dS_ij = dS'_ij w_j + dsa_i a_j
 //   dw_raw_j = dw_j * w_j * (-exp(w_raw_j))
-// so each step needs only the state S before it, never the one after. One
+// so each step needs only the state S before it, never the one after (zin
+// holds it at every 16th step: zin[bh / ZHEADS, c, j, (bh % ZHEADS) 64 + i]
+// = S[i, j], as K5 / K12 write it). One
 // block of 128 threads per (b, h), walking the chunks in reverse with the
 // state cotangent carried in registers. The step needs sums along rows (dv,
 // dsa) and along columns (dr, dw, db, dk, da) of 64x64 matrices, so the block
@@ -65,7 +62,7 @@
 namespace {
 
 constexpr int N = 64;
-constexpr int CHUNK = 16;  // the state entering every CHUNK steps is saved
+constexpr int CHUNK = 16;  // K5 / K12 save, K6 / K13 read, the state entering every CHUNK steps
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -79,12 +76,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // ---------------------------------------------------------------------------
 // Sequence forward. Streams [B, T, H, N]; state [B, H, Nv, Nk] fp32.
 // ---------------------------------------------------------------------------
-template <typename T, bool SAVE, int HEADS>
+template <typename T, int HEADS>
 __global__ void __launch_bounds__(HEADS * N) wkv7_fwd_kernel(
     int Tlen, int H, const T* __restrict__ r, const T* __restrict__ w,
     const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ a,
     const T* __restrict__ b, const float* __restrict__ s0, T* __restrict__ y,
-    float* __restrict__ s_out, float* __restrict__ zin) {
+    float* __restrict__ s_out) {
   constexpr int W = HEADS * N;  // threads; the group's elements of one stream row
   const int g = blockIdx.x;     // (b, head group)
   const int groups = H / HEADS;
@@ -119,11 +116,6 @@ __global__ void __launch_bounds__(HEADS * N) wkv7_fwd_kernel(
     nv = to_f(v[off]); na = to_f(a[off]); nb = to_f(b[off]);
   }
   for (int t = 0; t < Tlen; ++t) {
-    if (SAVE && t % CHUNK == 0) {  // zin[g, t / CHUNK, j, tid] = S[j]
-      float* z = zin + ((size_t)g * (Tlen / CHUNK) + t / CHUNK) * N * W + tid;
-#pragma unroll
-      for (int j = 0; j < N; ++j) z[(size_t)j * W] = S[j];
-    }
     const int p = t & 1;
     sr[p][tid] = nr;
     sw[p][tid] = expf(-expf(nw));
@@ -161,26 +153,25 @@ __global__ void __launch_bounds__(HEADS * N) wkv7_fwd_kernel(
     out[j] = make_float4(S[4 * j], S[4 * j + 1], S[4 * j + 2], S[4 * j + 3]);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16. zin is written when SAVE.
-template <bool SAVE, int HEADS>
+// dtype codes: 0 = float32, 1 = bfloat16.
+template <int HEADS>
 int launch_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
                const void* k, const void* v, const void* a, const void* b,
-               const void* s0, void* y, void* s_out, void* zin, void* stream) {
+               const void* s0, void* y, void* s_out, void* stream) {
   if (n != N || B <= 0 || H <= 0 || H % HEADS != 0 || T < 0) return (int)cudaErrorInvalidValue;
-  if (SAVE && (T % CHUNK != 0 || zin == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(B * H / HEADS), block(HEADS * N);
   const float* s0f = (const float*)s0;
   float* soutf = (float*)s_out;
   if (dtype == 0) {
-    wkv7_fwd_kernel<float, SAVE, HEADS><<<grid, block, 0, st>>>(
+    wkv7_fwd_kernel<float, HEADS><<<grid, block, 0, st>>>(
         T, H, (const float*)r, (const float*)w, (const float*)k, (const float*)v,
-        (const float*)a, (const float*)b, s0f, (float*)y, soutf, (float*)zin);
+        (const float*)a, (const float*)b, s0f, (float*)y, soutf);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
-    wkv7_fwd_kernel<bf, SAVE, HEADS><<<grid, block, 0, st>>>(
+    wkv7_fwd_kernel<bf, HEADS><<<grid, block, 0, st>>>(
         T, H, (const bf*)r, (const bf*)w, (const bf*)k, (const bf*)v, (const bf*)a,
-        (const bf*)b, s0f, (bf*)y, soutf, (float*)zin);
+        (const bf*)b, s0f, (bf*)y, soutf);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -188,7 +179,7 @@ int launch_fwd(int dtype, int B, int T, int H, int n, const void* r, const void*
 }
 
 // ---------------------------------------------------------------------------
-// Backward. zin as wkv7_fwd_kernel<T, true, ZHEADS> wrote it.
+// Backward. zin as wkv7_fwd_res_kernel<DT, ROWS, ZHEADS> (wkv7_chunk.cuh) wrote it.
 // ---------------------------------------------------------------------------
 constexpr int HALF = 8;          // steps whose states are parked at once
 constexpr int SP = N + 1;        // padded row of a parked state

@@ -5,7 +5,9 @@ K11 ``wkv7_fwd_packed``, K12 ``wkv7_fwd_res_packed`` and K13
 ``wkv7_bwd_packed`` (``csrc/wkv7_packed.cu``), and K16 ``wkv7_fwd_v2``, the
 chunked matrix form of the forward (``csrc/wkv7_v2.cu``). They take CUDA tensors only;
 the dispatchers in :mod:`visualrwkv_torch.ops.wkv7` send CPU tensors to the
-plain versions.
+plain versions. K5 and K12 are one chunked kernel (``csrc/wkv7_chunk.cuh``)
+whose block owns a slice of value rows of one head; :func:`fwd_res_plan`
+chooses how many.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises on a
@@ -28,11 +30,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 CHUNK = 16  # K5 / K12 save, and K6 / K13 read, the state entering every 16 steps
 V2_CHUNK = 32  # K16's chunk, the default of the JAX package's wkv7_pallas_v2
+# K5 / K12: value rows of a head's state a block may own, the most first, and
+# the blocks to reach: about one for each of the H100's 132 multiprocessors
+FWD_RES_ROWS = (64, 32, 16)
+FWD_RES_BLOCKS = 128
 
 
 def _declare(lib: ctypes.CDLL, fwd: str, fwd_res: str, bwd: Optional[str]) -> None:
     getattr(lib, fwd).argtypes = [_I, _I, _I, _I, _I] + [_P] * 10
-    getattr(lib, fwd_res).argtypes = [_I, _I, _I, _I, _I] + [_P] * 11
+    getattr(lib, fwd_res).argtypes = [_I] * 6 + [_P] * 11
     names = [fwd, fwd_res]
     if bwd is not None:
         getattr(lib, bwd).argtypes = [_I, _I, _I, _I, _I] + [_P] * 17
@@ -48,6 +54,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.wkv7_step, lib.wkv7_step_flat):
             fn.argtypes = [_I, _I, _I, _I] + [_P] * 10
             fn.restype = _I
+        lib.wkv7_fwd_res_smem_bytes.argtypes = [_I, _I]
+        lib.wkv7_fwd_res_smem_bytes.restype = _I
     return lib
 
 
@@ -82,6 +90,30 @@ def zin_shape(B: int, T: int, H: int, N: int, packed: bool) -> Tuple[int, int, i
     ``[B*H/2, T/16, N, 2N]`` (``zin[p, c, j, h2*N + i]`` is
     ``S_{2p+h2}[i, j]``)."""
     return (B * H // 2, T // CHUNK, N, 2 * N) if packed else (B * H, T // CHUNK, N, N)
+
+
+def fwd_res_plan(B: int, H: int, dtype: torch.dtype) -> dict:
+    """K5 / K12's launch for B * H heads: the value rows of a head's state a
+    block owns (the most of ``FWD_RES_ROWS`` that still gives
+    ``FWD_RES_BLOCKS`` blocks, else the fewest), the blocks, the threads a
+    block (8 a row, 4 at 64 rows) and the dynamic shared memory of a block,
+    bytes, as ``csrc/wkv7_chunk.cuh``'s ``ChunkSmem`` lays it out: three
+    stages of r, w, k, a, b and the block's v columns in the stream dtype,
+    twelve fp32 16 x 68 factor tiles, the decay (two), two sets of the four
+    16 x 16 matrices, the slice of S and the solve's right-hand sides."""
+    rows = next((n for n in FWD_RES_ROWS if B * H * (64 // n) >= FWD_RES_BLOCKS), FWD_RES_ROWS[-1])
+    esz = 2 if dtype == torch.bfloat16 else 4
+    ldp = 64 + 4
+    smem = (3 * (5 * CHUNK * 64 + CHUNK * rows) * esz + 12 * CHUNK * ldp * 4 + 2 * 64 * 4
+            + 2 * 4 * CHUNK * CHUNK * 4 + rows * ldp * 4 + CHUNK * rows * 4)
+    return {"rows": rows, "blocks": B * H * (64 // rows), "threads": rows * (4 if rows == 64 else 8),
+            "smem_bytes": smem}
+
+
+def kernel_smem_bytes(dtype: torch.dtype, rows: int) -> int:
+    """The library's own count of a K5 / K12 block's shared memory (-1: it
+    has no instantiation for ``rows``)."""
+    return _lib().wkv7_fwd_res_smem_bytes(_DTYPE_CODE[dtype], rows)
 
 
 def _check_cuda(name: str, xs, device) -> None:
@@ -133,18 +165,20 @@ def _fwd(name: str, get_lib, save: bool, streams, initial_state):
     B, T, H, N = r.shape
     dev = r.device
     packed = name.endswith("_packed")
-    _check_streams(name, streams, (initial_state,))
-    if packed:
-        _check_pairs(name, H)
     if save and (T == 0 or T % CHUNK):
         raise ValueError(f"{name}: T={T} must be a positive multiple of {CHUNK}")
+    if packed:
+        _check_pairs(name, H)
+    _check_streams(name, streams, (initial_state,))
     y = torch.empty_like(r)
     s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
     zin = torch.empty(zin_shape(B, T, H, N, packed), dtype=torch.float32, device=dev) if save else None
     lib = get_lib()
+    code = _DTYPE_CODE[r.dtype]
+    lead = (code, fwd_res_plan(B, H, r.dtype)["rows"]) if save else (code,)
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
-            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams),
+            *lead, B, T, H, N, *(x.data_ptr() for x in streams),
             _ptr(initial_state), y.data_ptr(), s_out.data_ptr(),
             *((zin.data_ptr(),) if save else ()), _stream(dev),
         )
@@ -192,8 +226,9 @@ def wkv7_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tenso
 
 def wkv7_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                  initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
-    """K5: K1 that also saves the state entering every 16-step chunk. T must
-    be a multiple of 16. Returns (y, final fp32 state, ``zin`` fp32
+    """K5: the forward that also saves the state entering every 16-step
+    chunk (the chunked kernel; :func:`fwd_res_plan`). T must be a multiple
+    of 16. Returns (y, final fp32 state, ``zin`` fp32
     ``[B*H, T/16, 64, 64]`` with ``zin[bh, c]`` the TRANSPOSE of the state
     before step ``16 c``, so ``zin[:, 0]`` is the transposed initial state)."""
     return _fwd("wkv7_fwd_res", _lib, True, (r, w_raw, k, v, a, b), initial_state)
@@ -247,8 +282,8 @@ def wkv7_fwd_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b
 
 def wkv7_fwd_res_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                         initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
-    """K12: K11 that also saves the state entering every 16-step chunk in
-    the packed layout (:func:`zin_shape`). T a multiple of 16, H even."""
+    """K12: K5 with the saved states in the packed layout (:func:`zin_shape`);
+    the same values as K5. T a multiple of 16, H even."""
     return _fwd("wkv7_fwd_res_packed", _packed_lib, True, (r, w_raw, k, v, a, b), initial_state)
 
 
