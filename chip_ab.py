@@ -24,7 +24,8 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
 - ``wkv6``: K7 and K8 at every timed case of ``check_wkv6_fwd`` and
   ``check_wkv6_train`` (``WKV6_CASES``), device and eager time;
 - ``wkv7``: K5 and K12 at every timed case of ``check_wkv7_train`` and
-  ``check_wkv7_packed_train``, with K1 at the same shape (``WKV7_CASES``),
+  ``check_wkv7_packed_train``, with K1 at the same shape, and the
+  backwards K6 and K13 there from K5's / K12's states (``WKV7_CASES``),
   device and eager time;
 - ``x060_serving``: VisualRWKV-6 7B (``x060_serving_cfg``) TTFT and decode
   rate at B=1 and B=4 (``run_serving``);
@@ -32,8 +33,8 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   1 + 3 steps (``run_training``).
 
 One ``AB {json}`` line a side (with ptxas's registers and spills of its
-attention, K7 / K8 and K5 / K12 kernels); the card's name and power limit
-first.
+attention, K7 / K8, K5 / K12 and K6 / K13 kernels); the card's name and
+power limit first.
 """
 
 from __future__ import annotations
@@ -111,16 +112,19 @@ def wkv6_times(cs, dev) -> list:
     return out
 
 
-# K5 / K12 timed: (kernel, B, T, H, stream dtype), with an initial state: the
-# timed cases of chip_smoke's check_wkv7_train and check_wkv7_packed_train
-# (the x070 1B5 training step), K1 at the same shape beside them
+# K5 / K12, K6 / K13 timed: (kernel, B, T, H, stream dtype), with an initial
+# state (and for K6 / K13 a non-zero final-state cotangent): the timed cases
+# of chip_smoke's check_wkv7_train and check_wkv7_packed_train (the x070 1B5
+# training step), K1 at the same shape beside them
 WKV7_CASES = tuple((kernel, 2, 2048, 32, dname) for dname in ("bfloat16", "float32")
-                   for kernel in ("wkv7_fwd_res", "wkv7_fwd_res_packed", "wkv7_fwd"))
+                   for kernel in ("wkv7_fwd_res", "wkv7_fwd_res_packed", "wkv7_fwd", "wkv7_bwd",
+                                  "wkv7_bwd_packed"))
 
 
 def wkv7_times(cs, dev) -> list:
-    """K5 / K12 (and K1) at every case of ``WKV7_CASES`` through the tree's
-    own wrappers: device time (CUDA graphs) and eager time, ms."""
+    """K5 / K12 (and K1), K6 / K13 at every case of ``WKV7_CASES`` through
+    the tree's own wrappers: device time (CUDA graphs) and eager time, ms.
+    A backward reads the states its forward (K5 / K12) saved."""
     import torch
 
     from visualrwkv_torch.ops import wkv7_cuda
@@ -131,10 +135,16 @@ def wkv7_times(cs, dev) -> list:
     for kernel, B, T, H, dname in WKV7_CASES:
         xs = cs._wkv_streams(gen, (B, T, H, 64), getattr(torch, dname), dev)
         s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
-        fn = lambda kernel=kernel, xs=xs, s0=s0: getattr(wkv7_cuda, kernel)(*xs, s0)
+        if kernel.startswith("wkv7_bwd"):
+            _, _, zin = getattr(wkv7_cuda, kernel.replace("bwd", "fwd_res"))(*xs, s0)
+            dy = (torch.randn(B, T, H, 64, generator=gen, device=dev) * 0.5).to(xs[0].dtype)
+            dsf = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.1
+            fn = lambda kernel=kernel, xs=xs, zin=zin, dy=dy, dsf=dsf: getattr(wkv7_cuda, kernel)(*xs, zin, dy, dsf)
+        else:
+            fn = lambda kernel=kernel, xs=xs, s0=s0: getattr(wkv7_cuda, kernel)(*xs, s0)
         out.append({"case": f"{kernel} B={B} T={T} H={H} {dname}", "ms": cs.cuda_ms(fn, reps=5),
                     "eager_ms": cs.eager_ms(fn, reps=5)})
-        del xs, s0
+        del xs, s0, fn
     return out
 
 
@@ -155,7 +165,8 @@ def child(tree: str, sections) -> None:
     dev = torch.device("cuda", 0)
     out = {"tree": tree,
            "ptxas": {f"{kern}{list(args)}": v for (lib, kern, args), v in getattr(cs, "PTXAS", {}).items()
-                     if lib.startswith("attention") or kern in ("wkv6_fwd_kernel", "wkv7_fwd_res_kernel")}}
+                     if lib.startswith("attention") or kern in ("wkv6_fwd_kernel", "wkv7_fwd_res_kernel",
+                                                                "wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel")}}
     if "k3" in sections:
         out["k3"] = k3_times(cs, dev)
     if "attention_bwd" in sections:

@@ -19,7 +19,13 @@ Phases (any failure exits non-zero; nothing is caught):
    step's shape, each case logging its plan (value rows a block, blocks,
    threads, shared memory held equal to the library's count, registers,
    spills: no K5 / K12 instantiation may spill), and at ten more inputs
-   against the fp32 sequential scan (``WKV7_FWD_RES_PATH_CASES``);
+   against the fp32 sequential scan (``WKV7_FWD_RES_PATH_CASES``); the
+   two-pass chunked backward K6 / K13 at the 1B5 step's shape (K13 equal
+   to K6 bit for bit), each case logging both passes' plans and the
+   workspace (no K6 / K13 instantiation may spill), at those ten inputs
+   against fp32 autograd of the sequential scan, and under autograd
+   through ``ops.wkv7.wkv7`` at T = 2040, chunk 8 (identity-padded to 2048)
+   against the plain path;
    K3 beside the SDPA forward with the rel-pos bias (SAM-B at 1024, 768
    and 512 pixels) and without (the ViTs), with and without its
    log-sum-exp output, each case logging its plan (path, key tile, block
@@ -34,7 +40,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (value rows a block, blocks, threads, shared memory held equal to the
    library's count, registers, spills: no K7 / K8 instantiation may spill),
    and at six more geometries against the plain scan only
-   (``WKV6_FWD_PATH_CASES``).
+   (``WKV6_FWD_PATH_CASES``); x060 at ``chunk_len`` 8 (the decay floor -10
+   binding on every channel) through ``ops.wkv6.wkv6``, K7 and, at T = 2040
+   under autograd, K8 + K9, against ``wkv6_plain(..., chunk=8)``.
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -174,7 +182,7 @@ SOURCES = {
     "wkv7_step": "visualrwkv_torch/csrc/wkv7.cu",
     "wkv7_step_flat": "visualrwkv_torch/csrc/wkv7.cu",
     "wkv7_fwd_res": "visualrwkv_torch/csrc/wkv7.cu",
-    "wkv7_bwd": "visualrwkv_torch/csrc/wkv7_train.cu",
+    "wkv7_bwd": "visualrwkv_torch/csrc/wkv7_chunk_bwd.cuh",
     "attention_fwd_relpos": "visualrwkv_torch/csrc/attention.cu",
     "attention_fwd_mha": "visualrwkv_torch/csrc/attention.cu",
     "wkv6_fwd": "visualrwkv_torch/csrc/wkv6.cu",
@@ -183,7 +191,7 @@ SOURCES = {
     "wkv6_step": "visualrwkv_torch/csrc/wkv6.cu",
     "wkv7_fwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
     "wkv7_fwd_res_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
-    "wkv7_bwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
+    "wkv7_bwd_packed": "visualrwkv_torch/csrc/wkv7_chunk_bwd.cuh",
     "attention_bwd_dq_relpos": "visualrwkv_torch/csrc/attention_bwd.cu",
     "attention_bwd_dkv_relpos": "visualrwkv_torch/csrc/attention_bwd.cu",
     "attention_bwd_dq_mha": "visualrwkv_torch/csrc/attention_bwd.cu",
@@ -457,6 +465,7 @@ def check_wkv7_train(gen, dev):
         fwd.append(rec)
 
         c = Check("wkv7_bwd", case)
+        bplan = wkv7_bwd_plan(case, B, T, H, sdt)
         grads = wkv7_cuda.wkv7_bwd(*xs, zin, dy, dsf)
         xs32 = [x.float() for x in xs]
         t_plain = eager_ms(lambda: pw.wkv7_bwd_plain(*xs32, zin_ref, dy.float(), dsf), reps=1, warmup=0)
@@ -468,11 +477,14 @@ def check_wkv7_train(gen, dev):
         c.compare("d(initial state) (fp32)", grads[6], ref[6], 2e-2 if bf else 1e-3)
         fn = lambda: wkv7_cuda.wkv7_bwd(*xs, zin, dy, dsf)
         k_ms, k_eager = cuda_ms(fn, reps=3), eager_ms(fn, reps=3)
-        # read 6 streams + dy + zin + dsf, write 6 gradients + d(initial state);
-        # per state element and step: 7 operations to rebuild the state before
-        # the step and 20 for its adjoint
+        # the work's own bound (the workspace's traffic is the design's, logged
+        # apart in the plan): read 6 streams + dy + zin + dsf, write 6
+        # gradients + d(initial state); per state element and step: 7
+        # operations to rebuild the state before the step and 20 for its adjoint
         nbytes = 13 * B * T * H * N * esz + zin.numel() * 4 + 2 * B * H * N * N * 4
-        bwd.append(c.record(k_ms, t_plain, None, nbytes, 27 * B * T * H * N * N, FP32_FLOPS, k_eager))
+        rec = c.record(k_ms, t_plain, None, nbytes, 27 * B * T * H * N * N, FP32_FLOPS, k_eager)
+        rec["plan"] = bplan
+        bwd.append(rec)
         del xs, xs32, zin, zin_ref, grads, ref
     return fwd, bwd
 
@@ -523,7 +535,9 @@ def check_wkv7_packed_train(gen, dev):
     K5 and K6: K12 against the packed plain scan, K13 against the packed
     plain backward on the same values in fp32. K12 is K5's kernel with the
     packed ``zin`` addressing: its y, final state and ``zin`` must equal K5's
-    (repacked) bit for bit; its time stands beside K5's."""
+    (repacked) bit for bit; its time stands beside K5's. K13 is K6's two
+    kernels with the same addressing: its seven gradients must equal K6's on
+    K5's states bit for bit; its time stands beside K6's."""
     import torch
 
     from visualrwkv_torch.ops import wkv7 as pw
@@ -553,7 +567,7 @@ def check_wkv7_packed_train(gen, dev):
         log(f"  wkv7_fwd_res_packed [{case}] largest difference from K5 (y, final state, zin "
             f"repacked): {k5_diff:.3e}")
         assert k5_diff == 0, f"K12 differs from K5 by {k5_diff:.3e} [{case}]"
-        del y5, s5, zin5
+        del y5, s5
         fn = lambda: wkv7_cuda.wkv7_fwd_res_packed(*xs, s0)
         k_ms, k_eager = cuda_ms(fn, reps=5), eager_ms(fn, reps=5)
         k5_ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd_res(*xs, s0), reps=5)
@@ -565,6 +579,7 @@ def check_wkv7_packed_train(gen, dev):
         fwd.append(rec)
 
         c = Check("wkv7_bwd_packed", case)
+        bplan = wkv7_bwd_plan(case, B, T, H, sdt)
         grads = wkv7_cuda.wkv7_bwd_packed(*xs, zin, dy, dsf)
         xs32 = [x.float() for x in xs]
         ref, t_plain = timed_once(lambda: pw.wkv7_bwd_packed_plain(*xs32, zin_ref, dy.float(), dsf))
@@ -572,11 +587,18 @@ def check_wkv7_packed_train(gen, dev):
             assert g.dtype == sdt
             c.compare(f"{name} ({dname}) vs fp32 plain backward", g.float(), g_ref, 2e-2 if bf else 1e-3)
         c.compare("d(initial state) (fp32)", grads[6], ref[6], 2e-2 if bf else 1e-3)
+        k6_diff = max(max_abs(g, g6) for g, g6 in zip(grads, wkv7_cuda.wkv7_bwd(*xs, zin5, dy, dsf)))
+        log(f"  wkv7_bwd_packed [{case}] largest difference from K6 on the same states: {k6_diff:.3e}")
+        assert k6_diff == 0, f"K13 differs from K6 by {k6_diff:.3e} [{case}]"
         fn = lambda: wkv7_cuda.wkv7_bwd_packed(*xs, zin, dy, dsf)
         k_ms, k_eager = cuda_ms(fn, reps=3), eager_ms(fn, reps=3)
+        k6_ms = cuda_ms(lambda: wkv7_cuda.wkv7_bwd(*xs, zin5, dy, dsf), reps=3)
+        log(f"  wkv7_bwd_packed [{case}] K6 on the same inputs: {k6_ms:.4f} ms")
         nbytes = 13 * B * T * H * N * esz + zin.numel() * 4 + 2 * B * H * N * N * 4
-        bwd.append(c.record(k_ms, t_plain, None, nbytes, 27 * B * T * H * N * N, FP32_FLOPS, k_eager))
-        del xs, xs32, zin, zin_ref, grads, ref
+        rec = c.record(k_ms, t_plain, None, nbytes, 27 * B * T * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(k6_same_inputs_ms=k6_ms, max_abs_diff_from_k6=k6_diff, plan=bplan)
+        bwd.append(rec)
+        del xs, xs32, zin, zin5, zin_ref, grads, ref
     return fwd, bwd
 
 
@@ -599,6 +621,33 @@ def wkv7_fwd_res_plan(case, B, H, dtype):
     log(f"  wkv7 training forward [{case}] plan: {plan['rows']} value rows a block, {plan['blocks']} "
         f"blocks of {plan['threads']} threads, {plan['smem_bytes']} B shared; K5 "
         f"{regs(plan['k5_ptxas'])}, K12 {regs(plan['k12_ptxas'])}")
+    return plan
+
+
+def wkv7_bwd_plan(case, B, T, H, dtype):
+    """K6 / K13's two launches for B * H heads of T steps
+    (``wkv7_cuda.bwd_plan``: the first pass laid out as K5, the second a
+    block of 256 threads a (b, h, chunk), its shared memory held equal to
+    the library's own count) and the workspace, logged with ptxas's
+    registers and spills of the four instantiations they launch."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    plan = wkv7_cuda.bwd_plan(B, T, H, dtype)
+    assert plan["chunk"]["smem_bytes"] == wkv7_cuda.kernel_bwd_chunk_smem_bytes(dtype), plan
+    code, rows = int(dtype == torch.bfloat16), plan["state"]["rows"]
+    for lib, zheads, name in (("wkv7_train", 1, "k6"), ("wkv7_packed", 2, "k13")):
+        plan[f"{name}_ptxas"] = {"state": PTXAS.get((lib, "wkv7_bwd_state_kernel", (code, rows, zheads))),
+                                 "chunk": PTXAS.get((lib, "wkv7_bwd_chunk_kernel", (code, zheads)))}
+    regs = lambda p: "not parsed" if p is None else (f"{p.get('registers')} registers, "
+                                                     f"{p.get('spill_bytes', 0)} B spilled")
+    p1, p2 = plan["state"], plan["chunk"]
+    log(f"  wkv7 backward [{case}] plan: pass 1 {p1['rows']} value rows a block, {p1['blocks']} blocks of "
+        f"{p1['threads']} threads, {p1['smem_bytes']} B shared (K6 {regs(plan['k6_ptxas']['state'])}, K13 "
+        f"{regs(plan['k13_ptxas']['state'])}); pass 2 {p2['blocks']} blocks of {p2['threads']} threads, "
+        f"{p2['smem_bytes']} B shared (K6 {regs(plan['k6_ptxas']['chunk'])}, K13 "
+        f"{regs(plan['k13_ptxas']['chunk'])}); workspace {plan['workspace_bytes']} B")
     return plan
 
 
@@ -700,6 +749,141 @@ def check_wkv7_fwd_res_paths(gen, dev):
         assert diff == 0, f"K12 differs from K5 by {diff:.3e} [{case}]"
 
 
+def check_wkv7_bwd_paths(gen, dev):
+    """K6 at ``WKV7_FWD_RES_PATH_CASES`` from K5's states, with an initial
+    state and a non-zero cotangent of the final state, against fp32 autograd
+    of the sequential scan (the chunked plain backward overflows at w_raw =
+    2.0, where the kernels' step-7-referenced factors do not), under the
+    limits of the timed cases: the seven gradients 2e-2 (bf16 streams) or
+    1e-3 (fp32); K13 from K12's states equal to K6 bit for bit."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    N = 64
+    names = ("dr", "dw_raw", "dk", "dv", "da", "db", "d(initial state)")
+    for what, B, T, H, dname in WKV7_FWD_RES_PATH_CASES:
+        sdt = getattr(torch, dname)
+        case = f"{what}: B={B} T={T} H={H} {dname} streams, initial state, non-zero final-state cotangent"
+        wkv7_bwd_plan(case, B, T, H, sdt)
+        xs = [x.to(sdt).contiguous() for x in _wkv7_path_streams(gen, what, (B, T, H, N), dev)]
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+        dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(sdt)
+        dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
+        leaves = [x.float().requires_grad_(True) for x in xs] + [s0.clone().requires_grad_(True)]
+        with torch.enable_grad():
+            y, s = pw.wkv7_reference(*leaves[:6], leaves[6])
+            ref = torch.autograd.grad((y, s), leaves, (dy.float(), dsf))
+        _, _, zin = wkv7_cuda.wkv7_fwd_res(*xs, s0)
+        grads = wkv7_cuda.wkv7_bwd(*xs, zin, dy, dsf)
+        c = Check("wkv7_bwd", case)
+        tol = 2e-2 if sdt == torch.bfloat16 else 1e-3
+        for name, g, g_ref in zip(names, grads, ref):
+            assert torch.isfinite(g).all(), (case, name)
+            c.compare(f"{name} vs fp32 autograd of the sequential scan", g.float(), g_ref, tol)
+        _, _, zinp = wkv7_cuda.wkv7_fwd_res_packed(*xs, s0)
+        diff = max(max_abs(g, g6) for g, g6 in zip(wkv7_cuda.wkv7_bwd_packed(*xs, zinp, dy, dsf), grads))
+        log(f"  wkv7_bwd_packed [{case}] largest difference from K6: {diff:.3e}")
+        assert diff == 0, f"K13 differs from K6 by {diff:.3e} [{case}]"
+        del xs, leaves, ref, zin, zinp, grads
+
+
+def check_wkv7_function_ragged(gen, dev):
+    """``ops.wkv7.wkv7`` under autograd at T = 2040 with ``chunk=8`` (a T the
+    models reach at ``--chunk_len 8``, not a multiple of 16): one K5 and one
+    K6 launch on the identity-padded 2048 steps, y, the final state and the
+    seven gradients against autograd of the plain path at chunk 8 on the
+    same values in fp32 (y 1e-2 and the gradients 2e-2 with bf16 streams,
+    the final state 1e-3)."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv7 as pw
+
+    B, T, H, N = 2, 2040, 32, 64
+    case = f"B={B} T={T} H={H} bf16 streams, chunk=8, initial state, through ops.wkv7.wkv7"
+    xs = _wkv_streams(gen, (B, T, H, N), torch.bfloat16, dev)
+    s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+    dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
+    leaves = [x.clone().requires_grad_(True) for x in xs] + [s0.clone().requires_grad_(True)]
+    reset_launches()
+    with torch.enable_grad():
+        y, s = pw.wkv7(*leaves[:6], leaves[6], chunk=8)
+        grads = torch.autograd.grad((y, s), leaves, (dy, dsf))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    log(f"  wkv7 [{case}] launches: {launches}")
+    assert launches == {"wkv7_fwd_res": 1, "wkv7_bwd": 1}, launches
+    ref_leaves = [x.float().requires_grad_(True) for x in xs] + [s0.clone().requires_grad_(True)]
+    with torch.enable_grad():
+        y_ref, s_ref = pw.wkv7_plain(*ref_leaves[:6], ref_leaves[6], chunk=8)
+        ref = torch.autograd.grad((y_ref, s_ref), ref_leaves, (dy.float(), dsf))
+    c = Check("wkv7_fwd_res + wkv7_bwd", case)
+    assert y.shape == (B, T, H, N)
+    c.compare("y (bf16) vs fp32 plain path at chunk 8", y.float(), y_ref.detach(), 1e-2)
+    c.compare("final state (fp32)", s, s_ref.detach(), 1e-3)
+    for name, g, g_ref in zip(("dr", "dw_raw", "dk", "dv", "da", "db", "d(initial state)"), grads, ref):
+        c.compare(f"{name} vs fp32 plain path at chunk 8", g.float(), g_ref, 2e-2)
+
+
+def check_wkv6_chunk8(gen, dev):
+    """x060 at ``chunk_len`` 8 through ``ops.wkv6.wkv6``, with two decays: the
+    floor -10 binding on every channel (w_raw = 3), and w_raw drawn uniform
+    in [-3, 2.5] (:func:`_wkv6_streams`; the floor binds where w_raw > ln 10,
+    the rest carry a w_raw gradient). Without a gradient K7, under autograd
+    at T = 2040 K8 and K9 on the identity-padded 2048 steps: y, the final
+    state and the six gradients against autograd of
+    ``wkv6_plain(..., chunk=8)`` on the same values in fp32 (y 1e-2 and the
+    gradients 2e-2 with bf16 streams, states 1e-3)."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv6 as pw
+
+    B, T, H, N = 2, 2040, 32, 64
+    for floored in (True, False):
+        decay = "w_raw = 3 on every channel" if floored else "w_raw uniform in [-3, 2.5]"
+        case = f"B={B} T={T} H={H} bf16 streams, chunk=8, {decay}, initial state"
+        xs, u = _wkv6_streams(gen, (B, T, H, N), torch.bfloat16, dev)
+        if floored:
+            xs[1] = torch.full_like(xs[1], 3.0)
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+        dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
+        ref_leaves = [x.float().requires_grad_(True) for x in xs] + [u.clone().requires_grad_(True),
+                                                                     s0.clone().requires_grad_(True)]
+        with torch.enable_grad():
+            y_ref, s_ref = pw.wkv6_plain(*ref_leaves[:5], ref_leaves[5], chunk=8)
+            ref = torch.autograd.grad((y_ref, s_ref), ref_leaves, (dy.float(), dsf))
+        floor_share = float((ref[1] == 0).float().mean())
+        reset_launches()
+        with torch.no_grad():
+            y, s = pw.wkv6(*xs, u, s0, chunk=8)
+        torch.cuda.synchronize()
+        c = Check("wkv6_fwd", case)
+        c.compare("y (bf16) vs fp32 wkv6_plain at chunk 8", y.float(), y_ref.detach(), 1e-2)
+        c.compare("final state (fp32)", s, s_ref.detach(), 1e-3)
+        leaves = [x.clone().requires_grad_(True) for x in xs] + [u.clone().requires_grad_(True),
+                                                                 s0.clone().requires_grad_(True)]
+        with torch.enable_grad():
+            y, s = pw.wkv6(*leaves[:5], leaves[5], chunk=8)
+            grads = torch.autograd.grad((y, s), leaves, (dy, dsf))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        log(f"  wkv6 [{case}] path: the kernels (K7 without a gradient; K8, K9 under autograd); "
+            f"launches {launches}; dw_raw of the reference is 0 (the floor binds) on "
+            f"{floor_share:.4f} of the entries")
+        assert launches == {"wkv6_fwd": 1, "wkv6_fwd_res": 1, "wkv6_bwd": 1}, launches
+        assert floor_share == 1.0 if floored else 0.0 < floor_share < 0.5, floor_share
+        c = Check("wkv6_fwd_res + wkv6_bwd", case)
+        c.compare("y (bf16) vs fp32 wkv6_plain at chunk 8", y.float(), y_ref.detach(), 1e-2)
+        c.compare("final state (fp32)", s, s_ref.detach(), 1e-3)
+        for name, g, g_ref in zip(("dr", "dw_raw", "dk", "dv", "du", "d(initial state)"), grads, ref):
+            c.compare(f"{name} vs autograd of wkv6_plain at chunk 8", g.float(), g_ref, 2e-2)
+
+
 def _wkv6_streams(gen, shape, dtype, dev):
     """RWKV-6-shaped streams (r, w_raw, k, v) and the bonus u [H, 64] fp32.
     w_raw is uniform in [-3, 2.5], so that exp(w_raw) crosses the decay floor
@@ -777,7 +961,7 @@ def wkv6_fwd_plan(case, B, H, dtype):
     """K7 / K8's plan for B * H heads (``wkv6_cuda.fwd_plan``: value rows a
     block, blocks, threads, shared memory, held equal to the library's own
     count), logged with ptxas's registers and spills of the K7 and K8
-    instantiations it launches."""
+    instantiations it launches at ``chunk_len`` 16."""
     import torch
 
     from visualrwkv_torch.ops import wkv6_cuda
@@ -786,7 +970,7 @@ def wkv6_fwd_plan(case, B, H, dtype):
     assert plan["smem_bytes"] == wkv6_cuda.kernel_smem_bytes(dtype, plan["rows"]), plan
     code = int(dtype == torch.bfloat16)
     for save, name in ((0, "k7"), (1, "k8")):
-        plan[f"{name}_ptxas"] = PTXAS.get(("wkv6", "wkv6_fwd_kernel", (code, save, plan["rows"])))
+        plan[f"{name}_ptxas"] = PTXAS.get(("wkv6", "wkv6_fwd_kernel", (code, save, plan["rows"], 0)))
     regs = lambda p: "not parsed" if p is None else (f"{p.get('registers')} registers, "
                                                      f"{p.get('spill_bytes', 0)} B spilled")
     log(f"  wkv6 forward [{case}] plan: {plan['rows']} value rows a block, {plan['blocks']} blocks "
@@ -1605,9 +1789,13 @@ def _category(kernel_name: str) -> str:
     if "wkv7_fwd_res_kernel<" in n:  # <DT, ROWS, ZHEADS>
         return "K12 wkv7_fwd_res_packed" if _template_flags(n, "wkv7_fwd_res_kernel")[1] == 2 \
             else "K5 wkv7_fwd_res"
-    if "wkv7_bwd_kernel<" in n:  # <T, ZHEADS>
-        return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_kernel")[0] == 2 else "K6 wkv7_bwd"
-    if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS>
+    if "wkv7_bwd_state_kernel<" in n:  # <DT, ROWS, ZHEADS>: K6 / K13's first pass
+        return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_state_kernel")[1] == 2 \
+            else "K6 wkv7_bwd"
+    if "wkv7_bwd_chunk_kernel<" in n:  # <DT, ZHEADS>: K6 / K13's second pass
+        return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_chunk_kernel")[0] == 2 \
+            else "K6 wkv7_bwd"
+    if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS, DIFF>
         return "K8 wkv6_fwd_res" if _template_flags(n, "wkv6_fwd_kernel")[0] else "K7 wkv6_fwd"
     # the second template argument tells K4 from K2
     flag = "true>" in n.replace(" ", "") or "(bool)1>" in n.replace(" ", "")
@@ -2198,13 +2386,21 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{name}] {line.strip()}")
     k78 = {key: v for key, v in PTXAS.items() if key[:2] == ("wkv6", "wkv6_fwd_kernel")}
-    assert len(k78) == 12, f"K7 / K8: ptxas reported {sorted(k78)}, not 2 dtypes x 2 x 3 row counts"
+    assert len(k78) == 24, (f"K7 / K8: ptxas reported {sorted(k78)}, not 2 dtypes x 2 x 3 row counts x 2 "
+                            f"factor forms")
     assert not any(v.get("spill_bytes", 0) for v in k78.values()), f"a K7 / K8 instantiation spills: {k78}"
     k512 = {key: v for key, v in PTXAS.items() if key[1] == "wkv7_fwd_res_kernel"}
     want512 = {(lib, "wkv7_fwd_res_kernel", (dt, rows, zh)) for lib, zh in (("wkv7", 1), ("wkv7_packed", 2))
                for dt in (0, 1) for rows in (16, 32, 64)}
     assert set(k512) == want512, f"K5 / K12: ptxas reported {sorted(k512)}, not {sorted(want512)}"
     assert not any(v.get("spill_bytes", 0) for v in k512.values()), f"a K5 / K12 instantiation spills: {k512}"
+    k613 = {key: v for key, v in PTXAS.items() if key[1] in ("wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel")}
+    want613 = {(lib, "wkv7_bwd_state_kernel", (dt, rows, zh)) for lib, zh in (("wkv7_train", 1), ("wkv7_packed", 2))
+               for dt in (0, 1) for rows in (16, 32, 64)}
+    want613 |= {(lib, "wkv7_bwd_chunk_kernel", (dt, zh)) for lib, zh in (("wkv7_train", 1), ("wkv7_packed", 2))
+                for dt in (0, 1)}
+    assert set(k613) == want613, f"K6 / K13: ptxas reported {sorted(k613)}, not {sorted(want613)}"
+    assert not any(v.get("spill_bytes", 0) for v in k613.values()), f"a K6 / K13 instantiation spills: {k613}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
@@ -2216,10 +2412,13 @@ def main(argv=None) -> int:
     kernels["wkv7_fwd_packed"] = check_wkv7_fwd_packed(gen, dev)
     kernels["wkv7_fwd_res_packed"], kernels["wkv7_bwd_packed"] = check_wkv7_packed_train(gen, dev)
     check_wkv7_fwd_res_paths(gen, dev)
+    check_wkv7_bwd_paths(gen, dev)
+    check_wkv7_function_ragged(gen, dev)
     kernels["attention_fwd_relpos"], kernels["attention_fwd_mha"] = check_attention(gen, dev)
     kernels["wkv6_fwd"], kernels["wkv6_step"] = check_wkv6_fwd(gen, dev), check_wkv6_step(gen, dev)
     kernels["wkv6_fwd_res"], kernels["wkv6_bwd"] = check_wkv6_train(gen, dev)
     check_wkv6_paths(gen, dev)
+    check_wkv6_chunk8(gen, dev)
     bwd = check_attention_bwd(gen, dev)
     for key, (dq_cases, dkv_cases) in bwd.items():
         kernels[f"attention_bwd_dq_{key}"], kernels[f"attention_bwd_dkv_{key}"] = dq_cases, dkv_cases

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Variants of a kernel against each other on one card, in turns: the
 attention forward K3 (``visualrwkv_torch/csrc/attention.cu``), the WKV6
-forward K7 / K8 (``csrc/wkv6.cu``) or the WKV7 training forward K5
-(``csrc/wkv7_chunk.cuh``, built through ``csrc/wkv7.cu``).
+forward K7 / K8 (``csrc/wkv6.cu``), the WKV7 training forward K5
+(``csrc/wkv7_chunk.cuh``, built through ``csrc/wkv7.cu``) or the WKV7
+backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built through ``csrc/wkv7_train.cu``).
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
     python3 chip_variants.py base stages2          # some of them
     python3 chip_variants.py --wkv6 [names]        # K7 / K8: WKV6_VARIANTS
     python3 chip_variants.py --wkv7 [names]        # K5: WKV7_VARIANTS
+    python3 chip_variants.py --wkv7bwd [names]     # K6: WKV7BWD_VARIANTS
 
 A variant is the source with text substitutions (each names the design
 choice it undoes, or the part of the work it leaves out). Each is compiled
@@ -22,7 +24,9 @@ exact variant held against the floored scan (y <= 1e-2 with bf16 streams,
 1e-3 with fp32, the final state 1e-3); or K5 runs at ``WKV7_CASES`` through
 ``wkv7_cuda``, each exact variant held against ``wkv7_fwd_res_plain`` (y
 <= 1e-2 with bf16 streams, 1e-3 with fp32, the final state and ``zin``
-1e-3). The card's name and power limit come first, the SDPA forward's time
+1e-3); or K6 runs at ``WKV7BWD_CASES`` from K5's states, each exact variant
+held against ``wkv7_bwd_plain`` (the seven gradients <= 2e-2 with bf16
+streams, 1e-3 with fp32). The card's name and power limit come first, the SDPA forward's time
 at each no-bias case next (K3), and one ``VARIANT {json}`` line a variant
 last (its times in turn order).
 """
@@ -78,6 +82,9 @@ WKV6_VARIANTS = {
                  ("exp2f(", "ex2_approx("), ("-expf(", "-__expf(")], None, True),
     # the outputs' and the bonus's dot products unrolled in full
     "unroll16": ([("constexpr int UNROLL = ROWS == 64 ? 1 : 4;", "constexpr int UNROLL = 16;")], None, True),
+    # A's factors each as one exp2 of its difference at chunk_len 16 too (the
+    # form a floor below -5 a step needs)
+    "exp2_each": ([("    if constexpr (!DIFF) {", "    if constexpr (false) {")], None, True),
     "no_amatrix": ([("    if (c + 1 < nc) amatrix(c + 1);\n", "")], None, False),
     "no_factors": ([("    if (c + 1 < nc) factors(c + 1);\n", "")], None, False),
     "no_outputs": ([("    outputs(c);\n", "")], None, False),
@@ -197,6 +204,75 @@ WKV7_VARIANTS = {
                   None, False),
 }
 WKV7_CASES = (("wkv7_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv7_fwd_res", 2, 2048, 32, "float32"))
+# K6 (the two passes of wkv7_chunk_bwd.cuh, built through wkv7_train.cu): name
+# -> ([(text in wkv7_chunk_bwd.cuh, replacement)], value of
+# wkv7_cuda.FWD_RES_BLOCKS (pass 1's plan) or None, exact). The "no_*"
+# variants leave a part of a pass out (their results are wrong), to show its
+# share; "no_pass1" / "no_pass2" time one pass alone.
+_P2_LAST = """    dw[c0 + (size_t)s * tstride + j] = from_f<T>((cr[m] + ez) * -expf(to_f(raw[TILE + s * N + j])));
+  }
+}
+"""
+WKV7BWD_VARIANTS = {
+    "base": ([], None, True),
+    # 16 / 64 value rows a pass-1 block at B*H = 64 (256 / 64 blocks)
+    "rows16": ([], 256, True),
+    "rows64": ([], 64, True),
+    # a block a head for both passes: pass 1 with the head's 64 rows (64
+    # blocks) and pass 2 walking the head's chunks in one block (64 blocks)
+    "head_blocks": ([("  const int bh = blockIdx.x / nc, c = blockIdx.x % nc;\n",
+                      "  const int bh = blockIdx.x;\n  for (int c = 0; c < nc; ++c) {\n"),
+                     (_P2_LAST, _P2_LAST[:-2] + "  __syncthreads();\n  }\n}\n"),
+                     ("kernel<<<B * H * (T / CHUNK), CB_THREADS", "kernel<<<B * H, CB_THREADS")], 64, True),
+    # the pair walk four steps at once (spills) or one at a time
+    "pairs4": ([("q0 < 4; q0 += 2) {\n    float qa[2], qr[2], qb[2], qk[2], amt[2], rmt[2];",
+                 "q0 < 4; q0 += 4) {\n    float qa[4], qr[4], qb[4], qk[4], amt[4], rmt[4];"),
+                ("for (int q = 0; q < 2; ++q) {\n      qa[q]", "for (int q = 0; q < 4; ++q) {\n      qa[q]"),
+                ("for (int q = 0; q < 2; ++q) {\n        const int t = f + 4 * (q0 + q);\n        float xm",
+                 "for (int q = 0; q < 4; ++q) {\n        const int t = f + 4 * (q0 + q);\n        float xm"),
+                ("for (int q = 0; q < 2; ++q) {\n      const int t = f + 4 * (q0 + q), e",
+                 "for (int q = 0; q < 4; ++q) {\n      const int t = f + 4 * (q0 + q), e")], None, True),
+    "pairs1": ([("q0 < 4; q0 += 2) {\n    float qa[2], qr[2], qb[2], qk[2], amt[2], rmt[2];",
+                 "q0 < 4; q0 += 1) {\n    float qa[1], qr[1], qb[1], qk[1], amt[1], rmt[1];"),
+                ("for (int q = 0; q < 2; ++q) {\n      qa[q]", "for (int q = 0; q < 1; ++q) {\n      qa[q]"),
+                ("for (int q = 0; q < 2; ++q) {\n        const int t = f + 4 * (q0 + q);\n        float xm",
+                 "for (int q = 0; q < 1; ++q) {\n        const int t = f + 4 * (q0 + q);\n        float xm"),
+                ("for (int q = 0; q < 2; ++q) {\n      const int t = f + 4 * (q0 + q), e",
+                 "for (int q = 0; q < 1; ++q) {\n      const int t = f + 4 * (q0 + q), e")], None, True),
+    # pass 2 without the register cap of two blocks a multiprocessor
+    "no_cap": ([("__launch_bounds__(CB_THREADS, 2) wkv7_bwd_chunk_kernel(",
+                 "__launch_bounds__(CB_THREADS, 1) wkv7_bwd_chunk_kernel(")], None, True),
+    # the row sums' loop unrolled 4 deep (2 in the source)
+    "unroll4": ([("#pragma unroll 2\n    for (int i4 = 0; i4 < N / 4; ++i4) {\n      float4 x[4], z[4];",
+                  "#pragma unroll 4\n    for (int i4 = 0; i4 < N / 4; ++i4) {\n      float4 x[4], z[4];")], None, True),
+    "no_pass1": ([("  int e;\n  switch (rows) {", "  int e = 0;\n  if (rows < 0) switch (rows) {")], None, False),
+    "no_pass2": ([("  static hopper_host::SmemOptIn opt_in;\n  e = opt_in(kernel, smem);",
+                   "  return 0;\n  static hopper_host::SmemOptIn opt_in;\n  e = opt_in(kernel, smem);")], None, False),
+    "no_p1_factors": ([("    if (p + 1 < nc) factors(p + 1);\n", "")], None, False),
+    "no_p1_matrices": ([("    if (p + 1 < nc) matrices(p + 1);\n", "")], None, False),
+    "no_p1_products": ([("    products(p, pv);\n", "    for (int o = 0; o < OPT; ++o) pv[o] = 0.f;\n")], None, False),
+    "no_p1_solve": ([("for (int tp = CHUNK - 1; tp > 0; --tp) {", "for (int tp = CHUNK - 1; tp > CHUNK; --tp) {")],
+                    None, False),
+    "no_p1_dz1": ([("for (int q = 0; q < Q4; ++q) {\n      z[(size_t)(4 * q) * zrow]",
+                    "for (int q = 0; q < 0; ++q) {\n      z[(size_t)(4 * q) * zrow]")], None, False),
+    "no_p1_update": ([("for (int s = 0; s < CHUNK; ++s) {\n      const float ys",
+                       "for (int s = 0; s < 0; ++s) {\n      const float ys")], None, False),
+    # w_pre, dU and both solves: at most what pass 1 storing u and dWpre
+    # for pass 2 could save (less the traffic of storing and reading them)
+    "no_p2_solves": ([("for (int j4 = 0; j4 < N / 4; ++j4) {\n      float4 zr[4];",
+                       "for (int j4 = 0; j4 < 0; ++j4) {\n      float4 zr[4];"),
+                      ("for (int s = 0; s < CHUNK; ++s) {\n      const float4 x = *",
+                       "for (int s = 0; s < 0; ++s) {\n      const float4 x = *"),
+                      ("  if (tid < 2 * N) {\n    const int i = tid % N;\n    const bool back",
+                       "  if (tid < 0) {\n    const int i = tid % N;\n    const bool back")], None, False),
+    "no_p2_rowsums": ([("for (int i4 = 0; i4 < N / 4; ++i4) {\n      const float4 wt",
+                        "for (int i4 = 0; i4 < 0; ++i4) {\n      const float4 wt"),
+                       ("for (int i4 = 0; i4 < N / 4; ++i4) {\n      float4 x[4], z[4];",
+                        "for (int i4 = 0; i4 < 0; ++i4) {\n      float4 x[4], z[4];")], None, False),
+    "no_p2_pairs": ([("for (int s = 0; s < CHUNK; ++s) {\n      const float bms",
+                      "for (int s = 0; s < 0; ++s) {\n      const float bms")], None, False),
+}
+WKV7BWD_CASES = ((2, 2048, 32, "bfloat16"), (2, 2048, 32, "float32"))
 # K8 and K7 timed: (kernel, B, T, H, stream dtype)
 WKV6_CASES = (("wkv6_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv6_fwd_res", 2, 2048, 32, "float32"),
               ("wkv6_fwd", 1, 624, 64, "bfloat16"), ("wkv6_fwd", 4, 624, 64, "bfloat16"))
@@ -323,10 +399,55 @@ def time_wkv7(names, libs, dev) -> int:
     return 0
 
 
+def time_wkv7bwd(names, libs, dev) -> int:
+    """K6 at ``WKV7BWD_CASES`` (from K5's states, with an initial state and a
+    non-zero final-state cotangent) under each variant, in turns; an exact
+    variant's seven gradients held against ``wkv7_bwd_plain`` (2e-2 with
+    bf16 streams, 1e-3 with fp32)."""
+    import torch
+
+    import chip_smoke as cs
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for B, T, H, dname in WKV7BWD_CASES:
+        sdt = getattr(torch, dname)
+        xs = cs._wkv_streams(gen, (B, T, H, 64), sdt, dev)
+        s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
+        dy = (torch.randn(B, T, H, 64, generator=gen, device=dev) * 0.5).to(sdt)
+        dsf = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.1
+        _, _, zin = wkv7_cuda.wkv7_fwd_res(*xs, s0)
+        ref = pw.wkv7_bwd_plain(*[x.float() for x in xs], zin, dy.float(), dsf)
+        cases.append((f"wkv7_bwd B={B} T={T} H={H} {dname}",
+                      lambda xs=xs, zin=zin, dy=dy, dsf=dsf: wkv7_cuda.wkv7_bwd(*xs, zin, dy, dsf),
+                      ref, 2e-2 if sdt == torch.bfloat16 else 1e-3))
+    times = {n: {c[0]: [] for c in cases} for n in names}
+    blocks = wkv7_cuda.FWD_RES_BLOCKS
+    for name in names + names[::-1]:
+        cuda_build._LIBS["wkv7_train"] = libs[name]
+        _, plan_blocks, exact = WKV7BWD_VARIANTS[name]
+        wkv7_cuda.FWD_RES_BLOCKS = blocks if plan_blocks is None else plan_blocks
+        for case, run, ref, tol in cases:
+            grads = run()
+            torch.cuda.synchronize()
+            if exact:
+                e = [cs.rel_rms(g.float(), r) for g, r in zip(grads, ref)]
+                assert max(e) <= tol, (name, case, e)
+            times[name][case].append(cs.cuda_ms(run, reps=5))
+    wkv7_cuda.FWD_RES_BLOCKS = blocks
+    for name in names:
+        print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
-    kind = argv[0][2:] if argv[:1] in (["--wkv6"], ["--wkv7"]) else None
+    kind = argv[0][2:] if argv[:1] in (["--wkv6"], ["--wkv7"], ["--wkv7bwd"]) else None
     argv = argv[1:] if kind else argv
-    known = {"wkv6": WKV6_VARIANTS, "wkv7": WKV7_VARIANTS, None: VARIANTS}[kind]
+    known = {"wkv6": WKV6_VARIANTS, "wkv7": WKV7_VARIANTS, "wkv7bwd": WKV7BWD_VARIANTS, None: VARIANTS}[kind]
     names = argv or list(known)
     bad = [n for n in names if n not in known]
     if bad:
@@ -351,6 +472,9 @@ def main(argv) -> int:
         return time_wkv6(names, build(names, "wkv6", WKV6_VARIANTS), dev)
     if kind == "wkv7":
         return time_wkv7(names, build(names, "wkv7", WKV7_VARIANTS, header="wkv7_chunk.cuh"), dev)
+    if kind == "wkv7bwd":
+        return time_wkv7bwd(names, build(names, "wkv7_train", WKV7BWD_VARIANTS, header="wkv7_chunk_bwd.cuh"),
+                            dev)
     libs = build(names)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

@@ -205,15 +205,11 @@ def test_bwd_plain_casts_to_stream_dtype():
 
 
 @pytest.mark.parametrize("with_state", [False, True])
-def test_wkv6_function_matches_autograd(monkeypatch, with_state):
-    """``WKV6Function`` (K8 forward, K9 backward on the card) with its two
-    kernels swapped for their plain versions, so that it runs on the CPU:
-    its gradients, and the None it returns for an absent initial state,
-    against autograd through the floored sequential scan. fp32; <= 1e-4."""
-    from visualrwkv_torch.ops import wkv6_cuda
-
-    monkeypatch.setattr(wkv6_cuda, "wkv6_fwd_res", pw.wkv6_fwd_res_plain)
-    monkeypatch.setattr(wkv6_cuda, "wkv6_bwd", pw.wkv6_bwd_plain)
+def test_wkv6_function_matches_autograd(with_state):
+    """``WKV6Function`` (K8 forward, K9 backward on the card; their plain
+    versions on CPU tensors): its gradients, and the None it returns for an
+    absent initial state, against autograd through the floored sequential
+    scan. fp32; <= 1e-4."""
     B, T, H = 2, 32, 2
     args, s0, dy, ds = _case(B, T, H, seed=9)
     ins = _t(args) + ([torch.from_numpy(s0)] if with_state else [])

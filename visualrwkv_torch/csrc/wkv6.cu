@@ -16,7 +16,7 @@
 // chunked forward, kernel _wkv6_kernel) and K8 wkv6_fwd_res replaces
 // wkv6_pallas_fwd_res, which also saves the state entering every 16-step
 // chunk, zin[bh, c] = transpose of S before step 16c (fp32), the layout K9
-// reads. Both are one kernel, wkv6_fwd_kernel<DT, SAVE, ROWS>: the chunked
+// reads. Both are one kernel, wkv6_fwd_kernel<DT, SAVE, ROWS, DIFF>: the chunked
 // form of ops/wkv6.py::wkv6_chunked at chunk 16, with g the running sum of
 // the floored log decay inside a chunk, in log2 units:
 //   y_t  = (r_t e^{g_{t-1}}) S^T + sum_{s<t} A_ts v_s + bonus_t v_t
@@ -50,12 +50,18 @@
 // ring of three stages while chunks c and c+1 compute. All arithmetic is
 // fp32 FMA (no tensor cores: an fp32 stream, the state and zin are held to
 // 1e-3). The factorisation of A takes its reference at step m = 7, so that
-// every factor lies within 2^{+-58} under the floor of -5 a step (chunk_len
-// >= 16, which the launcher requires), and e^{g_{t-1} - g_m} is formed as
-// e^{g_{t-1}} e^{-g_m}, each a normal float, before r multiplies it: the
-// terms do not underflow even where |r| is small and the decay is at the
-// floor. Every slice of a head recomputes the factor tiles and A, which is
-// cheaper than exchanging them. T needs not be a multiple of 16 for K7: the
+// each of its factors e^{g_{t-1} - g_m} and e^{g_m - g_s} spans at most 8
+// steps: within 2^{+-58} under the floor of -5 a step (chunk_len 16) and
+// 2^{+-116} under -10 (chunk_len 8, the lowest the launcher takes), a
+// normal float either way, formed before r or k multiplies it, so the terms
+// do not underflow even where |r| is small and the decay is at the floor.
+// Under -5 a factor is formed as e^{g_{t-1}} e^{-g_m}, reusing the exp2 of
+// the tiles against S; under a lower floor those alone leave fp32's range
+// over 16 steps, so each factor is one exp2 of its difference (two more an
+// element: at chunk_len 16 that form read 0.3996 against 0.3381 ms, K8 at
+// B=2 T=2048 H=32 bf16 on an H100, chip_variants.py --wkv6 exp2_each). Every
+// slice of a head recomputes the factor tiles and A, which is cheaper than
+// exchanging them. T needs not be a multiple of 16 for K7: the
 // last chunk's missing steps load as zeros and take a log decay of 0, and
 // their y is not stored.
 //
@@ -78,6 +84,7 @@ namespace {
 
 constexpr int N = 64;
 constexpr int CHUNK = 16;  // K8 saves the state entering every CHUNK steps
+constexpr int MIN_CHUNK_LEN = 8;  // K7 / K8 take the decay floor -80 / chunk_len down to here
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -154,7 +161,9 @@ using hopper::reduce_scatter;
 template <int ROWS>
 __host__ __device__ constexpr int threads_a_row() { return ROWS == 64 ? 4 : 8; }
 
-template <int DT, int SAVE, int ROWS>
+// DIFF: A's referenced factors each as one exp2 of its difference (the
+// launcher's choice for a floor below -5 a step; see the factor pass)
+template <int DT, int SAVE, int ROWS, int DIFF>
 __global__ void __launch_bounds__(ROWS * threads_a_row<ROWS>(), 2) wkv6_fwd_kernel(
     int Tlen, int H, float wfloor, const Stream<DT>* __restrict__ r,
     const Stream<DT>* __restrict__ w, const Stream<DT>* __restrict__ k,
@@ -260,20 +269,37 @@ __global__ void __launch_bounds__(ROWS * threads_a_row<ROWS>(), 2) wkv6_fwd_kern
     const float excl = incl - run;
     const float gm = __shfl_sync(FULL, excl + g[MID % TP], MID / TP, P);
     const float gl = __shfl_sync(FULL, incl, P - 1, P);
-    // e^{g_{t-1} - g_m} = e^{g_{t-1}} e^{-g_m} and e^{g_m - g_t} = e^{g_15 - g_t}
-    // e^{g_m - g_15}: each factor and product is a normal float
-    const float to_m = exp2f(-gm), from_m = exp2f(gm - gl);
     float* q_rq = rq + (c & 1) * FT;
     float* q_kb = kb + (c & 1) * FT;
+    if constexpr (!DIFF) {
+      // e^{g_{t-1} - g_m} = e^{g_{t-1}} e^{-g_m} and e^{g_m - g_t} = e^{g_15 -
+      // g_t} e^{g_m - g_15}, from the two exp2 an element that rq and kb need:
+      // under a floor of -5 a step each factor and product is a normal float
+      const float to_m = exp2f(-gm), from_m = exp2f(gm - gl);
 #pragma unroll
-    for (int q = 0; q < TP; ++q) {
-      const int t = fp * TP + q, o = t * LDP + fj;
-      const float gt = excl + g[q], ep = exp2f(gt - lw[q]), el = exp2f(gl - gt);
-      const float rr = to_f(x[t * N + fj]), kk = to_f(x[2 * L::TILE + t * N + fj]);
-      q_rq[o] = rr * ep;
-      rm[o] = rr * (ep * to_m);
-      km[o] = kk * (el * from_m);
-      q_kb[o] = kk * el;
+      for (int q = 0; q < TP; ++q) {
+        const int t = fp * TP + q, o = t * LDP + fj;
+        const float gt = excl + g[q], ep = exp2f(gt - lw[q]), el = exp2f(gl - gt);
+        const float rr = to_f(x[t * N + fj]), kk = to_f(x[2 * L::TILE + t * N + fj]);
+        q_rq[o] = rr * ep;
+        rm[o] = rr * (ep * to_m);
+        km[o] = kk * (el * from_m);
+        q_kb[o] = kk * el;
+      }
+    } else {
+      // under a lower floor (chunk_len 8 .. 15) e^{g_{t-1}} and e^{g_15 - g_t}
+      // alone may leave fp32's range: each factor is one exp2 of a difference
+      // that spans at most 8 steps, a normal float down to -10 a step
+#pragma unroll
+      for (int q = 0; q < TP; ++q) {
+        const int t = fp * TP + q, o = t * LDP + fj;
+        const float gt = excl + g[q], gp = gt - lw[q];
+        const float rr = to_f(x[t * N + fj]), kk = to_f(x[2 * L::TILE + t * N + fj]);
+        q_rq[o] = rr * exp2f(gp);
+        rm[o] = rr * exp2f(gp - gm);
+        km[o] = kk * exp2f(gm - gt);
+        q_kb[o] = kk * exp2f(gl - gt);
+      }
     }
     if (fp == P - 1) dec[(c & 1) * N + fj] = exp2f(gl);
   };
@@ -468,12 +494,12 @@ __global__ void __launch_bounds__(STEP_WARPS * 32) wkv6_step_kernel(
   }
 }
 
-template <int DT, int SAVE, int ROWS>
-int launch_rows(int B, int T, int H, float wfloor, const void* r, const void* w, const void* k,
+template <int DT, int SAVE, int ROWS, int DIFF>
+int launch_form(int B, int T, int H, float wfloor, const void* r, const void* w, const void* k,
                 const void* v, const void* u, const void* s0, void* y, void* s_out, void* zin,
                 cudaStream_t st) {
   using X = Stream<DT>;
-  const auto kernel = wkv6_fwd_kernel<DT, SAVE, ROWS>;
+  const auto kernel = wkv6_fwd_kernel<DT, SAVE, ROWS, DIFF>;
   constexpr size_t smem = FwdSmem<DT, ROWS>::bytes;
   static hopper_host::SmemOptIn opt_in;
   const int e = opt_in(kernel, smem);
@@ -482,6 +508,18 @@ int launch_rows(int B, int T, int H, float wfloor, const void* r, const void* w,
       T, H, wfloor, (const X*)r, (const X*)w, (const X*)k, (const X*)v, (const float*)u,
       (const float*)s0, (X*)y, (float*)s_out, (float*)zin);
   return (int)cudaGetLastError();
+}
+
+// the factor form by the floor: a run-time branch between the two inside
+// the kernel made K8 13 % slower at chunk_len 16 (0.3411 -> 0.3861 ms, B=2
+// T=2048 H=32 bf16, H100), so each form is its own instantiation
+template <int DT, int SAVE, int ROWS>
+int launch_rows(int B, int T, int H, float wfloor, const void* r, const void* w, const void* k,
+                const void* v, const void* u, const void* s0, void* y, void* s_out, void* zin,
+                cudaStream_t st) {
+  return wfloor >= -80.f / CHUNK
+             ? launch_form<DT, SAVE, ROWS, 0>(B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st)
+             : launch_form<DT, SAVE, ROWS, 1>(B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st);
 }
 
 template <int DT, int SAVE>
@@ -502,8 +540,8 @@ int launch_fwd(int dtype, int rows, int B, int T, int H, int n, float wfloor, co
                void* y, void* s_out, void* zin, void* stream) {
   if (n != N || B <= 0 || H <= 0 || T < 0) return (int)cudaErrorInvalidValue;
   if (SAVE && (T % CHUNK != 0 || zin == nullptr)) return (int)cudaErrorInvalidValue;
-  // the factorisation needs the floor of chunk_len >= 16: at most -5 a step
-  if (!(wfloor >= -80.f / CHUNK && wfloor < 0.f)) return (int)cudaErrorInvalidValue;
+  // the factorisation needs the floor of chunk_len >= 8: at most -10 a step
+  if (!(wfloor >= -80.f / MIN_CHUNK_LEN && wfloor < 0.f)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_dt<0, SAVE>(rows, B, T, H, wfloor, r, w, k, v, u, s0, y, s_out, zin, st);
@@ -531,7 +569,7 @@ extern "C" {
 const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // K7: streams [B, T, H, 64] in one dtype; u fp32 [H, 64]; s0 (may be null)
-// and s_out fp32 [B, H, 64, 64]; wfloor = -80 / chunk_len, chunk_len >= 16;
+// and s_out fp32 [B, H, 64, 64]; wfloor = -80 / chunk_len, chunk_len >= 8;
 // rows = the value rows a block owns (16, 32 or 64; 8 threads a row, 4 at 64).
 int wkv6_fwd(int dtype, int rows, int B, int T, int H, int n, float wfloor, const void* r,
              const void* w, const void* k, const void* v, const void* u, const void* s0, void* y,

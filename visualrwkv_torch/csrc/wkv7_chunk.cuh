@@ -128,6 +128,129 @@ struct ChunkSmem {
   static constexpr size_t bytes = rhs + CHUNK * ROWS * 4;
 };
 
+// A chunk's r, w, k, a, b rows (CHUNK x N tiles, TILE apart) and the columns
+// i0 .. i0 + ROWS of a sixth stream x6 (v in K5, dy in the backward's pass
+// 1; CHUNK x ROWS after them) into dst by cp.async, one commit group; c0 is
+// the offset of the chunk's first (b, t, h, 0) element.
+template <typename T, int ROWS, int NT>
+__device__ __forceinline__ void chunk_load(T* dst, int tid, size_t c0, size_t tstride, int i0, const T* r,
+                                           const T* w, const T* k, const T* a, const T* b, const T* x6) {
+  constexpr int TILE = CHUNK * N, VEC = 16 / sizeof(T);
+  constexpr int ROW_SEGS = N / VEC, TILE_SEGS = CHUNK * ROW_SEGS, V_SEGS = ROWS / VEC;
+  for (int idx = tid; idx < 5 * TILE_SEGS + CHUNK * V_SEGS; idx += NT) {
+    int t, col, dcol, tile;
+    if (idx < 5 * TILE_SEGS) {
+      tile = idx / TILE_SEGS;
+      t = idx % TILE_SEGS / ROW_SEGS;
+      col = dcol = idx % ROW_SEGS * VEC;
+    } else {
+      tile = 5;
+      t = (idx - 5 * TILE_SEGS) / V_SEGS;
+      dcol = (idx - 5 * TILE_SEGS) % V_SEGS * VEC;
+      col = i0 + dcol;
+    }
+    const T* src = tile == 0 ? r : tile == 1 ? w : tile == 2 ? k : tile == 3 ? a : tile == 4 ? b : x6;
+    cp_async16(dst + tile * TILE + t * (tile == 5 ? ROWS : N) + dcol, src + c0 + (size_t)t * tstride + col, true);
+  }
+  cp_async_commit();
+}
+
+// A chunk's factor tiles from its raw r, w, k, a, b tiles x (CHUNK x N, TILE
+// apart), a thread per (column fj, part fp of P): prefix sums by shuffles,
+// six exp2 an element. Writes az = a e^{g_p}, rz = r e^{g}, bl, kl = b, k
+// e^{g_l - g}, the step-7-referenced am, rm, bm, km, dec[fj] = e^{g_l} and,
+// with G, the running sum g itself (log2 units) into gt. K5 / K12 and both
+// passes of the backward (wkv7_chunk_bwd.cuh) share it.
+template <typename T, int P, bool G = false>
+__device__ __forceinline__ void chunk_factors(const T* x, int fj, int fp, float* az, float* rz, float* bl,
+                                              float* kl, float* am, float* rm, float* bm, float* km,
+                                              float* dec, float* gt = nullptr) {
+  constexpr int TP = CHUNK / P;  // steps a thread
+  constexpr int TILE = CHUNK * N;
+  constexpr unsigned FULL = 0xffffffffu;
+  float lw[TP], g[TP], run = 0.f;
+#pragma unroll
+  for (int q = 0; q < TP; ++q) {
+    const int t = fp * TP + q;
+    lw[q] = -expf(to_f(x[TILE + t * N + fj])) * C_LOG2E;
+    run += lw[q];
+    g[q] = run;
+  }
+  float incl = run;  // inclusive sum over the parts of this column
+#pragma unroll
+  for (int d = 1; d < P; d <<= 1) {
+    const float o = __shfl_up_sync(FULL, incl, d, P);
+    if (fp >= d) incl += o;
+  }
+  const float excl = incl - run;
+  const float gm = __shfl_sync(FULL, excl + g[C_MID % TP], C_MID / TP, P);
+  const float gl = __shfl_sync(FULL, incl, P - 1, P);
+#pragma unroll
+  for (int q = 0; q < TP; ++q) {
+    const int t = fp * TP + q, o = t * C_LDP + fj, e = t * N + fj;
+    const float g_t = excl + g[q], gp = g_t - lw[q];
+    const float rr = to_f(x[e]), kk = to_f(x[2 * TILE + e]);
+    const float aa = to_f(x[3 * TILE + e]), bb = to_f(x[4 * TILE + e]);
+    const float el = exp2f(gl - g_t), em = exp2f(gm - g_t);
+    az[o] = aa * exp2f(gp);
+    rz[o] = rr * exp2f(g_t);
+    bl[o] = bb * el;
+    kl[o] = kk * el;
+    am[o] = aa * exp2f(gp - gm);
+    rm[o] = rr * exp2f(g_t - gm);
+    bm[o] = bb * em;
+    km[o] = kk * em;
+    if (G) gt[o] = g_t;
+  }
+  if (fp == P - 1) dec[fj] = exp2f(gl);
+}
+
+// A chunk's four 16 x 16 matrices M = strict(am bm^T), Nm = strict(am km^T),
+// sb = incl(rm bm^T), sk = incl(rm km^T) into out (entries above the
+// triangles are left as they are): out = [M^T | Nm | sb | sk], [s][t] for M^T
+// and [t][s] for the others (K5's forward substitution walks M's columns),
+// or with TRANS [M | Nm^T | sb^T | sk^T] (the backward's transposed solve
+// walks M's rows). 40 tasks (4 matrices x the ten 4 x 4 tiles on and below
+// the diagonal), eight lanes a task, each over 8 columns j (4 jc .. 4 jc + 4
+// and 32 more), summed by shuffles; lane jc keeps entries 2 jc, 2 jc + 1.
+template <int NT, bool TRANS>
+__device__ __forceinline__ void chunk_matrices(int tid, const float* am, const float* rm, const float* bm,
+                                               const float* km, float* out) {
+  for (int task = tid; task < 4 * 10 * 8; task += NT) {  // a warp-uniform bound
+    const int mat = task / 80, tile = task % 80 / 8, jc = task % 8;
+    int bt = 0;
+    while ((bt + 1) * (bt + 2) / 2 <= tile) ++bt;
+    const int bs = tile - bt * (bt + 1) / 2;
+    const float* lhs = mat < 2 ? am : rm;
+    const float* rhs = mat % 2 == 0 ? bm : km;
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float4 la[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        la[q] = *reinterpret_cast<const float4*>(lhs + (4 * bt + q) * C_LDP + 4 * jc + 32 * hh);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float4 rb = *reinterpret_cast<const float4*>(rhs + (4 * bs + s) * C_LDP + 4 * jc + 32 * hh);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[4 * q + s] = dot4(la[q], rb, acc[4 * q + s]);
+      }
+    }
+    reduce_scatter<4, 8>(acc, jc & 4);
+    reduce_scatter<2, 4>(acc, jc & 2);
+    reduce_scatter<1, 2>(acc, jc & 1);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int t = 4 * bt + (2 * jc + m) / 4, s = 4 * bs + (2 * jc + m) % 4;
+      if (mat < 2 ? s < t : s <= t)
+        out[mat * CHUNK * CHUNK + ((mat == 0) != TRANS ? s * CHUNK + t : t * CHUNK + s)] = acc[m];
+    }
+  }
+}
+
 template <int DT, int ROWS, int ZHEADS>
 __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fwd_res_kernel(
     int Tlen, int H, const ChunkStream<DT>* __restrict__ r, const ChunkStream<DT>* __restrict__ w,
@@ -143,11 +266,8 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
   constexpr int Q4 = CPT / 4;       // ... as float4
   constexpr int OPT = CHUNK / TPR;  // steps a thread in the products along j
   constexpr int P = NT / N;         // factor pass: threads a column
-  constexpr int TP = CHUNK / P;     // factor pass: steps a thread
-  constexpr int VEC = 16 / sizeof(T);
   constexpr int FT = CHUNK * C_LDP;  // floats of a factor tile
   constexpr int ZROW = ZHEADS * N;   // zin's row stride
-  constexpr unsigned FULL = 0xffffffffu;
   static_assert((ROWS == 16 || ROWS == 32 || ROWS == 64) && NT >= 128 && NT <= 256, "ROWS");
 
   extern __shared__ __align__(16) unsigned char chunk_smem[];  // (wkv7_seq.cuh's smem is float)
@@ -174,7 +294,7 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
   // state: value row si of the slice, columns CPT sg .. CPT sg + CPT; the
   // steps 2 TPR p + sg and 2 TPR p + 2 TPR - 1 - sg for p < OPT / 2
   const int si = tid % ROWS, sg = tid / ROWS;
-  // factor pass: column fj, steps fp * TP .. fp * TP + TP
+  // factor pass: column fj, steps fp * CHUNK / P .. (fp + 1) * CHUNK / P
   const int fj = tid / P, fp = tid % P;
   int ts[OPT];
 #pragma unroll
@@ -198,108 +318,19 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
 
   // chunk c's r, w, k, a, b rows and v columns i0 .. i0 + ROWS into stage c % 3
   auto load = [&](int c) {
-    T* dst = raw + (c % C_STAGES) * L::STAGE;
-    constexpr int ROW_SEGS = N / VEC, TILE_SEGS = CHUNK * ROW_SEGS, V_SEGS = ROWS / VEC;
-    const size_t c0 = base + (size_t)c * CHUNK * tstride;
-    for (int idx = tid; idx < 5 * TILE_SEGS + CHUNK * V_SEGS; idx += NT) {
-      int t, col, dcol, tile;
-      if (idx < 5 * TILE_SEGS) {
-        tile = idx / TILE_SEGS;
-        t = idx % TILE_SEGS / ROW_SEGS;
-        col = dcol = idx % ROW_SEGS * VEC;
-      } else {
-        tile = 5;
-        t = (idx - 5 * TILE_SEGS) / V_SEGS;
-        dcol = (idx - 5 * TILE_SEGS) % V_SEGS * VEC;
-        col = i0 + dcol;
-      }
-      const T* src = tile == 0 ? r : tile == 1 ? w : tile == 2 ? k : tile == 3 ? a : tile == 4 ? b : v;
-      cp_async16(dst + tile * L::TILE + t * (tile == 5 ? ROWS : N) + dcol,
-                 src + c0 + (size_t)t * tstride + col, true);
-    }
-    cp_async_commit();
+    chunk_load<T, ROWS, NT>(raw + (c % C_STAGES) * L::STAGE, tid, base + (size_t)c * CHUNK * tstride, tstride,
+                            i0, r, w, k, a, b, v);
   };
 
   // phase 1 (a): chunk c's factor tiles and decay
   auto factors = [&](int c) {
-    const T* x = raw + (c % C_STAGES) * L::STAGE;
-    float lw[TP], g[TP], run = 0.f;
-#pragma unroll
-    for (int q = 0; q < TP; ++q) {
-      const int t = fp * TP + q;
-      lw[q] = -expf(to_f(x[L::TILE + t * N + fj])) * C_LOG2E;
-      run += lw[q];
-      g[q] = run;
-    }
-    float incl = run;  // inclusive sum over the parts of this column
-#pragma unroll
-    for (int d = 1; d < P; d <<= 1) {
-      const float o = __shfl_up_sync(FULL, incl, d, P);
-      if (fp >= d) incl += o;
-    }
-    const float excl = incl - run;
-    const float gm = __shfl_sync(FULL, excl + g[C_MID % TP], C_MID / TP, P);
-    const float gl = __shfl_sync(FULL, incl, P - 1, P);
     const int p = (c & 1) * FT;
-#pragma unroll
-    for (int q = 0; q < TP; ++q) {
-      const int t = fp * TP + q, o = t * C_LDP + fj, e = t * N + fj;
-      const float gt = excl + g[q], gp = gt - lw[q];
-      const float rr = to_f(x[e]), kk = to_f(x[2 * L::TILE + e]);
-      const float aa = to_f(x[3 * L::TILE + e]), bb = to_f(x[4 * L::TILE + e]);
-      const float el = exp2f(gl - gt), em = exp2f(gm - gt);
-      az[p + o] = aa * exp2f(gp);
-      rz[p + o] = rr * exp2f(gt);
-      bl[p + o] = bb * el;
-      kl[p + o] = kk * el;
-      am[o] = aa * exp2f(gp - gm);
-      rm[o] = rr * exp2f(gt - gm);
-      bm[o] = bb * em;
-      km[o] = kk * em;
-    }
-    if (fp == P - 1) dec[(c & 1) * N + fj] = exp2f(gl);
+    chunk_factors<T, P>(raw + (c % C_STAGES) * L::STAGE, fj, fp, az + p, rz + p, bl + p, kl + p, am, rm,
+                        bm, km, dec + (c & 1) * N);
   };
 
-  // phase 2 (a): chunk c's matrices, mats[c & 1] = M^T [s][t], Nm, sb, sk
-  // [t][s]. 40 tasks (4 matrices x the ten 4 x 4 tiles on and below the
-  // diagonal), eight lanes a task, each over 8 columns j (4 jc .. 4 jc + 4
-  // and 32 more), summed by shuffles; lane jc keeps entries 2 jc, 2 jc + 1.
-  auto matrices = [&](int c) {
-    float* out = mats + (c & 1) * L::MATS;
-    for (int task = tid; task < 4 * 10 * 8; task += NT) {  // a warp-uniform bound
-      const int mat = task / 80, tile = task % 80 / 8, jc = task % 8;
-      int bt = 0;
-      while ((bt + 1) * (bt + 2) / 2 <= tile) ++bt;
-      const int bs = tile - bt * (bt + 1) / 2;
-      const float* lhs = mat < 2 ? am : rm;
-      const float* rhs = mat % 2 == 0 ? bm : km;
-      float acc[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[e] = 0.f;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float4 la[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          la[q] = *reinterpret_cast<const float4*>(lhs + (4 * bt + q) * C_LDP + 4 * jc + 32 * hh);
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const float4 rb = *reinterpret_cast<const float4*>(rhs + (4 * bs + s) * C_LDP + 4 * jc + 32 * hh);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[4 * q + s] = dot4(la[q], rb, acc[4 * q + s]);
-        }
-      }
-      reduce_scatter<4, 8>(acc, jc & 4);
-      reduce_scatter<2, 4>(acc, jc & 2);
-      reduce_scatter<1, 2>(acc, jc & 1);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int t = 4 * bt + (2 * jc + m) / 4, s = 4 * bs + (2 * jc + m) % 4;
-        if (mat < 2 ? s < t : s <= t)
-          out[mat * CHUNK * CHUNK + (mat == 0 ? s * CHUNK + t : t * CHUNK + s)] = acc[m];
-      }
-    }
-  };
+  // phase 2 (a): chunk c's matrices, mats[c & 1] = M^T [s][t], Nm, sb, sk [t][s]
+  auto matrices = [&](int c) { chunk_matrices<NT, false>(tid, am, rm, bm, km, mats + (c & 1) * L::MATS); };
 
   // phase 1 (b): for chunk c at the thread's steps, the products along j,
   // rhs (to shared memory) and y's part without u (returned in yp)

@@ -29,18 +29,14 @@
 // each warp's store is still a run of adjacent floats. Its y, final state
 // and zin values are bit-equal to K5's.
 //
-// K13: wkv7_bwd_kernel<T, 2>, the per-step adjoint of K6 reading the packed
-// zin. Two heads in one block would need about 340 KB of shared memory
-// (K6 parks 170,496 bytes of states and streams per head), more than the
-// 227 KB a block may have, so K13 keeps K6's block of 128 threads per
-// (b, h): each block reads its head's half of every packed zin row, 64
-// adjacent floats at the packed row stride of 128, which is still one
-// coalesced 256-byte access, and keeps K6's B*H blocks, which the
-// latency-bound kernel needs more than it needs wider loads. dstate comes
-// out per head in [B, H, 64, 64]. WKV7 has no bonus u, so no sum over B is
-// needed. Bit-equal to K6 on the same states.
+// K13: K6's two-pass chunked VJP (wkv7_chunk_bwd.cuh) with ZHEADS = 2:
+// pass 2 reads each head's half of the packed zin rows (64 adjacent floats
+// at the run-time row stride 128) and pass 1 writes its cotangent workspace
+// in the same packed layout. Its results are bit-equal to K6's. dstate comes
+// in and out per head in [B, H, 64, 64]. WKV7 has no bonus u, so no sum over
+// B is needed.
 
-#include "wkv7_chunk.cuh"
+#include "wkv7_chunk_bwd.cuh"
 
 extern "C" {
 
@@ -64,13 +60,14 @@ int wkv7_fwd_res_packed(int dtype, int rows, int B, int T, int H, int n, const v
   return launch_fwd_res<2>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
 }
 
-// K13: as wkv7_bwd (wkv7_train.cu), with zin packed as K12 wrote it.
-int wkv7_bwd_packed(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+// K13: as wkv7_bwd (wkv7_train.cu), with zin packed as K12 wrote it and the
+// dz1 workspace of the same packed shape; H even.
+int wkv7_bwd_packed(int dtype, int rows, int B, int T, int H, int n, const void* r, const void* w,
                     const void* k, const void* v, const void* a, const void* b, const void* zin,
                     const void* dy, const void* dsf, void* dr, void* dw, void* dk, void* dv,
-                    void* da, void* db, void* ds0, void* stream) {
-  return launch_bwd<2>(dtype, B, T, H, n, r, w, k, v, a, b, zin, dy, dsf, dr, dw, dk, dv, da,
-                       db, ds0, stream);
+                    void* da, void* db, void* ds0, void* dz1, void* stream) {
+  return launch_bwd<2>(dtype, rows, B, T, H, n, r, w, k, v, a, b, zin, dy, dsf, dr, dw, dk, dv, da,
+                       db, ds0, dz1, stream);
 }
 
 }  // extern "C"

@@ -26,8 +26,9 @@ there is zero. The one-token step has no floor, as in the JAX package.
   vector-Jacobian product from those states (plain versions of K8 and K9).
 * :func:`wkv6` / :func:`wkv6_step_auto` — dispatch on the tensors' device:
   the plain versions for CPU tensors, the CUDA kernels
-  (:mod:`visualrwkv_torch.ops.wkv6_cuda`) for CUDA tensors. Under autograd
-  on CUDA, :class:`WKV6Function` runs kernel K8 forward and K9 backward.
+  (:mod:`visualrwkv_torch.ops.wkv6_cuda`) for CUDA tensors. Under autograd,
+  on both devices, :class:`WKV6Function` runs kernel K8 forward and K9
+  backward (their plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from visualrwkv_torch.ops import wkv6_cuda
+from visualrwkv_torch.ops.padding import pad_steps
 
 Tensor = torch.Tensor
 
@@ -210,47 +212,56 @@ def wkv6_bwd_plain(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor, zi
 
 
 class WKV6Function(torch.autograd.Function):
-    """The differentiable WKV6 on CUDA tensors: forward is kernel K8 (which
-    saves the chunk states), backward is kernel K9. Counterpart of the JAX
-    package's ``_wkv6_cv_pallas`` custom VJP."""
+    """The differentiable WKV6 from the saved chunk states: forward is kernel
+    K8 (which saves the chunk states), backward is kernel K9, on CUDA
+    tensors; their plain versions on CPU tensors. Counterpart of the JAX
+    package's ``_wkv6_cv_pallas`` custom VJP. Any T: the 16-step chunks are
+    filled with identity steps (:func:`visualrwkv_torch.ops.padding.pad_steps`)
+    and the outputs and gradients cut back to T."""
 
     @staticmethod
     def forward(ctx, r, w_raw, k, v, u, initial_state, chunk):
-        y, s, zin = wkv6_cuda.wkv6_fwd_res(r, w_raw, k, v, u, initial_state, chunk)
-        ctx.save_for_backward(r, w_raw, k, v, u, zin)
+        T = r.shape[1]
+        xs = pad_steps((r, w_raw, k, v), 1, T + (-T) % SAVE_EVERY)
+        fwd = wkv6_cuda.wkv6_fwd_res if r.is_cuda else wkv6_fwd_res_plain
+        y, s, zin = fwd(*xs, u, initial_state, chunk=chunk)
+        ctx.save_for_backward(*xs, u, zin)
         ctx.has_initial = initial_state is not None
-        ctx.chunk = chunk
-        return y, s
+        ctx.chunk, ctx.steps = chunk, T
+        return (y if y.shape[1] == T else y[:, :T].contiguous()), s
 
     @staticmethod
     def backward(ctx, dy, ds):
-        r, w_raw, k, v, u, zin = ctx.saved_tensors
-        B, T, H, N = r.shape
-        # a cotangent that autograd did not materialise is zero
-        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype).contiguous()
+        r, w_raw, k, v, u, zin = ctx.saved_tensors  # padded to a multiple of 16 steps
+        B, Tp, H, N = r.shape
+        T = ctx.steps
+        # a cotangent that autograd did not materialise is zero, as is a padding step's
+        dy = torch.zeros_like(r) if dy is None else pad_steps((dy.to(r.dtype),), -1, Tp)[0].contiguous()
         ds = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device) if ds is None
               else ds.to(torch.float32).contiguous())
-        dr, dw, dk, dv, du, ds0 = wkv6_cuda.wkv6_bwd(r, w_raw, k, v, u, zin, dy, ds, ctx.chunk)
-        return dr, dw, dk, dv, du, ds0 if ctx.has_initial else None, None
+        bwd = wkv6_cuda.wkv6_bwd if r.is_cuda else wkv6_bwd_plain
+        dr, dw, dk, dv, du, ds0 = bwd(r, w_raw, k, v, u, zin, dy, ds, chunk=ctx.chunk)
+        cut = lambda g: g if Tp == T else g[:, :T]
+        return cut(dr), cut(dw), cut(dk), cut(dv), du, ds0 if ctx.has_initial else None, None
 
 
 def wkv6(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
          initial_state: Optional[Tensor] = None,
          chunk: int = DEFAULT_CHUNK) -> Tuple[Tensor, Tensor]:
-    """Entry point of the models. CPU tensors take the plain path
-    (:func:`wkv6_plain`), which autograd differentiates through PyTorch ops.
-    CUDA tensors launch kernel K7 (``csrc/wkv6.cu``) or, when grad mode is on
-    and an input needs a gradient, :class:`WKV6Function` (K8 forward, K9
-    backward; T must be a multiple of 16); on CUDA ``chunk`` must be at
-    least 16 (K7 / K8's chunked form). ``u`` is taken in fp32 on CUDA."""
+    """Entry point of the models. With grad mode on and an input that needs
+    a gradient, :class:`WKV6Function` on both devices (K8 forward, K9
+    backward on CUDA, their plain versions on the CPU; any T). Otherwise
+    CUDA tensors launch kernel K7 (``csrc/wkv6.cu``) and CPU tensors take
+    the plain path (:func:`wkv6_plain`). On CUDA ``chunk`` must be at least
+    8 (K7 / K8's chunked form takes a decay floor down to -10 a step), and
+    ``u`` is taken in fp32."""
     _validate(r, w_raw, k, v, u)
+    inputs = (r, w_raw, k, v, u.float().contiguous() if r.is_cuda else u, initial_state)
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
+        return WKV6Function.apply(*inputs, chunk)
     if r.is_cuda:
-        u = u.float().contiguous()
-        inputs = (r, w_raw, k, v, u, initial_state)
-        if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
-            return WKV6Function.apply(*inputs, chunk)
-        return wkv6_cuda.wkv6_fwd(r, w_raw, k, v, u, initial_state, chunk)
-    return wkv6_plain(r, w_raw, k, v, u, initial_state, chunk)
+        return wkv6_cuda.wkv6_fwd(*inputs, chunk)
+    return wkv6_plain(*inputs, chunk)
 
 
 def wkv6_step_auto(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,

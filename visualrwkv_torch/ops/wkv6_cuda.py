@@ -8,9 +8,10 @@ outputs with ``torch.empty``, launches on the current stream, raises on a
 CUDA error, and adds one to its entry of ``cuda_build.LAUNCHES``. The bonus
 ``u`` is fp32 ``[H, 64]``. ``chunk`` sets the decay floor ``-80 / chunk`` of
 the sequence kernels (K7-K9); the step (K10) has none. K7 and K8 work in
-16-step chunks whose factors span the decay of one chunk, so they take
-``chunk >= 16`` only (the models' ``chunk_len`` is 16); :func:`fwd_plan`
-chooses how many value rows of a head's state one of their blocks owns.
+16-step chunks whose factors each span at most 8 steps' decay, so they take
+``chunk >= 8`` (a floor of at least -10 a step; the models' ``chunk_len``
+is 16, or 8 to harden the WKV7 solve); :func:`fwd_plan` chooses how many
+value rows of a head's state one of their blocks owns.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 CHUNK = 16  # K8 saves, and K9 reads, the state entering every 16 steps
+MIN_CHUNK_LEN = 8  # K7 / K8 take the decay floor -80 / chunk down to this chunk
 # K7 / K8: value rows of a head's state a block may own, the most first, and
 # the blocks to reach: about one for each of the H100's 132 multiprocessors
 # (at B*H = 64, 128 blocks of 32 rows ran 21 % faster than 256 of 16)
@@ -71,11 +73,12 @@ def _floor(chunk: int) -> float:
 
 
 def _chunked_floor(name: str, chunk: int) -> float:
-    """The decay floor of K7 / K8: their factors of a 16-step chunk stay in
-    fp32's range only for a floor of at least -5 a step (``chunk >= 16``)."""
-    if chunk < CHUNK:
+    """The decay floor of K7 / K8: the factors of a 16-step chunk, each
+    spanning at most 8 steps, stay in fp32's range for a floor of at least
+    -10 a step (``chunk >= 8``)."""
+    if chunk < MIN_CHUNK_LEN:
         raise ValueError(f"{name}: chunk={chunk}: the kernel takes a decay floor of -80 / chunk "
-                         f"with chunk >= {CHUNK} only")
+                         f"with chunk >= {MIN_CHUNK_LEN} only")
     return _floor(chunk)
 
 

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from visualrwkv_torch.ops import wkv7_cuda
+from visualrwkv_torch.ops.padding import pad_steps
 
 Tensor = torch.Tensor
 
@@ -450,17 +451,21 @@ def wkv7_fwd_res_op(r, w_raw, k, v, a, b, initial_state, packed):
 
 
 def _fwd_saving(ctx, packed: bool, r, w_raw, k, v, a, b, initial_state):
-    y, s, zin = torch.ops.visualrwkv_torch.wkv7_fwd_res(r, w_raw, k, v, a, b, initial_state, packed)
-    ctx.save_for_backward(r, w_raw, k, v, a, b, zin)
+    T = r.shape[1]
+    xs = pad_steps((r, w_raw, k, v, a, b), 1, T + (-T) % wkv7_cuda.CHUNK)
+    y, s, zin = torch.ops.visualrwkv_torch.wkv7_fwd_res(*xs, initial_state, packed)
+    ctx.save_for_backward(*xs, zin)
     ctx.has_initial = initial_state is not None
-    return y, s
+    ctx.steps = T
+    return (y if y.shape[1] == T else y[:, :T].contiguous()), s
 
 
 def _bwd_from_saved(ctx, packed: bool, dy, ds):
-    r, w_raw, k, v, a, b, zin = ctx.saved_tensors
-    B, T, H, N = r.shape
-    # a cotangent that autograd did not materialise is zero
-    dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype).contiguous()
+    r, w_raw, k, v, a, b, zin = ctx.saved_tensors  # padded to a multiple of 16 steps
+    B, Tp, H, N = r.shape
+    T = ctx.steps
+    # a cotangent that autograd did not materialise is zero, as is a padding step's
+    dy = torch.zeros_like(r) if dy is None else pad_steps((dy.to(r.dtype),), -1, Tp)[0].contiguous()
     ds = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device) if ds is None
           else ds.to(torch.float32).contiguous())
     if r.is_cuda:
@@ -468,7 +473,7 @@ def _bwd_from_saved(ctx, packed: bool, dy, ds):
     else:
         bwd = wkv7_bwd_packed_plain if packed else wkv7_bwd_plain
     grads = bwd(r, w_raw, k, v, a, b, zin, dy, ds)
-    return (*grads[:6], grads[6] if ctx.has_initial else None)
+    return (*(g if Tp == T else g[:, :T] for g in grads[:6]), grads[6] if ctx.has_initial else None)
 
 
 class WKV7Function(torch.autograd.Function):
@@ -476,7 +481,9 @@ class WKV7Function(torch.autograd.Function):
     :func:`wkv7_fwd_res_op` (kernel K5 on CUDA, which saves the chunk
     states), backward is kernel K6 (the plain versions on the CPU).
     Counterpart of the JAX package's ``_wkv7_cv_pallas_blocked`` custom
-    VJP."""
+    VJP. Any T: the kernels' 16-step chunks are filled with identity steps
+    (:func:`visualrwkv_torch.ops.padding.pad_steps`) on both devices, and
+    the outputs and gradients cut back to T."""
 
     @staticmethod
     def forward(ctx, r, w_raw, k, v, a, b, initial_state):
@@ -507,10 +514,15 @@ def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
     """Entry point of the models, by the mode of :func:`set_wkv_impl`.
     "chunked": :func:`wkv7_plain` on any device, which autograd
     differentiates. Otherwise, with grad mode on and an input that needs a
-    gradient, :class:`WKV7Function` (K5 forward, K6 backward on CUDA; T must
-    be a multiple of 16), or :class:`WKV7PackedFunction` in "packed" mode
-    with an even head count (K12, K13); on the CPU a T that is not a
-    multiple of 16 is differentiated through the plain path instead.
+    gradient, :class:`WKV7Function` (K5 forward, K6 backward on CUDA, their
+    plain versions on the CPU), or :class:`WKV7PackedFunction` in "packed"
+    mode with an even head count (K12, K13), at any T on both devices (a T
+    that is not a multiple of 16 is padded with identity steps). Those run
+    the kernels' 16-step chunk whatever ``chunk`` is: the JAX package's
+    fused path takes a chunk of 8 to harden its solve, which the kernels'
+    fp32 forward substitution over 16 steps does not need (it reads about
+    1e-6 relative error on the adversarial input of
+    ``tests/test_torch_wkv7_chunked.py``, where the limit is 1e-5).
     Without a gradient, CUDA tensors launch K1 (K11 when packed) and CPU
     tensors take :func:`wkv7_plain` (:func:`wkv7_packed_plain`)."""
     _validate(r, w_raw, k, v, a, b)
@@ -518,8 +530,7 @@ def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
         return wkv7_plain(r, w_raw, k, v, a, b, initial_state, chunk)
     packed = _IMPL_MODE == "packed" and r.shape[2] % 2 == 0
     inputs = (r, w_raw, k, v, a, b, initial_state)
-    grad = torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs)
-    if grad and (r.is_cuda or r.shape[1] % wkv7_cuda.CHUNK == 0):
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
         return (WKV7PackedFunction if packed else WKV7Function).apply(*inputs)
     if r.is_cuda:
         return (wkv7_cuda.wkv7_fwd_packed if packed else wkv7_cuda.wkv7_fwd)(*inputs)

@@ -7,7 +7,10 @@ chunked matrix form of the forward (``csrc/wkv7_v2.cu``). They take CUDA tensors
 the dispatchers in :mod:`visualrwkv_torch.ops.wkv7` send CPU tensors to the
 plain versions. K5 and K12 are one chunked kernel (``csrc/wkv7_chunk.cuh``)
 whose block owns a slice of value rows of one head; :func:`fwd_res_plan`
-chooses how many.
+chooses how many. K6 and K13 are one two-pass chunked VJP
+(``csrc/wkv7_chunk_bwd.cuh``): a pass laid out as K5 that carries the state
+cotangent through a workspace, then a block for each (b, h, chunk);
+:func:`bwd_plan` gives both launches.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises on a
@@ -34,6 +37,7 @@ V2_CHUNK = 32  # K16's chunk, the default of the JAX package's wkv7_pallas_v2
 # the blocks to reach: about one for each of the H100's 132 multiprocessors
 FWD_RES_ROWS = (64, 32, 16)
 FWD_RES_BLOCKS = 128
+BWD_CHUNK_THREADS = 256  # K6 / K13's second pass: threads of a block of one (b, h, chunk)
 
 
 def _declare(lib: ctypes.CDLL, fwd: str, fwd_res: str, bwd: Optional[str]) -> None:
@@ -41,7 +45,7 @@ def _declare(lib: ctypes.CDLL, fwd: str, fwd_res: str, bwd: Optional[str]) -> No
     getattr(lib, fwd_res).argtypes = [_I] * 6 + [_P] * 11
     names = [fwd, fwd_res]
     if bwd is not None:
-        getattr(lib, bwd).argtypes = [_I, _I, _I, _I, _I] + [_P] * 17
+        getattr(lib, bwd).argtypes = [_I] * 6 + [_P] * 18
         names.append(bwd)
     for n in names:
         getattr(lib, n).restype = _I
@@ -62,8 +66,10 @@ def _lib() -> ctypes.CDLL:
 def _train_lib() -> ctypes.CDLL:
     lib = cuda_build.load("wkv7_train")
     if lib.wkv7_bwd.argtypes is None:
-        lib.wkv7_bwd.argtypes = [_I, _I, _I, _I, _I] + [_P] * 17
+        lib.wkv7_bwd.argtypes = [_I] * 6 + [_P] * 18
         lib.wkv7_bwd.restype = _I
+        lib.wkv7_bwd_chunk_smem_bytes.argtypes = [_I]
+        lib.wkv7_bwd_chunk_smem_bytes.restype = _I
     return lib
 
 
@@ -110,10 +116,38 @@ def fwd_res_plan(B: int, H: int, dtype: torch.dtype) -> dict:
             "smem_bytes": smem}
 
 
+def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
+    """K6 / K13's two launches for B * H heads of T steps: ``"state"``, the
+    first pass, is laid out as K5 (:func:`fwd_res_plan`); ``"chunk"``, the
+    second, has a block of ``BWD_CHUNK_THREADS`` for each (b, h, chunk) and
+    the dynamic shared memory ``csrc/wkv7_chunk_bwd.cuh``'s ``ChunkBwdSmem``
+    lays out: r, w, k, a, b in the stream dtype; v, dy and nine fp32 16 x 68
+    tiles (the factors az, bl, am, rm, bm, km, the running log decay g, u
+    and dWpre; the eight 16 x 20 cotangent matrices take the place of az, bl
+    and the four 16 x 16 matrices once the solves are done); the decay; Z0
+    and dZ1 as 64 x 68. ``workspace_bytes``: the fp32 cotangent of the state
+    leaving every chunk, zin's size, that the first pass writes and the second
+    reads."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    ldp = 64 + 4
+    tile = CHUNK * ldp * 4
+    aliased = max(2 * tile + 4 * CHUNK * CHUNK * 4, 8 * CHUNK * (CHUNK + 4) * 4)
+    smem = 5 * CHUNK * 64 * esz + 2 * tile + aliased + 7 * tile + 64 * 4 + 2 * 64 * ldp * 4
+    return {"state": fwd_res_plan(B, H, dtype),
+            "chunk": {"blocks": B * H * (T // CHUNK), "threads": BWD_CHUNK_THREADS, "smem_bytes": smem},
+            "workspace_bytes": B * H * (T // CHUNK) * 64 * 64 * 4}
+
+
 def kernel_smem_bytes(dtype: torch.dtype, rows: int) -> int:
     """The library's own count of a K5 / K12 block's shared memory (-1: it
     has no instantiation for ``rows``)."""
     return _lib().wkv7_fwd_res_smem_bytes(_DTYPE_CODE[dtype], rows)
+
+
+def kernel_bwd_chunk_smem_bytes(dtype: torch.dtype) -> int:
+    """The library's own count of a K6 / K13 second-pass block's shared
+    memory."""
+    return _train_lib().wkv7_bwd_chunk_smem_bytes(_DTYPE_CODE[dtype])
 
 
 def _check_cuda(name: str, xs, device) -> None:
@@ -188,7 +222,9 @@ def _fwd(name: str, get_lib, save: bool, streams, initial_state):
 
 
 def _bwd(name: str, get_lib, streams, zin: Tensor, dsfinal: Tensor) -> Tuple[Tensor, ...]:
-    """K6 / K13: the seven gradients."""
+    """K6 / K13: the seven gradients; both passes launch on the current
+    stream, the second reading the first's workspace (``torch.empty`` of
+    zin's shape), and count one launch together."""
     r = streams[0]
     B, T, H, N = r.shape
     dev = r.device
@@ -204,12 +240,14 @@ def _bwd(name: str, get_lib, streams, zin: Tensor, dsfinal: Tensor) -> Tuple[Ten
         raise ValueError(f"{name}: zin must be fp32 {want}; got {zin.dtype} {tuple(zin.shape)}")
     grads = [torch.empty_like(r) for _ in range(6)]
     ds0 = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    dz1 = torch.empty_like(zin)
     lib = get_lib()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
-            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams[:6]),
-            zin.data_ptr(), streams[6].data_ptr(), dsfinal.data_ptr(),
-            *(g.data_ptr() for g in grads), ds0.data_ptr(), _stream(dev),
+            _DTYPE_CODE[r.dtype], fwd_res_plan(B, H, r.dtype)["rows"], B, T, H, N,
+            *(x.data_ptr() for x in streams[:6]), zin.data_ptr(), streams[6].data_ptr(),
+            dsfinal.data_ptr(), *(g.data_ptr() for g in grads), ds0.data_ptr(), dz1.data_ptr(),
+            _stream(dev),
         )
     cuda_build.check(lib, err, name)
     cuda_build.LAUNCHES[name] += 1
@@ -237,10 +275,11 @@ def wkv7_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: T
 def wkv7_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
              zin: Tensor, dy: Tensor, dsfinal: Tensor) -> Tuple[Tensor, ...]:
     """K6: the vector-Jacobian product of the recurrence from K5's saved
-    states. ``dy`` in the stream dtype ``[B, T, H, 64]``, ``dsfinal`` (the
-    cotangent of the final state) fp32 ``[B, H, 64, 64]``. Returns (dr,
-    dw_raw, dk, dv, da, db) in the stream dtype and the fp32 cotangent of
-    the initial state; all arithmetic fp32."""
+    states (the two-pass chunked kernel; :func:`bwd_plan`). T must be a
+    multiple of 16. ``dy`` in the stream dtype ``[B, T, H, 64]``,
+    ``dsfinal`` (the cotangent of the final state) fp32 ``[B, H, 64, 64]``.
+    Returns (dr, dw_raw, dk, dv, da, db) in the stream dtype and the fp32
+    cotangent of the initial state; all arithmetic fp32."""
     return _bwd("wkv7_bwd", _train_lib, (r, w_raw, k, v, a, b, dy), zin, dsfinal)
 
 
