@@ -21,19 +21,22 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   full width) the TTFT and decode rate of one request and of four, and the
   step times of the main training run (1 + 3 steps), the packed run (1 + 3)
   and ``grad_cp="wkv"`` (1 + 2);
-- ``wkv6``: K7 and K8 at every timed case of ``check_wkv6_fwd`` and
-  ``check_wkv6_train`` (``WKV6_CASES``), device and eager time;
+- ``wkv6``: K7, K8 and K9 at every timed case of ``check_wkv6_fwd`` and
+  ``check_wkv6_train``, and at ``chunk_len`` 8, 4 and 1 (``WKV6_CASES``),
+  device and eager time (a case a side's wrappers refuse is recorded so);
 - ``wkv7``: K5 and K12 at every timed case of ``check_wkv7_train`` and
   ``check_wkv7_packed_train``, with K1 at the same shape, and the
   backwards K6 and K13 there from K5's / K12's states (``WKV7_CASES``),
   device and eager time;
 - ``x060_serving``: VisualRWKV-6 7B (``x060_serving_cfg``) TTFT and decode
   rate at B=1 and B=4 (``run_serving``);
-- ``x060_training``: VisualRWKV-6 1.6B (``x060_training_cfg``) step times,
-  1 + 3 steps (``run_training``).
+- ``x060_training``: VisualRWKV-6 1.6B (``x060_training_cfg``) step times
+  and peak memory, 1 + 3 steps (``run_training``), then one profiled step
+  of a model built again from its seed (``profile_training``): the
+  gradient pass's card busy time, idle share and K8 / K9 device time.
 
 One ``AB {json}`` line a side (with ptxas's registers and spills of its
-attention, K7 / K8, K5 / K12 and K6 / K13 kernels); the card's name and
+attention, K7 / K8, K9, K5 / K12 and K6 / K13 kernels); the card's name and
 power limit first.
 """
 
@@ -82,18 +85,27 @@ def k3_times(cs, dev) -> list:
 
 
 SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "x060_serving", "x060_training")
-# K7 / K8 timed: (kernel, B, T, H, stream dtype, initial state), the timed
-# cases of chip_smoke's check_wkv6_fwd (the x060 7B prefill) and
-# check_wkv6_train (the 1.6B training step; K7 at the same shape beside K8)
-WKV6_CASES = (("wkv6_fwd", 1, 624, 64, "bfloat16", False), ("wkv6_fwd", 4, 624, 64, "bfloat16", True),
-              ("wkv6_fwd", 1, 624, 64, "float32", True), ("wkv6_fwd_res", 2, 2048, 32, "bfloat16", True),
-              ("wkv6_fwd", 2, 2048, 32, "bfloat16", True), ("wkv6_fwd_res", 2, 2048, 32, "float32", True),
-              ("wkv6_fwd", 2, 2048, 32, "float32", True))
+# K7 / K8 / K9 timed: (kernel, B, T, H, stream dtype, initial state,
+# chunk_len), the timed cases of chip_smoke's check_wkv6_fwd (the x060 7B
+# prefill) and check_wkv6_train (the 1.6B training step; K7 at the same
+# shape beside K8; K9 from K8's states with a non-zero final-state
+# cotangent), then the bf16 cases at each lower floor: chunk_len 8 (K7 / K8's
+# factor form 1), 4 and 1 (the per-pair form)
+WKV6_CASES = (("wkv6_fwd", 1, 624, 64, "bfloat16", False, 16), ("wkv6_fwd", 4, 624, 64, "bfloat16", True, 16),
+              ("wkv6_fwd", 1, 624, 64, "float32", True, 16), ("wkv6_fwd_res", 2, 2048, 32, "bfloat16", True, 16),
+              ("wkv6_fwd", 2, 2048, 32, "bfloat16", True, 16), ("wkv6_fwd_res", 2, 2048, 32, "float32", True, 16),
+              ("wkv6_fwd", 2, 2048, 32, "float32", True, 16), ("wkv6_bwd", 2, 2048, 32, "bfloat16", True, 16),
+              ("wkv6_bwd", 2, 2048, 32, "float32", True, 16)) + tuple(
+    case for L in (8, 4, 1) for case in (("wkv6_fwd", 1, 624, 64, "bfloat16", False, L),
+                                         ("wkv6_fwd_res", 2, 2048, 32, "bfloat16", True, L),
+                                         ("wkv6_bwd", 2, 2048, 32, "bfloat16", True, L)))
 
 
 def wkv6_times(cs, dev) -> list:
-    """K7 / K8 at every case of ``WKV6_CASES`` through the tree's own
-    wrappers: device time (CUDA graphs) and eager time, ms."""
+    """K7 / K8 / K9 at every case of ``WKV6_CASES`` through the tree's own
+    wrappers: device time (CUDA graphs) and eager time, ms; a case the
+    wrappers refuse (a parent without the floor's factor form) is recorded
+    with the refusal."""
     import torch
 
     from visualrwkv_torch.ops import wkv6_cuda
@@ -101,14 +113,26 @@ def wkv6_times(cs, dev) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     out = []
-    for kernel, B, T, H, dname, with_state in WKV6_CASES:
-        xs, u = cs._wkv6_streams(gen, (B, T, H, 64), getattr(torch, dname), dev)
+    for kernel, B, T, H, dname, with_state, L in WKV6_CASES:
+        sdt = getattr(torch, dname)
+        case = f"{kernel} B={B} T={T} H={H} {dname} chunk_len={L}"
+        xs, u = cs._wkv6_streams(gen, (B, T, H, 64), sdt, dev)
         s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3 if with_state else None
-        fn = lambda kernel=kernel, xs=xs, u=u, s0=s0: getattr(wkv6_cuda, kernel)(*xs, u, s0, 16)
-        reps = 5 if T == 2048 else 20
-        out.append({"case": f"{kernel} B={B} T={T} H={H} {dname}", "ms": cs.cuda_ms(fn, reps=reps),
-                    "eager_ms": cs.eager_ms(fn, reps=reps)})
-        del xs, s0
+        try:
+            if kernel == "wkv6_bwd":
+                zin = wkv6_cuda.wkv6_fwd_res(*xs, u, s0, L)[2]
+                dy = (torch.randn(B, T, H, 64, generator=gen, device=dev) * 0.5).to(sdt)
+                dsf = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.1
+                fn = lambda xs=xs, u=u, zin=zin, dy=dy, dsf=dsf, L=L: wkv6_cuda.wkv6_bwd(*xs, u, zin, dy, dsf, L)
+            else:
+                fn = lambda kernel=kernel, xs=xs, u=u, s0=s0, L=L: getattr(wkv6_cuda, kernel)(*xs, u, s0, L)
+            fn()
+        except ValueError as e:
+            out.append({"case": case, "refused": str(e)})
+            continue
+        reps = 3 if kernel == "wkv6_bwd" else 5 if T == 2048 else 20
+        out.append({"case": case, "ms": cs.cuda_ms(fn, reps=reps), "eager_ms": cs.eager_ms(fn, reps=reps)})
+        del xs, s0, fn
     return out
 
 
@@ -165,8 +189,9 @@ def child(tree: str, sections) -> None:
     dev = torch.device("cuda", 0)
     out = {"tree": tree,
            "ptxas": {f"{kern}{list(args)}": v for (lib, kern, args), v in getattr(cs, "PTXAS", {}).items()
-                     if lib.startswith("attention") or kern in ("wkv6_fwd_kernel", "wkv7_fwd_res_kernel",
-                                                                "wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel")}}
+                     if lib.startswith("attention") or kern in (
+                         "wkv6_fwd_kernel", "wkv6_bwd_kernel", "wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel",
+                         "wkv7_fwd_res_kernel", "wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel")}}
     if "k3" in sections:
         out["k3"] = k3_times(cs, dev)
     if "attention_bwd" in sections:
@@ -215,6 +240,14 @@ def child(tree: str, sections) -> None:
         params = cs.build(cfg, 0, dev)
         training, _, _ = cs.run_training(cfg, params, dev, 0, steps=3)
         out["x060_training"] = [s["step_ms"] for s in training["steps"]]
+        out["x060_training_peak_gib"] = training["peak_gib"]
+        del params
+        torch.cuda.empty_cache()
+        params = cs.init_model(cfg, 0, dev)
+        g = cs.profile_training(cfg, params, dev, 0)["loss and gradients"]
+        out["x060_gradient_pass"] = {k: g[k] for k in ("wall_ms", "device_busy_ms", "idle_share", "launches")}
+        out["x060_gradient_pass"]["ms_by_kind"] = {k: v for k, v in g["device_ms_by_kind"].items()
+                                                   if k.startswith(("K8", "K9", "K3"))}
         del params
         torch.cuda.empty_cache()
     print("AB " + json.dumps(out), flush=True)

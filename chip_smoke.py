@@ -40,9 +40,13 @@ Phases (any failure exits non-zero; nothing is caught):
    (value rows a block, blocks, threads, shared memory held equal to the
    library's count, registers, spills: no K7 / K8 instantiation may spill),
    and at six more geometries against the plain scan only
-   (``WKV6_FWD_PATH_CASES``); x060 at ``chunk_len`` 8 (the decay floor -10
-   binding on every channel) through ``ops.wkv6.wkv6``, K7 and, at T = 2040
-   under autograd, K8 + K9, against ``wkv6_plain(..., chunk=8)``.
+   (``WKV6_FWD_PATH_CASES``); the two-pass chunked WKV6 backward K9 at the
+   1.6B step's shape, logging both passes' plans and the workspace (no K9
+   instantiation may spill), and at ``WKV6_BWD_PATH_CASES`` against fp32
+   autograd of the floored sequential scan; x060 at ``chunk_len`` 8, 4 and 1
+   (the decay floors -10, -20 and -80) through ``ops.wkv6.wkv6``, K7 and, at
+   T = 2040 under autograd, K8 + K9, against ``wkv6_plain(..., chunk)``, with
+   K7, K8 and K9 timed at each floor.
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -187,7 +191,7 @@ SOURCES = {
     "attention_fwd_mha": "visualrwkv_torch/csrc/attention.cu",
     "wkv6_fwd": "visualrwkv_torch/csrc/wkv6.cu",
     "wkv6_fwd_res": "visualrwkv_torch/csrc/wkv6.cu",
-    "wkv6_bwd": "visualrwkv_torch/csrc/wkv6_train.cu",
+    "wkv6_bwd": "visualrwkv_torch/csrc/wkv6_chunk_bwd.cuh",
     "wkv6_step": "visualrwkv_torch/csrc/wkv6.cu",
     "wkv7_fwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
     "wkv7_fwd_res_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
@@ -828,60 +832,103 @@ def check_wkv7_function_ragged(gen, dev):
         c.compare(f"{name} vs fp32 plain path at chunk 8", g.float(), g_ref, 2e-2)
 
 
-def check_wkv6_chunk8(gen, dev):
-    """x060 at ``chunk_len`` 8 through ``ops.wkv6.wkv6``, with two decays: the
-    floor -10 binding on every channel (w_raw = 3), and w_raw drawn uniform
-    in [-3, 2.5] (:func:`_wkv6_streams`; the floor binds where w_raw > ln 10,
-    the rest carry a w_raw gradient). Without a gradient K7, under autograd
-    at T = 2040 K8 and K9 on the identity-padded 2048 steps: y, the final
-    state and the six gradients against autograd of
-    ``wkv6_plain(..., chunk=8)`` on the same values in fp32 (y 1e-2 and the
-    gradients 2e-2 with bf16 streams, states 1e-3)."""
+# model chunk_len below 16 held on the card through ops.wkv6.wkv6: their
+# decay floors -80 / L are -10 (K7 / K8's factor form 1) and -20, -80 (form 2)
+WKV6_LOW_CHUNKS = (8, 4, 1)
+
+
+def check_wkv6_low_floors(gen, dev):
+    """x060 at ``chunk_len`` 8, 4 and 1 through ``ops.wkv6.wkv6``, with two
+    decays: w_raw = 3 on every channel (exp(3) = 20.1: the floor binds at
+    chunk 8 and 4; at chunk 1 a decay of e^-20 a step, off the floor -80),
+    and w_raw drawn uniform in [-3, ln(80 / L) + 0.5] (the floor binds on
+    about 6-9 % of the channels, the rest carry a w_raw gradient). Without a
+    gradient K7, under autograd at T = 2040 K8 and K9 on the identity-padded
+    2048 steps: y, the final state and the six gradients against autograd of
+    ``wkv6_plain(..., chunk=8)`` at chunk 8 and of the floored sequential scan
+    ``wkv6_reference(..., chunk)`` below it, on the same values in fp32 (y
+    1e-2 and the gradients 2e-2 with bf16 streams, states 1e-3; dw_raw
+    exactly 0 where the floor binds). Then K7 at the 7B
+    prefill's shape and K8, K9 at the 1.6B step's, timed at each floor (and
+    at chunk 16): {chunk: {kernel: ms}}."""
+    import math
+
     import torch
 
     from visualrwkv_torch import cuda_build
     from visualrwkv_torch.ops import wkv6 as pw
+    from visualrwkv_torch.ops import wkv6_cuda
 
     B, T, H, N = 2, 2040, 32, 64
-    for floored in (True, False):
-        decay = "w_raw = 3 on every channel" if floored else "w_raw uniform in [-3, 2.5]"
-        case = f"B={B} T={T} H={H} bf16 streams, chunk=8, {decay}, initial state"
-        xs, u = _wkv6_streams(gen, (B, T, H, N), torch.bfloat16, dev)
-        if floored:
-            xs[1] = torch.full_like(xs[1], 3.0)
-        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
-        dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-        dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
-        ref_leaves = [x.float().requires_grad_(True) for x in xs] + [u.clone().requires_grad_(True),
+    # the reference: the plain path at chunk 8; below it the sequential scan,
+    # as the chunked plain backward's fp32 dw cancels there (e^{+-g} factors
+    # of a chunk: at chunk 1 and e^-20 a step it reads 0 on 99 % of the entries)
+    ref_fn = lambda L: pw.wkv6_plain if L == 8 else pw.wkv6_reference
+    for L in WKV6_LOW_CHUNKS:
+        for floored in (True, False):
+            decay = "w_raw = 3 on every channel" if floored else f"w_raw uniform in [-3, ln(80/{L}) + 0.5]"
+            case = f"B={B} T={T} H={H} bf16 streams, chunk={L}, {decay}, initial state"
+            xs, u = _wkv6_streams(gen, (B, T, H, N), torch.bfloat16, dev)
+            if floored:
+                xs[1] = torch.full_like(xs[1], 3.0)
+            else:
+                hi = math.log(80.0 / L) + 0.5
+                xs[1] = (torch.rand(xs[1].shape, generator=gen, device=dev) * (hi + 3.0) - 3.0).to(xs[1].dtype)
+            s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+            dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
+            ref_leaves = [x.float().requires_grad_(True) for x in xs] + [u.clone().requires_grad_(True),
+                                                                         s0.clone().requires_grad_(True)]
+            with torch.enable_grad():
+                y_ref, s_ref = ref_fn(L)(*ref_leaves[:5], ref_leaves[5], chunk=L)
+                ref = torch.autograd.grad((y_ref, s_ref), ref_leaves, (dy.float(), dsf))
+            binds = -torch.exp(xs[1].float()) <= -80.0 / L
+            floor_share = float(binds.float().mean())
+            reset_launches()
+            with torch.no_grad():
+                y, s = pw.wkv6(*xs, u, s0, chunk=L)
+            torch.cuda.synchronize()
+            c = Check("wkv6_fwd", case)
+            c.compare(f"y (bf16) vs fp32 {ref_fn(L).__name__} at chunk {L}", y.float(), y_ref.detach(), 1e-2)
+            c.compare("final state (fp32)", s, s_ref.detach(), 1e-3)
+            leaves = [x.clone().requires_grad_(True) for x in xs] + [u.clone().requires_grad_(True),
                                                                      s0.clone().requires_grad_(True)]
-        with torch.enable_grad():
-            y_ref, s_ref = pw.wkv6_plain(*ref_leaves[:5], ref_leaves[5], chunk=8)
-            ref = torch.autograd.grad((y_ref, s_ref), ref_leaves, (dy.float(), dsf))
-        floor_share = float((ref[1] == 0).float().mean())
-        reset_launches()
-        with torch.no_grad():
-            y, s = pw.wkv6(*xs, u, s0, chunk=8)
-        torch.cuda.synchronize()
-        c = Check("wkv6_fwd", case)
-        c.compare("y (bf16) vs fp32 wkv6_plain at chunk 8", y.float(), y_ref.detach(), 1e-2)
-        c.compare("final state (fp32)", s, s_ref.detach(), 1e-3)
-        leaves = [x.clone().requires_grad_(True) for x in xs] + [u.clone().requires_grad_(True),
-                                                                 s0.clone().requires_grad_(True)]
-        with torch.enable_grad():
-            y, s = pw.wkv6(*leaves[:5], leaves[5], chunk=8)
-            grads = torch.autograd.grad((y, s), leaves, (dy, dsf))
-        torch.cuda.synchronize()
-        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
-        log(f"  wkv6 [{case}] path: the kernels (K7 without a gradient; K8, K9 under autograd); "
-            f"launches {launches}; dw_raw of the reference is 0 (the floor binds) on "
-            f"{floor_share:.4f} of the entries")
-        assert launches == {"wkv6_fwd": 1, "wkv6_fwd_res": 1, "wkv6_bwd": 1}, launches
-        assert floor_share == 1.0 if floored else 0.0 < floor_share < 0.5, floor_share
-        c = Check("wkv6_fwd_res + wkv6_bwd", case)
-        c.compare("y (bf16) vs fp32 wkv6_plain at chunk 8", y.float(), y_ref.detach(), 1e-2)
-        c.compare("final state (fp32)", s, s_ref.detach(), 1e-3)
-        for name, g, g_ref in zip(("dr", "dw_raw", "dk", "dv", "du", "d(initial state)"), grads, ref):
-            c.compare(f"{name} vs autograd of wkv6_plain at chunk 8", g.float(), g_ref, 2e-2)
+            with torch.enable_grad():
+                y, s = pw.wkv6(*leaves[:5], leaves[5], chunk=L)
+                grads = torch.autograd.grad((y, s), leaves, (dy, dsf))
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+            log(f"  wkv6 [{case}] path: the kernels (K7 without a gradient; K8, K9 under autograd); "
+                f"launches {launches}; the floor binds on {floor_share:.4f} of the entries")
+            assert launches == {"wkv6_fwd": 1, "wkv6_fwd_res": 1, "wkv6_bwd": 1}, launches
+            if floored:
+                assert floor_share == (0.0 if L == 1 else 1.0), floor_share
+            else:
+                assert 0.0 < floor_share < 0.5, floor_share
+            assert bool((grads[1][binds] == 0).all()), f"dw_raw is not 0 where the floor binds [{case}]"
+            c = Check("wkv6_fwd_res + wkv6_bwd", case)
+            c.compare(f"y (bf16) vs fp32 {ref_fn(L).__name__} at chunk {L}", y.float(), y_ref.detach(), 1e-2)
+            c.compare("final state (fp32)", s, s_ref.detach(), 1e-3)
+            for name, g, g_ref in zip(("dr", "dw_raw", "dk", "dv", "du", "d(initial state)"), grads, ref):
+                assert torch.isfinite(g).all(), (case, name)
+                c.compare(f"{name} vs autograd of {ref_fn(L).__name__} at chunk {L}", g.float(), g_ref, 2e-2)
+            del xs, leaves, ref_leaves, ref, grads
+    # each factor form's time: K7 at the 7B prefill, K8 and K9 at the 1.6B step
+    xs7, u7 = _wkv6_streams(gen, (1, 624, 64, N), torch.bfloat16, dev)
+    xs, u = _wkv6_streams(gen, (B, 2048, H, N), torch.bfloat16, dev)
+    s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+    dy = (torch.randn(B, 2048, H, N, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    dsf = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
+    times = {}
+    for L in (16,) + WKV6_LOW_CHUNKS:
+        zin = wkv6_cuda.wkv6_fwd_res(*xs, u, s0, L)[2]
+        times[L] = {"wkv6_fwd": cuda_ms(lambda: wkv6_cuda.wkv6_fwd(*xs7, u7, None, L)),
+                    "wkv6_fwd_res": cuda_ms(lambda: wkv6_cuda.wkv6_fwd_res(*xs, u, s0, L), reps=5),
+                    "wkv6_bwd": cuda_ms(lambda: wkv6_cuda.wkv6_bwd(*xs, u, zin, dy, dsf, L), reps=3)}
+        log(f"  wkv6 at chunk_len {L} (decay floor {-80 / L:g}): K7 B=1 T=624 H=64 bf16 "
+            f"{times[L]['wkv6_fwd']:.4f} ms, K8 B=2 T=2048 H=32 bf16 {times[L]['wkv6_fwd_res']:.4f} ms, "
+            f"K9 there {times[L]['wkv6_bwd']:.4f} ms")
+    return times
 
 
 def _wkv6_streams(gen, shape, dtype, dev):
@@ -1014,6 +1061,106 @@ def check_wkv6_paths(gen, dev):
             c.compare("saved chunk states zin (fp32)", zin, zin_ref, 1e-3)
 
 
+def wkv6_bwd_plan(case, B, T, H, dtype):
+    """K9's two launches for B * H heads of T steps (``wkv6_cuda.bwd_plan``:
+    the first pass laid out as K8, the second a block of 256 threads a (b, h,
+    chunk), its shared memory held equal to the library's own count) and the
+    workspace, logged with ptxas's registers and spills of the instantiations
+    they launch at ``chunk_len`` 16."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv6_cuda
+
+    plan = wkv6_cuda.bwd_plan(B, T, H, dtype)
+    assert plan["chunk"]["smem_bytes"] == wkv6_cuda.kernel_bwd_chunk_smem_bytes(dtype), plan
+    code, rows = int(dtype == torch.bfloat16), plan["state"]["rows"]
+    plan["ptxas"] = {"state": PTXAS.get(("wkv6_train", "wkv6_bwd_state_kernel", (code, rows, 0))),
+                     "chunk": PTXAS.get(("wkv6_train", "wkv6_bwd_chunk_kernel", (code,)))}
+    regs = lambda p: "not parsed" if p is None else (f"{p.get('registers')} registers, "
+                                                     f"{p.get('spill_bytes', 0)} B spilled")
+    p1, p2 = plan["state"], plan["chunk"]
+    log(f"  wkv6 backward [{case}] plan: pass 1 {p1['rows']} value rows a block, {p1['blocks']} blocks of "
+        f"{p1['threads']} threads, {p1['smem_bytes']} B shared ({regs(plan['ptxas']['state'])}); pass 2 "
+        f"{p2['blocks']} blocks of {p2['threads']} threads, {p2['smem_bytes']} B shared "
+        f"({regs(plan['ptxas']['chunk'])}); workspace {plan['workspace_bytes']} B, du partials "
+        f"{plan['du_bytes']} B")
+    return plan
+
+
+# K9 inputs held against fp32 autograd of the floored sequential scan but not
+# timed: (what, B, T, H, stream dtype, chunk_len, initial state, zero
+# final-state cotangent). The floor binding on every channel at chunk 16
+# (exp(w_raw) in [7.4, 12.2] > 5: dw_raw is 0 everywhere); w_raw = 2.0 on
+# every channel off the floor at chunk 8 and 4 (a decay of e^-7.4 a step:
+# factor forms 1 and 2 with dw_raw non-zero); |r| <= 1e-3 on every fourth
+# channel; one head (B=1 H=1: 16 value rows a block, 4 blocks); B*H = 15,
+# which fills no slice plan but 16 rows; B*H = 128 (64 rows); no initial
+# state; a zero cotangent of the final state.
+WKV6_BWD_PATH_CASES = (
+    ("floor on every channel", 2, 256, 32, "float32", 16, True, False),
+    ("floor on every channel", 2, 256, 32, "bfloat16", 16, True, False),
+    ("w_raw = 2.0 on every channel", 2, 256, 32, "float32", 8, True, False),
+    ("w_raw = 2.0 on every channel", 2, 256, 32, "bfloat16", 4, True, False),
+    ("|r| <= 1e-3 on every fourth channel", 2, 256, 32, "bfloat16", 16, True, False),
+    ("B=1 H=1", 1, 256, 1, "float32", 16, True, False),
+    ("B*H = 15", 3, 96, 5, "float32", 16, True, False),
+    ("B*H = 128", 2, 96, 64, "bfloat16", 16, True, False),
+    ("no initial state", 1, 128, 8, "bfloat16", 16, False, False),
+    ("zero final-state cotangent", 1, 128, 8, "float32", 16, True, True),
+)
+
+
+def check_wkv6_bwd_paths(gen, dev):
+    """K9 at ``WKV6_BWD_PATH_CASES`` from K8's states against fp32 autograd
+    of the floored sequential scan (``wkv6_reference`` at the case's
+    chunk_len), under the limits of the timed cases: the six gradients 2e-2
+    (bf16 streams) or 1e-3 (fp32), finite, dw_raw exactly 0 where the floor
+    binds."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv6 as pw
+    from visualrwkv_torch.ops import wkv6_cuda
+
+    N = 64
+    names = ("dr", "dw_raw", "dk", "dv", "du", "d(initial state)")
+    for what, B, T, H, dname, L, with_state, zero_dsf in WKV6_BWD_PATH_CASES:
+        sdt = getattr(torch, dname)
+        case = (f"{what}: B={B} T={T} H={H} {dname} streams, chunk={L}, "
+                f"{'initial state' if with_state else 'no initial state'}, "
+                f"{'zero' if zero_dsf else 'non-zero'} final-state cotangent")
+        wkv6_bwd_plan(case, B, T, H, sdt)
+        xs, u = _wkv6_streams(gen, (B, T, H, N), torch.float32, dev)
+        if what.startswith("floor"):
+            xs[1] = torch.rand(xs[1].shape, generator=gen, device=dev) * 0.5 + 2.0
+        elif what.startswith("w_raw = 2.0"):
+            xs[1] = torch.full_like(xs[1], 2.0)
+        elif what.startswith("|r|"):
+            xs[0][..., ::4] = (torch.rand(xs[0][..., ::4].shape, generator=gen, device=dev) * 2 - 1) * 1e-3
+        xs = [x.to(sdt).contiguous() for x in xs]
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3 if with_state else None
+        dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(sdt)
+        dsf = torch.zeros(B, H, N, N, device=dev) if zero_dsf else torch.randn(B, H, N, N, generator=gen,
+                                                                                device=dev) * 0.1
+        leaves = [x.float().requires_grad_(True) for x in xs] + [u.clone().requires_grad_(True)]
+        if with_state:
+            leaves.append(s0.clone().requires_grad_(True))
+        with torch.enable_grad():
+            y, s = pw.wkv6_reference(*leaves[:5], leaves[5] if with_state else None, chunk=L)
+            ref = list(torch.autograd.grad((y, s), leaves, (dy.float(), dsf)))
+        _, _, zin = wkv6_cuda.wkv6_fwd_res(*xs, u, s0, L)
+        grads = wkv6_cuda.wkv6_bwd(*xs, u, zin, dy, dsf, L)
+        c = Check("wkv6_bwd", case)
+        tol = 2e-2 if sdt == torch.bfloat16 else 1e-3
+        for name, g, g_ref in zip(names, grads, ref):
+            assert torch.isfinite(g).all(), (case, name)
+            c.compare(f"{name} vs fp32 autograd of the floored scan", g.float(), g_ref, tol)
+        floored = ref[1] == 0
+        assert bool((grads[1][floored] == 0).all()), f"K9 dw_raw is not 0 where the floor binds [{case}]"
+        if what.startswith("floor"):
+            assert bool(floored.all()), case
+        del xs, leaves, ref, zin, grads
+
+
 def check_wkv6_step(gen, dev):
     """K10 at the 7B decode's shapes (H=64, B = 1 and 4), fp32 vectors."""
     import torch
@@ -1086,6 +1233,7 @@ def check_wkv6_train(gen, dev):
         fwd.append(rec)
 
         c = Check("wkv6_bwd", case)
+        bplan = wkv6_bwd_plan(case, B, T, H, sdt)
         grads = wkv6_cuda.wkv6_bwd(*xs, u, zin, dy, dsf, 16)
         xs32 = [x.float() for x in xs]
         ref, t_plain = timed_once(lambda: pw.wkv6_bwd_plain(*xs32, u, zin_ref, dy.float(), dsf, chunk=16))
@@ -1098,9 +1246,12 @@ def check_wkv6_train(gen, dev):
         k_ms, k_eager = cuda_ms(fn, reps=3), eager_ms(fn, reps=3)
         # read 4 streams + dy + u + zin + dsf, write 4 gradients + du + d(initial
         # state); per state element and step: 2 operations to rebuild the state
-        # before the step and 11 for its adjoint (dv, dr, dk, dw 2 each, dS 3)
+        # before the step and 11 for its adjoint (dv, dr, dk, dw 2 each, dS 3),
+        # the count of the sequential form, which the two passes do not exceed
         nbytes = 9 * B * T * H * N * esz + zin.numel() * 4 + 2 * B * H * N * N * 4 + 2 * H * N * 4
-        bwd.append(c.record(k_ms, t_plain, None, nbytes, 13 * B * T * H * N * N, FP32_FLOPS, k_eager))
+        rec = c.record(k_ms, t_plain, None, nbytes, 13 * B * T * H * N * N, FP32_FLOPS, k_eager)
+        rec["plan"] = bplan
+        bwd.append(rec)
         del xs, xs32, zin, zin_ref, grads, ref
     return fwd, bwd
 
@@ -1795,7 +1946,7 @@ def _category(kernel_name: str) -> str:
     if "wkv7_bwd_chunk_kernel<" in n:  # <DT, ZHEADS>: K6 / K13's second pass
         return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_chunk_kernel")[0] == 2 \
             else "K6 wkv7_bwd"
-    if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS, DIFF>
+    if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS, FORM>
         return "K8 wkv6_fwd_res" if _template_flags(n, "wkv6_fwd_kernel")[0] else "K7 wkv6_fwd"
     # the second template argument tells K4 from K2
     flag = "true>" in n.replace(" ", "") or "(bool)1>" in n.replace(" ", "")
@@ -1803,7 +1954,7 @@ def _category(kernel_name: str) -> str:
         return "K4 wkv7_step_flat" if flag else "K2 wkv7_step"
     if "wkv6_step_kernel" in n:
         return "K10 wkv6_step"
-    if "wkv6_bwd_kernel" in n:
+    if "wkv6_bwd_" in n:  # both passes of K9
         return "K9 wkv6_bwd"
     if "attention_fwd_kernel" in n:
         return "K3 attention_fwd"
@@ -2386,7 +2537,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  [{name}] {line.strip()}")
     k78 = {key: v for key, v in PTXAS.items() if key[:2] == ("wkv6", "wkv6_fwd_kernel")}
-    assert len(k78) == 24, (f"K7 / K8: ptxas reported {sorted(k78)}, not 2 dtypes x 2 x 3 row counts x 2 "
+    assert len(k78) == 36, (f"K7 / K8: ptxas reported {sorted(k78)}, not 2 dtypes x 2 x 3 row counts x 3 "
                             f"factor forms")
     assert not any(v.get("spill_bytes", 0) for v in k78.values()), f"a K7 / K8 instantiation spills: {k78}"
     k512 = {key: v for key, v in PTXAS.items() if key[1] == "wkv7_fwd_res_kernel"}
@@ -2401,6 +2552,11 @@ def main(argv=None) -> int:
                 for dt in (0, 1)}
     assert set(k613) == want613, f"K6 / K13: ptxas reported {sorted(k613)}, not {sorted(want613)}"
     assert not any(v.get("spill_bytes", 0) for v in k613.values()), f"a K6 / K13 instantiation spills: {k613}"
+    k9 = {key: v for key, v in PTXAS.items() if key[1] in ("wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel")}
+    want9 = {("wkv6_train", "wkv6_bwd_state_kernel", (dt, rows, form)) for dt in (0, 1) for rows in (16, 32, 64)
+             for form in (0, 1, 2)} | {("wkv6_train", "wkv6_bwd_chunk_kernel", (dt,)) for dt in (0, 1)}
+    assert set(k9) == want9, f"K9: ptxas reported {sorted(k9)}, not {sorted(want9)}"
+    assert not any(v.get("spill_bytes", 0) for v in k9.values()), f"a K9 instantiation spills: {k9}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
@@ -2418,7 +2574,8 @@ def main(argv=None) -> int:
     kernels["wkv6_fwd"], kernels["wkv6_step"] = check_wkv6_fwd(gen, dev), check_wkv6_step(gen, dev)
     kernels["wkv6_fwd_res"], kernels["wkv6_bwd"] = check_wkv6_train(gen, dev)
     check_wkv6_paths(gen, dev)
-    check_wkv6_chunk8(gen, dev)
+    check_wkv6_bwd_paths(gen, dev)
+    wkv6_floor_times = check_wkv6_low_floors(gen, dev)
     bwd = check_attention_bwd(gen, dev)
     for key, (dq_cases, dkv_cases) in bwd.items():
         kernels[f"attention_bwd_dq_{key}"], kernels[f"attention_bwd_dkv_{key}"] = dq_cases, dkv_cases
@@ -2526,6 +2683,11 @@ def main(argv=None) -> int:
         params = init_model(c, args.seed, dev)
         out["breakdown"] = prof(c, params, dev, args.seed)
         log_breakdown(what, out["breakdown"])
+        if what == "x060 1.6B training":
+            g = out["breakdown"]["loss and gradients"]
+            k9 = g["device_ms_by_kind"].get("K9 wkv6_bwd", 0.0)
+            log(f"  x060 1.6B training: K9 (both passes) {k9:.2f} ms of the gradient pass's "
+                f"{g['device_busy_ms']:.1f} ms card busy ({k9 / g['device_busy_ms']:.3f})")
         del params
         torch.cuda.empty_cache()
     for name, tcfg in tower_grad_cfgs().items():
@@ -2552,6 +2714,7 @@ def main(argv=None) -> int:
                      "case": first["case"], "cases": cases})
     log(json.dumps({"card": card, "build_s": build_s, "serving": serving, "training": training,
                     "serving_x060": serving6, "training_x060": training6, "tower_grads": towers,
+                    "wkv6_ms_by_chunk_len": wkv6_floor_times,
                     "wkv7_v2": v2_run}))
     log(card)
     log(json.dumps({"kernels": rows}))

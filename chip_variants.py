@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Variants of a kernel against each other on one card, in turns: the
 attention forward K3 (``visualrwkv_torch/csrc/attention.cu``), the WKV6
-forward K7 / K8 (``csrc/wkv6.cu``), the WKV7 training forward K5
-(``csrc/wkv7_chunk.cuh``, built through ``csrc/wkv7.cu``) or the WKV7
-backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built through ``csrc/wkv7_train.cu``).
+forward K7 / K8 (``csrc/wkv6_chunk.cuh``, built through ``csrc/wkv6.cu``),
+the WKV6 backward K9 (``csrc/wkv6_chunk_bwd.cuh`` and its first pass in
+``csrc/wkv6_chunk.cuh``, built through ``csrc/wkv6_train.cu``), the WKV7
+training forward K5 (``csrc/wkv7_chunk.cuh``, built through
+``csrc/wkv7.cu``) or the WKV7 backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built
+through ``csrc/wkv7_train.cu``).
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
     python3 chip_variants.py base stages2          # some of them
     python3 chip_variants.py --wkv6 [names]        # K7 / K8: WKV6_VARIANTS
+    python3 chip_variants.py --wkv6bwd [names]     # K9: WKV6BWD_VARIANTS
     python3 chip_variants.py --wkv7 [names]        # K5: WKV7_VARIANTS
     python3 chip_variants.py --wkv7bwd [names]     # K6: WKV7BWD_VARIANTS
 
@@ -21,7 +25,10 @@ held against its plain version (out relative RMS <= 1e-2, lse <= 1e-3) and
 timed in CUDA graphs as the serving path calls it (``sam_attention``,
 ``mha``); or K8 and K7 run at ``WKV6_CASES`` through ``wkv6_cuda``, each
 exact variant held against the floored scan (y <= 1e-2 with bf16 streams,
-1e-3 with fp32, the final state 1e-3); or K5 runs at ``WKV7_CASES`` through
+1e-3 with fp32, the final state 1e-3); or K9 runs at ``WKV6BWD_CASES`` from
+K8's states, each exact variant held against ``wkv6_bwd_plain`` (the six
+gradients <= 2e-2 with bf16 streams, 1e-3 with fp32); or K5 runs at
+``WKV7_CASES`` through
 ``wkv7_cuda``, each exact variant held against ``wkv7_fwd_res_plain`` (y
 <= 1e-2 with bf16 streams, 1e-3 with fp32, the final state and ``zin``
 1e-3); or K6 runs at ``WKV7BWD_CASES`` from K5's states, each exact variant
@@ -84,7 +91,11 @@ WKV6_VARIANTS = {
     "unroll16": ([("constexpr int UNROLL = ROWS == 64 ? 1 : 4;", "constexpr int UNROLL = 16;")], None, True),
     # A's factors each as one exp2 of its difference at chunk_len 16 too (the
     # form a floor below -5 a step needs)
-    "exp2_each": ([("    if constexpr (!DIFF) {", "    if constexpr (false) {")], None, True),
+    "exp2_each": ([("    if constexpr (FORM == 0) {", "    if constexpr (false) {"),
+                   ("    } else if constexpr (FORM == 1) {", "    } else if constexpr (FORM <= 1) {")], None, True),
+    # every pair factor of A one exp2 at chunk_len 16 too (the form below -10)
+    "pair_form": ([("inline int factor_form(float wfloor) { return wfloor >= -80.f / CHUNK ? 0 : wfloor >= -10.f ? 1 : 2; }",
+                    "inline int factor_form(float) { return 2; }")], None, True),
     "no_amatrix": ([("    if (c + 1 < nc) amatrix(c + 1);\n", "")], None, False),
     "no_factors": ([("    if (c + 1 < nc) factors(c + 1);\n", "")], None, False),
     "no_outputs": ([("    outputs(c);\n", "")], None, False),
@@ -273,35 +284,131 @@ WKV7BWD_VARIANTS = {
                       "for (int s = 0; s < 0; ++s) {\n      const float bms")], None, False),
 }
 WKV7BWD_CASES = ((2, 2048, 32, "bfloat16"), (2, 2048, 32, "float32"))
+# K9: name -> ([(text in wkv6_chunk_bwd.cuh or wkv6_chunk.cuh, replacement)],
+# value of wkv6_cuda.FWD_BLOCKS for the first pass or None, exact). The
+# "no_*" variants leave a part out (their results are wrong), to show its
+# share; "no_pass1" / "no_pass2" time one pass alone.
+# K9's alternative for the second pass's row sums: 3xTF32 mma.sync m16n8k8
+# (each operand split into a tf32 high and low part, three products), a warp
+# a column tile of P_R and of dKbar. Measured slower than the FMA register
+# tiles of the source, so its code lives only here.
+_P2_ANCHOR = "// P_R = dY Z0^T and dKbar = V dZ1^T, the two 16 x 64 x 64 sums over rows i,\n"
+_P2_MMA = """// tf32 split of x: hi + lo, each a tf32 value in a 32-bit register
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// d += a b, one m16n8k8 tf32 product (a: 16 x 8 row-major, b: 8 x 8 column-major)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp's 16 x 8 tile of lhs rhs^T over the 64 rows i in 3xTF32: lhs
+// [16][LDP] ([t][i]), rhs rows n0 .. n0 + 8 of [.][LDP] ([n][i]); d holds
+// (groupID, 2 tig + {0, 1}) and (groupID + 8, ...) of the tile.
+__device__ __forceinline__ void mma_rowsum(float (&d)[4], const float* lhs, const float* rhs, int n0, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < N; k0 += 8) {
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    tf32_split(lhs[gid * LDP + k0 + tig], ah[0], al[0]);
+    tf32_split(lhs[(gid + 8) * LDP + k0 + tig], ah[1], al[1]);
+    tf32_split(lhs[gid * LDP + k0 + tig + 4], ah[2], al[2]);
+    tf32_split(lhs[(gid + 8) * LDP + k0 + tig + 4], ah[3], al[3]);
+    tf32_split(rhs[(n0 + gid) * LDP + k0 + tig], bh[0], bl[0]);
+    tf32_split(rhs[(n0 + gid) * LDP + k0 + tig + 4], bh[1], bl[1]);
+    mma_tf32(d, al, bh);
+    mma_tf32(d, ah, bl);
+    mma_tf32(d, ah, bh);
+  }
+}
+
+// P_R and dKbar as row_sums computes them, on the tensor cores: warp w forms
+// column tile w (columns 8 w .. 8 w + 8) of each
+__device__ __forceinline__ void row_sums_mma(int tid, const float* dyt, const float* vt, const float* z0,
+                                             const float* zd, float* pr, float* pk) {
+  const int warp = tid / 32, lane = tid % 32, gid = lane >> 2, tig = lane & 3;
+  float dp[4], dq[4];
+  mma_rowsum(dp, dyt, z0, 8 * warp, lane);
+  mma_rowsum(dq, vt, zd, 8 * warp, lane);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int o = (gid + 8 * (e / 2)) * LDP + 8 * warp + 2 * tig + e % 2;
+    pr[o] = dp[e];
+    pk[o] = dq[e];
+  }
+  __syncthreads();
+}
+
+"""
+WKV6BWD_VARIANTS = {
+    "base": ([], None, True),
+    # 16 / 64 value rows a first-pass block at B*H = 64 (256 / 64 blocks)
+    "rows16": ([], 256, True),
+    "rows64": ([], 64, True),
+    # the second pass's row sums P_R and dKbar as 3xTF32 mma.sync m16n8k8
+    # (a warp a column tile of each) in place of the FMA register tiles
+    "mma": ([(_P2_ANCHOR, _P2_MMA + _P2_ANCHOR),
+             ("  row_sums(tid, dyt, vt, z0, zd, pr, pk);", "  row_sums_mma(tid, dyt, vt, z0, zd, pr, pk);")],
+            None, True),
+    # the pair walk two steps at a time (four in the source)
+    "pairs2": ([("constexpr int CB_QS = 4;", "constexpr int CB_QS = 2;")], None, True),
+    # the first pass's A stored transposed, so that dv's sums read rows of it
+    "p1_at": ([("          if (s < t) am[t * CHUNK + s] = acc[m];",
+                "          if (s < t) am[MODE == 2 ? s * CHUNK + t : t * CHUNK + s] = acc[m];"),
+               ("          if (s >= ts[o]) ys[o] = fmaf(am[s * CHUNK + ts[o]], vs, ys[o]);",
+                "          if (s >= ts[o]) ys[o] = fmaf(am[ts[o] * CHUNK + s], vs, ys[o]);")], None, True),
+    # the second pass's register budget for two blocks a multiprocessor (three)
+    "p2_occ2": ([("__launch_bounds__(CB_THREADS, 3) wkv6_bwd_chunk_kernel(",
+                  "__launch_bounds__(CB_THREADS, 2) wkv6_bwd_chunk_kernel(")], None, True),
+    "no_pass1": ([("  int e;\n  switch (rows) {", "  int e = 0;\n  if (rows < 0) switch (rows) {")], None, False),
+    "no_pass2": ([("  static hopper_host::SmemOptIn opt_in;\n  e = opt_in(kernel, smem);",
+                   "  return 0;\n  static hopper_host::SmemOptIn opt_in;\n  e = opt_in(kernel, smem);")], None, False),
+    "no_p2_rowsums": ([("for (int i4 = 8 * half; i4 < 8 * half + 8; ++i4) {",
+                        "for (int i4 = 8 * half; i4 < 8 * half; ++i4) {")], None, False),
+    "no_p2_pairs": ([("    for (int s = 0; s < CHUNK; ++s) {\n      const int o = s * LDP + j;",
+                      "    for (int s = 0; s < 0; ++s) {\n      const int o = s * LDP + j;")], None, False),
+}
+WKV6BWD_CASES = ((2, 2048, 32, "bfloat16"), (2, 2048, 32, "float32"))
 # K8 and K7 timed: (kernel, B, T, H, stream dtype)
 WKV6_CASES = (("wkv6_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv6_fwd_res", 2, 2048, 32, "float32"),
               ("wkv6_fwd", 1, 624, 64, "bfloat16"), ("wkv6_fwd", 4, 624, 64, "bfloat16"))
 
 
-def build(names, source="attention", variants=VARIANTS, header=None):
+def build(names, source="attention", variants=VARIANTS, headers=()):
     """Compile the variants of ``csrc/<source>.cu``, one nvcc each, all
-    started together; returns {name: loaded library}. With ``header``, the
-    substitutions apply to ``csrc/<header>``, which is written beside the
-    copy of the source (and so included in place of the original)."""
+    started together; returns {name: loaded library}. The substitutions
+    apply, in order, to the source and ``csrc/<header>`` for each of
+    ``headers`` (each in every file that holds its text); the headers are
+    written beside the copy of the source (and so included in place of the
+    originals)."""
     from visualrwkv_torch import cuda_build
 
-    target = header or f"{source}.cu"
-    src = open(os.path.join(cuda_build.CSRC_DIR, target)).read()
+    targets = (f"{source}.cu",) + tuple(headers)
+    srcs = {t: open(os.path.join(cuda_build.CSRC_DIR, t)).read() for t in targets}
     nvcc, procs = cuda_build.find_nvcc(), {}
     for name in names:
         out_dir = os.path.join(cuda_build.BUILD_DIR, "variants", name)
         os.makedirs(out_dir, exist_ok=True)
-        s = src
+        texts = dict(srcs)
         subs = variants[name] if source == "attention" else variants[name][0]
         for old, new in subs:
-            assert old in s, (name, old)
-            s = s.replace(old, new)
-        with open(os.path.join(out_dir, target), "w") as f:
-            f.write(s)
+            where = [t for t in targets if old in texts[t]]
+            assert where, (name, old)
+            for t in where:
+                texts[t] = texts[t].replace(old, new)
+        for t, text in texts.items():
+            with open(os.path.join(out_dir, t), "w") as f:
+                f.write(text)
         path = os.path.join(out_dir, f"{source}.cu")
-        if header:
-            with open(os.path.join(cuda_build.CSRC_DIR, f"{source}.cu")) as f, open(path, "w") as g:
-                g.write(f.read())
         cmd = [nvcc, *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", cuda_build.CSRC_DIR,
                "-o", os.path.join(out_dir, f"lib{source}.so"), path]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -444,10 +551,56 @@ def time_wkv7bwd(names, libs, dev) -> int:
     return 0
 
 
+def time_wkv6bwd(names, libs, dev) -> int:
+    """K9 at ``WKV6BWD_CASES`` (from K8's states, with an initial state and a
+    non-zero final-state cotangent) under each variant, in turns; an exact
+    variant's six gradients held against ``wkv6_bwd_plain`` (2e-2 with bf16
+    streams, 1e-3 with fp32)."""
+    import torch
+
+    import chip_smoke as cs
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv6 as pw
+    from visualrwkv_torch.ops import wkv6_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for B, T, H, dname in WKV6BWD_CASES:
+        sdt = getattr(torch, dname)
+        xs, u = cs._wkv6_streams(gen, (B, T, H, 64), sdt, dev)
+        s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
+        dy = (torch.randn(B, T, H, 64, generator=gen, device=dev) * 0.5).to(sdt)
+        dsf = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.1
+        _, _, zin = wkv6_cuda.wkv6_fwd_res(*xs, u, s0, 16)
+        ref = pw.wkv6_bwd_plain(*[x.float() for x in xs], u, zin, dy.float(), dsf)
+        cases.append((f"wkv6_bwd B={B} T={T} H={H} {dname}",
+                      lambda xs=xs, u=u, zin=zin, dy=dy, dsf=dsf: wkv6_cuda.wkv6_bwd(*xs, u, zin, dy, dsf, 16),
+                      ref, 2e-2 if sdt == torch.bfloat16 else 1e-3))
+    times = {n: {c[0]: [] for c in cases} for n in names}
+    blocks = wkv6_cuda.FWD_BLOCKS
+    for name in names + names[::-1]:
+        cuda_build._LIBS["wkv6_train"] = libs[name]
+        _, plan_blocks, exact = WKV6BWD_VARIANTS[name]
+        wkv6_cuda.FWD_BLOCKS = blocks if plan_blocks is None else plan_blocks
+        for case, run, ref, tol in cases:
+            grads = run()
+            torch.cuda.synchronize()
+            if exact:
+                e = [cs.rel_rms(g.float(), r) for g, r in zip(grads, ref)]
+                assert max(e) <= tol, (name, case, e)
+            times[name][case].append(cs.cuda_ms(run, reps=5))
+    wkv6_cuda.FWD_BLOCKS = blocks
+    for name in names:
+        print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
-    kind = argv[0][2:] if argv[:1] in (["--wkv6"], ["--wkv7"], ["--wkv7bwd"]) else None
+    kind = argv[0][2:] if argv[:1] in (["--wkv6"], ["--wkv6bwd"], ["--wkv7"], ["--wkv7bwd"]) else None
     argv = argv[1:] if kind else argv
-    known = {"wkv6": WKV6_VARIANTS, "wkv7": WKV7_VARIANTS, "wkv7bwd": WKV7BWD_VARIANTS, None: VARIANTS}[kind]
+    known = {"wkv6": WKV6_VARIANTS, "wkv6bwd": WKV6BWD_VARIANTS, "wkv7": WKV7_VARIANTS,
+             "wkv7bwd": WKV7BWD_VARIANTS, None: VARIANTS}[kind]
     names = argv or list(known)
     bad = [n for n in names if n not in known]
     if bad:
@@ -469,11 +622,14 @@ def main(argv) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     if kind == "wkv6":
-        return time_wkv6(names, build(names, "wkv6", WKV6_VARIANTS), dev)
+        return time_wkv6(names, build(names, "wkv6", WKV6_VARIANTS, headers=("wkv6_chunk.cuh",)), dev)
+    if kind == "wkv6bwd":
+        return time_wkv6bwd(names, build(names, "wkv6_train", WKV6BWD_VARIANTS,
+                                         headers=("wkv6_chunk_bwd.cuh", "wkv6_chunk.cuh")), dev)
     if kind == "wkv7":
-        return time_wkv7(names, build(names, "wkv7", WKV7_VARIANTS, header="wkv7_chunk.cuh"), dev)
+        return time_wkv7(names, build(names, "wkv7", WKV7_VARIANTS, headers=("wkv7_chunk.cuh",)), dev)
     if kind == "wkv7bwd":
-        return time_wkv7bwd(names, build(names, "wkv7_train", WKV7BWD_VARIANTS, header="wkv7_chunk_bwd.cuh"),
+        return time_wkv7bwd(names, build(names, "wkv7_train", WKV7BWD_VARIANTS, headers=("wkv7_chunk_bwd.cuh",)),
                             dev)
     libs = build(names)
     gen = torch.Generator(device=dev)

@@ -73,9 +73,9 @@ def test_wrappers_refuse_cpu_tensors(name):
 @pytest.mark.parametrize("chunk", [8, 15])
 def test_wrappers_refuse_a_floor_below_minus_5(name, chunk):
     """A model chunk_len below 16 floors the log decay below -5 a step. K7 /
-    K8 take such a floor down to -10 a step (chunk_len 8: each factor of
-    their 16-step chunk spans at most 8 steps), so the wrappers do not
-    refuse it: CPU tensors get as far as the device check."""
+    K8 take every such floor (a factor form for each range of it:
+    ``csrc/wkv6_chunk.cuh``), so the wrappers do not refuse it: CPU tensors
+    get as far as the device check."""
     xs, u = _streams(1, 32, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         getattr(wkv6_cuda, name)(*xs, u, None, chunk)

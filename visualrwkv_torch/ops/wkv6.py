@@ -252,9 +252,9 @@ def wkv6(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     a gradient, :class:`WKV6Function` on both devices (K8 forward, K9
     backward on CUDA, their plain versions on the CPU; any T). Otherwise
     CUDA tensors launch kernel K7 (``csrc/wkv6.cu``) and CPU tensors take
-    the plain path (:func:`wkv6_plain`). On CUDA ``chunk`` must be at least
-    8 (K7 / K8's chunked form takes a decay floor down to -10 a step), and
-    ``u`` is taken in fp32."""
+    the plain path (:func:`wkv6_plain`). Any ``chunk >= 1`` on both devices
+    (the decay floor -80 / chunk; the kernels' 16-step chunks pick a factor
+    form for it), and ``u`` is taken in fp32 on CUDA."""
     _validate(r, w_raw, k, v, u)
     inputs = (r, w_raw, k, v, u.float().contiguous() if r.is_cuda else u, initial_state)
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):

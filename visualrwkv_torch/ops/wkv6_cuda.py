@@ -7,11 +7,12 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises on a
 CUDA error, and adds one to its entry of ``cuda_build.LAUNCHES``. The bonus
 ``u`` is fp32 ``[H, 64]``. ``chunk`` sets the decay floor ``-80 / chunk`` of
-the sequence kernels (K7-K9); the step (K10) has none. K7 and K8 work in
-16-step chunks whose factors each span at most 8 steps' decay, so they take
-``chunk >= 8`` (a floor of at least -10 a step; the models' ``chunk_len``
-is 16, or 8 to harden the WKV7 solve); :func:`fwd_plan` chooses how many
-value rows of a head's state one of their blocks owns.
+the sequence kernels (K7-K9), any ``chunk >= 1`` (the models' ``chunk_len``
+is 16, or lower to harden the WKV7 solve); the step (K10) has none. K7 and
+K8 work in 16-step chunks, with a factor form of their matrix for each range
+of the floor (``csrc/wkv6_chunk.cuh``); :func:`fwd_plan` chooses how many
+value rows of a head's state one of their blocks owns. K9 is two launches a
+call (:func:`bwd_plan`), counted as one.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 CHUNK = 16  # K8 saves, and K9 reads, the state entering every 16 steps
-MIN_CHUNK_LEN = 8  # K7 / K8 take the decay floor -80 / chunk down to this chunk
+BWD_CHUNK_THREADS = 256  # K9's second pass: threads a block, one block a (b, h, chunk)
 # K7 / K8: value rows of a head's state a block may own, the most first, and
 # the blocks to reach: about one for each of the H100's 132 multiprocessors
 # (at B*H = 64, 128 blocks of 32 rows ran 21 % faster than 256 of 16)
@@ -55,8 +56,10 @@ def _lib() -> ctypes.CDLL:
 def _train_lib() -> ctypes.CDLL:
     lib = cuda_build.load("wkv6_train")
     if lib.wkv6_bwd.argtypes is None:
-        lib.wkv6_bwd.argtypes = [_I, _I, _I, _I, _I, _F] + [_P] * 15
+        lib.wkv6_bwd.argtypes = [_I] * 6 + [_F] + [_P] * 16
         lib.wkv6_bwd.restype = _I
+        lib.wkv6_bwd_chunk_smem_bytes.argtypes = [_I]
+        lib.wkv6_bwd_chunk_smem_bytes.restype = _I
     return lib
 
 
@@ -70,16 +73,6 @@ def _floor(chunk: int) -> float:
     if chunk <= 0:
         raise ValueError(f"chunk must be positive; got {chunk}")
     return -80.0 / chunk
-
-
-def _chunked_floor(name: str, chunk: int) -> float:
-    """The decay floor of K7 / K8: the factors of a 16-step chunk, each
-    spanning at most 8 steps, stay in fp32's range for a floor of at least
-    -10 a step (``chunk >= 8``)."""
-    if chunk < MIN_CHUNK_LEN:
-        raise ValueError(f"{name}: chunk={chunk}: the kernel takes a decay floor of -80 / chunk "
-                         f"with chunk >= {MIN_CHUNK_LEN} only")
-    return _floor(chunk)
 
 
 def fwd_plan(B: int, H: int, dtype: torch.dtype) -> dict:
@@ -99,6 +92,30 @@ def fwd_plan(B: int, H: int, dtype: torch.dtype) -> dict:
             "smem_bytes": smem}
 
 
+def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
+    """K9's two launches for B * H heads of T steps: ``"state"``, the first
+    pass, is laid out as K8 (:func:`fwd_plan`); ``"chunk"``, the second, has
+    a block of ``BWD_CHUNK_THREADS`` for each (b, h, chunk) and the dynamic
+    shared memory ``csrc/wkv6_chunk_bwd.cuh``'s ``Wkv6BwdSmem`` lays out: r,
+    w, k in the stream dtype; six fp32 16 x 68 tiles (v, dy, the running
+    log decay g and g_p, P_R, dKbar); dSK as 16 x 20; Z0 and dZ1 as 64 x 68.
+    ``workspace_bytes``: the fp32 cotangent of the state leaving every
+    chunk, zin's size, that the first pass writes and the second reads;
+    ``du_bytes``: the second pass's partial sums of du, one a (b, h, chunk)."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    ldp = 64 + 4
+    smem = 3 * CHUNK * 64 * esz + 6 * CHUNK * ldp * 4 + CHUNK * (CHUNK + 4) * 4 + 2 * 64 * ldp * 4
+    nc = T // CHUNK
+    return {"state": fwd_plan(B, H, dtype),
+            "chunk": {"blocks": B * H * nc, "threads": BWD_CHUNK_THREADS, "smem_bytes": smem},
+            "workspace_bytes": B * H * nc * 64 * 64 * 4, "du_bytes": B * H * nc * 64 * 4}
+
+
+def kernel_bwd_chunk_smem_bytes(dtype: torch.dtype) -> int:
+    """The library's own count of a K9 second-pass block's shared memory."""
+    return _train_lib().wkv6_bwd_chunk_smem_bytes(_DTYPE_CODE[dtype])
+
+
 def kernel_smem_bytes(dtype: torch.dtype, rows: int) -> int:
     """The library's own count of a K7 / K8 block's shared memory (-1: it has
     no instantiation for ``rows``)."""
@@ -112,7 +129,7 @@ def wkv6_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     dtype, final fp32 state)."""
     B, T, H, N = r.shape
     dev = r.device
-    floor = _chunked_floor("wkv6_fwd", chunk)
+    floor = _floor(chunk)
     streams = (r, w_raw, k, v)
     _check_streams("wkv6_fwd", streams, (initial_state,))
     _check_u("wkv6_fwd", u, H, dev)
@@ -139,7 +156,7 @@ def wkv6_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     before step ``16 c``)."""
     B, T, H, N = r.shape
     dev = r.device
-    floor = _chunked_floor("wkv6_fwd_res", chunk)
+    floor = _floor(chunk)
     if T == 0 or T % CHUNK:
         raise ValueError(f"wkv6_fwd_res: T={T} must be a positive multiple of {CHUNK}")
     streams = (r, w_raw, k, v)
@@ -163,13 +180,17 @@ def wkv6_fwd_res(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
 def wkv6_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor, zin: Tensor,
              dy: Tensor, dsfinal: Tensor, chunk: int = 16) -> Tuple[Tensor, ...]:
     """K9: the vector-Jacobian product of the recurrence from K8's saved
-    states. ``dy`` in the stream dtype ``[B, T, H, 64]``, ``dsfinal`` (the
-    cotangent of the final state) fp32 ``[B, H, 64, 64]``. Returns (dr,
-    dw_raw, dk, dv) in the stream dtype, du fp32 ``[H, 64]`` (the kernel's
-    per-(b, h) sums added over the batch here) and the fp32 cotangent of the
-    initial state; all arithmetic fp32."""
+    states (the two-pass chunked kernel; :func:`bwd_plan`). ``dy`` in the
+    stream dtype ``[B, T, H, 64]``, ``dsfinal`` (the cotangent of the final
+    state) fp32 ``[B, H, 64, 64]``. Returns (dr, dw_raw, dk, dv) in the
+    stream dtype, du fp32 ``[H, 64]`` (the kernel's partial sums a (b, h,
+    chunk) added here) and the fp32 cotangent of the initial state; all
+    arithmetic fp32. Both passes launch on the current stream, the second
+    reading the first's workspace (``torch.empty`` of zin's shape), and count
+    one launch together."""
     B, T, H, N = r.shape
     dev = r.device
+    floor = _floor(chunk)
     streams = (r, w_raw, k, v, dy)
     _check_streams("wkv6_bwd", streams, (dsfinal,))
     _check_u("wkv6_bwd", u, H, dev)
@@ -181,18 +202,20 @@ def wkv6_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor, zin: Ten
             f"wkv6_bwd: zin must be fp32 {(B * H, T // CHUNK, N, N)}; got {zin.dtype} {tuple(zin.shape)}"
         )
     grads = [torch.empty_like(r) for _ in range(4)]
-    du_bh = torch.empty(B, H, N, dtype=torch.float32, device=dev)
+    du_part = torch.empty(B, H, T // CHUNK, N, dtype=torch.float32, device=dev)
     ds0 = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
+    dz1 = torch.empty_like(zin)
     lib = _train_lib()
     with torch.cuda.device(dev):
         err = lib.wkv6_bwd(
-            _DTYPE_CODE[r.dtype], B, T, H, N, _floor(chunk), *(x.data_ptr() for x in streams[:4]),
-            u.data_ptr(), zin.data_ptr(), dy.data_ptr(), dsfinal.data_ptr(),
-            *(g.data_ptr() for g in grads), du_bh.data_ptr(), ds0.data_ptr(), _stream(dev),
+            _DTYPE_CODE[r.dtype], fwd_plan(B, H, r.dtype)["rows"], B, T, H, N, floor,
+            *(x.data_ptr() for x in streams[:4]), u.data_ptr(), zin.data_ptr(), dy.data_ptr(),
+            dsfinal.data_ptr(), *(g.data_ptr() for g in grads), du_part.data_ptr(), ds0.data_ptr(),
+            dz1.data_ptr(), _stream(dev),
         )
     cuda_build.check(lib, err, "wkv6_bwd")
     cuda_build.LAUNCHES["wkv6_bwd"] += 1
-    return (*grads, du_bh.sum(0), ds0)
+    return (*grads, du_part.sum((0, 2)), ds0)
 
 
 def wkv6_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
