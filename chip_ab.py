@@ -27,7 +27,16 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
 - ``wkv7``: K5 and K12 at every timed case of ``check_wkv7_train`` and
   ``check_wkv7_packed_train``, with K1 at the same shape, and the
   backwards K6 and K13 there from K5's / K12's states (``WKV7_CASES``),
-  device and eager time;
+  device and eager time, and a digest of each call's outputs (equal
+  digests on the two sides: bit-equal outputs);
+- ``wkv7_prefill``: K1 and K11 at the prefill's shapes of
+  ``check_wkv7_fwd`` and ``check_wkv7_fwd_packed`` (B=1 T=1056, bf16
+  without and with an initial state, fp32 streams with one; K1 at the
+  serving batch B=4) and at a ragged T (1049), ``WKV7_PREFILL_CASES``:
+  device and eager time and the outputs' digest;
+- ``x070_prefill_profile``: the flagship's B=1 prefill (1024 + 32 tokens,
+  fp32 state, after one unprofiled prefill) under the profiler: card busy,
+  idle share and device ms by kind (``device_breakdown``);
 - ``x060_serving``: VisualRWKV-6 7B (``x060_serving_cfg``) TTFT and decode
   rate at B=1 and B=4 (``run_serving``);
 - ``x060_training``: VisualRWKV-6 1.6B (``x060_training_cfg``) step times
@@ -84,7 +93,8 @@ def k3_times(cs, dev) -> list:
     return out
 
 
-SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "x060_serving", "x060_training")
+SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "wkv7_prefill", "x070_prefill_profile",
+            "x060_serving", "x060_training")
 # K7 / K8 / K9 timed: (kernel, B, T, H, stream dtype, initial state,
 # chunk_len), the timed cases of chip_smoke's check_wkv6_fwd (the x060 7B
 # prefill) and check_wkv6_train (the 1.6B training step; K7 at the same
@@ -145,10 +155,30 @@ WKV7_CASES = tuple((kernel, 2, 2048, 32, dname) for dname in ("bfloat16", "float
                                   "wkv7_bwd_packed"))
 
 
-def wkv7_times(cs, dev) -> list:
-    """K5 / K12 (and K1), K6 / K13 at every case of ``WKV7_CASES`` through
-    the tree's own wrappers: device time (CUDA graphs) and eager time, ms.
-    A backward reads the states its forward (K5 / K12) saved."""
+# K1 / K11 timed: (kernel, B, T, H, stream dtype, initial state)
+WKV7_PREFILL_CASES = (("wkv7_fwd", 1, 1056, 32, "bfloat16", False), ("wkv7_fwd", 1, 1056, 32, "bfloat16", True),
+                      ("wkv7_fwd", 1, 1056, 32, "float32", True), ("wkv7_fwd", 4, 1056, 32, "bfloat16", True),
+                      ("wkv7_fwd_packed", 1, 1056, 32, "bfloat16", True),
+                      ("wkv7_fwd_packed", 1, 1056, 32, "float32", True), ("wkv7_fwd", 1, 1049, 32, "bfloat16", True))
+
+
+def digest(outs) -> str:
+    """sha256 of the bytes of a call's output tensors, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for x in outs:
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def wkv7_times(cs, dev, cases=None) -> list:
+    """K5 / K12 (and K1), K6 / K13 at every case of ``WKV7_CASES`` (or K1 /
+    K11 at ``WKV7_PREFILL_CASES``) through the tree's own wrappers: device
+    time (CUDA graphs), eager time, ms, and the digest of the outputs. A
+    backward reads the states its forward (K5 / K12) saved."""
     import torch
 
     from visualrwkv_torch.ops import wkv7_cuda
@@ -156,9 +186,12 @@ def wkv7_times(cs, dev) -> list:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     out = []
-    for kernel, B, T, H, dname in WKV7_CASES:
+    for case in cases or WKV7_CASES:
+        kernel, B, T, H, dname = case[:5]
         xs = cs._wkv_streams(gen, (B, T, H, 64), getattr(torch, dname), dev)
         s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
+        if len(case) > 5 and not case[5]:
+            s0 = None
         if kernel.startswith("wkv7_bwd"):
             _, _, zin = getattr(wkv7_cuda, kernel.replace("bwd", "fwd_res"))(*xs, s0)
             dy = (torch.randn(B, T, H, 64, generator=gen, device=dev) * 0.5).to(xs[0].dtype)
@@ -166,10 +199,29 @@ def wkv7_times(cs, dev) -> list:
             fn = lambda kernel=kernel, xs=xs, zin=zin, dy=dy, dsf=dsf: getattr(wkv7_cuda, kernel)(*xs, zin, dy, dsf)
         else:
             fn = lambda kernel=kernel, xs=xs, s0=s0: getattr(wkv7_cuda, kernel)(*xs, s0)
-        out.append({"case": f"{kernel} B={B} T={T} H={H} {dname}", "ms": cs.cuda_ms(fn, reps=5),
-                    "eager_ms": cs.eager_ms(fn, reps=5)})
+        out.append({"case": f"{kernel} B={B} T={T} H={H} {dname}{'' if s0 is not None else ' no state'}",
+                    "digest": digest(fn()), "ms": cs.cuda_ms(fn, reps=5), "eager_ms": cs.eager_ms(fn, reps=5)})
         del xs, s0, fn
     return out
+
+
+def x070_prefill_profile(cs, dev) -> dict:
+    """The flagship's B=1 prefill under the profiler, after one unprofiled
+    prefill of the same request: card busy, idle share, device ms by kind."""
+    import torch
+
+    from visualrwkv_torch.infer.engine import InferenceEngine
+
+    cfg = cs.flagship_cfg()
+    params = cs.init_model(cfg, 0, dev)
+    eng = InferenceEngine(params, cfg, state_dtype="float32", device=dev)
+    ids, images = cs.make_request(cfg, 1, 32, 1, dev)
+    eng.prefill_ids(ids, images)
+    torch.cuda.synchronize()
+    prof = cs.device_breakdown(lambda: eng.prefill_ids(ids, images))
+    del params, eng
+    torch.cuda.empty_cache()
+    return prof
 
 
 def child(tree: str, sections) -> None:
@@ -228,6 +280,9 @@ def child(tree: str, sections) -> None:
     if "wkv7" in sections:
         out["wkv7"] = wkv7_times(cs, dev)
         torch.cuda.empty_cache()
+    if "wkv7_prefill" in sections:
+        out["wkv7_prefill"] = wkv7_times(cs, dev, WKV7_PREFILL_CASES)
+        torch.cuda.empty_cache()
     if "x060_serving" in sections:
         cfg = cs.x060_serving_cfg()
         params = cs.build(cfg, 0, dev)
@@ -250,6 +305,8 @@ def child(tree: str, sections) -> None:
                                                    if k.startswith(("K8", "K9", "K3"))}
         del params
         torch.cuda.empty_cache()
+    if "x070_prefill_profile" in sections:  # last: the profiler slows every later launch
+        out["x070_prefill_profile"] = x070_prefill_profile(cs, dev)
     print("AB " + json.dumps(out), flush=True)
 
 

@@ -13,10 +13,15 @@ Phases (any failure exits non-zero; nothing is caught):
    shapes of the serving and training paths below, with kernel, plain
    and library (one PyTorch call computing the same function, timed as a
    yardstick only) times and the least time the card could take
-   (``bound_ms``). The head-pair ("packed") kernels K11-K13 are held
-   against their plain versions too, K11 beside K1, and K12 must equal K5
-   bit for bit; the chunked WKV7 training forward K5 / K12 at the 1B5
-   step's shape, each case logging its plan (value rows a block, blocks,
+   (``bound_ms``). The chunked WKV7 prefill forward K1 at the 1B5
+   prefill's shapes (B=1 and the serving batch B=4, T=1056), each case
+   logging its plan (no K1 / K11 instantiation may spill), at ragged T
+   (0, 1, 8, 24, 1049: ``WKV7_FWD_RAGGED_CASES``) and at the ten inputs of
+   ``WKV7_FWD_RES_PATH_CASES`` against the fp32 sequential scan, with K11
+   equal to K1 bit for bit everywhere. The head-pair ("packed") kernels
+   K11-K13 are held against their plain versions too, K11 beside K1, and
+   K12 must equal K5 bit for bit; the chunked WKV7 training forward K5 /
+   K12 at the 1B5 step's shape, each case logging its plan (value rows a block, blocks,
    threads, shared memory held equal to the library's count, registers,
    spills: no K5 / K12 instantiation may spill), and at ten more inputs
    against the fp32 sequential scan (``WKV7_FWD_RES_PATH_CASES``); the
@@ -182,10 +187,10 @@ TOWER_GRAD_TOL = 5e-2
 TRAIN_CHECK_FP32_LOSS_TOL = 1e-6
 TRAIN_CHECK_FP32_GRAD_TOL = 1e-2
 SOURCES = {
-    "wkv7_fwd": "visualrwkv_torch/csrc/wkv7.cu",
+    "wkv7_fwd": "visualrwkv_torch/csrc/wkv7_chunk.cuh",
     "wkv7_step": "visualrwkv_torch/csrc/wkv7.cu",
     "wkv7_step_flat": "visualrwkv_torch/csrc/wkv7.cu",
-    "wkv7_fwd_res": "visualrwkv_torch/csrc/wkv7.cu",
+    "wkv7_fwd_res": "visualrwkv_torch/csrc/wkv7_chunk.cuh",
     "wkv7_bwd": "visualrwkv_torch/csrc/wkv7_chunk_bwd.cuh",
     "attention_fwd_relpos": "visualrwkv_torch/csrc/attention.cu",
     "attention_fwd_mha": "visualrwkv_torch/csrc/attention.cu",
@@ -193,8 +198,8 @@ SOURCES = {
     "wkv6_fwd_res": "visualrwkv_torch/csrc/wkv6.cu",
     "wkv6_bwd": "visualrwkv_torch/csrc/wkv6_chunk_bwd.cuh",
     "wkv6_step": "visualrwkv_torch/csrc/wkv6.cu",
-    "wkv7_fwd_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
-    "wkv7_fwd_res_packed": "visualrwkv_torch/csrc/wkv7_packed.cu",
+    "wkv7_fwd_packed": "visualrwkv_torch/csrc/wkv7_chunk.cuh",
+    "wkv7_fwd_res_packed": "visualrwkv_torch/csrc/wkv7_chunk.cuh",
     "wkv7_bwd_packed": "visualrwkv_torch/csrc/wkv7_chunk_bwd.cuh",
     "attention_bwd_dq_relpos": "visualrwkv_torch/csrc/attention_bwd.cu",
     "attention_bwd_dkv_relpos": "visualrwkv_torch/csrc/attention_bwd.cu",
@@ -333,18 +338,24 @@ def _wkv_streams(gen, shape, dtype, dev):
 
 
 def check_wkv7_fwd(gen, dev):
+    """K1 at the prefill's shapes (B=1 T=1056 H=32: bf16 streams without and
+    with an initial state, fp32 streams with one; the serving batch B=4 in
+    bf16) against the fp32 sequential scan, each case logging its plan
+    (:func:`wkv7_fwd_res_plan`), timed."""
     import torch
 
     from visualrwkv_torch.ops import wkv7 as pw
     from visualrwkv_torch.ops import wkv7_cuda
 
-    B, T, H, N = 1, 1056, 32, 64
+    T, H, N = 1056, 32, 64
     out = []
     # bf16 streams are the flagship's; fp32 streams are what an fp32-compute
     # model passes, and that build of K1 is held here too.
-    for sdt, with_state in ((torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, True)):
+    for B, sdt, with_state in ((1, torch.bfloat16, False), (1, torch.bfloat16, True), (1, torch.float32, True),
+                               (4, torch.bfloat16, True)):
         dname = str(sdt)[6:]
         case = f"B={B} T={T} H={H} N={N} {dname} streams, {'with' if with_state else 'no'} initial state"
+        plan = wkv7_fwd_res_plan(case, B, H, sdt, save=False)
         xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
         s0 = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3) if with_state else None
         c = Check("wkv7_fwd", case)
@@ -358,8 +369,65 @@ def check_wkv7_fwd(gen, dev):
         p_ms = cuda_ms(lambda: pw.wkv7_reference(*xs, s0), reps=1, warmup=1)
         nbytes = 7 * B * T * H * N * xs[0].element_size() + B * H * N * N * 4 * (2 if with_state else 1)
         ops = 9 * B * T * H * N * N  # sa (2N), update (5N), y (2N) per state row
-        out.append(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager))
+        rec = c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager)
+        rec["plan"] = plan
+        out.append(rec)
+        del xs
     return out
+
+
+# K1 / K11 at lengths no timed case takes, held against the fp32 sequential
+# scan but not timed: (B, T, H, stream dtype, initial state). T = 0 returns
+# the initial state (zeros without one); T = 1, 8, 24 and 1049 end in a
+# partial 16-step chunk whose steps past T the kernel masks (1049: 65 whole
+# chunks before it, a prefill of 1024 image tokens and a 25-token prompt).
+WKV7_FWD_RAGGED_CASES = tuple((1, T, 32, dname, with_state) for T in (0, 1, 8, 24, 1049)
+                              for dname in ("bfloat16", "float32") for with_state in (False, True))
+
+
+def check_wkv7_fwd_paths(gen, dev):
+    """K1 at ``WKV7_FWD_RAGGED_CASES`` and at the ten inputs of
+    ``WKV7_FWD_RES_PATH_CASES`` (the chunk solve's stability constructions,
+    w_raw = -0.5 and 2.0 on every channel, B*H = 18 and 128) against the
+    fp32 sequential scan, under the limits of the timed cases: y 1e-2 (bf16
+    streams) or 1e-3 (fp32), the final state 1e-3; K11 equal to K1 bit for
+    bit everywhere, and at T = 0 the state returned unchanged."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    N = 64
+    cases = [(f"ragged T={T}", B, T, H, dname, with_state)
+             for B, T, H, dname, with_state in WKV7_FWD_RAGGED_CASES]
+    cases += [(what, B, T, H, dname, True) for what, B, T, H, dname in WKV7_FWD_RES_PATH_CASES]
+    for what, B, T, H, dname, with_state in cases:
+        sdt = getattr(torch, dname)
+        case = f"{what}: B={B} T={T} H={H} {dname} streams, {'with' if with_state else 'no'} initial state"
+        wkv7_fwd_res_plan(case, B, H, sdt, save=False)
+        if what.startswith("ragged"):
+            xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
+        else:
+            xs = [x.to(sdt).contiguous() for x in _wkv7_path_streams(gen, what, (B, T, H, N), dev)]
+        s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3 if with_state else None
+        y, s = wkv7_cuda.wkv7_fwd(*xs, s0)
+        y_ref, s_ref = pw.wkv7_reference(*[x.float() for x in xs], s0)
+        torch.cuda.synchronize()
+        assert y.shape == xs[0].shape and y.dtype == sdt, (case, y.shape, y.dtype)
+        if T == 0:
+            want = s0 if with_state else torch.zeros_like(s)
+            assert torch.equal(s, want), f"K1 changed the state at T = 0 [{case}]"
+            log(f"  wkv7_fwd [{case}] final state equal to the initial one")
+        else:
+            c = Check("wkv7_fwd", case)
+            c.compare(f"y ({dname}) vs fp32 sequential scan", y.float(), y_ref.float(),
+                      1e-2 if sdt == torch.bfloat16 else 1e-3)
+            c.compare("final state (fp32)", s, s_ref, 1e-3)
+        yp, sp = wkv7_cuda.wkv7_fwd_packed(*xs, s0)
+        diff = max(max_abs(yp, y) if T else 0.0, max_abs(sp, s))
+        log(f"  wkv7_fwd_packed [{case}] largest difference from K1: {diff:.3e}")
+        assert diff == 0, f"K11 differs from K1 by {diff:.3e} [{case}]"
+        del xs
 
 
 def check_wkv7_step(gen, dev):
@@ -495,11 +563,11 @@ def check_wkv7_train(gen, dev):
 
 def check_wkv7_fwd_packed(gen, dev):
     """K11 at the prefill's shapes (B=1 T=1056 H=32) with an initial state,
-    in bf16 and with fp32 streams, against its plain version on the same
-    values in fp32 (the plain version run in bf16 rounds intermediates of
-    its chunked form to bf16, which the kernel does not), and beside K1 on
-    the same inputs: the largest difference from K1 is logged (the
-    per-thread arithmetic is K1's, so 0 is expected)."""
+    in bf16 and with fp32 streams, each case logging its plan, against its
+    plain version on the same values in fp32 (the plain version run in bf16
+    rounds intermediates of its chunked form to bf16, which the kernel does
+    not), and beside K1 on the same inputs: K1's kernel with the head-pair
+    instantiation, so its outputs must equal K1's bit for bit."""
     import torch
 
     from visualrwkv_torch.ops import wkv7 as pw
@@ -510,6 +578,7 @@ def check_wkv7_fwd_packed(gen, dev):
     for sdt in (torch.bfloat16, torch.float32):
         dname = str(sdt)[6:]
         case = f"B={B} T={T} H={H} N={N} {dname} streams, with initial state"
+        plan = wkv7_fwd_res_plan(case, B, H, sdt, save=False)
         xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
         s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
         c = Check("wkv7_fwd_packed", case)
@@ -521,13 +590,14 @@ def check_wkv7_fwd_packed(gen, dev):
         c.compare("final state (fp32)", s, s_ref, 1e-3)
         k1_diff = max(max_abs(y, y1), max_abs(s, s1))
         log(f"  wkv7_fwd_packed [{case}] largest difference from K1: {k1_diff:.3e}")
+        assert k1_diff == 0, f"K11 differs from K1 by {k1_diff:.3e} [{case}]"
         fn = lambda: wkv7_cuda.wkv7_fwd_packed(*xs, s0)
         k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
         p_ms = cuda_ms(lambda: pw.wkv7_packed_plain(*xs, s0), reps=1, warmup=1)
         k1_ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd(*xs, s0))
         nbytes = 7 * B * T * H * N * xs[0].element_size() + 2 * B * H * N * N * 4
         rec = c.record(k_ms, p_ms, None, nbytes, 9 * B * T * H * N * N, FP32_FLOPS, k_eager)
-        rec.update(k1_same_inputs_ms=k1_ms, max_abs_diff_from_k1=k1_diff)
+        rec.update(k1_same_inputs_ms=k1_ms, max_abs_diff_from_k1=k1_diff, plan=plan)
         log(f"  wkv7_fwd_packed [{case}] K1 on the same inputs: {k1_ms:.4f} ms")
         out.append(rec)
     return out
@@ -606,11 +676,12 @@ def check_wkv7_packed_train(gen, dev):
     return fwd, bwd
 
 
-def wkv7_fwd_res_plan(case, B, H, dtype):
-    """K5 / K12's plan for B * H heads (``wkv7_cuda.fwd_res_plan``: value rows
-    a block, blocks, threads, shared memory, held equal to the library's own
-    count), logged with ptxas's registers and spills of the K5 and K12
-    instantiations it launches."""
+def wkv7_fwd_res_plan(case, B, H, dtype, save=True):
+    """The chunked WKV7 forward's plan for B * H heads
+    (``wkv7_cuda.fwd_res_plan``: value rows a block, blocks, threads, shared
+    memory, held equal to the library's own count), logged with ptxas's
+    registers and spills of the instantiations it launches: K5 and K12
+    (``save``), or K1 and K11."""
     import torch
 
     from visualrwkv_torch.ops import wkv7_cuda
@@ -618,13 +689,14 @@ def wkv7_fwd_res_plan(case, B, H, dtype):
     plan = wkv7_cuda.fwd_res_plan(B, H, dtype)
     assert plan["smem_bytes"] == wkv7_cuda.kernel_smem_bytes(dtype, plan["rows"]), plan
     code = int(dtype == torch.bfloat16)
-    for lib, zheads, name in (("wkv7", 1, "k5"), ("wkv7_packed", 2, "k12")):
-        plan[f"{name}_ptxas"] = PTXAS.get((lib, "wkv7_fwd_res_kernel", (code, plan["rows"], zheads)))
+    names = ("k5", "k12") if save else ("k1", "k11")
+    for lib, zheads, name in zip(("wkv7", "wkv7_packed"), (1, 2), names):
+        plan[f"{name}_ptxas"] = PTXAS.get((lib, "wkv7_fwd_res_kernel", (code, plan["rows"], zheads, int(save))))
     regs = lambda p: "not parsed" if p is None else (f"{p.get('registers')} registers, "
                                                      f"{p.get('spill_bytes', 0)} B spilled")
-    log(f"  wkv7 training forward [{case}] plan: {plan['rows']} value rows a block, {plan['blocks']} "
-        f"blocks of {plan['threads']} threads, {plan['smem_bytes']} B shared; K5 "
-        f"{regs(plan['k5_ptxas'])}, K12 {regs(plan['k12_ptxas'])}")
+    log(f"  wkv7 {'training' if save else 'prefill'} forward [{case}] plan: {plan['rows']} value rows a block, "
+        f"{plan['blocks']} blocks of {plan['threads']} threads, {plan['smem_bytes']} B shared; "
+        f"{names[0].upper()} {regs(plan[names[0] + '_ptxas'])}, {names[1].upper()} {regs(plan[names[1] + '_ptxas'])}")
     return plan
 
 
@@ -1935,11 +2007,11 @@ def _template_flags(name: str, kernel: str):
 
 def _category(kernel_name: str) -> str:
     n = kernel_name.lower()
-    if "wkv7_fwd_kernel<" in n:  # <T, HEADS>
-        return "K11 wkv7_fwd_packed" if _template_flags(n, "wkv7_fwd_kernel")[0] == 2 else "K1 wkv7_fwd"
-    if "wkv7_fwd_res_kernel<" in n:  # <DT, ROWS, ZHEADS>
-        return "K12 wkv7_fwd_res_packed" if _template_flags(n, "wkv7_fwd_res_kernel")[1] == 2 \
-            else "K5 wkv7_fwd_res"
+    if "wkv7_fwd_res_kernel<" in n:  # <DT, ROWS, ZHEADS, SAVE>: K1 / K11 without SAVE
+        _, zheads, save = _template_flags(n, "wkv7_fwd_res_kernel")
+        if save:
+            return "K12 wkv7_fwd_res_packed" if zheads == 2 else "K5 wkv7_fwd_res"
+        return "K11 wkv7_fwd_packed" if zheads == 2 else "K1 wkv7_fwd"
     if "wkv7_bwd_state_kernel<" in n:  # <DT, ROWS, ZHEADS>: K6 / K13's first pass
         return "K13 wkv7_bwd_packed" if _template_flags(n, "wkv7_bwd_state_kernel")[1] == 2 \
             else "K6 wkv7_bwd"
@@ -2541,10 +2613,11 @@ def main(argv=None) -> int:
                             f"factor forms")
     assert not any(v.get("spill_bytes", 0) for v in k78.values()), f"a K7 / K8 instantiation spills: {k78}"
     k512 = {key: v for key, v in PTXAS.items() if key[1] == "wkv7_fwd_res_kernel"}
-    want512 = {(lib, "wkv7_fwd_res_kernel", (dt, rows, zh)) for lib, zh in (("wkv7", 1), ("wkv7_packed", 2))
-               for dt in (0, 1) for rows in (16, 32, 64)}
-    assert set(k512) == want512, f"K5 / K12: ptxas reported {sorted(k512)}, not {sorted(want512)}"
-    assert not any(v.get("spill_bytes", 0) for v in k512.values()), f"a K5 / K12 instantiation spills: {k512}"
+    want512 = {(lib, "wkv7_fwd_res_kernel", (dt, rows, zh, save)) for lib, zh in (("wkv7", 1), ("wkv7_packed", 2))
+               for dt in (0, 1) for rows in (16, 32, 64) for save in (0, 1)}
+    assert set(k512) == want512, f"K1 / K5 / K11 / K12: ptxas reported {sorted(k512)}, not {sorted(want512)}"
+    assert not any(v.get("spill_bytes", 0) for v in k512.values()), \
+        f"a K1 / K5 / K11 / K12 instantiation spills: {k512}"
     k613 = {key: v for key, v in PTXAS.items() if key[1] in ("wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel")}
     want613 = {(lib, "wkv7_bwd_state_kernel", (dt, rows, zh)) for lib, zh in (("wkv7_train", 1), ("wkv7_packed", 2))
                for dt in (0, 1) for rows in (16, 32, 64)}
@@ -2567,6 +2640,7 @@ def main(argv=None) -> int:
     kernels["wkv7_fwd_res"], kernels["wkv7_bwd"] = check_wkv7_train(gen, dev)
     kernels["wkv7_fwd_packed"] = check_wkv7_fwd_packed(gen, dev)
     kernels["wkv7_fwd_res_packed"], kernels["wkv7_bwd_packed"] = check_wkv7_packed_train(gen, dev)
+    check_wkv7_fwd_paths(gen, dev)
     check_wkv7_fwd_res_paths(gen, dev)
     check_wkv7_bwd_paths(gen, dev)
     check_wkv7_function_ragged(gen, dev)

@@ -5,7 +5,9 @@ forward K7 / K8 (``csrc/wkv6_chunk.cuh``, built through ``csrc/wkv6.cu``),
 the WKV6 backward K9 (``csrc/wkv6_chunk_bwd.cuh`` and its first pass in
 ``csrc/wkv6_chunk.cuh``, built through ``csrc/wkv6_train.cu``), the WKV7
 training forward K5 (``csrc/wkv7_chunk.cuh``, built through
-``csrc/wkv7.cu``) or the WKV7 backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built
+``csrc/wkv7.cu``), the WKV7 prefill forward K1 / K11 (the same kernel
+without the saved states, built through ``csrc/wkv7.cu`` and
+``csrc/wkv7_packed.cu``) or the WKV7 backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built
 through ``csrc/wkv7_train.cu``).
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
@@ -13,11 +15,12 @@ through ``csrc/wkv7_train.cu``).
     python3 chip_variants.py --wkv6 [names]        # K7 / K8: WKV6_VARIANTS
     python3 chip_variants.py --wkv6bwd [names]     # K9: WKV6BWD_VARIANTS
     python3 chip_variants.py --wkv7 [names]        # K5: WKV7_VARIANTS
+    python3 chip_variants.py --wkv7fwd [names]     # K1 / K11: WKV7FWD_VARIANTS
     python3 chip_variants.py --wkv7bwd [names]     # K6: WKV7BWD_VARIANTS
 
 A variant is the source with text substitutions (each names the design
 choice it undoes, or the part of the work it leaves out). Each is compiled
-by ``nvcc`` into ``build/variants/<name>/``, all at once, and ptxas's
+by ``nvcc`` into ``build/variants/<source>/<name>/``, all at once, and ptxas's
 registers, spills and wgmma serialisation warnings are printed. Then, with
 the loaded library swapped between turns (the variants in order, then in
 reverse), K3 runs through the port's own wrappers at ``chip_ab.K3_CASES``,
@@ -31,7 +34,8 @@ gradients <= 2e-2 with bf16 streams, 1e-3 with fp32); or K5 runs at
 ``WKV7_CASES`` through
 ``wkv7_cuda``, each exact variant held against ``wkv7_fwd_res_plain`` (y
 <= 1e-2 with bf16 streams, 1e-3 with fp32, the final state and ``zin``
-1e-3); or K6 runs at ``WKV7BWD_CASES`` from K5's states, each exact variant
+1e-3); or K1 / K11 at ``WKV7FWD_CASES`` against the fp32 sequential scan
+(the same limits); or K6 runs at ``WKV7BWD_CASES`` from K5's states, each exact variant
 held against ``wkv7_bwd_plain`` (the seven gradients <= 2e-2 with bf16
 streams, 1e-3 with fp32). The card's name and power limit come first, the SDPA forward's time
 at each no-bias case next (K3), and one ``VARIANT {json}`` line a variant
@@ -101,98 +105,11 @@ WKV6_VARIANTS = {
     "no_outputs": ([("    outputs(c);\n", "")], None, False),
     "no_update": ([("    update(c);\n", "")], None, False),
 }
-# K5's alternative for the four matrices that every slice of a head shares:
-# the slices of a head as a thread-block cluster that splits them (each block
-# computes its share and writes it into every block's shared memory), three
-# sets of them, and a cluster barrier a chunk split in two (arrive after the
-# matrices, wait at the next chunk's top) in place of the loop's first
-# __syncthreads. Measured slower than every slice recomputing them.
-_CLUSTER = [
-    ("#include <type_traits>\n", """#include <type_traits>
-
-#include <cooperative_groups.h>
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");
-}
-"""),
-    ("  static constexpr size_t st = mats + 2 * MATS * 4;", "  static constexpr size_t st = mats + 3 * MATS * 4;"),
-    ("  constexpr int ZROW = ZHEADS * N;   // zin's row stride\n",
-     "  constexpr int ZROW = ZHEADS * N;   // zin's row stride\n  constexpr int CL = N / ROWS;\n"),
-    ("idx < 2 * L::MATS; idx += NT", "idx < 3 * L::MATS; idx += NT"),
-    ("(c & 1) * L::MATS", "(c % 3) * L::MATS"),
-    ("""    float* out = mats + (c % 3) * L::MATS;
-    for (int task = tid; task < 4 * 10 * 8; task += NT) {  // a warp-uniform bound
-      const int mat = task / 80, tile = task % 80 / 8, jc = task % 8;""",
-     """    float* out = mats + (c % 3) * L::MATS;
-    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-    const int rank = CL > 1 ? (int)cluster.block_rank() : 0;
-    float* outs[CL];
-    for (int q = 0; q < CL; ++q) outs[q] = q == rank ? out : cluster.map_shared_rank(out, q);
-    constexpr int TASKS = 4 * 10 * 8 / CL;
-    for (int lt = tid; lt < (TASKS + 31) / 32 * 32; lt += NT) {
-      const int task = min(lt, TASKS - 1);
-      const int mat = rank * (4 / CL) + task / 80, tile = task % 80 / 8, jc = task % 8;"""),
-    ("""        if (mat < 2 ? s < t : s <= t)
-          out[mat * CHUNK * CHUNK + (mat == 0 ? s * CHUNK + t : t * CHUNK + s)] = acc[m];""",
-     """        if (lt < TASKS && (mat < 2 ? s < t : s <= t))
-          for (int q = 0; q < CL; ++q)
-            outs[q][mat * CHUNK * CHUNK + (mat == 0 ? s * CHUNK + t : t * CHUNK + s)] = acc[m];"""),
-    ("""    __syncthreads();
-    factors(0);
-    __syncthreads();
-    matrices(0);
-  }""", """    if (CL > 1)
-      cooperative_groups::this_cluster().sync();
-    else
-      __syncthreads();
-    factors(0);
-    __syncthreads();
-    matrices(0);
-    if (CL > 1) cluster_arrive();
-  }"""),
-    ("""    cp_async_wait<0>();  // chunk c + 1's inputs
-    __syncthreads();""", """    cp_async_wait<0>();  // chunk c + 1's inputs
-    if (CL > 1) cluster_wait();
-    __syncthreads();"""),
-    ("""    if (c + 1 < nc) matrices(c + 1);
-    finish(c, yp);""", """    if (c + 1 < nc) {
-      matrices(c + 1);
-      if (CL > 1) cluster_arrive();
-    }
-    finish(c, yp);"""),
-    ("""  kernel<<<B * H * (N / ROWS), ROWS * chunk_threads_a_row<ROWS>(), smem, st>>>(
-      T, H, (const X*)r, (const X*)w, (const X*)k, (const X*)v, (const X*)a, (const X*)b,
-      (const float*)s0, (X*)y, (float*)s_out, (float*)zin);
-  return (int)cudaGetLastError();""", """  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * H * (N / ROWS));
-  cfg.blockDim = dim3(ROWS * chunk_threads_a_row<ROWS>());
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = N / ROWS;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = N / ROWS > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, T, H, (const X*)r, (const X*)w, (const X*)k, (const X*)v, (const X*)a,
-      (const X*)b, (const float*)s0, (X*)y, (float*)s_out, (float*)zin);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());"""),
-]
 # K5: name -> ([(text in wkv7_chunk.cuh, replacement)], value of
 # wkv7_cuda.FWD_RES_BLOCKS or None, exact). The "no_*" variants leave a part
 # of the chunk loop's work out (their results are wrong), to show its share.
 WKV7_VARIANTS = {
     "base": ([], None, True),
-    # the slices of a head as a cluster sharing the four matrices (of two at
-    # 32 rows a block; of four at 16)
-    "cluster": (_CLUSTER, None, True),
-    "rows16_cluster": (_CLUSTER, 256, True),
     # 16 / 64 value rows a block at B*H = 64 (256 / 64 blocks)
     "rows16": ([], 256, True),
     "rows64": ([], 64, True),
@@ -210,11 +127,33 @@ WKV7_VARIANTS = {
     "no_matrices": ([("    if (c + 1 < nc) matrices(c + 1);\n", "")], None, False),
     "no_products": ([("    products(c, yp);\n", "    for (int o = 0; o < OPT; ++o) yp[o] = 0.f;\n")], None, False),
     "no_solve": ([("s < CHUNK - 1; ++s) {  // column s of M", "s < 0; ++s) {  // column s of M")], None, False),
-    "no_zin": ([("for (int q = 0; q < Q4; ++q) {\n      z[", "for (int q = 0; q < 0; ++q) {\n      z[")], None, False),
+    "no_zin": ([("for (int q = 0; q < Q4; ++q) {\n        z[", "for (int q = 0; q < 0; ++q) {\n        z[")], None, False),
     "no_update": ([("for (int s = 0; s < CHUNK; ++s) {\n      const float us", "for (int s = 0; s < 0; ++s) {\n      const float us")],
                   None, False),
 }
 WKV7_CASES = (("wkv7_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv7_fwd_res", 2, 2048, 32, "float32"))
+# K1 / K11 (the same kernel without SAVE; built through wkv7.cu and
+# wkv7_packed.cu): name -> ([(text in wkv7_chunk.cuh, replacement)], value of
+# wkv7_cuda.FWD_RES_BLOCKS or None, exact). The plan variants set the value
+# rows a block at the prefill's B*H = 32 (B=1) and 128 (B=4): the source's
+# plan gives 16 rows (128 blocks) and 64 (128 blocks); "blocks64" 32 rows at
+# B=1 (64 blocks), "blocks32" 64 rows at B=1 (32 blocks), "blocks256" 32
+# rows at B=4 (256 blocks), "blocks512" 16 rows at B=4 (512 blocks). The
+# "no_*" variants leave a part of the chunk loop out (their results are
+# wrong), to show its share; the others are K5's.
+WKV7FWD_VARIANTS = {
+    "base": ([], None, True),
+    "blocks64": ([], 64, True),
+    "blocks32": ([], 32, True),
+    "blocks256": ([], 256, True),
+    "blocks512": ([], 512, True),
+    **{name: WKV7_VARIANTS[name] for name in ("tpr4", "unroll16", "no_factors", "no_matrices", "no_products",
+                                              "no_solve", "no_update")},
+}
+# K1 / K11 timed: (kernel, B, T, H, stream dtype), with an initial state: the
+# prefill's shapes of chip_smoke's check_wkv7_fwd and check_wkv7_fwd_packed
+WKV7FWD_CASES = (("wkv7_fwd", 1, 1056, 32, "bfloat16"), ("wkv7_fwd", 1, 1056, 32, "float32"),
+                 ("wkv7_fwd", 4, 1056, 32, "bfloat16"), ("wkv7_fwd_packed", 1, 1056, 32, "bfloat16"))
 # K6 (the two passes of wkv7_chunk_bwd.cuh, built through wkv7_train.cu): name
 # -> ([(text in wkv7_chunk_bwd.cuh, replacement)], value of
 # wkv7_cuda.FWD_RES_BLOCKS (pass 1's plan) or None, exact). The "no_*"
@@ -385,18 +324,20 @@ WKV6_CASES = (("wkv6_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv6_fwd_res", 2, 204
 
 def build(names, source="attention", variants=VARIANTS, headers=()):
     """Compile the variants of ``csrc/<source>.cu``, one nvcc each, all
-    started together; returns {name: loaded library}. The substitutions
-    apply, in order, to the source and ``csrc/<header>`` for each of
-    ``headers`` (each in every file that holds its text); the headers are
-    written beside the copy of the source (and so included in place of the
-    originals)."""
+    started together, into ``build/variants/<source>/<name>/``; returns
+    {name: loaded library}. The
+    substitutions apply, in order, to the source and ``csrc/<header>`` for
+    each of ``headers`` (each in every file that holds its text); the
+    headers are written beside the copy of the source (and so included in
+    place of the originals)."""
     from visualrwkv_torch import cuda_build
 
     targets = (f"{source}.cu",) + tuple(headers)
     srcs = {t: open(os.path.join(cuda_build.CSRC_DIR, t)).read() for t in targets}
     nvcc, procs = cuda_build.find_nvcc(), {}
+    variant_dir = lambda name: os.path.join(cuda_build.BUILD_DIR, "variants", source, name)
     for name in names:
-        out_dir = os.path.join(cuda_build.BUILD_DIR, "variants", name)
+        out_dir = variant_dir(name)
         os.makedirs(out_dir, exist_ok=True)
         texts = dict(srcs)
         subs = variants[name] if source == "attention" else variants[name][0]
@@ -421,7 +362,7 @@ def build(names, source="attention", variants=VARIANTS, headers=()):
             if any(w in line for w in ("registers", "spill stores", "C751", "C752")) and \
                     "0 bytes spill stores, 0 bytes spill loads" not in line:
                 print(f"  [{name}] {line.strip()[:200]}", flush=True)
-        lib = ctypes.CDLL(os.path.join(cuda_build.BUILD_DIR, "variants", name, f"lib{source}.so"))
+        lib = ctypes.CDLL(os.path.join(variant_dir(name), f"lib{source}.so"))
         lib.vrwkv_error_string.argtypes = [ctypes.c_int]
         lib.vrwkv_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -467,8 +408,11 @@ def time_wkv6(names, libs, dev) -> int:
     return 0
 
 
-def time_wkv7(names, libs, dev) -> int:
-    """K5 at ``WKV7_CASES`` under each variant, in turns."""
+def time_wkv7(names, libs, dev, variants=WKV7_VARIANTS, case_list=WKV7_CASES) -> int:
+    """K5 at ``WKV7_CASES`` (or K1 / K11 at ``WKV7FWD_CASES``, each exact
+    variant held against the fp32 sequential scan: y <= 1e-2 with bf16
+    streams, 1e-3 with fp32, the final state 1e-3) under each variant, in
+    turns."""
     import torch
 
     import chip_smoke as cs
@@ -479,26 +423,28 @@ def time_wkv7(names, libs, dev) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = []
-    for kernel, B, T, H, dname in WKV7_CASES:
+    for kernel, B, T, H, dname in case_list:
         sdt = getattr(torch, dname)
         xs = cs._wkv_streams(gen, (B, T, H, 64), sdt, dev)
         s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
-        ref = pw.wkv7_fwd_res_plain(*xs, s0)
+        ref = pw.wkv7_fwd_res_plain(*xs, s0) if kernel.startswith("wkv7_fwd_res") else \
+            pw.wkv7_reference(*[x.float() for x in xs], s0)
         fn = getattr(wkv7_cuda, kernel)
         cases.append((f"{kernel} B={B} T={T} H={H} {dname}", lambda fn=fn, xs=xs, s0=s0: fn(*xs, s0),
                       ref, 1e-2 if sdt == torch.bfloat16 else 1e-3))
     times = {n: {c[0]: [] for c in cases} for n in names}
     blocks = wkv7_cuda.FWD_RES_BLOCKS
     for name in names + names[::-1]:
-        cuda_build._LIBS["wkv7"] = libs[name]
-        _, plan_blocks, exact = WKV7_VARIANTS[name]
+        for lib in libs[name]:
+            cuda_build._LIBS[lib] = libs[name][lib]
+        _, plan_blocks, exact = variants[name]
         wkv7_cuda.FWD_RES_BLOCKS = blocks if plan_blocks is None else plan_blocks
-        for case, run, (y_ref, s_ref, zin_ref), ytol in cases:
-            y, s, zin = run()
+        for case, run, ref, ytol in cases:
+            out = run()
             torch.cuda.synchronize()
-            if exact:
-                e = (cs.rel_rms(y.float(), y_ref.float()), cs.rel_rms(s, s_ref), cs.rel_rms(zin, zin_ref))
-                assert e[0] <= ytol and e[1] <= 1e-3 and e[2] <= 1e-3, (name, case, e)
+            if exact:  # y, the final state (and zin)
+                e = [cs.rel_rms(x.float(), r.float()) for x, r in zip(out, ref)]
+                assert e[0] <= ytol and max(e[1:]) <= 1e-3, (name, case, e)
             times[name][case].append(cs.cuda_ms(run, reps=10))
     wkv7_cuda.FWD_RES_BLOCKS = blocks
     for name in names:
@@ -597,10 +543,11 @@ def time_wkv6bwd(names, libs, dev) -> int:
 
 
 def main(argv) -> int:
-    kind = argv[0][2:] if argv[:1] in (["--wkv6"], ["--wkv6bwd"], ["--wkv7"], ["--wkv7bwd"]) else None
+    kinds = ("wkv6", "wkv6bwd", "wkv7", "wkv7fwd", "wkv7bwd")
+    kind = argv[0][2:] if argv and argv[0][2:] in kinds and argv[0][:2] == "--" else None
     argv = argv[1:] if kind else argv
     known = {"wkv6": WKV6_VARIANTS, "wkv6bwd": WKV6BWD_VARIANTS, "wkv7": WKV7_VARIANTS,
-             "wkv7bwd": WKV7BWD_VARIANTS, None: VARIANTS}[kind]
+             "wkv7fwd": WKV7FWD_VARIANTS, "wkv7bwd": WKV7BWD_VARIANTS, None: VARIANTS}[kind]
     names = argv or list(known)
     bad = [n for n in names if n not in known]
     if bad:
@@ -627,7 +574,14 @@ def main(argv) -> int:
         return time_wkv6bwd(names, build(names, "wkv6_train", WKV6BWD_VARIANTS,
                                          headers=("wkv6_chunk_bwd.cuh", "wkv6_chunk.cuh")), dev)
     if kind == "wkv7":
-        return time_wkv7(names, build(names, "wkv7", WKV7_VARIANTS, headers=("wkv7_chunk.cuh",)), dev)
+        libs = build(names, "wkv7", WKV7_VARIANTS, headers=("wkv7_chunk.cuh",))
+        return time_wkv7(names, {n: {"wkv7": lib} for n, lib in libs.items()}, dev)
+    if kind == "wkv7fwd":
+        # wkv7_packed.cu reaches wkv7_chunk.cuh through wkv7_chunk_bwd.cuh: both are copied
+        libs = {src: build(names, src, WKV7FWD_VARIANTS, headers=("wkv7_chunk.cuh", "wkv7_chunk_bwd.cuh"))
+                for src in ("wkv7", "wkv7_packed")}
+        return time_wkv7(names, {n: {src: libs[src][n] for src in libs} for n in names}, dev,
+                         WKV7FWD_VARIANTS, WKV7FWD_CASES)
     if kind == "wkv7bwd":
         return time_wkv7bwd(names, build(names, "wkv7_train", WKV7BWD_VARIANTS, headers=("wkv7_chunk_bwd.cuh",)),
                             dev)

@@ -116,3 +116,30 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     args = [torch.from_numpy(x) for x in _inputs(1, 4, 1, 64, seed=0)]
     with pytest.raises(ValueError, match="takes CUDA tensors"):
         wkv7_cuda.wkv7_fwd(*args)
+
+
+@pytest.mark.parametrize("T", [24, 8])
+def test_no_grad_wkv7_at_chunk_8_matches_jax(T):
+    """The no-gradient ``ops.wkv7.wkv7`` on the CPU (the plain path that
+    stands beside K1, which takes such T with a masked last chunk) against
+    the JAX package's ``wkv7`` at ``chunk=8``, with an initial state, at a
+    T that is not a multiple of 16 (24) and at one chunk (8): the two agree
+    within TOL, and against the float64 sequential scan the port's error is
+    no worse than the reference's (at most 1.5 times it, or 1e-6, the fp32
+    rounding of both orders)."""
+    from visualrwkv_tpu.ops.wkv7 import wkv7 as j_wkv7
+
+    B, H, N = 2, 2, 64
+    args = _inputs(B, T, H, N, seed=100 + T)
+    s0 = _state(B, H, N, seed=3)
+    y_j, s_j = (np.asarray(x) for x in j_wkv7(*[jnp.asarray(x) for x in args], jnp.asarray(s0), chunk=8))
+    with torch.no_grad():
+        y, s = pw.wkv7(*[torch.from_numpy(x) for x in args], torch.from_numpy(s0), chunk=8)
+    y64, s64 = pw.wkv7_reference(*[torch.from_numpy(x).double() for x in args], torch.from_numpy(s0).double())
+    y64, s64 = y64.numpy(), s64.numpy()
+    for got, jax_side, ref, what in ((y, y_j, y64, "y"), (s, s_j, s64, "state")):
+        got = to_np(got)
+        assert got.shape == jax_side.shape == ref.shape, what
+        assert max_rel(got, jax_side) < TOL, (what, max_rel(got, jax_side))
+        err, err_jax = max_rel(got, ref), max_rel(jax_side, ref)
+        assert err <= max(1.5 * err_jax, 1e-6), (what, err, err_jax)

@@ -29,7 +29,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ------------------------------------------------ cp.async and small sums
-// (the chunked WKV kernels: wkv6.cu's K7 / K8, wkv7_chunk.cuh's K5 / K12)
+// (the chunked WKV kernels: wkv6.cu's K7 / K8, wkv7_chunk.cuh's K1 / K5 /
+// K11 / K12)
 
 // 16 bytes from device memory into shared memory; zeros where !valid.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {

@@ -1,24 +1,16 @@
-// RWKV-7 ("x070") WKV recurrence on Hopper: sequence forward (K1), the
+// RWKV-7 ("x070") WKV recurrence on Hopper: the prefill forward (K1), the
 // one-token decode step on the head layout (K2) and on the flat layout (K4),
 // and the training forward that also saves the chunk states (K5). Plain C
 // interface, loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py. The
-// backward (K6) is in wkv7_train.cu; K1 and K6 are the sequential kernels of
-// wkv7_seq.cuh with one head a block, K5 the chunked kernel of
-// wkv7_chunk.cuh.
+// backward (K6) is in wkv7_train.cu. K1 and K5 are the chunked kernel of
+// wkv7_chunk.cuh, K6 the two-pass chunked VJP of wkv7_chunk_bwd.cuh.
 //
 // K1 wkv7_fwd replaces visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_pallas (the
-// chunked forward, kernel _wkv7_kernel). The Pallas kernel solves a chunk of
-// up to 16 steps with matmuls, because the TPU has a matrix unit and a
-// sequential grid. Here the design is the sequential recurrence: one block of
-// 64 threads per (b, h), thread i owns value row i of the state in 64
-// registers, and each step's r, w, k, a, b are staged in shared memory
-// (double-buffered, so one barrier per step). There is no chunk solve, so the
-// stability envelope of docs/wkv_chunk_stability.md does not apply.
-// Bound on the H100: the T steps are sequential and there are only B*H
-// blocks (32 at B=1), so the kernel is latency-bound, far from both the
-// byte bound (about 31 MB at B=1, T=1056, H=32, bf16) and the fp32 operation
-// bound (about 1.25 GFLOP). The next step's inputs are loaded into registers
-// while the current step computes, to hide the global-memory latency.
+// chunked forward, kernel _wkv7_kernel): y and the final state, at any T
+// >= 0. It is wkv7_fwd_res_kernel<DT, ROWS, 1, 0> of wkv7_chunk.cuh, K5's
+// chunk form with a block per slice of value rows of a head, without the
+// saved states and with the steps past T of the last chunk masked to
+// identity steps; the design and its bound are described there.
 //
 // K2 wkv7_step replaces visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_step_pallas
 // (_wkv7_step_kernel). Bound: state bytes, B*H*64*64 read once and written
@@ -38,7 +30,7 @@
 // K5 wkv7_fwd_res replaces wkv7_pallas_fwd_res: the forward that also
 // writes the state entering every 16-step chunk, zin[bh, c] = transpose of S
 // before step 16c (fp32; Z = S^T, as the Pallas kernel saves it and K6 reads
-// it coalesced). It is wkv7_fwd_res_kernel<DT, ROWS, 1> of wkv7_chunk.cuh,
+// it coalesced). It is wkv7_fwd_res_kernel<DT, ROWS, 1, 1> of wkv7_chunk.cuh,
 // the Pallas kernel's chunk form with a block per slice of value rows of a
 // head; the design and its bound are described there.
 
@@ -149,10 +141,12 @@ int launch_step(int state_dtype, int B, int H, int n, const void* s_in, const fl
 
 extern "C" {
 
-int wkv7_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+// K1: streams [B, T, H, 64], any T >= 0; s0 (may be null) and s_out fp32
+// [B, H, 64, 64]; rows = the value rows a block owns (16, 32 or 64).
+int wkv7_fwd(int dtype, int rows, int B, int T, int H, int n, const void* r, const void* w,
              const void* k, const void* v, const void* a, const void* b,
              const void* s0, void* y, void* s_out, void* stream) {
-  return launch_fwd<1>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, stream);
+  return launch_fwd_res<1, 0>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
 }
 
 // K5: T a positive multiple of 16; zin is fp32 [B*H, T/16, 64, 64]; rows =
@@ -160,10 +154,11 @@ int wkv7_fwd(int dtype, int B, int T, int H, int n, const void* r, const void* w
 int wkv7_fwd_res(int dtype, int rows, int B, int T, int H, int n, const void* r, const void* w,
                  const void* k, const void* v, const void* a, const void* b,
                  const void* s0, void* y, void* s_out, void* zin, void* stream) {
-  return launch_fwd_res<1>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
+  return launch_fwd_res<1, 1>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
 }
 
-// Dynamic shared memory of a K5 / K12 block, bytes (-1: no such instantiation).
+// Dynamic shared memory of a K1 / K5 / K11 / K12 block, bytes (-1: no such
+// instantiation).
 int wkv7_fwd_res_smem_bytes(int dtype, int rows) { return fwd_res_smem_bytes(dtype, rows); }
 
 int wkv7_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,

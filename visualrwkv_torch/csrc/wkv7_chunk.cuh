@@ -1,15 +1,37 @@
-// The chunked RWKV-7 ("x070") training forward on Hopper: K5 wkv7_fwd_res
-// (wkv7.cu) and its head-pair twin K12 wkv7_fwd_res_packed (wkv7_packed.cu),
-// one kernel wkv7_fwd_res_kernel<DT, ROWS, ZHEADS>. Device code and the
-// launch helper only; each .cu file defines its own plain C entry point.
+// The chunked RWKV-7 ("x070") forward on Hopper, one kernel
+// wkv7_fwd_res_kernel<DT, ROWS, ZHEADS, SAVE> behind four entry points: the
+// prefill forward K1 wkv7_fwd (wkv7.cu) and its head-pair twin K11
+// wkv7_fwd_packed (wkv7_packed.cu) with SAVE 0, the training forward K5
+// wkv7_fwd_res (wkv7.cu) and its head-pair twin K12 wkv7_fwd_res_packed
+// (wkv7_packed.cu) with SAVE 1. Also the constants and stream conversions of
+// the backwards K6 and K13 (wkv7_chunk_bwd.cuh). Device code and the launch
+// helper only; each .cu file defines its own plain C entry points.
 //
-// It replaces visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_pallas_fwd_res and
-// wkv7_pallas_fwd_res_packed, and computes what they compute: y, the final
-// state and the state entering every 16-step chunk,
+// Recurrence per (batch, head), fp32 state S of shape [Nv, Nk] = [64, 64]:
+//   sa_i = sum_j S_ij a_j
+//   S_ij = S_ij * exp(-exp(w_raw_j)) + sa_i * b_j + v_i * k_j
+//   y_i  = sum_j S_ij r_j
+//
+// It replaces visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_pallas (K1),
+// wkv7_pallas_packed (K11), wkv7_pallas_fwd_res (K5) and
+// wkv7_pallas_fwd_res_packed (K12), and computes what they compute: y and
+// the final state, and with SAVE the state entering every 16-step chunk,
 //   ZHEADS = 1 (K5):  zin[bh, c, j, i]             = S_bh[i, j]
 //   ZHEADS = 2 (K12): zin[bh / 2, c, j, (bh % 2) * 64 + i] = S_bh[i, j]
-// before step 16c, fp32 (Z = S^T; K6 / K13 read it). The two differ only in
-// that address, so their y, final states and zin values are bit-equal.
+// before step 16c, fp32 (Z = S^T; K6 / K13 read it). ZHEADS changes only
+// that address, so K11's outputs are bit-equal to K1's and K12's to K5's;
+// it stays in K1 / K11's instantiations so that each is a kernel of its own
+// in a profile. On the H100 a head pair needs no packing of the streams (the
+// TPU kernels pack them for 128-lane rows): a pair's rows are adjacent in
+// the [B, T, H, 64] streams already.
+//
+// Any T >= 0 without SAVE (the models give K1 / K11 a multiple of their
+// chunk_len, which may be 8, 4 or 1): the steps t >= T of the last chunk are
+// identity steps inside the kernel. Their rows load as zeros, their log
+// decay is exactly 0 (not -exp(0)) and their y is not stored, so they add
+// nothing to u, y or the state. T = 0 returns s0, or zeros without one. With
+// SAVE, T is a positive multiple of 16 (the wrappers pad it with identity
+// steps) and the tail mask is compiled out.
 //
 // The math is the Pallas kernel's chunk form (_wkv7_chunk_math, the "u
 // form") at chunk 16. Inside a chunk, with g the inclusive running sum of
@@ -27,12 +49,13 @@
 // from the right), so a block owns a slice of ROWS value rows of one (b, h):
 // B*H*64/ROWS blocks, ROWS chosen by the wrapper (ops/wkv7_cuda.py::
 // fwd_res_plan) so that the grid fills the card (32 rows, 128 blocks at
-// B*H = 64). What does not depend on v or S (the factors and the four
-// matrices) is the same in every slice of a head, and each slice computes
-// it: the slices of a head as a thread-block cluster splitting the matrices
-// through distributed shared memory were slower (chip_variants.py --wkv7
-// cluster: 0.568 against 0.536 ms at B=2 T=2048 H=32, bf16, H100), their
-// barrier costing more than the half of the matrices it saved.
+// B*H = 64; 16 rows at the B=1 prefill's B*H = 32, where 32 rows on half
+// the card were slower). What does not depend on v or S (the factors and
+// the four matrices) is the same in every slice of a head, and each slice
+// computes it: the slices of a head as a thread-block cluster splitting the
+// matrices through distributed shared memory were slower (0.568 against
+// 0.536 ms at B=2 T=2048 H=32, bf16, H100), their barrier costing more than
+// the half of the matrices it saved.
 //
 // Range. The matrices' factors take their reference at step m = 7:
 // a~ = a e^{g_p - g_m}, r~ = r e^{g - g_m}, and b, k e^{g_m - g}; each factor
@@ -47,11 +70,13 @@
 // of docs/wkv_chunk_stability.md (its 2.9e-3 comes from bf16 intermediates;
 // every product on the state path here is fp32 FMA).
 //
-// Bound on the H100: bytes, 7 streams of B*T*H*64 elements, two states and
-// zin (B*H*(T/16)*16 KiB, the largest part); the fp32 operations (about
-// 9 B*T*H*64*64) take about as long. The sequential form (one block a
-// (b, h) or head pair, a state row a thread, one barrier a step) was bound
-// by the latency of T dependent steps over B*H blocks instead.
+// Bound on the H100: with SAVE, bytes, 7 streams of B*T*H*64 elements, two
+// states and zin (B*H*(T/16)*16 KiB, the largest part); the fp32 operations
+// (about 9 B*T*H*64*64) take about as long. Without SAVE, the operations:
+// 1.25 GFLOP (0.0186 ms) against 30 MB of bf16 streams (0.009 ms) at the
+// B=1 T=1056 H=32 prefill. The sequential form these kernels had before
+// (one block a (b, h) or head pair, a state row a thread, one barrier a
+// step) was bound by the latency of T dependent steps over B*H blocks.
 //
 // Design. Thread (si, sg), si = tid % ROWS, sg = tid / ROWS, owns value row
 // i0 + si and the state's columns CPT sg .. CPT sg + CPT of it, in registers
@@ -72,7 +97,7 @@
 //            the update of the thread's part of the state.
 // r, w, k, a, b and the slice's v columns of chunk c+2 come in by cp.async
 // into a ring of three stages while chunks c and c+1 compute. All arithmetic
-// is fp32 FMA. T must be a multiple of 16.
+// is fp32 FMA.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,9 +107,20 @@
 #include <type_traits>
 
 #include "hopper_tiles.cuh"
-#include "wkv7_seq.cuh"
 
 namespace {
+
+constexpr int N = 64;
+constexpr int CHUNK = 16;  // the solve's length; K5 / K12 save, K6 / K13 read, the state every CHUNK steps
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 constexpr int C_LDP = N + 4;   // row stride of the fp32 tiles in shared memory
 constexpr int C_MID = 7;       // the reference step of the matrices' factors
@@ -129,12 +165,14 @@ struct ChunkSmem {
 };
 
 // A chunk's r, w, k, a, b rows (CHUNK x N tiles, TILE apart) and the columns
-// i0 .. i0 + ROWS of a sixth stream x6 (v in K5, dy in the backward's pass
-// 1; CHUNK x ROWS after them) into dst by cp.async, one commit group; c0 is
-// the offset of the chunk's first (b, t, h, 0) element.
-template <typename T, int ROWS, int NT>
+// i0 .. i0 + ROWS of a sixth stream x6 (v in K1 / K5, dy in the backward's
+// pass 1; CHUNK x ROWS after them) into dst by cp.async, one commit group;
+// c0 is the offset of the chunk's first (b, t, h, 0) element. With TAIL the
+// rows t >= nv (past T) are zero-filled and read nothing.
+template <typename T, int ROWS, int NT, bool TAIL = false>
 __device__ __forceinline__ void chunk_load(T* dst, int tid, size_t c0, size_t tstride, int i0, const T* r,
-                                           const T* w, const T* k, const T* a, const T* b, const T* x6) {
+                                           const T* w, const T* k, const T* a, const T* b, const T* x6,
+                                           int nv = CHUNK) {
   constexpr int TILE = CHUNK * N, VEC = 16 / sizeof(T);
   constexpr int ROW_SEGS = N / VEC, TILE_SEGS = CHUNK * ROW_SEGS, V_SEGS = ROWS / VEC;
   for (int idx = tid; idx < 5 * TILE_SEGS + CHUNK * V_SEGS; idx += NT) {
@@ -150,7 +188,9 @@ __device__ __forceinline__ void chunk_load(T* dst, int tid, size_t c0, size_t ts
       col = i0 + dcol;
     }
     const T* src = tile == 0 ? r : tile == 1 ? w : tile == 2 ? k : tile == 3 ? a : tile == 4 ? b : x6;
-    cp_async16(dst + tile * TILE + t * (tile == 5 ? ROWS : N) + dcol, src + c0 + (size_t)t * tstride + col, true);
+    const bool ok = !TAIL || t < nv;
+    cp_async16(dst + tile * TILE + t * (tile == 5 ? ROWS : N) + dcol,
+               src + c0 + (ok ? (size_t)t * tstride + col : 0), ok);
   }
   cp_async_commit();
 }
@@ -159,12 +199,14 @@ __device__ __forceinline__ void chunk_load(T* dst, int tid, size_t c0, size_t ts
 // apart), a thread per (column fj, part fp of P): prefix sums by shuffles,
 // six exp2 an element. Writes az = a e^{g_p}, rz = r e^{g}, bl, kl = b, k
 // e^{g_l - g}, the step-7-referenced am, rm, bm, km, dec[fj] = e^{g_l} and,
-// with G, the running sum g itself (log2 units) into gt. K5 / K12 and both
-// passes of the backward (wkv7_chunk_bwd.cuh) share it.
-template <typename T, int P, bool G = false>
+// with G, the running sum g itself (log2 units) into gt. With TAIL the steps
+// t >= nv are identity steps: log decay 0 (their zero-filled rows make every
+// other factor of theirs 0). The forwards and both passes of the backward
+// (wkv7_chunk_bwd.cuh) share it.
+template <typename T, int P, bool G = false, bool TAIL = false>
 __device__ __forceinline__ void chunk_factors(const T* x, int fj, int fp, float* az, float* rz, float* bl,
                                               float* kl, float* am, float* rm, float* bm, float* km,
-                                              float* dec, float* gt = nullptr) {
+                                              float* dec, float* gt = nullptr, int nv = CHUNK) {
   constexpr int TP = CHUNK / P;  // steps a thread
   constexpr int TILE = CHUNK * N;
   constexpr unsigned FULL = 0xffffffffu;
@@ -172,7 +214,7 @@ __device__ __forceinline__ void chunk_factors(const T* x, int fj, int fp, float*
 #pragma unroll
   for (int q = 0; q < TP; ++q) {
     const int t = fp * TP + q;
-    lw[q] = -expf(to_f(x[TILE + t * N + fj])) * C_LOG2E;
+    lw[q] = !TAIL || t < nv ? -expf(to_f(x[TILE + t * N + fj])) * C_LOG2E : 0.f;
     run += lw[q];
     g[q] = run;
   }
@@ -251,7 +293,7 @@ __device__ __forceinline__ void chunk_matrices(int tid, const float* am, const f
   }
 }
 
-template <int DT, int ROWS, int ZHEADS>
+template <int DT, int ROWS, int ZHEADS, int SAVE>
 __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fwd_res_kernel(
     int Tlen, int H, const ChunkStream<DT>* __restrict__ r, const ChunkStream<DT>* __restrict__ w,
     const ChunkStream<DT>* __restrict__ k, const ChunkStream<DT>* __restrict__ v,
@@ -270,7 +312,8 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
   constexpr int ZROW = ZHEADS * N;   // zin's row stride
   static_assert((ROWS == 16 || ROWS == 32 || ROWS == 64) && NT >= 128 && NT <= 256, "ROWS");
 
-  extern __shared__ __align__(16) unsigned char chunk_smem[];  // (wkv7_seq.cuh's smem is float)
+  constexpr bool TAIL = !SAVE;      // steps past T in the last chunk
+  extern __shared__ __align__(16) unsigned char chunk_smem[];
   T* raw = reinterpret_cast<T*>(chunk_smem + L::raw);
   float* az = reinterpret_cast<float*>(chunk_smem + L::az);
   float* rz = reinterpret_cast<float*>(chunk_smem + L::rz);
@@ -288,7 +331,7 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
   const int tid = threadIdx.x;
   const int bh = blockIdx.x / (N / ROWS), i0 = (blockIdx.x % (N / ROWS)) * ROWS;
   const int h = bh % H;
-  const int nc = Tlen / CHUNK;
+  const int nc = (Tlen + CHUNK - 1) / CHUNK;
   const size_t tstride = (size_t)H * N;                       // one time step
   const size_t base = ((size_t)(bh / H) * Tlen * H + h) * N;  // (b, 0, h, 0)
   // state: value row si of the slice, columns CPT sg .. CPT sg + CPT; the
@@ -314,19 +357,19 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
   // the matrices' entries above their triangles stay 0
   for (int idx = tid; idx < 2 * L::MATS; idx += NT) mats[idx] = 0.f;
   // this slice's saved states: zin[(bh / ZHEADS, c, j), (bh % ZHEADS) N + i0 + si]
-  float* zhead = zin + (size_t)(bh / ZHEADS) * nc * N * ZROW + (bh % ZHEADS) * N + i0 + si;
+  float* zhead = SAVE ? zin + (size_t)(bh / ZHEADS) * nc * N * ZROW + (bh % ZHEADS) * N + i0 + si : nullptr;
 
   // chunk c's r, w, k, a, b rows and v columns i0 .. i0 + ROWS into stage c % 3
   auto load = [&](int c) {
-    chunk_load<T, ROWS, NT>(raw + (c % C_STAGES) * L::STAGE, tid, base + (size_t)c * CHUNK * tstride, tstride,
-                            i0, r, w, k, a, b, v);
+    chunk_load<T, ROWS, NT, TAIL>(raw + (c % C_STAGES) * L::STAGE, tid, base + (size_t)c * CHUNK * tstride,
+                                  tstride, i0, r, w, k, a, b, v, Tlen - c * CHUNK);
   };
 
   // phase 1 (a): chunk c's factor tiles and decay
   auto factors = [&](int c) {
     const int p = (c & 1) * FT;
-    chunk_factors<T, P>(raw + (c % C_STAGES) * L::STAGE, fj, fp, az + p, rz + p, bl + p, kl + p, am, rm,
-                        bm, km, dec + (c & 1) * N);
+    chunk_factors<T, P, false, TAIL>(raw + (c % C_STAGES) * L::STAGE, fj, fp, az + p, rz + p, bl + p, kl + p,
+                                     am, rm, bm, km, dec + (c & 1) * N, nullptr, Tlen - c * CHUNK);
   };
 
   // phase 2 (a): chunk c's matrices, mats[c & 1] = M^T [s][t], Nm, sb, sk [t][s]
@@ -399,15 +442,18 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
 #pragma unroll
       for (int s4 = 0; s4 < CHUNK / 4; ++s4)
         yo = dot4(bq[s4], make_float4(u[4 * s4], u[4 * s4 + 1], u[4 * s4 + 2], u[4 * s4 + 3]), yo);
-      y[base + (size_t)(c * CHUNK + ts[o]) * tstride + i0 + si] = from_f<T>(yo);
+      if (!TAIL || c * CHUNK + ts[o] < Tlen)  // no y for an identity step past T
+        y[base + (size_t)(c * CHUNK + ts[o]) * tstride + i0 + si] = from_f<T>(yo);
     }
-    float* z = zhead + ((size_t)c * N + CPT * sg) * ZROW;  // zin[.., c, j, ..] = S[i][j]
+    if constexpr (SAVE) {
+      float* z = zhead + ((size_t)c * N + CPT * sg) * ZROW;  // zin[.., c, j, ..] = S[i][j]
 #pragma unroll
-    for (int q = 0; q < Q4; ++q) {
-      z[(size_t)(4 * q) * ZROW] = S[q].x;
-      z[(size_t)(4 * q + 1) * ZROW] = S[q].y;
-      z[(size_t)(4 * q + 2) * ZROW] = S[q].z;
-      z[(size_t)(4 * q + 3) * ZROW] = S[q].w;
+      for (int q = 0; q < Q4; ++q) {
+        z[(size_t)(4 * q) * ZROW] = S[q].x;
+        z[(size_t)(4 * q + 1) * ZROW] = S[q].y;
+        z[(size_t)(4 * q + 2) * ZROW] = S[q].z;
+        z[(size_t)(4 * q + 3) * ZROW] = S[q].w;
+      }
     }
     const T* vx = raw + (c % C_STAGES) * L::STAGE + 5 * L::TILE + si;
     const float4* bq = reinterpret_cast<const float4*>(bl + (c & 1) * FT + CPT * sg);
@@ -460,12 +506,12 @@ __global__ void __launch_bounds__(ROWS * chunk_threads_a_row<ROWS>(), 1) wkv7_fw
   for (int q = 0; q < Q4; ++q) reinterpret_cast<float4*>(s_out + srow)[q] = S[q];
 }
 
-template <int DT, int ROWS, int ZHEADS>
+template <int DT, int ROWS, int ZHEADS, int SAVE>
 int launch_fwd_res_rows(int B, int T, int H, const void* r, const void* w, const void* k,
                         const void* v, const void* a, const void* b, const void* s0, void* y,
                         void* s_out, void* zin, cudaStream_t st) {
   using X = ChunkStream<DT>;
-  const auto kernel = wkv7_fwd_res_kernel<DT, ROWS, ZHEADS>;
+  const auto kernel = wkv7_fwd_res_kernel<DT, ROWS, ZHEADS, SAVE>;
   constexpr size_t smem = ChunkSmem<DT, ROWS>::bytes;
   static hopper_host::SmemOptIn opt_in;
   const int e = opt_in(kernel, smem);
@@ -476,35 +522,37 @@ int launch_fwd_res_rows(int B, int T, int H, const void* r, const void* w, const
   return (int)cudaGetLastError();
 }
 
-template <int DT, int ZHEADS>
+template <int DT, int ZHEADS, int SAVE>
 int launch_fwd_res_dt(int rows, int B, int T, int H, const void* r, const void* w, const void* k,
                       const void* v, const void* a, const void* b, const void* s0, void* y,
                       void* s_out, void* zin, cudaStream_t st) {
   switch (rows) {
-    case 16: return launch_fwd_res_rows<DT, 16, ZHEADS>(B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
-    case 32: return launch_fwd_res_rows<DT, 32, ZHEADS>(B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
-    case 64: return launch_fwd_res_rows<DT, 64, ZHEADS>(B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
+    case 16: return launch_fwd_res_rows<DT, 16, ZHEADS, SAVE>(B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
+    case 32: return launch_fwd_res_rows<DT, 32, ZHEADS, SAVE>(B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
+    case 64: return launch_fwd_res_rows<DT, 64, ZHEADS, SAVE>(B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16; rows = the value rows a block owns
-// (16, 32 or 64). T a positive multiple of 16; H even for ZHEADS = 2.
-template <int ZHEADS>
+// (16, 32 or 64); H even for ZHEADS = 2. SAVE 1 (K5 / K12): T a positive
+// multiple of 16 and zin given. SAVE 0 (K1 / K11): any T >= 0, zin unused.
+template <int ZHEADS, int SAVE>
 int launch_fwd_res(int dtype, int rows, int B, int T, int H, int n, const void* r, const void* w,
                    const void* k, const void* v, const void* a, const void* b, const void* s0,
                    void* y, void* s_out, void* zin, void* stream) {
-  if (n != N || B <= 0 || H <= 0 || H % ZHEADS != 0 || T <= 0 || T % CHUNK != 0 || zin == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (n != N || B <= 0 || H <= 0 || H % ZHEADS != 0 || T < 0) return (int)cudaErrorInvalidValue;
+  if (SAVE && (T == 0 || T % CHUNK != 0 || zin == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_fwd_res_dt<0, ZHEADS>(rows, B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
+    return launch_fwd_res_dt<0, ZHEADS, SAVE>(rows, B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
   if (dtype == 1)
-    return launch_fwd_res_dt<1, ZHEADS>(rows, B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
+    return launch_fwd_res_dt<1, ZHEADS, SAVE>(rows, B, T, H, r, w, k, v, a, b, s0, y, s_out, zin, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of a K5 / K12 block, bytes (-1: no such instantiation).
+// Dynamic shared memory of a K1 / K5 / K11 / K12 block, bytes (-1: no such
+// instantiation).
 inline int fwd_res_smem_bytes(int dtype, int rows) {
   if (dtype != 0 && dtype != 1) return -1;
   switch (rows) {

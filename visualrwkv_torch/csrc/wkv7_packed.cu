@@ -15,15 +15,13 @@
 //   zin[p, c, j, h2 * 64 + i] = S_{2p+h2}[i, j]   (fp32 [B*H/2, T/16, 64, 128])
 // before step 16c, with p = b * H/2 + head pair.
 //
-// K11: wkv7_fwd_kernel<T, 2> of wkv7_seq.cuh, one block of 128 threads per
-// (b, head pair): thread h2 * 64 + i owns value row i of head 2p + h2 in
-// registers, and each step stages the pair's 128-wide r, w, k, a, b rows
-// (256 bytes a bf16 stream, one coalesced load of the block). The arithmetic
-// of a thread is K1's, so the outputs are bit-equal to K1. Bound: latency,
-// as K1 (T dependent steps), now over B*H/2 blocks, half of K1's: 16 at
-// B=1, H=32.
+// K11: wkv7_fwd_res_kernel<DT, ROWS, 2, 0> of wkv7_chunk.cuh, K1's chunked
+// kernel (a block per slice of value rows of one head, any T >= 0). Without
+// the saved states ZHEADS addresses nothing, so K11's arithmetic and
+// addresses are K1's and its outputs bit-equal to K1's; ZHEADS = 2 keeps it a
+// kernel of its own in a profile.
 //
-// K12: wkv7_fwd_res_kernel<DT, ROWS, 2> of wkv7_chunk.cuh, K5's chunked
+// K12: wkv7_fwd_res_kernel<DT, ROWS, 2, 1> of wkv7_chunk.cuh, K5's chunked
 // kernel (a block per slice of value rows of one head) with zin addressed
 // in the packed layout: row stride 128 and column offset (h % 2) * 64, so
 // each warp's store is still a run of adjacent floats. Its y, final state
@@ -44,11 +42,12 @@ extern "C" {
 
 const char* vrwkv_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K11: streams [B, T, H, 64], H even; s0 (may be null) and s_out fp32 [B, H, 64, 64].
-int wkv7_fwd_packed(int dtype, int B, int T, int H, int n, const void* r, const void* w,
+// K11: streams [B, T, H, 64], any T >= 0, H even; s0 (may be null) and s_out
+// fp32 [B, H, 64, 64]; rows = the value rows a block owns (16, 32 or 64).
+int wkv7_fwd_packed(int dtype, int rows, int B, int T, int H, int n, const void* r, const void* w,
                     const void* k, const void* v, const void* a, const void* b,
                     const void* s0, void* y, void* s_out, void* stream) {
-  return launch_fwd<2>(dtype, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, stream);
+  return launch_fwd_res<2, 0>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, nullptr, stream);
 }
 
 // K12: K5 (wkv7.cu) with the packed zin; T a positive multiple of 16, H
@@ -57,7 +56,7 @@ int wkv7_fwd_res_packed(int dtype, int rows, int B, int T, int H, int n, const v
                         const void* w, const void* k, const void* v, const void* a,
                         const void* b, const void* s0, void* y, void* s_out, void* zin,
                         void* stream) {
-  return launch_fwd_res<2>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
+  return launch_fwd_res<2, 1>(dtype, rows, B, T, H, n, r, w, k, v, a, b, s0, y, s_out, zin, stream);
 }
 
 // K13: as wkv7_bwd (wkv7_train.cu), with zin packed as K12 wrote it and the

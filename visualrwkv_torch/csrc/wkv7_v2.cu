@@ -1,6 +1,6 @@
 // RWKV-7 ("x070") WKV forward in the chunked matrix form (K16): y and the
-// final state of the recurrence of wkv7_seq.cuh, computed chunk by chunk
-// with matrix products instead of T dependent steps. Plain C interface,
+// final state of the recurrence of wkv7_chunk.cuh, computed chunk by chunk
+// with matrix products, at chunk 32. Plain C interface,
 // loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py.
 //
 // Replaces visualrwkv_tpu/ops/wkv7_pallas.py::wkv7_pallas_v2 (kernel
@@ -32,7 +32,8 @@
 //   * phase 2, one block of 256 threads per (b, h): the boundary recurrence
 //     over the T/32 chunks, y and Z in fp32 FMA, Z in shared memory, a 4 x 4
 //     register tile of the new Z a thread.
-// The dependent chain is T/32 chunk steps where K1 takes T token steps.
+// The dependent chain is T/32 chunk steps where K1 takes T/16 (K1 also walks
+// each 16-step chunk's solve in sequence).
 //
 // Bound on the H100: at B=8, T=512, H=32 (the shape the reference kernel's
 // note measured) the function reads about 29 MB of bf16 streams; its

@@ -523,7 +523,11 @@ def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
     fp32 forward substitution over 16 steps does not need (it reads about
     1e-6 relative error on the adversarial input of
     ``tests/test_torch_wkv7_chunked.py``, where the limit is 1e-5).
-    Without a gradient, CUDA tensors launch K1 (K11 when packed) and CPU
+    Without a gradient, CUDA tensors launch K1 (K11 when packed), K5's
+    kernel without the saved states: it too runs the 16-step chunk whatever
+    ``chunk`` is, at any T (the steps past T of its last chunk are identity
+    steps inside the kernel), and its envelope is K5's: finite up to w_raw
+    of about 2.4 on a whole chunk, where the models keep w_raw <= -0.5. CPU
     tensors take :func:`wkv7_plain` (:func:`wkv7_packed_plain`)."""
     _validate(r, w_raw, k, v, a, b)
     if _IMPL_MODE == "chunked":

@@ -5,9 +5,10 @@ K11 ``wkv7_fwd_packed``, K12 ``wkv7_fwd_res_packed`` and K13
 ``wkv7_bwd_packed`` (``csrc/wkv7_packed.cu``), and K16 ``wkv7_fwd_v2``, the
 chunked matrix form of the forward (``csrc/wkv7_v2.cu``). They take CUDA tensors only;
 the dispatchers in :mod:`visualrwkv_torch.ops.wkv7` send CPU tensors to the
-plain versions. K5 and K12 are one chunked kernel (``csrc/wkv7_chunk.cuh``)
-whose block owns a slice of value rows of one head; :func:`fwd_res_plan`
-chooses how many. K6 and K13 are one two-pass chunked VJP
+plain versions. K1, K5, K11 and K12 are one chunked kernel
+(``csrc/wkv7_chunk.cuh``; K5 and K12 also save the chunk states, K1 and
+K11 take any T) whose block owns a slice of value rows of one head;
+:func:`fwd_res_plan` chooses how many. K6 and K13 are one two-pass chunked VJP
 (``csrc/wkv7_chunk_bwd.cuh``): a pass laid out as K5 that carries the state
 cotangent through a workspace, then a block for each (b, h, chunk);
 :func:`bwd_plan` gives both launches.
@@ -33,15 +34,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 CHUNK = 16  # K5 / K12 save, and K6 / K13 read, the state entering every 16 steps
 V2_CHUNK = 32  # K16's chunk, the default of the JAX package's wkv7_pallas_v2
-# K5 / K12: value rows of a head's state a block may own, the most first, and
-# the blocks to reach: about one for each of the H100's 132 multiprocessors
+# K1 / K5 / K11 / K12: value rows of a head's state a block may own, the most
+# first, and the blocks to reach: about one for each of the H100's 132
+# multiprocessors
 FWD_RES_ROWS = (64, 32, 16)
 FWD_RES_BLOCKS = 128
 BWD_CHUNK_THREADS = 256  # K6 / K13's second pass: threads of a block of one (b, h, chunk)
 
 
 def _declare(lib: ctypes.CDLL, fwd: str, fwd_res: str, bwd: Optional[str]) -> None:
-    getattr(lib, fwd).argtypes = [_I, _I, _I, _I, _I] + [_P] * 10
+    getattr(lib, fwd).argtypes = [_I] * 6 + [_P] * 10
     getattr(lib, fwd_res).argtypes = [_I] * 6 + [_P] * 11
     names = [fwd, fwd_res]
     if bwd is not None:
@@ -99,7 +101,7 @@ def zin_shape(B: int, T: int, H: int, N: int, packed: bool) -> Tuple[int, int, i
 
 
 def fwd_res_plan(B: int, H: int, dtype: torch.dtype) -> dict:
-    """K5 / K12's launch for B * H heads: the value rows of a head's state a
+    """K1 / K5 / K11 / K12's launch for B * H heads: the value rows of a head's state a
     block owns (the most of ``FWD_RES_ROWS`` that still gives
     ``FWD_RES_BLOCKS`` blocks, else the fewest), the blocks, the threads a
     block (8 a row, 4 at 64 rows) and the dynamic shared memory of a block,
@@ -139,8 +141,8 @@ def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
 
 
 def kernel_smem_bytes(dtype: torch.dtype, rows: int) -> int:
-    """The library's own count of a K5 / K12 block's shared memory (-1: it
-    has no instantiation for ``rows``)."""
+    """The library's own count of a K1 / K5 / K11 / K12 block's shared memory
+    (-1: it has no instantiation for ``rows``)."""
     return _lib().wkv7_fwd_res_smem_bytes(_DTYPE_CODE[dtype], rows)
 
 
@@ -194,7 +196,8 @@ def _check_pairs(name: str, H: int) -> None:
 
 
 def _fwd(name: str, get_lib, save: bool, streams, initial_state):
-    """K1 / K5 / K11 / K12: (y, final state[, zin])."""
+    """K1 / K5 / K11 / K12, one kernel laid out by :func:`fwd_res_plan`:
+    (y, final state[, zin])."""
     r = streams[0]
     B, T, H, N = r.shape
     dev = r.device
@@ -208,11 +211,10 @@ def _fwd(name: str, get_lib, save: bool, streams, initial_state):
     s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
     zin = torch.empty(zin_shape(B, T, H, N, packed), dtype=torch.float32, device=dev) if save else None
     lib = get_lib()
-    code = _DTYPE_CODE[r.dtype]
-    lead = (code, fwd_res_plan(B, H, r.dtype)["rows"]) if save else (code,)
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
-            *lead, B, T, H, N, *(x.data_ptr() for x in streams),
+            _DTYPE_CODE[r.dtype], fwd_res_plan(B, H, r.dtype)["rows"], B, T, H, N,
+            *(x.data_ptr() for x in streams),
             _ptr(initial_state), y.data_ptr(), s_out.data_ptr(),
             *((zin.data_ptr(),) if save else ()), _stream(dev),
         )
@@ -256,9 +258,11 @@ def _bwd(name: str, get_lib, streams, zin: Tensor, dsfinal: Tensor) -> Tuple[Ten
 
 def wkv7_fwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
              initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """K1: streams ``[B, T, H, 64]`` (all fp32 or all bf16), optional fp32
-    initial state ``[B, H, 64, 64]``. Returns (y in the stream dtype, final
-    fp32 state)."""
+    """K1: streams ``[B, T, H, 64]`` (all fp32 or all bf16), any T >= 0,
+    optional fp32 initial state ``[B, H, 64, 64]``. The chunked kernel at
+    chunk 16 (:func:`fwd_res_plan`), the steps past T of its last chunk
+    masked to identity steps. Returns (y in the stream dtype, final fp32
+    state)."""
     return _fwd("wkv7_fwd", _lib, False, (r, w_raw, k, v, a, b), initial_state)
 
 
@@ -314,8 +318,8 @@ def wkv7_fwd_v2(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Te
 
 def wkv7_fwd_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                     initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """K11: :func:`wkv7_fwd` with one block per head pair (H even); the same
-    layouts and the same values."""
+    """K11: :func:`wkv7_fwd` under the head-pair implementation (H even); the
+    same kernel, layouts and values, bit for bit."""
     return _fwd("wkv7_fwd_packed", _packed_lib, False, (r, w_raw, k, v, a, b), initial_state)
 
 
