@@ -34,6 +34,11 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   without and with an initial state, fp32 streams with one; K1 at the
   serving batch B=4) and at a ragged T (1049), ``WKV7_PREFILL_CASES``:
   device and eager time and the outputs' digest;
+- ``wkv7_step``: the decode steps K2 and K4 at B = 1, 4 and 32 with fp32
+  and bf16 states (``WKV7_STEP_CASES``), on one state a case: device time
+  L2-hot and L2-cold (the state cycling over copies larger than the L2),
+  eager time, and the outputs' digest (K4's state in the head layout, so
+  that K2's and K4's digests are equal when their outputs are);
 - ``x070_prefill_profile``: the flagship's B=1 prefill (1024 + 32 tokens,
   fp32 state, after one unprofiled prefill) under the profiler: card busy,
   idle share and device ms by kind (``device_breakdown``);
@@ -45,7 +50,7 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   gradient pass's card busy time, idle share and K8 / K9 device time.
 
 One ``AB {json}`` line a side (with ptxas's registers and spills of its
-attention, K7 / K8, K9, K5 / K12 and K6 / K13 kernels); the card's name and
+attention, K7 / K8, K9, K5 / K12, K6 / K13 and K2 / K4 kernels); the card's name and
 power limit first.
 """
 
@@ -93,8 +98,8 @@ def k3_times(cs, dev) -> list:
     return out
 
 
-SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "wkv7_prefill", "x070_prefill_profile",
-            "x060_serving", "x060_training")
+SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "wkv7_prefill", "wkv7_step",
+            "x070_prefill_profile", "x060_serving", "x060_training")
 # K7 / K8 / K9 timed: (kernel, B, T, H, stream dtype, initial state,
 # chunk_len), the timed cases of chip_smoke's check_wkv6_fwd (the x060 7B
 # prefill) and check_wkv6_train (the 1.6B training step; K7 at the same
@@ -205,6 +210,49 @@ def wkv7_times(cs, dev, cases=None) -> list:
     return out
 
 
+# K2 / K4 timed: (B, state dtype) at H=32, the cases of chip_smoke's
+# check_wkv7_step and check_wkv7_step_flat; an L2-cold time cycles the state
+# over copies larger than COLD_BYTES (more than twice the H100's 50 MB L2)
+WKV7_STEP_CASES = tuple((B, dname) for B in (1, 4, 32) for dname in ("float32", "bfloat16"))
+COLD_BYTES = 128 << 20
+
+
+def wkv7_step_times(cs, dev) -> list:
+    """K2 and K4 at every case of ``WKV7_STEP_CASES`` through the tree's own
+    wrappers, on one state (K4's in the flat layout): device time L2-hot
+    (``cuda_ms`` on that state), L2-cold (one CUDA graph calling the kernel
+    once on each copy of the state), eager time, ms, and the digest of the
+    outputs, K4's new state taken back to the head layout (equal K2 and K4
+    digests: bit-equal outputs). The cold time is ``chip_smoke.cold_ms``'s,
+    written out here because a parent's ``chip_smoke`` may lack it."""
+    import itertools
+
+    import torch
+
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out, H = [], 32
+    for B, dname in WKV7_STEP_CASES:
+        vecs = cs._wkv_streams(gen, (B, H, 64), torch.float32, dev)
+        head = (torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3).to(getattr(torch, dname))
+        for kernel, s0 in (("wkv7_step", head), ("wkv7_step_flat", pw.state_to_flat(head).contiguous())):
+            fn = getattr(wkv7_cuda, kernel)
+            s, y = fn(s0, *vecs)
+            if s.dim() == 3:
+                s = pw.state_from_flat(s, H)
+            n = max(8, -(-COLD_BYTES // (s0.numel() * s0.element_size())))
+            states = itertools.cycle([s0.clone() for _ in range(n)])
+            out.append({"case": f"{kernel} B={B} H={H} {dname} state", "digest": digest((s, y)),
+                        "ms": cs.cuda_ms(lambda: fn(s0, *vecs), reps=50),
+                        "cold_ms": cs.cuda_ms(lambda: fn(next(states), *vecs), reps=n),
+                        "eager_ms": cs.eager_ms(lambda: fn(s0, *vecs), reps=50)})
+            del states
+    return out
+
+
 def x070_prefill_profile(cs, dev) -> dict:
     """The flagship's B=1 prefill under the profiler, after one unprofiled
     prefill of the same request: card busy, idle share, device ms by kind."""
@@ -243,7 +291,8 @@ def child(tree: str, sections) -> None:
            "ptxas": {f"{kern}{list(args)}": v for (lib, kern, args), v in getattr(cs, "PTXAS", {}).items()
                      if lib.startswith("attention") or kern in (
                          "wkv6_fwd_kernel", "wkv6_bwd_kernel", "wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel",
-                         "wkv7_fwd_res_kernel", "wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel")}}
+                         "wkv7_fwd_res_kernel", "wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel",
+                         "wkv7_step_kernel")}}
     if "k3" in sections:
         out["k3"] = k3_times(cs, dev)
     if "attention_bwd" in sections:
@@ -282,6 +331,9 @@ def child(tree: str, sections) -> None:
         torch.cuda.empty_cache()
     if "wkv7_prefill" in sections:
         out["wkv7_prefill"] = wkv7_times(cs, dev, WKV7_PREFILL_CASES)
+        torch.cuda.empty_cache()
+    if "wkv7_step" in sections:
+        out["wkv7_step"] = wkv7_step_times(cs, dev)
         torch.cuda.empty_cache()
     if "x060_serving" in sections:
         cfg = cs.x060_serving_cfg()

@@ -13,7 +13,11 @@ Phases (any failure exits non-zero; nothing is caught):
    shapes of the serving and training paths below, with kernel, plain
    and library (one PyTorch call computing the same function, timed as a
    yardstick only) times and the least time the card could take
-   (``bound_ms``). The chunked WKV7 prefill forward K1 at the 1B5
+   (``bound_ms``). The decode steps K2 / K4 at B = 1, 4 and 32 with fp32
+   and bf16 states (``STEP_CASES``), each case logging its plan, timed
+   L2-hot, L2-cold (the state cycling over copies larger than L2) and
+   beside the launch floor (an empty kernel on K2's grid), K4 equal to K2
+   bit for bit. The chunked WKV7 prefill forward K1 at the 1B5
    prefill's shapes (B=1 and the serving batch B=4, T=1056), each case
    logging its plan (no K1 / K11 instantiation may spill), at ragged T
    (0, 1, 8, 24, 1049: ``WKV7_FWD_RAGGED_CASES``) and at the ten inputs of
@@ -88,8 +92,8 @@ Phases (any failure exits non-zero; nothing is caught):
 8. ``ops.wkv7.wkv7_v2``, the chunk-batched WKV7 forward (K16), once through
    its public entry point.
 
-The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step)
-come after all counted runs, each model built again from its seed: once the profiler has been used in a
+The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
+with K2's device time a B=1 decode step) come after all counted runs, each model built again from its seed: once the profiler has been used in a
 process it slows every later launch of a host-bound loop.
 
 The line before the last is the JSON list of kernels; the last line is
@@ -430,7 +434,43 @@ def check_wkv7_fwd_paths(gen, dev):
         del xs
 
 
+# K2 / K4's cases: (B, state dtype) at H=32, the flagship's heads: the
+# serving path's B=1 (fp32 state) and its batch of four (bf16), the other
+# dtype of each, and B=32, where the grid fills the card
+STEP_CASES = tuple((B, dname) for B in (1, 4, 32) for dname in ("float32", "bfloat16"))
+# Bytes of distinct states an L2-cold timing cycles through: more than twice
+# the H100's 50 MB L2, so that each call reads its state from device memory,
+# as a decode step does once the other layers' weights have streamed through
+COLD_BYTES = 128 << 20
+
+
+def cold_ms(fn, state, reps: int = 0) -> float:
+    """Device time of ``fn(s)`` with ``s`` cycling over copies of ``state``
+    (at least ``reps``, and more than ``COLD_BYTES`` in all): one CUDA graph
+    calls ``fn`` once on each copy, replayed as in :func:`cuda_ms`, so no
+    call finds its state in L2."""
+    import itertools
+
+    n = max(reps, 8, -(-COLD_BYTES // (state.numel() * state.element_size())))
+    states = itertools.cycle([state.clone() for _ in range(n)])
+    return cuda_ms(lambda: fn(next(states)), reps=n, warmup=2)
+
+
+def _step_inputs(gen, B, H, sdt, dev):
+    """Decode-step vectors (fp32 [B, H, 64]) and a head-layout state in ``sdt``."""
+    import torch
+
+    vecs = _wkv_streams(gen, (B, H, 64), torch.float32, dev)
+    return vecs, (torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3).to(sdt)
+
+
 def check_wkv7_step(gen, dev):
+    """K2 at ``STEP_CASES`` against the plain step (y 1e-3; the new state
+    1e-3 fp32, 1e-2 bf16: one bf16 rounding), each case logging its plan
+    (``wkv7_cuda.step_plan``). Timed L2-hot (:func:`cuda_ms` calls it on one
+    state), L2-cold (:func:`cold_ms`) and eagerly, beside the launch floor:
+    an empty kernel on the same grid with the same arguments
+    (``wkv7_cuda.step_floor``), timed by :func:`cuda_ms` too."""
     import torch
 
     from visualrwkv_torch.ops import wkv7 as pw
@@ -438,29 +478,42 @@ def check_wkv7_step(gen, dev):
 
     H, N = 32, 64
     out = []
-    for B in (1, 32):
-        for sdt in (torch.float32, torch.bfloat16):
-            case = f"B={B} H={H} N={N} {str(sdt)[6:]} state, fp32 vectors"
-            vecs = _wkv_streams(gen, (B, H, N), torch.float32, dev)
-            s0 = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3).to(sdt)
-            c = Check("wkv7_step", case)
-            s, y = wkv7_cuda.wkv7_step(s0, *vecs)
-            s_ref, y_ref = pw.wkv7_step(s0, *vecs)
-            torch.cuda.synchronize()
-            assert s.dtype == sdt
-            c.compare("y (fp32)", y, y_ref, 1e-3)
-            c.compare(f"new state ({str(sdt)[6:]})", s.float(), s_ref, 1e-3 if sdt == torch.float32 else 1e-2)
-            fn = lambda: wkv7_cuda.wkv7_step(s0, *vecs)
-            k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
-            p_ms = cuda_ms(lambda: pw.wkv7_step(s0, *vecs), reps=20)
-            nbytes = 2 * B * H * N * N * s0.element_size() + 7 * B * H * N * 4
-            out.append(c.record(k_ms, p_ms, None, nbytes, 9 * B * H * N * N, FP32_FLOPS, k_eager))
+    for B, dname in STEP_CASES:
+        sdt = getattr(torch, dname)
+        case = f"B={B} H={H} N={N} {dname} state, fp32 vectors"
+        plan = wkv7_cuda.step_plan(B, H, sdt)
+        log(f"  wkv7_step [{case}] plan: {plan}")
+        vecs, s0 = _step_inputs(gen, B, H, sdt, dev)
+        c = Check("wkv7_step", case)
+        s, y = wkv7_cuda.wkv7_step(s0, *vecs)
+        s_ref, y_ref = pw.wkv7_step(s0, *vecs)
+        torch.cuda.synchronize()
+        assert s.dtype == sdt
+        c.compare("y (fp32)", y, y_ref, 1e-3)
+        c.compare(f"new state ({dname})", s.float(), s_ref, 1e-3 if sdt == torch.float32 else 1e-2)
+        fn = lambda: wkv7_cuda.wkv7_step(s0, *vecs)
+        k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
+        k_cold = cold_ms(lambda st: wkv7_cuda.wkv7_step(st, *vecs), s0)
+        floor_ms = cuda_ms(lambda: wkv7_cuda.step_floor(s0, *vecs), reps=50)
+        p_ms = cuda_ms(lambda: pw.wkv7_step(s0, *vecs), reps=20)
+        nbytes = 2 * B * H * N * N * s0.element_size() + 7 * B * H * N * 4
+        rec = c.record(k_ms, p_ms, None, nbytes, 9 * B * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(plan=plan, cold_ms=k_cold, launch_floor_ms=floor_ms)
+        log(f"  wkv7_step [{case}] L2-cold {k_cold:.5f} ms, launch floor (empty kernel, same grid) "
+            f"{floor_ms:.5f} ms")
+        if B == 1 and sdt == torch.float32:
+            goal = max(0.0018, floor_ms + 0.0006)
+            log(f"  wkv7_step [{case}] goal: at most max(0.0018, floor + 0.0006) = {goal:.5f} ms: "
+                f"{'met' if k_ms <= goal else 'missed'} ({k_ms:.5f} ms)")
+        out.append(rec)
     return out
 
 
 def check_wkv7_step_flat(gen, dev):
-    """K4 on the flat state [B, 64, H*64] against its plain version, and
-    beside K2 (the same step on the head layout) at the same batch."""
+    """K4 on the flat state [B, 64, H*64] at ``STEP_CASES`` against its plain
+    version, timed as K2 is in :func:`check_wkv7_step`, and beside K2 on the
+    same state in the head layout: K4's y and new state must equal K2's bit
+    for bit (one template, only the row stride differs)."""
     import torch
 
     from visualrwkv_torch.ops import wkv7 as pw
@@ -468,29 +521,35 @@ def check_wkv7_step_flat(gen, dev):
 
     H, N = 32, 64
     out = []
-    for B in (1, 32):
-        for sdt in (torch.float32, torch.bfloat16):
-            dname = str(sdt)[6:]
-            case = f"B={B} H={H} N={N} {dname} flat state [B, {N}, {H * N}], fp32 vectors"
-            vecs = _wkv_streams(gen, (B, H, N), torch.float32, dev)
-            head = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3).to(sdt)
-            s0 = pw.state_to_flat(head).contiguous()
-            c = Check("wkv7_step_flat", case)
-            s, y = wkv7_cuda.wkv7_step_flat(s0, *vecs)
-            s_ref, y_ref = pw.wkv7_step_flat(s0.float(), *vecs)
-            torch.cuda.synchronize()
-            assert s.dtype == sdt and s.shape == s0.shape
-            c.compare("y (fp32)", y, y_ref, 1e-3)
-            c.compare(f"new state ({dname})", s.float(), s_ref, 1e-3 if sdt == torch.float32 else 1e-2)
-            fn = lambda: wkv7_cuda.wkv7_step_flat(s0, *vecs)
-            k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
-            p_ms = cuda_ms(lambda: pw.wkv7_step_flat(s0, *vecs), reps=20)
-            k2_ms = cuda_ms(lambda: wkv7_cuda.wkv7_step(head, *vecs), reps=50)
-            nbytes = 2 * B * H * N * N * s0.element_size() + 7 * B * H * N * 4
-            rec = c.record(k_ms, p_ms, None, nbytes, 9 * B * H * N * N, FP32_FLOPS, k_eager)
-            rec["head_layout_k2_ms"] = k2_ms
-            log(f"  wkv7_step_flat [{case}] K2 on the head layout at the same B: {k2_ms:.5f} ms")
-            out.append(rec)
+    for B, dname in STEP_CASES:
+        sdt = getattr(torch, dname)
+        case = f"B={B} H={H} N={N} {dname} flat state [B, {N}, {H * N}], fp32 vectors"
+        plan = wkv7_cuda.step_plan(B, H, sdt, flat=True)
+        log(f"  wkv7_step_flat [{case}] plan: {plan}")
+        vecs, head = _step_inputs(gen, B, H, sdt, dev)
+        s0 = pw.state_to_flat(head).contiguous()
+        c = Check("wkv7_step_flat", case)
+        s, y = wkv7_cuda.wkv7_step_flat(s0, *vecs)
+        s_ref, y_ref = pw.wkv7_step_flat(s0.float(), *vecs)
+        s2, y2 = wkv7_cuda.wkv7_step(head, *vecs)
+        torch.cuda.synchronize()
+        assert s.dtype == sdt and s.shape == s0.shape
+        c.compare("y (fp32)", y, y_ref, 1e-3)
+        c.compare(f"new state ({dname})", s.float(), s_ref, 1e-3 if sdt == torch.float32 else 1e-2)
+        assert torch.equal(y, y2) and torch.equal(pw.state_from_flat(s, H), s2), \
+            f"K4 differs from K2 on the same state [{case}]"
+        log(f"  wkv7_step_flat [{case}] y and new state equal to K2's on the same state, bit for bit")
+        fn = lambda: wkv7_cuda.wkv7_step_flat(s0, *vecs)
+        k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
+        k_cold = cold_ms(lambda st: wkv7_cuda.wkv7_step_flat(st, *vecs), s0)
+        p_ms = cuda_ms(lambda: pw.wkv7_step_flat(s0, *vecs), reps=20)
+        k2_ms = cuda_ms(lambda: wkv7_cuda.wkv7_step(head, *vecs), reps=50)
+        nbytes = 2 * B * H * N * N * s0.element_size() + 7 * B * H * N * 4
+        rec = c.record(k_ms, p_ms, None, nbytes, 9 * B * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(plan=plan, cold_ms=k_cold, head_layout_k2_ms=k2_ms)
+        log(f"  wkv7_step_flat [{case}] L2-cold {k_cold:.5f} ms; K2 on the head layout at the same B: "
+            f"{k2_ms:.5f} ms")
+        out.append(rec)
     return out
 
 
@@ -2020,10 +2079,8 @@ def _category(kernel_name: str) -> str:
             else "K6 wkv7_bwd"
     if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS, FORM>
         return "K8 wkv6_fwd_res" if _template_flags(n, "wkv6_fwd_kernel")[0] else "K7 wkv6_fwd"
-    # the second template argument tells K4 from K2
-    flag = "true>" in n.replace(" ", "") or "(bool)1>" in n.replace(" ", "")
-    if "wkv7_step_kernel" in n:
-        return "K4 wkv7_step_flat" if flag else "K2 wkv7_step"
+    if "wkv7_step_kernel<" in n:  # <DT, FLAT, ROWS>
+        return "K4 wkv7_step_flat" if _template_flags(n, "wkv7_step_kernel")[0] else "K2 wkv7_step"
     if "wkv6_step_kernel" in n:
         return "K10 wkv6_step"
     if "wkv6_bwd_" in n:  # both passes of K9
@@ -2057,7 +2114,7 @@ def device_breakdown(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, kinds = [], {}
+    spans, kinds, counts = [], {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2065,6 +2122,7 @@ def device_breakdown(fn):
         spans.append((a, b))
         k = _category(e.name)
         kinds[k] = kinds.get(k, 0.0) + (b - a) / 1e3
+        counts[k] = counts.get(k, 0) + 1
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -2072,7 +2130,8 @@ def device_breakdown(fn):
             end = b
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1 - busy_us / 1e3 / wall_ms, "launches": len(spans),
-            "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+            "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+            "events_by_kind": counts}
 
 
 def log_breakdown(prefix: str, prof: dict):
@@ -2630,6 +2689,11 @@ def main(argv=None) -> int:
              for form in (0, 1, 2)} | {("wkv6_train", "wkv6_bwd_chunk_kernel", (dt,)) for dt in (0, 1)}
     assert set(k9) == want9, f"K9: ptxas reported {sorted(k9)}, not {sorted(want9)}"
     assert not any(v.get("spill_bytes", 0) for v in k9.values()), f"a K9 instantiation spills: {k9}"
+    k24 = {key: v for key, v in PTXAS.items() if key[1] == "wkv7_step_kernel"}
+    want24 = {("wkv7", "wkv7_step_kernel", (dt, flat, rows)) for dt in (0, 1) for flat in (0, 1)
+              for rows in (8, 16, 32, 64)}
+    assert set(k24) == want24, f"K2 / K4: ptxas reported {sorted(k24)}, not {sorted(want24)}"
+    assert not any(v.get("spill_bytes", 0) for v in k24.values()), f"a K2 / K4 instantiation spills: {k24}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
@@ -2757,6 +2821,15 @@ def main(argv=None) -> int:
         params = init_model(c, args.seed, dev)
         out["breakdown"] = prof(c, params, dev, args.seed)
         log_breakdown(what, out["breakdown"])
+        if what == "x070 serving":  # K2's device time a B=1 decode step, from the profile
+            d = out["breakdown"]["decode (9 steps, B=1)"]
+            k2_ms, k2_n = d["device_ms_by_kind"].get("K2 wkv7_step", 0.0), d["events_by_kind"].get("K2 wkv7_step", 0)
+            steps = k2_n / c.rwkv.n_layer
+            assert k2_n > 0 and k2_n % c.rwkv.n_layer == 0, f"K2 launches in the decode profile: {k2_n}"
+            d["k2_ms_per_step"] = k2_ms / steps
+            log(f"  x070 serving, decode B=1: K2 {k2_ms / steps:.4f} ms of device time a step ({k2_n} "
+                f"launches over {steps:g} steps, {k2_ms / k2_n * 1e3:.3f} us a launch) of the card's "
+                f"{d['device_busy_ms'] / steps:.2f} ms busy a step")
         if what == "x060 1.6B training":
             g = out["breakdown"]["loss and gradients"]
             k9 = g["device_ms_by_kind"].get("K9 wkv6_bwd", 0.0)

@@ -7,8 +7,9 @@ the WKV6 backward K9 (``csrc/wkv6_chunk_bwd.cuh`` and its first pass in
 training forward K5 (``csrc/wkv7_chunk.cuh``, built through
 ``csrc/wkv7.cu``), the WKV7 prefill forward K1 / K11 (the same kernel
 without the saved states, built through ``csrc/wkv7.cu`` and
-``csrc/wkv7_packed.cu``) or the WKV7 backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built
-through ``csrc/wkv7_train.cu``).
+``csrc/wkv7_packed.cu``), the WKV7 backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built
+through ``csrc/wkv7_train.cu``) or the WKV7 decode steps K2 / K4
+(``csrc/wkv7.cu``).
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
     python3 chip_variants.py base stages2          # some of them
@@ -17,6 +18,7 @@ through ``csrc/wkv7_train.cu``).
     python3 chip_variants.py --wkv7 [names]        # K5: WKV7_VARIANTS
     python3 chip_variants.py --wkv7fwd [names]     # K1 / K11: WKV7FWD_VARIANTS
     python3 chip_variants.py --wkv7bwd [names]     # K6: WKV7BWD_VARIANTS
+    python3 chip_variants.py --wkv7step [names]    # K2 / K4: WKV7STEP_VARIANTS
 
 A variant is the source with text substitutions (each names the design
 choice it undoes, or the part of the work it leaves out). Each is compiled
@@ -37,7 +39,9 @@ gradients <= 2e-2 with bf16 streams, 1e-3 with fp32); or K5 runs at
 1e-3); or K1 / K11 at ``WKV7FWD_CASES`` against the fp32 sequential scan
 (the same limits); or K6 runs at ``WKV7BWD_CASES`` from K5's states, each exact variant
 held against ``wkv7_bwd_plain`` (the seven gradients <= 2e-2 with bf16
-streams, 1e-3 with fp32). The card's name and power limit come first, the SDPA forward's time
+streams, 1e-3 with fp32); or K2 / K4 at ``WKV7STEP_CASES``, L2-hot and
+L2-cold, each exact variant held against the plain step (y <= 1e-3, the
+new state 1e-3 fp32, 1e-2 bf16). The card's name and power limit come first, the SDPA forward's time
 at each no-bias case next (K3), and one ``VARIANT {json}`` line a variant
 last (its times in turn order).
 """
@@ -317,6 +321,64 @@ WKV6BWD_VARIANTS = {
                       "    for (int s = 0; s < 0; ++s) {\n      const int o = s * LDP + j;")], None, False),
 }
 WKV6BWD_CASES = ((2, 2048, 32, "bfloat16"), (2, 2048, 32, "float32"))
+# K2 / K4 (csrc/wkv7.cu): name -> ([(text in wkv7.cu, replacement)], the
+# value rows a block at every case (in place of wkv7_cuda.step_plan's) or
+# None for the plan's, exact). "bulk" brings the block's slice of the state
+# into shared memory by cp.async.bulk (one copy for K2's contiguous slice,
+# one a row for K4's, completing on an mbarrier) while the threads load the
+# vectors and form w, in place of the register loads; "vec8" has 8-byte
+# accesses (2 fp32 or 4 bf16 columns a lane, rows of 32 or 16 lanes);
+# "threads128" gives a thread two rows past 128 threads a block (256 in the
+# source).
+_BULK_COPY = """// one bulk asynchronous copy of `bytes` from device to shared memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\\n"
+               ::"r"(hopper::smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(hopper::smem_u32(bar))
+               : "memory");
+}
+
+"""
+_BULK_ANCHOR = "// Block (bh, slice): value rows row0 .. row0 + ROWS of head bh."
+_STEP_LOADS = """  uint32_t u[PARTS][W];
+#pragma unroll
+  for (int p = 0; p < PARTS; ++p) load_words<W>(s_in + base + (i0 + p) * row_stride + j0, u[p]);
+"""
+_BULK_LOADS = """  constexpr uint32_t ROW_BYTES = N * sizeof(StepState<DT>);
+  __shared__ __align__(128) StepState<DT> slice[ROWS * N];
+  __shared__ uint64_t bar;
+  const int row0 = (blockIdx.x % SLICES) * ROWS;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar, 1);
+    hopper::fence_barrier_init();
+    hopper::mbar_arrive_expect_tx(&bar, ROWS * ROW_BYTES);
+    if (FLAT) {
+      for (int i = 0; i < ROWS; ++i) bulk_copy(slice + i * N, s_in + base + (row0 + i) * row_stride, ROW_BYTES, &bar);
+    } else {
+      bulk_copy(slice, s_in + base + (size_t)row0 * N, ROWS * ROW_BYTES, &bar);
+    }
+  }
+  uint32_t u[PARTS][W];
+"""
+_STEP_W = """  for (int j = 0; j < CPL; ++j) ww[j] = expf(-expf(ww[j]));
+"""
+_BULK_W = _STEP_W + """  __syncthreads();
+  hopper::mbar_wait(&bar, 0);
+#pragma unroll
+  for (int p = 0; p < PARTS; ++p) load_words<W>(slice + (i0 - row0 + p) * N + j0, u[p]);
+"""
+WKV7STEP_VARIANTS = {
+    "base": ([], None, True),
+    "rows8": ([], 8, True),
+    "rows16": ([], 16, True),
+    "rows32": ([], 32, True),
+    "rows64": ([], 64, True),
+    "bulk": ([(_BULK_ANCHOR, _BULK_COPY + _BULK_ANCHOR), (_STEP_LOADS, _BULK_LOADS), (_STEP_W, _BULK_W)], None, True),
+    "vec8": ([("constexpr int STEP_VEC = 16;", "constexpr int STEP_VEC = 8;")], None, True),
+    "threads128": ([("constexpr int STEP_THREADS = 256;", "constexpr int STEP_THREADS = 128;")], None, True),
+}
+# K2 / K4 timed: (kernel, B, state dtype) at H=32, L2-hot and L2-cold
+WKV7STEP_CASES = tuple((kernel, B, dname) for B in (1, 4, 32) for dname in ("float32", "bfloat16")
+                       for kernel in ("wkv7_step", "wkv7_step_flat"))
 # K8 and K7 timed: (kernel, B, T, H, stream dtype)
 WKV6_CASES = (("wkv6_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv6_fwd_res", 2, 2048, 32, "float32"),
               ("wkv6_fwd", 1, 624, 64, "bfloat16"), ("wkv6_fwd", 4, 624, 64, "bfloat16"))
@@ -542,12 +604,57 @@ def time_wkv6bwd(names, libs, dev) -> int:
     return 0
 
 
+def time_wkv7step(names, libs, dev) -> int:
+    """K2 / K4 at ``WKV7STEP_CASES`` under each variant, in turns, L2-hot
+    (:func:`chip_smoke.cuda_ms`) and L2-cold (:func:`chip_smoke.cold_ms`);
+    each exact variant held against the plain step (y <= 1e-3, the new state
+    1e-3 fp32, 1e-2 bf16)."""
+    import torch
+
+    import chip_smoke as cs
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for kernel, B, dname in WKV7STEP_CASES:
+        sdt = getattr(torch, dname)
+        vecs, s0 = cs._step_inputs(gen, B, 32, sdt, dev)
+        if kernel == "wkv7_step_flat":
+            s0 = pw.state_to_flat(s0).contiguous()
+        s_ref, y_ref = getattr(pw, kernel)(s0.float(), *vecs)
+        fn = getattr(wkv7_cuda, kernel)
+        cases.append((f"{kernel} B={B} {dname}", fn, s0, vecs, s_ref, y_ref, 1e-3 if sdt == torch.float32 else 1e-2))
+    times = {n: {f"{c[0]} {t}": [] for c in cases for t in ("hot", "cold")} for n in names}
+    plan = wkv7_cuda.step_plan
+    for name in names + names[::-1]:
+        cuda_build._LIBS["wkv7"] = libs[name]
+        _, plan_rows, exact = WKV7STEP_VARIANTS[name]
+        wkv7_cuda.step_plan = plan if plan_rows is None else \
+            (lambda B, H, dt, flat=False, rows=plan_rows: {**plan(B, H, dt, flat), "rows": rows})
+        for case, fn, s0, vecs, s_ref, y_ref, stol in cases:
+            s, y = fn(s0, *vecs)
+            torch.cuda.synchronize()
+            if exact:
+                e_y, e_s = cs.rel_rms(y, y_ref), cs.rel_rms(s.float(), s_ref.float())
+                assert e_y <= 1e-3 and e_s <= stol, (name, case, e_y, e_s)
+            times[name][f"{case} hot"].append(cs.cuda_ms(lambda fn=fn, s0=s0, vecs=vecs: fn(s0, *vecs), reps=50))
+            times[name][f"{case} cold"].append(cs.cold_ms(lambda st, fn=fn, vecs=vecs: fn(st, *vecs), s0))
+    wkv7_cuda.step_plan = plan
+    for name in names:
+        print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
-    kinds = ("wkv6", "wkv6bwd", "wkv7", "wkv7fwd", "wkv7bwd")
+    kinds = ("wkv6", "wkv6bwd", "wkv7", "wkv7fwd", "wkv7bwd", "wkv7step")
     kind = argv[0][2:] if argv and argv[0][2:] in kinds and argv[0][:2] == "--" else None
     argv = argv[1:] if kind else argv
     known = {"wkv6": WKV6_VARIANTS, "wkv6bwd": WKV6BWD_VARIANTS, "wkv7": WKV7_VARIANTS,
-             "wkv7fwd": WKV7FWD_VARIANTS, "wkv7bwd": WKV7BWD_VARIANTS, None: VARIANTS}[kind]
+             "wkv7fwd": WKV7FWD_VARIANTS, "wkv7bwd": WKV7BWD_VARIANTS, "wkv7step": WKV7STEP_VARIANTS,
+             None: VARIANTS}[kind]
     names = argv or list(known)
     bad = [n for n in names if n not in known]
     if bad:
@@ -582,6 +689,8 @@ def main(argv) -> int:
                 for src in ("wkv7", "wkv7_packed")}
         return time_wkv7(names, {n: {src: libs[src][n] for src in libs} for n in names}, dev,
                          WKV7FWD_VARIANTS, WKV7FWD_CASES)
+    if kind == "wkv7step":
+        return time_wkv7step(names, build(names, "wkv7", WKV7STEP_VARIANTS), dev)
     if kind == "wkv7bwd":
         return time_wkv7bwd(names, build(names, "wkv7_train", WKV7BWD_VARIANTS, headers=("wkv7_chunk_bwd.cuh",)),
                             dev)

@@ -11,7 +11,10 @@ K11 take any T) whose block owns a slice of value rows of one head;
 :func:`fwd_res_plan` chooses how many. K6 and K13 are one two-pass chunked VJP
 (``csrc/wkv7_chunk_bwd.cuh``): a pass laid out as K5 that carries the state
 cotangent through a workspace, then a block for each (b, h, chunk);
-:func:`bwd_plan` gives both launches.
+:func:`bwd_plan` gives both launches. K2 and K4 are one kernel whose block
+owns a slice of value rows of one head; :func:`step_plan` chooses how many.
+:func:`step_floor` launches an empty kernel on K2's grid, to measure the
+launch floor (``csrc/launch_floor.cu``; no path runs it).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises on a
@@ -40,6 +43,12 @@ V2_CHUNK = 32  # K16's chunk, the default of the JAX package's wkv7_pallas_v2
 FWD_RES_ROWS = (64, 32, 16)
 FWD_RES_BLOCKS = 128
 BWD_CHUNK_THREADS = 256  # K6 / K13's second pass: threads of a block of one (b, h, chunk)
+# K2 / K4: value rows of a head's state a block may own, the most first, the
+# blocks to reach (about one for each multiprocessor), and the threads a block
+# may have (csrc/wkv7.cu's STEP_THREADS: past them a thread takes two rows)
+STEP_ROWS = (64, 32, 16, 8)
+STEP_BLOCKS = 128
+STEP_THREADS = 256
 
 
 def _declare(lib: ctypes.CDLL, fwd: str, fwd_res: str, bwd: Optional[str]) -> None:
@@ -58,7 +67,7 @@ def _lib() -> ctypes.CDLL:
     if lib.wkv7_fwd.argtypes is None:
         _declare(lib, "wkv7_fwd", "wkv7_fwd_res", None)
         for fn in (lib.wkv7_step, lib.wkv7_step_flat):
-            fn.argtypes = [_I, _I, _I, _I] + [_P] * 10
+            fn.argtypes = [_I] * 5 + [_P] * 10
             fn.restype = _I
         lib.wkv7_fwd_res_smem_bytes.argtypes = [_I, _I]
         lib.wkv7_fwd_res_smem_bytes.restype = _I
@@ -82,6 +91,14 @@ def _v2_lib() -> ctypes.CDLL:
         lib.wkv7_fwd_v2.restype = _I
         lib.wkv7_v2_scratch_floats.argtypes = []
         lib.wkv7_v2_scratch_floats.restype = _I
+    return lib
+
+
+def _floor_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("launch_floor")
+    if lib.launch_floor.argtypes is None:
+        lib.launch_floor.argtypes = [_I] * 3 + [_P] * 10
+        lib.launch_floor.restype = _I
     return lib
 
 
@@ -116,6 +133,28 @@ def fwd_res_plan(B: int, H: int, dtype: torch.dtype) -> dict:
             + 2 * 4 * CHUNK * CHUNK * 4 + rows * ldp * 4 + CHUNK * rows * 4)
     return {"rows": rows, "blocks": B * H * (64 // rows), "threads": rows * (4 if rows == 64 else 8),
             "smem_bytes": smem}
+
+
+def step_plan(B: int, H: int, state_dtype: torch.dtype, flat: bool = False) -> dict:
+    """K2's (K4's, ``flat``) launch for B * H heads: the value rows of a
+    head's state a block owns, the blocks, the lanes a state row takes (16
+    bytes a lane: 16 for an fp32 state, 8 for bf16), the rows a thread (one,
+    or two once the rows take more than ``STEP_THREADS`` lanes) and the
+    threads a block. The rows are the most of ``STEP_ROWS`` that give
+    ``STEP_BLOCKS`` blocks (else the fewest) among those whose block has at
+    most ``STEP_THREADS`` threads: 16 at B=1 H=32; from B=4 on, 32 for an
+    fp32 state and whole heads for bf16, two rows a thread. K4 with an fp32
+    state takes the fewest rows at every batch: its rows lie H * 256 bytes
+    apart, and there 8-row blocks read fastest on the H100 (``PERF.md``).
+    The rows change no arithmetic, so K4 stays bit-equal to K2."""
+    lanes = 64 * (2 if state_dtype == torch.bfloat16 else 4) // 16
+    per_thread = lambda n: 2 if n * lanes > STEP_THREADS else 1
+    fits = [n for n in STEP_ROWS if n * lanes // per_thread(n) <= STEP_THREADS]
+    if flat and state_dtype == torch.float32:
+        fits = fits[-1:]
+    rows = next((n for n in fits if B * H * (64 // n) >= STEP_BLOCKS), fits[-1])
+    return {"rows": rows, "blocks": B * H * (64 // rows), "lanes_per_row": lanes,
+            "rows_per_thread": per_thread(rows), "threads": rows * lanes // per_thread(rows)}
 
 
 def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
@@ -337,10 +376,10 @@ def wkv7_bwd_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b
     return _bwd("wkv7_bwd_packed", _packed_lib, (r, w_raw, k, v, a, b, dy), zin, dsfinal)
 
 
-def _step(name: str, flat: bool, state: Tensor, vecs) -> Tuple[Tensor, Tensor]:
+def _step_args(name: str, flat: bool, state: Tensor, vecs) -> Tuple[int, int, dict]:
+    """Check a step's state and vectors; (B, H, :func:`step_plan`)."""
     r = vecs[0]
-    dev = state.device
-    _check_cuda(name, (state,) + tuple(vecs), dev)
+    _check_cuda(name, (state,) + tuple(vecs), state.device)
     if r.dim() != 3 or r.shape[-1] != 64:
         raise ValueError(f"{name}: vectors must be [B, H, 64]; got {tuple(r.shape)}")
     B, H, N = r.shape
@@ -353,17 +392,43 @@ def _step(name: str, flat: bool, state: Tensor, vecs) -> Tuple[Tensor, Tensor]:
         raise ValueError(f"{name}: vectors must be fp32; got {[x.dtype for x in vecs]}")
     if any(x.shape != (B, H, N) for x in vecs):
         raise ValueError(f"{name}: vectors must be {(B, H, N)}; got {[tuple(x.shape) for x in vecs]}")
+    if any(x.data_ptr() % 16 for x in (state,) + tuple(vecs)):
+        raise ValueError(f"{name}: the kernel reads 16 bytes at once; every tensor must start 16-byte aligned")
+    return B, H, step_plan(B, H, state.dtype, flat)
+
+
+def _step(name: str, flat: bool, state: Tensor, vecs) -> Tuple[Tensor, Tensor]:
+    B, H, plan = _step_args(name, flat, state, vecs)
+    dev = state.device
     s_out = torch.empty_like(state)
-    y = torch.empty_like(r)
+    y = torch.empty_like(vecs[0])
     lib = _lib()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
-            _DTYPE_CODE[state.dtype], B, H, N, state.data_ptr(),
+            _DTYPE_CODE[state.dtype], plan["rows"], B, H, 64, state.data_ptr(),
             *(x.data_ptr() for x in vecs), s_out.data_ptr(), y.data_ptr(), _stream(dev),
         )
     cuda_build.check(lib, err, name)
     cuda_build.LAUNCHES[name] += 1
     return s_out, y
+
+
+def step_floor(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
+               a: Tensor, b: Tensor) -> None:
+    """The launch floor of :func:`wkv7_step` on these inputs: an empty kernel
+    (``csrc/launch_floor.cu``) launched on K2's grid and block
+    (:func:`step_plan`) with K2's arguments. It computes nothing and no path
+    calls it; it is timed beside K2 / K4. The state is K2's ``[B, H, 64,
+    64]``."""
+    vecs = (r, w_raw, k, v, a, b)
+    B, H, plan = _step_args("step_floor", False, state, vecs)
+    dev = state.device
+    lib = _floor_lib()
+    with torch.cuda.device(dev):
+        err = lib.launch_floor(plan["blocks"], plan["threads"], H, state.data_ptr(),
+                               *(x.data_ptr() for x in vecs), state.data_ptr(), r.data_ptr(), _stream(dev))
+    cuda_build.check(lib, err, "step_floor")
+    cuda_build.LAUNCHES["step_floor"] += 1
 
 
 def wkv7_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
