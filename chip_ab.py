@@ -39,6 +39,12 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   L2-hot and L2-cold (the state cycling over copies larger than the L2),
   eager time, and the outputs' digest (K4's state in the head layout, so
   that K2's and K4's digests are equal when their outputs are);
+- ``wkv6_step``: the WKV6 decode step K10 at B = 1, 4 and 32 with fp32 and
+  bf16 states at H=64 (``WKV6_STEP_CASES``), timed as ``wkv7_step`` (L2-hot,
+  L2-cold, eager) with the outputs' digest;
+- ``wkv7_v2``: the chunk-batched forward K16 at ``check_wkv7_v2``'s cases
+  (``V2_CASES``): device and eager time, each phase alone where the side's
+  wrappers offer ``wkv7_fwd_v2_phase`` (else null), and the outputs' digest;
 - ``x070_prefill_profile``: the flagship's B=1 prefill (1024 + 32 tokens,
   fp32 state, after one unprofiled prefill) under the profiler: card busy,
   idle share and device ms by kind (``device_breakdown``);
@@ -50,7 +56,7 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   gradient pass's card busy time, idle share and K8 / K9 device time.
 
 One ``AB {json}`` line a side (with ptxas's registers and spills of its
-attention, K7 / K8, K9, K5 / K12, K6 / K13 and K2 / K4 kernels); the card's name and
+attention, K7 / K8, K9, K5 / K12, K6 / K13, K2 / K4 / K10 and K16 kernels); the card's name and
 power limit first.
 """
 
@@ -99,7 +105,7 @@ def k3_times(cs, dev) -> list:
 
 
 SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "wkv7_prefill", "wkv7_step",
-            "x070_prefill_profile", "x060_serving", "x060_training")
+            "wkv6_step", "wkv7_v2", "x070_prefill_profile", "x060_serving", "x060_training")
 # K7 / K8 / K9 timed: (kernel, B, T, H, stream dtype, initial state,
 # chunk_len), the timed cases of chip_smoke's check_wkv6_fwd (the x060 7B
 # prefill) and check_wkv6_train (the 1.6B training step; K7 at the same
@@ -253,6 +259,69 @@ def wkv7_step_times(cs, dev) -> list:
     return out
 
 
+# K10 timed: (B, state dtype) at H=64, the cases of chip_smoke's check_wkv6_step
+WKV6_STEP_CASES = WKV7_STEP_CASES
+
+
+def wkv6_step_times(cs, dev) -> list:
+    """K10 at every case of ``WKV6_STEP_CASES`` through the tree's own
+    wrapper, on one state a case: device time L2-hot, L2-cold (as in
+    :func:`wkv7_step_times`), eager time, ms, and the outputs' digest."""
+    import itertools
+
+    import torch
+
+    from visualrwkv_torch.ops import wkv6_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out, H = [], 64
+    for B, dname in WKV6_STEP_CASES:
+        vecs, u = cs._wkv6_streams(gen, (B, H, 64), torch.float32, dev)
+        s0 = (torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3).to(getattr(torch, dname))
+        fn = lambda st: wkv6_cuda.wkv6_step(st, *vecs, u)
+        n = max(8, -(-COLD_BYTES // (s0.numel() * s0.element_size())))
+        states = itertools.cycle([s0.clone() for _ in range(n)])
+        out.append({"case": f"wkv6_step B={B} H={H} {dname} state", "digest": digest(fn(s0)),
+                    "ms": cs.cuda_ms(lambda: fn(s0), reps=50),
+                    "cold_ms": cs.cuda_ms(lambda: fn(next(states)), reps=n),
+                    "eager_ms": cs.eager_ms(lambda: fn(s0), reps=50)})
+        del states
+    return out
+
+
+# K16 timed: (B, T, H, stream dtype) with an initial state, chip_smoke's check_wkv7_v2 cases
+V2_CASES = ((8, 512, 32, "bfloat16"), (1, 1024, 32, "bfloat16"), (1, 1024, 32, "float32"))
+
+
+def wkv7_v2_times(cs, dev) -> list:
+    """K16 at every case of ``V2_CASES`` through the tree's own wrappers:
+    device time (CUDA graphs), eager time, each phase alone where the
+    wrappers offer it, ms, and the digest of the outputs."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = []
+    for B, T, H, dname in V2_CASES:
+        xs = cs._wkv_streams(gen, (B, T, H, 64), getattr(torch, dname), dev)
+        s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
+        fn = lambda: wkv7_cuda.wkv7_fwd_v2(*xs, s0)
+        rec = {"case": f"wkv7_fwd_v2 B={B} T={T} H={H} {dname}", "digest": digest(fn()),
+               "ms": cs.cuda_ms(fn, reps=10), "eager_ms": cs.eager_ms(fn, reps=10),
+               "phase1_ms": None, "phase2_ms": None}
+        if hasattr(wkv7_cuda, "wkv7_fwd_v2_phase"):
+            bufs = wkv7_cuda.v2_buffers(xs[0])
+            for p in (1, 2):
+                rec[f"phase{p}_ms"] = cs.cuda_ms(lambda p=p: wkv7_cuda.wkv7_fwd_v2_phase(p, *xs, s0, bufs), reps=10)
+            del bufs
+        out.append(rec)
+        del xs, s0, fn
+    return out
+
+
 def x070_prefill_profile(cs, dev) -> dict:
     """The flagship's B=1 prefill under the profiler, after one unprofiled
     prefill of the same request: card busy, idle share, device ms by kind."""
@@ -292,7 +361,8 @@ def child(tree: str, sections) -> None:
                      if lib.startswith("attention") or kern in (
                          "wkv6_fwd_kernel", "wkv6_bwd_kernel", "wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel",
                          "wkv7_fwd_res_kernel", "wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel",
-                         "wkv7_step_kernel")}}
+                         "wkv7_step_kernel", "wkv_step_kernel", "wkv7_v2_chunk_kernel",
+                         "wkv7_v2_chunk_f32_kernel", "wkv7_v2_chunk_bf16_kernel", "wkv7_v2_state_kernel")}}
     if "k3" in sections:
         out["k3"] = k3_times(cs, dev)
     if "attention_bwd" in sections:
@@ -334,6 +404,12 @@ def child(tree: str, sections) -> None:
         torch.cuda.empty_cache()
     if "wkv7_step" in sections:
         out["wkv7_step"] = wkv7_step_times(cs, dev)
+        torch.cuda.empty_cache()
+    if "wkv6_step" in sections:
+        out["wkv6_step"] = wkv6_step_times(cs, dev)
+        torch.cuda.empty_cache()
+    if "wkv7_v2" in sections:
+        out["wkv7_v2"] = wkv7_v2_times(cs, dev)
         torch.cuda.empty_cache()
     if "x060_serving" in sections:
         cfg = cs.x060_serving_cfg()

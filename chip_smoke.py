@@ -44,7 +44,13 @@ Phases (any failure exits non-zero; nothing is caught):
    ViTs), beside the SDPA backward, each case logging its plan (K14's path
    and key tile, K15's table staging, registers, spills, shared memory),
    and at three more grid geometries against the plain version only; the
-   chunked WKV7 forward K16 beside K1; the chunked WKV6 forward K7 / K8 at
+   chunk-batched WKV7 forward K16 beside K1 (``check_wkv7_v2``: B=8 T=512 and
+   B=1 T=1024 with bf16 streams, B=1 T=1024 fp32), each case logging its two
+   launches' plan (held equal to the library's numbers), the scratch bytes
+   and each phase's device time alone (no K16 instantiation may spill); the
+   WKV6 decode step K10 at B = 1, 4 and 32 with fp32 and bf16 states and
+   H=64 (``WKV6_STEP_CASES``), timed as K2 is, beside the launch floor on
+   K10's grid; the chunked WKV6 forward K7 / K8 at
    the 7B prefill's and the 1.6B step's shapes, each case logging its plan
    (value rows a block, blocks, threads, shared memory held equal to the
    library's count, registers, spills: no K7 / K8 instantiation may spill),
@@ -93,7 +99,8 @@ Phases (any failure exits non-zero; nothing is caught):
    its public entry point.
 
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
-with K2's device time a B=1 decode step) come after all counted runs, each model built again from its seed: once the profiler has been used in a
+with K2's and K10's device time a B=1 decode step) come after all counted
+runs, each model built again from its seed: once the profiler has been used in a
 process it slows every later launch of a host-bound loop.
 
 The line before the last is the JSON list of kernels; the last line is
@@ -1292,8 +1299,18 @@ def check_wkv6_bwd_paths(gen, dev):
         del xs, leaves, ref, zin, grads
 
 
+# K10's cases: (B, state dtype) at H=64, the 7B's heads: the serving path's
+# B=1 (fp32 state) and its batch of four (bf16), the other dtype of each, and
+# B=32
+WKV6_STEP_CASES = STEP_CASES
+
+
 def check_wkv6_step(gen, dev):
-    """K10 at the 7B decode's shapes (H=64, B = 1 and 4), fp32 vectors."""
+    """K10 at ``WKV6_STEP_CASES`` (H=64, the 7B decode's heads), fp32 vectors,
+    against the plain step (y 1e-3; the new state 1e-3 fp32, 1e-2 bf16),
+    each case logging its plan (``wkv6_cuda.step_plan``). Timed as K2 is in
+    :func:`check_wkv7_step`: L2-hot, L2-cold, eagerly, and beside the launch
+    floor on K10's grid (``wkv6_cuda.step_floor``)."""
     import torch
 
     from visualrwkv_torch.ops import wkv6 as pw
@@ -1301,24 +1318,35 @@ def check_wkv6_step(gen, dev):
 
     H, N = 64, 64
     out = []
-    for B in (1, 4):
-        for sdt in (torch.float32, torch.bfloat16):
-            dname = str(sdt)[6:]
-            case = f"B={B} H={H} N={N} {dname} state, fp32 vectors"
-            vecs, u = _wkv6_streams(gen, (B, H, N), torch.float32, dev)
-            s0 = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3).to(sdt)
-            c = Check("wkv6_step", case)
-            s, y = wkv6_cuda.wkv6_step(s0, *vecs, u)
-            s_ref, y_ref = pw.wkv6_step(s0, *vecs, u)
-            torch.cuda.synchronize()
-            assert s.dtype == sdt
-            c.compare("y (fp32)", y, y_ref, 1e-3)
-            c.compare(f"new state ({dname})", s.float(), s_ref, 1e-3 if sdt == torch.float32 else 1e-2)
-            fn = lambda: wkv6_cuda.wkv6_step(s0, *vecs, u)
-            k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
-            p_ms = cuda_ms(lambda: pw.wkv6_step(s0, *vecs, u), reps=20)
-            nbytes = 2 * B * H * N * N * s0.element_size() + 5 * B * H * N * 4 + H * N * 4
-            out.append(c.record(k_ms, p_ms, None, nbytes, 5 * B * H * N * N, FP32_FLOPS, k_eager))
+    for B, dname in WKV6_STEP_CASES:
+        sdt = getattr(torch, dname)
+        case = f"B={B} H={H} N={N} {dname} state, fp32 vectors"
+        plan = wkv6_cuda.step_plan(B, H, sdt)
+        log(f"  wkv6_step [{case}] plan: {plan}")
+        vecs, u = _wkv6_streams(gen, (B, H, N), torch.float32, dev)
+        s0 = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3).to(sdt)
+        c = Check("wkv6_step", case)
+        s, y = wkv6_cuda.wkv6_step(s0, *vecs, u)
+        s_ref, y_ref = pw.wkv6_step(s0, *vecs, u)
+        torch.cuda.synchronize()
+        assert s.dtype == sdt
+        c.compare("y (fp32)", y, y_ref, 1e-3)
+        c.compare(f"new state ({dname})", s.float(), s_ref, 1e-3 if sdt == torch.float32 else 1e-2)
+        fn = lambda: wkv6_cuda.wkv6_step(s0, *vecs, u)
+        k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
+        k_cold = cold_ms(lambda st: wkv6_cuda.wkv6_step(st, *vecs, u), s0)
+        floor_ms = cuda_ms(lambda: wkv6_cuda.step_floor(s0, *vecs, u), reps=50)
+        p_ms = cuda_ms(lambda: pw.wkv6_step(s0, *vecs, u), reps=20)
+        nbytes = 2 * B * H * N * N * s0.element_size() + 5 * B * H * N * 4 + H * N * 4
+        rec = c.record(k_ms, p_ms, None, nbytes, 5 * B * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(plan=plan, cold_ms=k_cold, launch_floor_ms=floor_ms)
+        log(f"  wkv6_step [{case}] L2-cold {k_cold:.5f} ms, launch floor (empty kernel, same grid) "
+            f"{floor_ms:.5f} ms")
+        if B == 1 and sdt == torch.float32:
+            goal = max(0.0024, floor_ms + 0.0012)
+            log(f"  wkv6_step [{case}] goal: L2-cold at most max(0.0024, floor + 0.0012) = {goal:.5f} ms: "
+                f"{'met' if k_cold <= goal else 'missed'} ({k_cold:.5f} ms)")
+        out.append(rec)
     return out
 
 
@@ -1746,9 +1774,12 @@ def check_wkv7_v2(gen, dev):
     prefill's (B=1 T=1024 H=32), with an initial state, in bf16 and with
     fp32 streams. y is held at the convention's limits (bf16 1e-2, fp32
     1e-3). The final state is fp32; with bf16 streams its products take bf16
-    tensor-core operands (bta Z's input terms, h_loc), as the reference's
-    v2 kernel rounds them, so it is held at the bf16 limit, and at 1e-3 with
-    fp32 streams (all FMA)."""
+    tensor-core operands (Z, bta, h_loc), as the reference's v2 kernel rounds
+    them, so it is held at the bf16 limit, and at 1e-3 with fp32 streams
+    (all FMA). Each case logs the two launches' plan
+    (``wkv7_cuda.v2_plan``, held equal to the library's own numbers), the
+    scratch bytes, and each phase's device time alone
+    (``wkv7_cuda.wkv7_fwd_v2_phase``)."""
     import torch
 
     from visualrwkv_torch.ops import wkv7 as pw
@@ -1761,6 +1792,12 @@ def check_wkv7_v2(gen, dev):
         dname = str(sdt)[6:]
         bf = sdt == torch.bfloat16
         case = f"B={B} T={T} H={H} N={N} {dname} streams, with initial state"
+        plan, lib_plan = wkv7_cuda.v2_plan(B, T, H, sdt), wkv7_cuda.kernel_v2_plan(B, H, sdt)
+        log(f"  wkv7_fwd_v2 [{case}] plan: {plan}")
+        assert (lib_plan["chunk_smem_bytes"], lib_plan["cols"], lib_plan["stages"], lib_plan["state_smem_bytes"],
+                lib_plan["scratch_bytes_a_chunk"] * B * H * (T // 32)) == (
+            plan["chunk"]["smem_bytes"], plan["state"]["cols"], plan["state"]["stages"],
+            plan["state"]["smem_bytes"], plan["scratch_bytes"]), (lib_plan, plan)
         xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
         s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
         c = Check("wkv7_fwd_v2", case)
@@ -1775,14 +1812,19 @@ def check_wkv7_v2(gen, dev):
             f"state {k1_err['state']:.3e}")
         fn = lambda: wkv7_cuda.wkv7_fwd_v2(*xs, s0)
         k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
+        bufs = wkv7_cuda.v2_buffers(xs[0])
+        phase_ms = [cuda_ms(lambda p=p: wkv7_cuda.wkv7_fwd_v2_phase(p, *xs, s0, bufs)) for p in (1, 2)]
         p_ms = cuda_ms(lambda: pw.wkv7_v2_plain(*xs, s0), reps=1, warmup=1)
         k1_ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd(*xs, s0))
         nbytes = 7 * B * T * H * N * xs[0].element_size() + 2 * B * H * N * N * 4
         rec = c.record(k_ms, p_ms, None, nbytes, 9 * B * T * H * N * N, FP32_FLOPS, k_eager)
-        rec.update(k1_same_inputs_ms=k1_ms, rel_rms_from_k1=k1_err)
-        log(f"  wkv7_fwd_v2 [{case}] K1 on the same inputs: {k1_ms:.4f} ms")
+        rec.update(k1_same_inputs_ms=k1_ms, rel_rms_from_k1=k1_err, plan=plan, phase1_ms=phase_ms[0],
+                   phase2_ms=phase_ms[1])
+        log(f"  wkv7_fwd_v2 [{case}] phase 1 alone {phase_ms[0]:.4f} ms, phase 2 alone {phase_ms[1]:.4f} ms, "
+            f"scratch {plan['scratch_bytes'] / 2**20:.1f} MiB written once and read once; K1 on the same "
+            f"inputs: {k1_ms:.4f} ms")
         out.append(rec)
-        del xs
+        del xs, bufs
     return out
 
 
@@ -2079,10 +2121,11 @@ def _category(kernel_name: str) -> str:
             else "K6 wkv7_bwd"
     if "wkv6_fwd_kernel<" in n:  # <DT, SAVE, ROWS, FORM>
         return "K8 wkv6_fwd_res" if _template_flags(n, "wkv6_fwd_kernel")[0] else "K7 wkv6_fwd"
-    if "wkv7_step_kernel<" in n:  # <DT, FLAT, ROWS>
-        return "K4 wkv7_step_flat" if _template_flags(n, "wkv7_step_kernel")[0] else "K2 wkv7_step"
-    if "wkv6_step_kernel" in n:
-        return "K10 wkv6_step"
+    if "wkv_step_kernel<" in n:  # <FAM, DT, FLAT, ROWS>: K2 / K4 (FAM 7), K10 (FAM 6)
+        fam = n.split("wkv_step_kernel<", 1)[1].split(",", 1)[0].replace("(int)", "").strip()
+        if fam == "6":
+            return "K10 wkv6_step"
+        return "K4 wkv7_step_flat" if _template_flags(n, "wkv_step_kernel")[1] else "K2 wkv7_step"
     if "wkv6_bwd_" in n:  # both passes of K9
         return "K9 wkv6_bwd"
     if "attention_fwd_kernel" in n:
@@ -2689,11 +2732,19 @@ def main(argv=None) -> int:
              for form in (0, 1, 2)} | {("wkv6_train", "wkv6_bwd_chunk_kernel", (dt,)) for dt in (0, 1)}
     assert set(k9) == want9, f"K9: ptxas reported {sorted(k9)}, not {sorted(want9)}"
     assert not any(v.get("spill_bytes", 0) for v in k9.values()), f"a K9 instantiation spills: {k9}"
-    k24 = {key: v for key, v in PTXAS.items() if key[1] == "wkv7_step_kernel"}
-    want24 = {("wkv7", "wkv7_step_kernel", (dt, flat, rows)) for dt in (0, 1) for flat in (0, 1)
+    k24 = {key: v for key, v in PTXAS.items() if key[1] == "wkv_step_kernel"}
+    want24 = {("wkv7", "wkv_step_kernel", (7, dt, flat, rows)) for dt in (0, 1) for flat in (0, 1)
               for rows in (8, 16, 32, 64)}
-    assert set(k24) == want24, f"K2 / K4: ptxas reported {sorted(k24)}, not {sorted(want24)}"
-    assert not any(v.get("spill_bytes", 0) for v in k24.values()), f"a K2 / K4 instantiation spills: {k24}"
+    want24 |= {("wkv6", "wkv_step_kernel", (6, dt, 0, rows)) for dt in (0, 1) for rows in (8, 16, 32, 64)}
+    assert set(k24) == want24, f"K2 / K4 / K10: ptxas reported {sorted(k24)}, not {sorted(want24)}"
+    assert not any(v.get("spill_bytes", 0) for v in k24.values()), \
+        f"a K2 / K4 / K10 instantiation spills: {k24}"
+    k16 = {key: v for key, v in PTXAS.items() if key[0] == "wkv7_v2"}
+    want16 = {("wkv7_v2", "wkv7_v2_chunk_f32_kernel", ()), ("wkv7_v2", "wkv7_v2_chunk_bf16_kernel", (1,)),
+              ("wkv7_v2", "wkv7_v2_state_kernel", (0, 0, 8, 3))}
+    want16 |= {("wkv7_v2", "wkv7_v2_state_kernel", (1, 1, cols, 3)) for cols in (16, 32, 64)}
+    assert set(k16) == want16, f"K16: ptxas reported {sorted(k16)}, not {sorted(want16)}"
+    assert not any(v.get("spill_bytes", 0) for v in k16.values()), f"a K16 instantiation spills: {k16}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
@@ -2829,6 +2880,15 @@ def main(argv=None) -> int:
             d["k2_ms_per_step"] = k2_ms / steps
             log(f"  x070 serving, decode B=1: K2 {k2_ms / steps:.4f} ms of device time a step ({k2_n} "
                 f"launches over {steps:g} steps, {k2_ms / k2_n * 1e3:.3f} us a launch) of the card's "
+                f"{d['device_busy_ms'] / steps:.2f} ms busy a step")
+        if what == "x060 7B serving":  # K10's device time a B=1 decode step, from the profile
+            d = out["breakdown"]["decode (9 steps, B=1)"]
+            k10_ms, k10_n = d["device_ms_by_kind"].get("K10 wkv6_step", 0.0), d["events_by_kind"].get("K10 wkv6_step", 0)
+            steps = k10_n / c.rwkv.n_layer
+            assert k10_n > 0 and k10_n % c.rwkv.n_layer == 0, f"K10 launches in the decode profile: {k10_n}"
+            d["k10_ms_per_step"] = k10_ms / steps
+            log(f"  x060 7B serving, decode B=1: K10 {k10_ms / steps:.4f} ms of device time a step ({k10_n} "
+                f"launches over {steps:g} steps, {k10_ms / k10_n * 1e3:.3f} us a launch) of the card's "
                 f"{d['device_busy_ms'] / steps:.2f} ms busy a step")
         if what == "x060 1.6B training":
             g = out["breakdown"]["loss and gradients"]

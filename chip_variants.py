@@ -8,8 +8,10 @@ training forward K5 (``csrc/wkv7_chunk.cuh``, built through
 ``csrc/wkv7.cu``), the WKV7 prefill forward K1 / K11 (the same kernel
 without the saved states, built through ``csrc/wkv7.cu`` and
 ``csrc/wkv7_packed.cu``), the WKV7 backward K6 (``csrc/wkv7_chunk_bwd.cuh``, built
-through ``csrc/wkv7_train.cu``) or the WKV7 decode steps K2 / K4
-(``csrc/wkv7.cu``).
+through ``csrc/wkv7_train.cu``), the WKV7 decode steps K2 / K4
+(``csrc/wkv_step.cuh``, built through ``csrc/wkv7.cu``) or the WKV6 decode
+step K10 (the same body, built through ``csrc/wkv6.cu``) or the chunk-batched
+WKV7 forward K16 (``csrc/wkv7_v2.cu``).
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
     python3 chip_variants.py base stages2          # some of them
@@ -19,6 +21,8 @@ through ``csrc/wkv7_train.cu``) or the WKV7 decode steps K2 / K4
     python3 chip_variants.py --wkv7fwd [names]     # K1 / K11: WKV7FWD_VARIANTS
     python3 chip_variants.py --wkv7bwd [names]     # K6: WKV7BWD_VARIANTS
     python3 chip_variants.py --wkv7step [names]    # K2 / K4: WKV7STEP_VARIANTS
+    python3 chip_variants.py --wkv6step [names]    # K10: WKV6STEP_VARIANTS
+    python3 chip_variants.py --v2 [names]          # K16: V2_VARIANTS
 
 A variant is the source with text substitutions (each names the design
 choice it undoes, or the part of the work it leaves out). Each is compiled
@@ -41,7 +45,10 @@ gradients <= 2e-2 with bf16 streams, 1e-3 with fp32); or K5 runs at
 held against ``wkv7_bwd_plain`` (the seven gradients <= 2e-2 with bf16
 streams, 1e-3 with fp32); or K2 / K4 at ``WKV7STEP_CASES``, L2-hot and
 L2-cold, each exact variant held against the plain step (y <= 1e-3, the
-new state 1e-3 fp32, 1e-2 bf16). The card's name and power limit come first, the SDPA forward's time
+new state 1e-3 fp32, 1e-2 bf16); or K10 at ``WKV6STEP_CASES`` in the same
+way; or K16 at ``V2_CASES``, whole and each phase alone, each exact variant
+held against ``wkv7_v2_plain`` (y and the final state <= 1e-2 with bf16
+streams, 1e-3 with fp32). The card's name and power limit come first, the SDPA forward's time
 at each no-bias case next (K3), and one ``VARIANT {json}`` line a variant
 last (its times in turn order).
 """
@@ -379,6 +386,53 @@ WKV7STEP_VARIANTS = {
 # K2 / K4 timed: (kernel, B, state dtype) at H=32, L2-hot and L2-cold
 WKV7STEP_CASES = tuple((kernel, B, dname) for B in (1, 4, 32) for dname in ("float32", "bfloat16")
                        for kernel in ("wkv7_step", "wkv7_step_flat"))
+# K10 (csrc/wkv_step.cuh's body built through wkv6.cu): name -> ([(text,
+# replacement)], value rows a block at every case in place of
+# wkv6_cuda.step_plan's, or None, exact). "vec8" has 8-byte state accesses.
+WKV6STEP_VARIANTS = {
+    "base": ([], None, True),
+    "rows8": ([], 8, True),
+    "rows16": ([], 16, True),
+    "rows32": ([], 32, True),
+    "rows64": ([], 64, True),
+    "vec8": ([("constexpr int STEP_VEC = 16;", "constexpr int STEP_VEC = 8;")], None, True),
+}
+# K10 timed: (kernel, B, state dtype) at H=64, L2-hot and L2-cold
+WKV6STEP_CASES = tuple(("wkv6_step", B, dname) for B in (1, 4, 32) for dname in ("float32", "bfloat16"))
+# K16: name -> ([(text in wkv7_v2.cu, replacement)], None, exact): phase 2's
+# value columns a block (with bf16 streams chosen by the blocks to reach,
+# V2_BLOCKS; V2_COLS_F32 with fp32 streams), its chunks of operands in flight
+# (V2_STAGES; 1: no prefetch) and the scratch type with bf16 streams. The "no_*" variants leave a part of phase 1 with bf16
+# streams out (their results are wrong), to show its share.
+V2_VARIANTS = {
+    "base": ([], None, True),
+    "cols16": ([("  return bh >= V2_BLOCKS ? 64 : 2 * bh >= V2_BLOCKS ? 32 : 16;", "  return 16;")], None, True),
+    "cols32": ([("  return bh >= V2_BLOCKS ? 64 : 2 * bh >= V2_BLOCKS ? 32 : 16;", "  return 32;")], None, True),
+    "cols64": ([("  return bh >= V2_BLOCKS ? 64 : 2 * bh >= V2_BLOCKS ? 32 : 16;", "  return 64;")], None, True),
+    "f32_cols16": ([("constexpr int V2_COLS_F32 = 8;", "constexpr int V2_COLS_F32 = 16;")], None, True),
+    "stages1": ([("constexpr int V2_STAGES = 3;", "constexpr int V2_STAGES = 1;")], None, True),
+    "stages2": ([("constexpr int V2_STAGES = 3;", "constexpr int V2_STAGES = 2;")], None, True),
+    "scratch_f32": ([("using V2Scratch = bf16;", "using V2Scratch = float;")], None, True),
+    # phase 1's bf16 outputs stored from the fragments (4 bytes of 8 rows an
+    # instruction) in place of whole rows from the warp's staging rows
+    "unstaged": ([("constexpr bool STAGED = sizeof(SC) == 2;", "constexpr bool STAGED = false;")], None, True),
+    "no_loads": ([("for (int i = 0; i < 8; ++i) wraw[i] = pair(w + g0 + i * ts);",
+                   "for (int i = 0; i < 8; ++i) wraw[i] = 0xbf80bf00u + i;"),
+                  ("raw[0][i] = pair(r + gi), raw[1][i] = pair(k + gi), raw[2][i] = pair(a + gi);\n"
+                   "    raw[3][i] = pair(b + gi), raw[4][i] = pair(v + gi);",
+                   "raw[0][i] = raw[1][i] = raw[2][i] = raw[3][i] = raw[4][i] = 0x3f003e80u + (uint32_t)gi % 7;")],
+                 None, False),
+    "no_mnm": ([("for (int jj = 0; jj < NH; jj += 4) {", "for (int jj = 0; jj < 0; jj += 4) {")], None, False),
+    "no_sbsk": ([("for (int ks = 0; ks < NH / 16; ++ks) {\n      uint32_t af[4];\n      load_a(af, RT,",
+                  "for (int ks = 0; ks < 0; ++ks) {\n      uint32_t af[4];\n      load_a(af, RT,")], None, False),
+    "no_nv": ([("for (int s2 = 0; s2 < tq8 + 24; s2 += 2) {", "for (int s2 = 0; s2 < 0; s2 += 2) {")], None, False),
+    "no_solve": ([("      for (int s = 0; s < t; ++s) acc = fmaf(MM[t * LDMM + s], u[s], acc);\n", "")], None, False),
+    "no_products": ([("for (int nt = 0; nt < NH / 8; ++nt) {", "for (int nt = 0; nt < 0; ++nt) {"),
+                     ("for (int nt = 0; nt < 4; ++nt) {\n      const int n0 = nb", "for (int nt = 0; nt < 0; ++nt) {\n      const int n0 = nb")],
+                    None, False),
+}
+# K16 timed: (B, T, H, stream dtype), chip_smoke.check_wkv7_v2's cases
+V2_CASES = ((8, 512, 32, "bfloat16"), (1, 1024, 32, "bfloat16"), (1, 1024, 32, "float32"))
 # K8 and K7 timed: (kernel, B, T, H, stream dtype)
 WKV6_CASES = (("wkv6_fwd_res", 2, 2048, 32, "bfloat16"), ("wkv6_fwd_res", 2, 2048, 32, "float32"),
               ("wkv6_fwd", 1, 624, 64, "bfloat16"), ("wkv6_fwd", 4, 624, 64, "bfloat16"))
@@ -604,11 +658,66 @@ def time_wkv6bwd(names, libs, dev) -> int:
     return 0
 
 
-def time_wkv7step(names, libs, dev) -> int:
-    """K2 / K4 at ``WKV7STEP_CASES`` under each variant, in turns, L2-hot
+def time_step(names, libs, dev, family=7) -> int:
+    """K2 / K4 at ``WKV7STEP_CASES`` (``family`` 7) or K10 at
+    ``WKV6STEP_CASES`` (6) under each variant, in turns, L2-hot
     (:func:`chip_smoke.cuda_ms`) and L2-cold (:func:`chip_smoke.cold_ms`);
     each exact variant held against the plain step (y <= 1e-3, the new state
     1e-3 fp32, 1e-2 bf16)."""
+    import torch
+
+    import chip_smoke as cs
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv6 as pw6
+    from visualrwkv_torch.ops import wkv6_cuda
+    from visualrwkv_torch.ops import wkv7 as pw
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for kernel, B, dname in (WKV7STEP_CASES if family == 7 else WKV6STEP_CASES):
+        sdt = getattr(torch, dname)
+        if family == 7:
+            vecs, s0 = cs._step_inputs(gen, B, 32, sdt, dev)
+            if kernel == "wkv7_step_flat":
+                s0 = pw.state_to_flat(s0).contiguous()
+            s_ref, y_ref = getattr(pw, kernel)(s0.float(), *vecs)
+            fn = getattr(wkv7_cuda, kernel)
+        else:
+            vecs, u = cs._wkv6_streams(gen, (B, 64, 64), torch.float32, dev)
+            vecs = (*vecs, u)
+            s0 = (torch.randn(B, 64, 64, 64, generator=gen, device=dev) * 0.3).to(sdt)
+            s_ref, y_ref = pw6.wkv6_step(s0.float(), *vecs)
+            fn = wkv6_cuda.wkv6_step
+        cases.append((f"{kernel} B={B} {dname}", fn, s0, vecs, s_ref, y_ref, 1e-3 if sdt == torch.float32 else 1e-2))
+    times = {n: {f"{c[0]} {t}": [] for c in cases for t in ("hot", "cold")} for n in names}
+    mod, lib_name, variants = ((wkv7_cuda, "wkv7", WKV7STEP_VARIANTS) if family == 7
+                               else (wkv6_cuda, "wkv6", WKV6STEP_VARIANTS))
+    plan = mod.step_plan
+    for name in names + names[::-1]:
+        cuda_build._LIBS[lib_name] = libs[name]
+        _, plan_rows, exact = variants[name]
+        mod.step_plan = plan if plan_rows is None else \
+            (lambda *a, rows=plan_rows, **kw: {**plan(*a, **kw), "rows": rows})
+        for case, fn, s0, vecs, s_ref, y_ref, stol in cases:
+            s, y = fn(s0, *vecs)
+            torch.cuda.synchronize()
+            if exact:
+                e_y, e_s = cs.rel_rms(y, y_ref), cs.rel_rms(s.float(), s_ref.float())
+                assert e_y <= 1e-3 and e_s <= stol, (name, case, e_y, e_s)
+            times[name][f"{case} hot"].append(cs.cuda_ms(lambda fn=fn, s0=s0, vecs=vecs: fn(s0, *vecs), reps=50))
+            times[name][f"{case} cold"].append(cs.cold_ms(lambda st, fn=fn, vecs=vecs: fn(st, *vecs), s0))
+    mod.step_plan = plan
+    for name in names:
+        print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
+    return 0
+
+
+def time_v2(names, libs, dev) -> int:
+    """K16 at ``V2_CASES`` under each variant, in turns: the whole call and
+    each phase alone (``wkv7_cuda.wkv7_fwd_v2_phase``); each exact variant
+    held against ``wkv7_v2_plain``."""
     import torch
 
     import chip_smoke as cs
@@ -619,42 +728,38 @@ def time_wkv7step(names, libs, dev) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = []
-    for kernel, B, dname in WKV7STEP_CASES:
-        sdt = getattr(torch, dname)
-        vecs, s0 = cs._step_inputs(gen, B, 32, sdt, dev)
-        if kernel == "wkv7_step_flat":
-            s0 = pw.state_to_flat(s0).contiguous()
-        s_ref, y_ref = getattr(pw, kernel)(s0.float(), *vecs)
-        fn = getattr(wkv7_cuda, kernel)
-        cases.append((f"{kernel} B={B} {dname}", fn, s0, vecs, s_ref, y_ref, 1e-3 if sdt == torch.float32 else 1e-2))
-    times = {n: {f"{c[0]} {t}": [] for c in cases for t in ("hot", "cold")} for n in names}
-    plan = wkv7_cuda.step_plan
+    for B, T, H, dname in V2_CASES:
+        xs = cs._wkv_streams(gen, (B, T, H, 64), getattr(torch, dname), dev)
+        s0 = torch.randn(B, H, 64, 64, generator=gen, device=dev) * 0.3
+        cases.append((f"B={B} T={T} {dname}", xs, s0, pw.wkv7_v2_plain(*[x.float() for x in xs], s0),
+                      1e-2 if dname == "bfloat16" else 1e-3))
+    times = {n: {f"{c[0]} {p}": [] for c in cases for p in ("ms", "phase1", "phase2")} for n in names}
     for name in names + names[::-1]:
-        cuda_build._LIBS["wkv7"] = libs[name]
-        _, plan_rows, exact = WKV7STEP_VARIANTS[name]
-        wkv7_cuda.step_plan = plan if plan_rows is None else \
-            (lambda B, H, dt, flat=False, rows=plan_rows: {**plan(B, H, dt, flat), "rows": rows})
-        for case, fn, s0, vecs, s_ref, y_ref, stol in cases:
-            s, y = fn(s0, *vecs)
+        cuda_build._LIBS["wkv7_v2"] = libs[name]
+        for case, xs, s0, (y_ref, s_ref), tol in cases:
+            y, s = wkv7_cuda.wkv7_fwd_v2(*xs, s0)
             torch.cuda.synchronize()
-            if exact:
-                e_y, e_s = cs.rel_rms(y, y_ref), cs.rel_rms(s.float(), s_ref.float())
-                assert e_y <= 1e-3 and e_s <= stol, (name, case, e_y, e_s)
-            times[name][f"{case} hot"].append(cs.cuda_ms(lambda fn=fn, s0=s0, vecs=vecs: fn(s0, *vecs), reps=50))
-            times[name][f"{case} cold"].append(cs.cold_ms(lambda st, fn=fn, vecs=vecs: fn(st, *vecs), s0))
-    wkv7_cuda.step_plan = plan
+            if V2_VARIANTS[name][2]:
+                e_y, e_s = cs.rel_rms(y.float(), y_ref), cs.rel_rms(s, s_ref)
+                assert e_y <= tol and e_s <= tol, (name, case, e_y, e_s)
+            bufs = wkv7_cuda.v2_buffers(xs[0])
+            times[name][f"{case} ms"].append(cs.cuda_ms(lambda: wkv7_cuda.wkv7_fwd_v2(*xs, s0), reps=10))
+            for p in (1, 2):
+                times[name][f"{case} phase{p}"].append(
+                    cs.cuda_ms(lambda p=p: wkv7_cuda.wkv7_fwd_v2_phase(p, *xs, s0, bufs), reps=10))
+            del bufs
     for name in names:
         print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
     return 0
 
 
 def main(argv) -> int:
-    kinds = ("wkv6", "wkv6bwd", "wkv7", "wkv7fwd", "wkv7bwd", "wkv7step")
+    kinds = ("wkv6", "wkv6bwd", "wkv7", "wkv7fwd", "wkv7bwd", "wkv7step", "wkv6step", "v2")
     kind = argv[0][2:] if argv and argv[0][2:] in kinds and argv[0][:2] == "--" else None
     argv = argv[1:] if kind else argv
     known = {"wkv6": WKV6_VARIANTS, "wkv6bwd": WKV6BWD_VARIANTS, "wkv7": WKV7_VARIANTS,
              "wkv7fwd": WKV7FWD_VARIANTS, "wkv7bwd": WKV7BWD_VARIANTS, "wkv7step": WKV7STEP_VARIANTS,
-             None: VARIANTS}[kind]
+             "wkv6step": WKV6STEP_VARIANTS, "v2": V2_VARIANTS, None: VARIANTS}[kind]
     names = argv or list(known)
     bad = [n for n in names if n not in known]
     if bad:
@@ -690,7 +795,11 @@ def main(argv) -> int:
         return time_wkv7(names, {n: {src: libs[src][n] for src in libs} for n in names}, dev,
                          WKV7FWD_VARIANTS, WKV7FWD_CASES)
     if kind == "wkv7step":
-        return time_wkv7step(names, build(names, "wkv7", WKV7STEP_VARIANTS), dev)
+        return time_step(names, build(names, "wkv7", WKV7STEP_VARIANTS, headers=("wkv_step.cuh",)), dev)
+    if kind == "v2":
+        return time_v2(names, build(names, "wkv7_v2", V2_VARIANTS), dev)
+    if kind == "wkv6step":
+        return time_step(names, build(names, "wkv6", WKV6STEP_VARIANTS, headers=("wkv_step.cuh",)), dev, 6)
     if kind == "wkv7bwd":
         return time_wkv7bwd(names, build(names, "wkv7_train", WKV7BWD_VARIANTS, headers=("wkv7_chunk_bwd.cuh",)),
                             dev)

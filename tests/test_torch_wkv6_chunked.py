@@ -104,9 +104,10 @@ def test_chip_smoke_names_the_instantiations(save, dt, rows):
 
 def test_chip_smoke_other_categories_unchanged():
     cs = _chip_smoke()
-    assert cs._category("void wkv7_step_kernel<float, true>(int)") == "K4 wkv7_step_flat"
-    assert cs._category("void wkv7_step_kernel<float, false>(int)") == "K2 wkv7_step"
-    assert cs._category("void (anonymous namespace)::wkv6_step_kernel<float>(int)") == "K10 wkv6_step"
+    step = "void (anonymous namespace)::step::wkv_step_kernel<{}>(int, float const*)"
+    assert cs._category(step.format("7, 0, 1, 8")) == "K4 wkv7_step_flat"
+    assert cs._category(step.format("7, 1, 0, 16")) == "K2 wkv7_step"
+    assert cs._category(step.format("6, 0, 0, 32")) == "K10 wkv6_step"
     assert cs._category("void wkv6_bwd_kernel<__nv_bfloat16>(int)") == "K9 wkv6_bwd"
 
 

@@ -86,3 +86,50 @@ def test_k16_wrapper_refuses_cpu_tensors():
     args = [torch.from_numpy(x) for x in _inputs(1, 64, 2, 64, seed=3)]
     with pytest.raises(ValueError):
         wkv7_cuda.wkv7_fwd_v2(*args)
+
+
+SM_SMEM = 228 * 1024  # shared memory of an H100 multiprocessor, bytes
+BLOCK_RESERVED = 1024  # what the card keeps a resident block besides its own
+
+
+@pytest.mark.parametrize("B,T,H,dtype", [(8, 512, 32, torch.bfloat16), (1, 1024, 32, torch.bfloat16),
+                                         (1, 1024, 32, torch.float32), (2, 64, 3, torch.bfloat16)])
+def test_k16_launch_plan(B, T, H, dtype):
+    """K16's two launches (``wkv7_cuda.v2_plan``, computed in Python; the
+    card's run holds it equal to the library's own numbers). Phase 1: a
+    block a (b, h, 32-step chunk); with bf16 streams three of them share a
+    multiprocessor's shared memory. Phase 2: a block a (b, h, slice of value
+    columns of Z), the columns a multiple of 8 (an m16n8 tile) that divides
+    64, every slice's shared memory within a block's limit. The scratch is
+    q_eff, y_loc, bta and h_loc a chunk in the stream dtype and p_last in
+    fp32."""
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    plan = wkv7_cuda.v2_plan(B, T, H, dtype)
+    nc = T // 32
+    p1, p2 = plan["chunk"], plan["state"]
+    assert p1["blocks"] == B * H * nc and p1["threads"] == 128
+    cols = p2["cols"]
+    assert cols % 8 == 0 and 64 % cols == 0 and p2["blocks"] == B * H * (64 // cols)
+    assert p2["threads"] == 128 and p2["stages"] >= 1
+    assert max(p1["smem_bytes"], p2["smem_bytes"]) <= 232448
+    esz = 2 if dtype == torch.bfloat16 else 4
+    assert plan["scratch_bytes"] == B * H * nc * ((2 * 32 * 64 + 2 * 64 * 64) * esz + 64 * 4)
+    if dtype == torch.bfloat16:
+        assert 3 * (p1["smem_bytes"] + BLOCK_RESERVED) <= SM_SMEM
+        # the widest slices that still give wkv7_cuda.V2_BLOCKS blocks, else the narrowest
+        wider = [n for n in wkv7_cuda.V2_COLS if n > cols]
+        assert p2["blocks"] >= wkv7_cuda.V2_BLOCKS or cols == min(wkv7_cuda.V2_COLS)
+        assert all(B * H * (64 // n) < wkv7_cuda.V2_BLOCKS for n in wider)
+
+
+def test_k16_phase2_slices_fill_the_card():
+    """At one prefill's B=1 H=32 the bf16 phase 2 runs 128 blocks (four
+    slices of 16 columns a head), about one for each of the H100's 132
+    multiprocessors, where a block a head ran 32; at the reference's B=8
+    H=32 whole heads already give 256 blocks."""
+    from visualrwkv_torch.ops import wkv7_cuda
+
+    b1 = wkv7_cuda.v2_plan(1, 1024, 32, torch.bfloat16)["state"]
+    b8 = wkv7_cuda.v2_plan(8, 512, 32, torch.bfloat16)["state"]
+    assert (b1["cols"], b1["blocks"]) == (16, 128) and (b8["cols"], b8["blocks"]) == (64, 256)

@@ -1,17 +1,17 @@
 // An empty kernel, to measure the launch floor: the time the card takes for
 // a launch that does no work, on a given grid. It replaces no TPU kernel and
-// no path of the port runs it. chip_smoke.py times it beside the decode step
-// K2 / K4 (wkv7.cu), on the step's grid, with the step's arguments and
-// replayed in a CUDA graph as the step is, so that the part of the step's
-// time that is launch can be told from the part that is work. Plain C
-// interface, loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py::
-// step_floor.
+// no path of the port runs it. chip_smoke.py times it beside the decode steps
+// K2 / K4 (wkv7.cu) and K10 (wkv6.cu), on the step's grid, with the step's
+// arguments and replayed in a CUDA graph as the step is, so that the part of
+// the step's time that is launch can be told from the part that is work.
+// Plain C interface, loaded with ctypes by visualrwkv_torch/ops/wkv7_cuda.py::
+// step_floor and wkv6_cuda.py::step_floor.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// the parameters of wkv7.cu's wkv7_step_kernel, unused
+// the parameters of K2's wkv_step_kernel (wkv_step.cuh) but u, unused
 __global__ void launch_floor_kernel(int, const void*, const float*, const float*, const float*,
                                     const float*, const float*, const float*, void*, float*) {}
 

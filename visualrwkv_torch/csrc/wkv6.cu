@@ -5,29 +5,18 @@
 // ROWS, FORM>, the chunk walk of wkv6_chunk.cuh (design, bound and the
 // factor forms there); the backward (K9) is in wkv6_train.cu.
 //
-// K10 wkv6_step replaces wkv6_step_pallas (_wkv6_step_kernel): K2's body
-// without a, b and the S.a term, with no decay floor. Bound: state bytes,
-// B*H*64*64 read once and written once (fp32 or bf16 state; math fp32). One
-// block of 8 warps per (b, h); a warp walks rows, each lane owns two adjacent
-// columns, so every row is read and written as one coalesced 128- or 256-byte
-// transaction, and the row sum and the bonus are warp shuffles.
+// K10 wkv6_step replaces wkv6_step_pallas (_wkv6_step_kernel): one token,
+// y = S r + (sum_j u_j k_j r_j) v from the old state, S' = S diag(w) + v k^T
+// with no decay floor. It is wkv_step_kernel<6, DT, 0, ROWS> of wkv_step.cuh,
+// the body of K2 / K4 (wkv7.cu) without a, b and the (S a) b^T term and with
+// the bonus: a block a slice of value rows of one head, 16-byte state
+// accesses, every state load in flight before the first sum; the design and
+// its bound are described there.
 
 #include "wkv6_chunk.cuh"
+#include "wkv_step.cuh"
 
 namespace {
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // K7 (SAVE 0) / K8 (SAVE 1): the chunk walk forward
 template <int DT, int SAVE, int ROWS, int FORM>
@@ -37,47 +26,6 @@ __global__ void __launch_bounds__(ROWS * threads_a_row<ROWS>(), min_blocks<FORM>
     const Stream<DT>* __restrict__ v, const float* __restrict__ u, const float* __restrict__ s0,
     Stream<DT>* __restrict__ y, float* __restrict__ s_out, float* __restrict__ zin) {
   chunk_walk<DT, SAVE, ROWS, FORM>(Tlen, H, wfloor, r, w, k, v, u, s0, y, s_out, zin);
-}
-
-// ---------------------------------------------------------------------------
-// K10: one decode step. Vectors [B, H, N] fp32, u [H, N] fp32; state in TS,
-// [B, H, Nv, Nk].
-// ---------------------------------------------------------------------------
-constexpr int STEP_WARPS = 8;
-
-template <typename TS>
-__global__ void __launch_bounds__(STEP_WARPS * 32) wkv6_step_kernel(
-    int H, const TS* __restrict__ s_in, const float* __restrict__ r, const float* __restrict__ w,
-    const float* __restrict__ k, const float* __restrict__ v, const float* __restrict__ u,
-    TS* __restrict__ s_out, float* __restrict__ y) {
-  const int bh = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j0 = 2 * lane;
-  const size_t vo = (size_t)bh * N;
-  const size_t base = vo * N;
-  float r0, r1, w0, w1, k0, k1, u0, u1;
-  load2(r + vo + j0, r0, r1);
-  load2(w + vo + j0, w0, w1);
-  load2(k + vo + j0, k0, k1);
-  load2(u + (size_t)(bh % H) * N + j0, u0, u1);
-  w0 = expf(-expf(w0));
-  w1 = expf(-expf(w1));
-  const float bonus = warp_sum(u0 * k0 * r0 + u1 * k1 * r1);
-
-  constexpr int ROWS = N / STEP_WARPS;
-#pragma unroll
-  for (int ii = 0; ii < ROWS; ++ii) {
-    const int i = warp * ROWS + ii;
-    const size_t so = base + (size_t)i * N + j0;
-    float s0, s1;
-    load2(s_in + so, s0, s1);
-    const float vi = v[vo + i];
-    const float yi = warp_sum(s0 * r0 + s1 * r1);
-    s0 = fmaf(s0, w0, vi * k0);
-    s1 = fmaf(s1, w1, vi * k1);
-    store2(s_out + so, s0, s1);
-    if (lane == 0) y[vo + i] = fmaf(bonus, vi, yi);
-  }
 }
 
 template <int DT, int SAVE, int ROWS, int FORM>
@@ -177,24 +125,14 @@ int wkv6_fwd_smem_bytes(int dtype, int rows) {
   return dtype == 0 ? fwd_smem_bytes<0>(rows) : dtype == 1 ? fwd_smem_bytes<1>(rows) : -1;
 }
 
-// K10: state [B, H, 64, 64] fp32 (0) or bf16 (1); vectors fp32 [B, H, 64].
-int wkv6_step(int state_dtype, int B, int H, int n, const void* s_in, const float* r,
+// K10: state [B, H, 64, 64] fp32 (0) or bf16 (1); vectors fp32 [B, H, 64],
+// u fp32 [H, 64]; rows = the value rows a block owns (8, 16, 32 or 64);
+// every pointer 16-byte aligned.
+int wkv6_step(int state_dtype, int rows, int B, int H, int n, const void* s_in, const float* r,
               const float* w, const float* k, const float* v, const float* u, void* s_out,
               float* y, void* stream) {
-  if (n != N || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(B * H), block(STEP_WARPS * 32);
-  if (state_dtype == 0) {
-    wkv6_step_kernel<float><<<grid, block, 0, st>>>(H, (const float*)s_in, r, w, k, v, u,
-                                                    (float*)s_out, y);
-  } else if (state_dtype == 1) {
-    using bf = __nv_bfloat16;
-    wkv6_step_kernel<bf><<<grid, block, 0, st>>>(H, (const bf*)s_in, r, w, k, v, u, (bf*)s_out,
-                                                 y);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return step::launch_step<6, 0>(state_dtype, rows, B, H, n, s_in, r, w, k, v, nullptr, nullptr, u,
+                                 s_out, y, stream);
 }
 
 }  // extern "C"

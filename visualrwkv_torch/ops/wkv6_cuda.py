@@ -12,7 +12,11 @@ is 16, or lower to harden the WKV7 solve); the step (K10) has none. K7 and
 K8 work in 16-step chunks, with a factor form of their matrix for each range
 of the floor (``csrc/wkv6_chunk.cuh``); :func:`fwd_plan` chooses how many
 value rows of a head's state one of their blocks owns. K9 is two launches a
-call (:func:`bwd_plan`), counted as one.
+call (:func:`bwd_plan`), counted as one. K10 is K2's kernel body
+(``csrc/wkv_step.cuh``) with the RWKV-6 bonus: a block owns a slice of value
+rows of one head, :func:`step_plan` chooses how many; :func:`step_floor`
+launches an empty kernel on K10's grid, to measure the launch floor
+(``csrc/launch_floor.cu``; no path runs it).
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from typing import Optional, Tuple
 import torch
 
 from visualrwkv_torch import cuda_build
-from visualrwkv_torch.ops.wkv7_cuda import _DTYPE_CODE, _check_cuda, _check_streams, _ptr, _stream
+from visualrwkv_torch.ops import wkv7_cuda
+from visualrwkv_torch.ops.wkv7_cuda import _DTYPE_CODE, _check_cuda, _check_streams, _floor_lib, _ptr, _stream
 
 Tensor = torch.Tensor
 
@@ -48,7 +53,7 @@ def _lib() -> ctypes.CDLL:
         lib.wkv6_fwd_res.restype = _I
         lib.wkv6_fwd_smem_bytes.argtypes = [_I, _I]
         lib.wkv6_fwd_smem_bytes.restype = _I
-        lib.wkv6_step.argtypes = [_I, _I, _I, _I] + [_P] * 9
+        lib.wkv6_step.argtypes = [_I] * 5 + [_P] * 9
         lib.wkv6_step.restype = _I
     return lib
 
@@ -90,6 +95,18 @@ def fwd_plan(B: int, H: int, dtype: torch.dtype) -> dict:
             + 2 * 64 * 4 + CHUNK * CHUNK * 4 + 64 * 4)
     return {"rows": rows, "blocks": B * H * (64 // rows), "threads": rows * (4 if rows == 64 else 8),
             "smem_bytes": smem}
+
+
+def step_plan(B: int, H: int, state_dtype: torch.dtype) -> dict:
+    """K10's launch for B * H heads (``wkv7_cuda.step_launch``: the kernel
+    body of K2). An fp32 state takes K2's rows (``wkv7_cuda.step_plan``): 32,
+    two a thread, 128 blocks at the 7B's B=1 H=64. A bf16 state takes whole
+    heads at every batch, two rows a thread: at B=1 H=64 its 64 blocks of 8
+    KiB read 7-8 % faster on the H100 than 128 blocks of 4 KiB, L2-hot and
+    L2-cold (``PERF.md``)."""
+    if state_dtype == torch.bfloat16:
+        return wkv7_cuda.step_launch(B, H, state_dtype, 64)
+    return wkv7_cuda.step_plan(B, H, state_dtype)
 
 
 def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
@@ -218,33 +235,60 @@ def wkv6_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor, zin: Ten
     return (*grads, du_part.sum((0, 2)), ds0)
 
 
+def _step_args(name: str, state: Tensor, vecs, u: Tensor) -> Tuple[int, int, dict]:
+    """Check a step's state, vectors and bonus; (B, H, :func:`step_plan`)."""
+    r = vecs[0]
+    dev = state.device
+    _check_cuda(name, (state,) + tuple(vecs), dev)
+    if r.dim() != 3 or r.shape[-1] != 64:
+        raise ValueError(f"{name}: vectors must be [B, H, 64]; got {tuple(r.shape)}")
+    B, H, N = r.shape
+    _check_u(name, u, H, dev)
+    if state.shape != (B, H, N, N):
+        raise ValueError(f"{name}: state must be {(B, H, N, N)}; got {tuple(state.shape)}")
+    if state.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: state must be fp32 or bf16; got {state.dtype}")
+    if any(x.dtype != torch.float32 or x.shape != (B, H, N) for x in vecs):
+        raise ValueError(f"{name}: vectors must be fp32 {(B, H, N)}; got "
+                         f"{[(x.dtype, tuple(x.shape)) for x in vecs]}")
+    if any(x.data_ptr() % 16 for x in (state, u) + tuple(vecs)):
+        raise ValueError(f"{name}: the kernel reads 16 bytes at once; every tensor must start 16-byte aligned")
+    return B, H, step_plan(B, H, state.dtype)
+
+
 def wkv6_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
               u: Tensor) -> Tuple[Tensor, Tensor]:
     """K10: state ``[B, H, 64, 64]`` fp32 or bf16, vectors ``[B, H, 64]`` fp32
-    (the decode step's dtype), u fp32 ``[H, 64]``; no decay floor. Returns
-    (new state in the state's dtype, fp32 y)."""
+    (the decode step's dtype), u fp32 ``[H, 64]``; no decay floor. Laid out
+    by :func:`step_plan`. Returns (new state in the state's dtype, fp32 y)."""
     vecs = (r, w_raw, k, v)
+    B, H, plan = _step_args("wkv6_step", state, vecs, u)
     dev = state.device
-    _check_cuda("wkv6_step", (state,) + vecs, dev)
-    if r.dim() != 3 or r.shape[-1] != 64:
-        raise ValueError(f"wkv6_step: vectors must be [B, H, 64]; got {tuple(r.shape)}")
-    B, H, N = r.shape
-    _check_u("wkv6_step", u, H, dev)
-    if state.shape != (B, H, N, N):
-        raise ValueError(f"wkv6_step: state must be {(B, H, N, N)}; got {tuple(state.shape)}")
-    if state.dtype not in _DTYPE_CODE:
-        raise ValueError(f"wkv6_step: state must be fp32 or bf16; got {state.dtype}")
-    if any(x.dtype != torch.float32 or x.shape != (B, H, N) for x in vecs):
-        raise ValueError(f"wkv6_step: vectors must be fp32 {(B, H, N)}; got "
-                         f"{[(x.dtype, tuple(x.shape)) for x in vecs]}")
     s_out = torch.empty_like(state)
     y = torch.empty_like(r)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.wkv6_step(
-            _DTYPE_CODE[state.dtype], B, H, N, state.data_ptr(), *(x.data_ptr() for x in vecs),
-            u.data_ptr(), s_out.data_ptr(), y.data_ptr(), _stream(dev),
+            _DTYPE_CODE[state.dtype], plan["rows"], B, H, 64, state.data_ptr(),
+            *(x.data_ptr() for x in vecs), u.data_ptr(), s_out.data_ptr(), y.data_ptr(), _stream(dev),
         )
     cuda_build.check(lib, err, "wkv6_step")
     cuda_build.LAUNCHES["wkv6_step"] += 1
     return s_out, y
+
+
+def step_floor(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor) -> None:
+    """The launch floor of :func:`wkv6_step` on these inputs: the empty kernel
+    of ``csrc/launch_floor.cu`` launched on K10's grid and block
+    (:func:`step_plan`) with K10's pointers. It computes nothing and no path
+    calls it; it is timed beside K10."""
+    vecs = (r, w_raw, k, v)
+    B, H, plan = _step_args("step_floor", state, vecs, u)
+    dev = state.device
+    lib = _floor_lib()
+    with torch.cuda.device(dev):
+        err = lib.launch_floor(plan["blocks"], plan["threads"], H, state.data_ptr(),
+                               *(x.data_ptr() for x in vecs), u.data_ptr(), None,
+                               state.data_ptr(), r.data_ptr(), _stream(dev))
+    cuda_build.check(lib, err, "step_floor")
+    cuda_build.LAUNCHES["wkv6_step_floor"] += 1

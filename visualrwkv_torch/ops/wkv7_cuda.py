@@ -3,7 +3,8 @@ K4 ``wkv7_step_flat`` and K5 ``wkv7_fwd_res`` (``csrc/wkv7.cu``), K6
 ``wkv7_bwd`` (``csrc/wkv7_train.cu``), the head-pair ("packed") kernels
 K11 ``wkv7_fwd_packed``, K12 ``wkv7_fwd_res_packed`` and K13
 ``wkv7_bwd_packed`` (``csrc/wkv7_packed.cu``), and K16 ``wkv7_fwd_v2``, the
-chunked matrix form of the forward (``csrc/wkv7_v2.cu``). They take CUDA tensors only;
+chunked matrix form of the forward (``csrc/wkv7_v2.cu``; two launches,
+:func:`v2_plan`). They take CUDA tensors only;
 the dispatchers in :mod:`visualrwkv_torch.ops.wkv7` send CPU tensors to the
 plain versions. K1, K5, K11 and K12 are one chunked kernel
 (``csrc/wkv7_chunk.cuh``; K5 and K12 also save the chunk states, K1 and
@@ -37,6 +38,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 CHUNK = 16  # K5 / K12 save, and K6 / K13 read, the state entering every 16 steps
 V2_CHUNK = 32  # K16's chunk, the default of the JAX package's wkv7_pallas_v2
+# K16's launches (csrc/wkv7_v2.cu): threads a block of either phase; phase
+# 2's value columns of Z a block may own with bf16 streams (the most first)
+# and the blocks to reach, its columns with fp32 streams, and its chunks of
+# operands in flight
+V2_THREADS = 128
+V2_COLS = (64, 32, 16)
+V2_BLOCKS = 256
+V2_COLS_F32 = 8
+V2_STAGES = 3
 # K1 / K5 / K11 / K12: value rows of a head's state a block may own, the most
 # first, and the blocks to reach: about one for each of the H100's 132
 # multiprocessors
@@ -87,10 +97,14 @@ def _train_lib() -> ctypes.CDLL:
 def _v2_lib() -> ctypes.CDLL:
     lib = cuda_build.load("wkv7_v2")
     if lib.wkv7_fwd_v2.argtypes is None:
-        lib.wkv7_fwd_v2.argtypes = [_I, _I, _I, _I, _I] + [_P] * 11
-        lib.wkv7_fwd_v2.restype = _I
-        lib.wkv7_v2_scratch_floats.argtypes = []
-        lib.wkv7_v2_scratch_floats.restype = _I
+        lib.wkv7_fwd_v2.argtypes = [_I] * 5 + [_P] * 11
+        lib.wkv7_fwd_v2_phase.argtypes = [_I] * 6 + [_P] * 11
+        lib.wkv7_v2_state_plan.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.wkv7_v2_scratch_bytes, lib.wkv7_v2_chunk_smem_bytes):
+            fn.argtypes = [_I]
+        for fn in (lib.wkv7_fwd_v2, lib.wkv7_fwd_v2_phase, lib.wkv7_v2_state_plan,
+                   lib.wkv7_v2_scratch_bytes, lib.wkv7_v2_chunk_smem_bytes):
+            fn.restype = _I
     return lib
 
 
@@ -135,26 +149,78 @@ def fwd_res_plan(B: int, H: int, dtype: torch.dtype) -> dict:
             "smem_bytes": smem}
 
 
-def step_plan(B: int, H: int, state_dtype: torch.dtype, flat: bool = False) -> dict:
-    """K2's (K4's, ``flat``) launch for B * H heads: the value rows of a
-    head's state a block owns, the blocks, the lanes a state row takes (16
-    bytes a lane: 16 for an fp32 state, 8 for bf16), the rows a thread (one,
-    or two once the rows take more than ``STEP_THREADS`` lanes) and the
-    threads a block. The rows are the most of ``STEP_ROWS`` that give
-    ``STEP_BLOCKS`` blocks (else the fewest) among those whose block has at
-    most ``STEP_THREADS`` threads: 16 at B=1 H=32; from B=4 on, 32 for an
-    fp32 state and whole heads for bf16, two rows a thread. K4 with an fp32
-    state takes the fewest rows at every batch: its rows lie H * 256 bytes
-    apart, and there 8-row blocks read fastest on the H100 (``PERF.md``).
-    The rows change no arithmetic, so K4 stays bit-equal to K2."""
+def step_launch(B: int, H: int, state_dtype: torch.dtype, rows: int) -> dict:
+    """The launch of the step kernel (``csrc/wkv_step.cuh``: K2, K4, K10) for
+    B * H heads with ``rows`` value rows of a head's state a block: the
+    blocks, the lanes a state row takes (16 bytes a lane: 16 for an fp32
+    state, 8 for bf16), the rows a thread (one, or two once the rows take
+    more than ``STEP_THREADS`` lanes) and the threads a block."""
     lanes = 64 * (2 if state_dtype == torch.bfloat16 else 4) // 16
-    per_thread = lambda n: 2 if n * lanes > STEP_THREADS else 1
-    fits = [n for n in STEP_ROWS if n * lanes // per_thread(n) <= STEP_THREADS]
+    per_thread = 2 if rows * lanes > STEP_THREADS else 1
+    return {"rows": rows, "blocks": B * H * (64 // rows), "lanes_per_row": lanes,
+            "rows_per_thread": per_thread, "threads": rows * lanes // per_thread}
+
+
+def step_plan(B: int, H: int, state_dtype: torch.dtype, flat: bool = False) -> dict:
+    """K2's (K4's, ``flat``) launch for B * H heads (:func:`step_launch`). The
+    rows are the most of ``STEP_ROWS`` that give ``STEP_BLOCKS`` blocks (else
+    the fewest) among those whose block has at most ``STEP_THREADS`` threads:
+    16 at B=1 H=32; from B=4 on, 32 for an fp32 state and whole heads for
+    bf16, two rows a thread. K4 with an fp32 state takes the fewest rows at
+    every batch: its rows lie H * 256 bytes apart, and there 8-row blocks
+    read fastest on the H100 (``PERF.md``). The rows change no arithmetic, so
+    K4 stays bit-equal to K2."""
+    fits = [n for n in STEP_ROWS if step_launch(1, 1, state_dtype, n)["threads"] <= STEP_THREADS]
     if flat and state_dtype == torch.float32:
         fits = fits[-1:]
     rows = next((n for n in fits if B * H * (64 // n) >= STEP_BLOCKS), fits[-1])
-    return {"rows": rows, "blocks": B * H * (64 // rows), "lanes_per_row": lanes,
-            "rows_per_thread": per_thread(rows), "threads": rows * lanes // per_thread(rows)}
+    return step_launch(B, H, state_dtype, rows)
+
+
+def v2_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
+    """K16's two launches for B * H heads of T steps (``csrc/wkv7_v2.cu``).
+    ``"chunk"``, phase 1: a block of ``V2_THREADS`` for each (b, h, 32-step
+    chunk) and its dynamic shared memory (bf16 streams: the fp32 a_t, b_h,
+    k_h, the bf16 r_t, b_h and k_h, b_bar^T, k_bar^T, v^T, sb and sk, and
+    four vectors; fp32 streams: nine fp32 32 x 68 arrays
+    and four 32 x 36). ``"state"``, phase 2: a block of ``V2_THREADS`` for
+    each (b, h, slice of value columns of Z: with bf16 streams the most of
+    ``V2_COLS`` that still give ``V2_BLOCKS`` blocks, else the fewest;
+    ``V2_COLS_F32`` with fp32 streams) and its shared memory: ``V2_STAGES`` stages of q_eff
+    and bta (rows padded by 16 bytes), the slice's y_loc and h_loc and
+    p_last, then Z twice (bf16 Z^T with bf16 streams, fp32 Z with fp32).
+    ``scratch_bytes``: what phase 1 writes and phase 2 reads, q_eff, y_loc,
+    bta and h_loc a chunk in the scratch type (bf16 with bf16 streams, fp32
+    with fp32) and p_last in fp32."""
+    bf = dtype == torch.bfloat16
+    esz = 2 if bf else 4
+    nc = T // V2_CHUNK
+    L, N = V2_CHUNK, 64
+    if bf:
+        p1 = 3 * L * (N + 4) * 4 + L * (N + 8) * 2 + max(2 * L * (N + 8), 2 * N * (L + 8)) * 2 \
+            + 3 * N * (L + 8) * 2 + 2 * L * (L + 8) * 2 + 4 * N * 4
+    else:
+        p1 = (9 * L * (N + 4) + 4 * L * (L + 4)) * 4
+    cols = next((n for n in V2_COLS if B * H * (N // n) >= V2_BLOCKS), V2_COLS[-1]) if bf else V2_COLS_F32
+    ldq = N + 16 // esz
+    stage = (L + N) * ldq * esz + (L + N) * cols * esz + N * 4
+    z = 2 * cols * (N + 8) * 2 if bf else 2 * N * (cols + 4) * 4
+    return {"chunk": {"blocks": B * H * nc, "threads": V2_THREADS, "smem_bytes": p1},
+            "state": {"cols": cols, "blocks": B * H * (N // cols), "threads": V2_THREADS,
+                      "stages": V2_STAGES, "smem_bytes": V2_STAGES * stage + z},
+            "scratch_bytes": B * H * nc * ((2 * L * N + 2 * N * N) * esz + N * 4)}
+
+
+def kernel_v2_plan(B: int, H: int, dtype: torch.dtype) -> dict:
+    """The library's own numbers for K16's launches over B * H heads: phase
+    1's shared memory, phase 2's value columns, stages and shared memory,
+    and the scratch bytes a chunk."""
+    lib = _v2_lib()
+    code = _DTYPE_CODE[dtype]
+    out = (ctypes.c_int * 3)()
+    cuda_build.check(lib, lib.wkv7_v2_state_plan(code, B * H, out), "wkv7_v2_state_plan")
+    return {"chunk_smem_bytes": lib.wkv7_v2_chunk_smem_bytes(code), "cols": out[0], "stages": out[1],
+            "state_smem_bytes": out[2], "scratch_bytes_a_chunk": lib.wkv7_v2_scratch_bytes(code)}
 
 
 def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
@@ -326,33 +392,64 @@ def wkv7_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tenso
     return _bwd("wkv7_bwd", _train_lib, (r, w_raw, k, v, a, b, dy), zin, dsfinal)
 
 
+def _v2_args(name: str, streams, initial_state) -> Tuple[int, int, int]:
+    r = streams[0]
+    B, T, H, N = r.shape
+    _check_streams(name, streams, (initial_state,))
+    if T == 0 or T % V2_CHUNK:
+        raise ValueError(f"{name}: T={T} must be a positive multiple of {V2_CHUNK}")
+    return B, T, H
+
+
+def v2_buffers(r: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """K16's outputs and scratch for streams shaped and typed as ``r``: (y,
+    final state, scratch bytes), each ``torch.empty``."""
+    B, T, H, N = r.shape
+    lib = _v2_lib()
+    scratch = torch.empty(B * H * (T // V2_CHUNK) * lib.wkv7_v2_scratch_bytes(_DTYPE_CODE[r.dtype]),
+                          dtype=torch.uint8, device=r.device)
+    return torch.empty_like(r), torch.empty(B, H, N, N, dtype=torch.float32, device=r.device), scratch
+
+
+def _v2_call(name: str, phase: Optional[int], streams, initial_state, bufs) -> None:
+    B, T, H = _v2_args(name, streams, initial_state)
+    r = streams[0]
+    dev = r.device
+    y, s_out, scratch = bufs
+    lib = _v2_lib()
+    with torch.cuda.device(dev):
+        args = (_DTYPE_CODE[r.dtype], B, T, H, 64, *(x.data_ptr() for x in streams), _ptr(initial_state),
+                y.data_ptr(), s_out.data_ptr(), scratch.data_ptr(), _stream(dev))
+        err = lib.wkv7_fwd_v2(*args) if phase is None else lib.wkv7_fwd_v2_phase(phase, *args)
+    cuda_build.check(lib, err, name)
+    cuda_build.LAUNCHES[name] += 1
+
+
 def wkv7_fwd_v2(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
                 initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """K16: the chunked matrix form of :func:`wkv7_fwd` (chunk 32, two
-    launches: the chunk-local products of every chunk in parallel, then the
-    boundary recurrence), counterpart of the JAX package's
-    ``wkv7_pallas_v2``. Streams ``[B, T, H, 64]`` (all fp32 or all bf16),
-    T a positive multiple of 32, optional fp32 initial state. Returns (y in
-    the stream dtype, final fp32 state). One call counts one launch of K16."""
+    launches, :func:`v2_plan`: the chunk-local products of every chunk in
+    parallel, then the boundary recurrence over slices of value columns),
+    counterpart of the JAX package's ``wkv7_pallas_v2``. Streams ``[B, T,
+    H, 64]`` (all fp32 or all bf16), T a positive multiple of 32, optional
+    fp32 initial state. Returns (y in the stream dtype, final fp32 state).
+    One call counts one launch of K16."""
     streams = (r, w_raw, k, v, a, b)
-    B, T, H, N = r.shape
-    dev = r.device
-    _check_streams("wkv7_fwd_v2", streams, (initial_state,))
-    if T == 0 or T % V2_CHUNK:
-        raise ValueError(f"wkv7_fwd_v2: T={T} must be a positive multiple of {V2_CHUNK}")
-    y = torch.empty_like(r)
-    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=dev)
-    lib = _v2_lib()
-    scratch = torch.empty(B * H * (T // V2_CHUNK) * lib.wkv7_v2_scratch_floats(),
-                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.wkv7_fwd_v2(
-            _DTYPE_CODE[r.dtype], B, T, H, N, *(x.data_ptr() for x in streams),
-            _ptr(initial_state), y.data_ptr(), s_out.data_ptr(), scratch.data_ptr(), _stream(dev),
-        )
-    cuda_build.check(lib, err, "wkv7_fwd_v2")
-    cuda_build.LAUNCHES["wkv7_fwd_v2"] += 1
-    return y, s_out
+    _v2_args("wkv7_fwd_v2", streams, initial_state)
+    bufs = v2_buffers(r)
+    _v2_call("wkv7_fwd_v2", None, streams, initial_state, bufs)
+    return bufs[0], bufs[1]
+
+
+def wkv7_fwd_v2_phase(phase: int, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor,
+                      b: Tensor, initial_state: Optional[Tensor], bufs) -> None:
+    """One phase of :func:`wkv7_fwd_v2` alone, into ``bufs`` (from
+    :func:`v2_buffers`): 1 the chunk products into the scratch, 2 the
+    boundary recurrence from it (y and the final state). It times the two
+    phases apart; no path calls it, and it counts under its own name."""
+    if phase not in (1, 2):
+        raise ValueError(f"wkv7_fwd_v2_phase: phase must be 1 or 2; got {phase}")
+    _v2_call("wkv7_fwd_v2_phase", phase, (r, w_raw, k, v, a, b), initial_state, bufs)
 
 
 def wkv7_fwd_packed(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
