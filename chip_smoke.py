@@ -50,7 +50,8 @@ Phases (any failure exits non-zero; nothing is caught):
    and each phase's device time alone (no K16 instantiation may spill); the
    WKV6 decode step K10 at B = 1, 4 and 32 with fp32 and bf16 states and
    H=64 (``WKV6_STEP_CASES``), timed as K2 is, beside the launch floor on
-   K10's grid; the chunked WKV6 forward K7 / K8 at
+   K10's grid, and K10 on the flat state at the same cases, bit-equal to
+   K10; the chunked WKV6 forward K7 / K8 at
    the 7B prefill's and the 1.6B step's shapes, each case logging its plan
    (value rows a block, blocks, threads, shared memory held equal to the
    library's count, registers, spills: no K7 / K8 instantiation may spill),
@@ -97,6 +98,22 @@ Phases (any failure exits non-zero; nothing is caught):
    parameter gradient against the plain path on the CPU at a cut depth.
 8. ``ops.wkv7.wkv7_v2``, the chunk-batched WKV7 forward (K16), once through
    its public entry point.
+9. Serving a checkpoint, on the models of phases 3 and 5 while they are
+   built (9a, 9b, 9d right after phase 3, 9b, 9c right after phase 5, 9e
+   after phase 8), each run with its own launch counts: (a) the 1B5
+   exported to the reference's combined layout in memory, imported back
+   and served through ``make_engine(..., "gpu bf16")`` (phase 3's one-image
+   request: prefill logits and greedy ids bit-equal), its LM at 2 layers
+   through ``torch.save`` -> ``load_pth`` and one ``train/cli.py
+   --model_path`` step; (b) decode tok/s at B = 1, 4, 32 under
+   ``"gpu bf16i8"`` beside ``"gpu bf16"`` (1B5 and 7B, text requests) and
+   the int8 prefill logits against the plain path on the CPU at 2 LM
+   layers; (c) the 7B's four requests on the flat state (K10 on the flat
+   layout) with the head layout's greedy ids; (d) ``BatchedServer``, 8
+   requests on 4 slots, each request's greedy ids against
+   ``generate()`` alone (fp32 at 4 layers, then full width bf16); (e) fault
+   C.3: the four WKV dispatchers on bf16, strided and ``[..., H, N]``
+   inputs, bit-equal to the same calls on contiguous copies.
 
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
@@ -147,12 +164,16 @@ REPLACES = {
     "attention_bwd_dq_mha": "visualrwkv_tpu/vision/flash.py:101",
     "attention_bwd_dkv_mha": "visualrwkv_tpu/vision/flash.py:101",
     "wkv7_fwd_v2": "visualrwkv_tpu/ops/wkv7_pallas.py:1142",
+    # jnp in the JAX package, not a pallas_call: x060's decode step on the flat state
+    "wkv6_step_flat": "visualrwkv_tpu/ops/wkv6.py:50",
 }
 # the WKV kernels each LM family launches: (prefill, decode step, training
 # forward, training backward); "x070 packed" under set_wkv_impl("packed")
 WKV_KERNELS = {"x070": ("wkv7_fwd", "wkv7_step", "wkv7_fwd_res", "wkv7_bwd"),
                "x070 packed": ("wkv7_fwd_packed", "wkv7_step", "wkv7_fwd_res_packed", "wkv7_bwd_packed"),
                "x060": ("wkv6_fwd", "wkv6_step", "wkv6_fwd_res", "wkv6_bwd")}
+# the decode step each LM family launches on the flat state
+FLAT_STEP = {"x070": "wkv7_step_flat", "x060": "wkv6_step_flat"}
 # Greedy tokens a request generates in the counted run.
 NEW_TOKENS = 32
 # LM depth of the kernel-vs-plain prefill comparison (its plain side runs on
@@ -217,6 +238,7 @@ SOURCES = {
     "attention_bwd_dq_mha": "visualrwkv_torch/csrc/attention_bwd.cu",
     "attention_bwd_dkv_mha": "visualrwkv_torch/csrc/attention_bwd.cu",
     "wkv7_fwd_v2": "visualrwkv_torch/csrc/wkv7_v2.cu",
+    "wkv6_step_flat": "visualrwkv_torch/csrc/wkv6.cu",
 }
 
 
@@ -1350,6 +1372,56 @@ def check_wkv6_step(gen, dev):
     return out
 
 
+def check_wkv6_step_flat(gen, dev):
+    """K10 on the flat state [B, 64, H*64] (``wkv6_cuda.wkv6_step_flat``, the
+    step x060 decodes with under ``state_layout="flat"``) at
+    ``WKV6_STEP_CASES``, against its plain version (``ops.wkv6.
+    wkv6_step_flat``, the JAX package's jnp step), timed as K10 is in
+    :func:`check_wkv6_step` (hot, cold, eagerly, beside the launch floor on
+    its own grid), and beside K10 on the same state in the head layout: its
+    y and new state must equal K10's bit for bit."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv6 as pw
+    from visualrwkv_torch.ops import wkv6_cuda
+    from visualrwkv_torch.ops.wkv7 import state_from_flat, state_to_flat
+
+    H, N = 64, 64
+    out = []
+    for B, dname in WKV6_STEP_CASES:
+        sdt = getattr(torch, dname)
+        case = f"B={B} H={H} N={N} {dname} flat state [B, {N}, {H * N}], fp32 vectors"
+        plan = wkv6_cuda.step_plan(B, H, sdt, flat=True)
+        log(f"  wkv6_step_flat [{case}] plan: {plan}")
+        vecs, u = _wkv6_streams(gen, (B, H, N), torch.float32, dev)
+        head = (torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3).to(sdt)
+        s0 = state_to_flat(head).contiguous()
+        c = Check("wkv6_step_flat", case)
+        s, y = wkv6_cuda.wkv6_step_flat(s0, *vecs, u)
+        s_ref, y_ref = pw.wkv6_step_flat(s0.float(), *vecs, u)
+        s2, y2 = wkv6_cuda.wkv6_step(head, *vecs, u)
+        torch.cuda.synchronize()
+        assert s.dtype == sdt and s.shape == s0.shape
+        c.compare("y (fp32)", y, y_ref, 1e-3)
+        c.compare(f"new state ({dname})", s.float(), s_ref, 1e-3 if sdt == torch.float32 else 1e-2)
+        assert torch.equal(y, y2) and torch.equal(state_from_flat(s, H), s2), \
+            f"the flat K10 differs from K10 on the same state [{case}]"
+        log(f"  wkv6_step_flat [{case}] y and new state equal to K10's on the same state, bit for bit")
+        fn = lambda: wkv6_cuda.wkv6_step_flat(s0, *vecs, u)
+        k_ms, k_eager = cuda_ms(fn, reps=50), eager_ms(fn, reps=50)
+        k_cold = cold_ms(lambda st: wkv6_cuda.wkv6_step_flat(st, *vecs, u), s0)
+        floor_ms = cuda_ms(lambda: wkv6_cuda.step_floor(s0, *vecs, u, flat=True), reps=50)
+        p_ms = cuda_ms(lambda: pw.wkv6_step_flat(s0, *vecs, u), reps=20)
+        k10_ms = cuda_ms(lambda: wkv6_cuda.wkv6_step(head, *vecs, u), reps=50)
+        nbytes = 2 * B * H * N * N * s0.element_size() + 5 * B * H * N * 4 + H * N * 4
+        rec = c.record(k_ms, p_ms, None, nbytes, 5 * B * H * N * N, FP32_FLOPS, k_eager)
+        rec.update(plan=plan, cold_ms=k_cold, launch_floor_ms=floor_ms, head_layout_k10_ms=k10_ms)
+        log(f"  wkv6_step_flat [{case}] L2-cold {k_cold:.5f} ms, launch floor (empty kernel, same grid) "
+            f"{floor_ms:.5f} ms; K10 on the head layout at the same B: {k10_ms:.5f} ms")
+        out.append(rec)
+    return out
+
+
 def check_wkv6_train(gen, dev):
     """K8 (forward that saves the chunk states) and K9 (backward) at the
     1.6B training path's shapes, with a non-zero initial state and a non-zero
@@ -1944,7 +2016,7 @@ def expected_launches(cfg, prefills: int = 0, decode_steps: int = 0, encodes: in
         "attention_fwd_relpos": relpos_per_encode * encodes,
         "attention_fwd_mha": mha_per_encode * encodes,
     })
-    want["wkv7_step_flat"] = L * flat_decode_steps
+    want[FLAT_STEP[cfg.rwkv.version]] = L * flat_decode_steps
     return want
 
 
@@ -2124,7 +2196,7 @@ def _category(kernel_name: str) -> str:
     if "wkv_step_kernel<" in n:  # <FAM, DT, FLAT, ROWS>: K2 / K4 (FAM 7), K10 (FAM 6)
         fam = n.split("wkv_step_kernel<", 1)[1].split(",", 1)[0].replace("(int)", "").strip()
         if fam == "6":
-            return "K10 wkv6_step"
+            return "K10 wkv6_step_flat" if _template_flags(n, "wkv_step_kernel")[1] else "K10 wkv6_step"
         return "K4 wkv7_step_flat" if _template_flags(n, "wkv_step_kernel")[1] else "K2 wkv7_step"
     if "wkv6_bwd_" in n:  # both passes of K9
         return "K9 wkv6_bwd"
@@ -2624,6 +2696,358 @@ def run_wkv7_v2_path(seed: int, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: serving a checkpoint
+# ---------------------------------------------------------------------------
+
+# 9a: LM depth of the .pth that the training CLI loads; the CLI step's context
+CKPT_LM_LAYERS = 2
+CKPT_CLI_CTX = 512
+# 9b: batches and greedy tokens of the int8 / bf16 decode rates
+INT8_BATCHES = (1, 4, 32)
+INT8_TOKENS = 16
+# 9d: the server's model depth (fp32), requests, slots and token budgets (the
+# slots retire at their budgets and refill); a parting of its ids from a
+# request's own generate() must be a tie: top-2 logits within this share
+SERVER_LM_LAYERS = 4
+SERVER_SLOTS = 4
+SERVER_BUDGETS = (12, 5, 16, 7, 10, 3, 14, 8)
+SERVER_TIE_TOL = 1e-4
+
+
+def text_ids(batch: int, tokens: int, seed: int, device):
+    """Random text token ids [batch, tokens] from the seed (no image)."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randint(10, 65000, (batch, tokens), generator=gen, device=device)
+
+
+def run_checkpoint_round_trip(cfg, params, device, seed: int, phase3_ids, cli_argv=None):
+    """9a: the flagship's parameters exported to the reference's combined
+    layout in memory (``export_visualrwkv_checkpoint``: ``rwkv.`` /
+    ``proj.`` / ``vit.*_featurizer.``), imported back with
+    ``import_visualrwkv_checkpoint`` and served through
+    ``make_engine(..., "gpu bf16")``: phase 3's one-image request must give
+    the same prefill logits and greedy ids, bit for bit. Then the LM at
+    ``CKPT_LM_LAYERS`` layers goes through ``torch.save`` -> ``load_pth`` in
+    a temporary directory, and ``train/cli.py --model_path`` takes one step
+    on it (text records, no towers: the file holds the LM only)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.convert.pth_import import (
+        export_rwkv_state_dict,
+        export_visualrwkv_checkpoint,
+        import_visualrwkv_checkpoint,
+        load_pth,
+    )
+    from visualrwkv_torch.infer.engine import InferenceEngine
+    from visualrwkv_torch.infer.strategy import make_engine
+    from visualrwkv_torch.train import cli
+    from visualrwkv_torch.vision.backbone import tower_configs
+
+    ids, images = make_request(cfg, 1, 32, seed + 1, device)  # phase 3's one-image request
+    ref = InferenceEngine(params, cfg, state_dtype="float32", device=device)
+    ref_logits, _ = ref.prefill_ids(ids, images)
+    ref_ids = ref.generate(ids, images, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,)).tokens
+    if phase3_ids is not None:
+        assert np.array_equal(ref_ids, phase3_ids), "the rebuilt model's ids differ from phase 3's"
+    del ref
+    sd, export_ms = timed(lambda: export_visualrwkv_checkpoint(params))
+    n_keys, sd_gb = len(sd), sum(t.numel() * t.element_size() for t in sd.values()) / 1e9
+    grid = next(iter(tower_configs(cfg.vision).values())).grid
+    loaded, import_ms = timed(lambda: import_visualrwkv_checkpoint(sd, dst_grid=grid))
+    del sd
+    eng = make_engine(loaded, cfg, "gpu bf16")
+    del loaded
+    reset_launches()
+    logits, _ = eng.prefill_ids(ids, images)
+    res = eng.generate(ids, images, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,))
+    launches = dict(cuda_build.LAUNCHES)
+    same_logits = torch.equal(logits, ref_logits)
+    same_ids = np.array_equal(res.tokens, ref_ids)
+    log(f"  9a combined checkpoint: {n_keys} keys, {sd_gb:.2f} GB fp32, export {export_ms:.0f} ms, "
+        f"import {import_ms:.0f} ms; through make_engine('gpu bf16'): prefill logits bit-equal "
+        f"{same_logits}, greedy ids equal {same_ids} (first {res.tokens[0, :8].tolist()})")
+    assert same_logits and same_ids, "the imported checkpoint does not serve phase 3's request bit for bit"
+    del eng
+    want = expected_launches(cfg, prefills=2, decode_steps=NEW_TOKENS, encodes=2)
+
+    c, p = shallow(cfg, params, CKPT_LM_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"rwkv_L{CKPT_LM_LAYERS}.pth")
+        lm_sd = {k: v.cpu() for k, v in export_rwkv_state_dict(p["rwkv"]).items()}
+        _, save_ms = timed(lambda: torch.save(lm_sd, path))
+        back, load_ms = timed(lambda: load_pth(path))
+        assert set(back) == set(lm_sd) and all(torch.equal(back[k], v) for k, v in lm_sd.items())
+        mb = os.path.getsize(path) / 1e6
+        del back, lm_sd
+        data = os.path.join(tmp, "text.json")
+        with open(data, "w") as f:
+            json.dump([{"id": f"t{i}", "conversations": [
+                {"from": "human", "value": f"Count to {i + 3}, please."},
+                {"from": "gpt", "value": ", ".join(str(j) for j in range(1, i + 4)) + "."}]}
+                for i in range(4)], f)
+        argv = ["--model_path", path, "--n_layer", str(CKPT_LM_LAYERS), "--n_embd", str(c.rwkv.n_embd),
+                "--vocab_size", str(c.rwkv.vocab_size), "--ctx_len", str(CKPT_CLI_CTX), "--micro_bsz", "1",
+                "--epoch_steps", "1", "--epoch_count", "1", "--vision_towers", "", "--data_file", data,
+                "--proj_dir", tmp] + (cli_argv or [])
+        trainer, cli_ms = timed(lambda: cli.main(argv))
+        loss = trainer.history[-1]["loss"]
+        del trainer
+    log(f"  9a LM at {CKPT_LM_LAYERS} layers: torch.save {mb:.0f} MB in {save_ms:.0f} ms, load_pth "
+        f"{load_ms:.0f} ms (every tensor equal); train/cli.py --model_path, one step at ctx "
+        f"{CKPT_CLI_CTX}: loss {loss:.4f} in {cli_ms / 1e3:.1f} s (the run, its checkpoint included)")
+    assert np.isfinite(loss)
+    return {"keys": n_keys, "gb": sd_gb, "export_ms": export_ms, "import_ms": import_ms,
+            "logits_bit_equal": same_logits, "ids_equal": same_ids, "pth_mb": mb, "save_ms": save_ms,
+            "load_ms": load_ms, "cli_loss": loss, "cli_ms": cli_ms}, launches, want
+
+
+def decode_rates(cfg, params, device, seed: int, what: str):
+    """9b: decode tok/s of text requests at ``INT8_BATCHES`` under
+    ``"gpu bf16"`` and ``"gpu bf16i8"`` (int8 weights: every large 2-D
+    linear, dequantised to bf16 before its product), in turns (bf16, int8,
+    int8, bf16) at each batch: ``(generate time - prefill time)`` over the
+    ``INT8_TOKENS`` greedy tokens of each row."""
+    import numpy as np
+    import torch
+
+    from visualrwkv_torch.infer.strategy import make_engine
+
+    engines = {s: make_engine(params, cfg, s) for s in ("gpu bf16", "gpu bf16i8")}
+    q = engines["gpu bf16i8"].params["rwkv"]
+    n_q = sum(1 for _, t in _named_leaves(q) if t.dtype == torch.int8)
+    out = {}
+    for B in INT8_BATCHES:
+        ids = text_ids(B, 32, seed + B, device)
+        rates = {s: [] for s in engines}
+        for s in ("gpu bf16", "gpu bf16i8", "gpu bf16i8", "gpu bf16"):
+            eng = engines[s]
+            eng.generate(ids, max_new_tokens=2, stop_tokens=(-1,))
+            prefill_ms = sorted(timed(lambda: eng.prefill_ids(ids))[1] for _ in range(3))[1]
+            res, ms = timed(lambda: eng.generate(ids, max_new_tokens=INT8_TOKENS, stop_tokens=(-1,)))
+            assert np.isfinite(res.logits).all()
+            rates[s].append(B * INT8_TOKENS / ((ms - prefill_ms) / 1e3))
+        out[B] = {s: r for s, r in rates.items()}
+        log(f"  9b {what} decode B={B}: bf16 {rates['gpu bf16'][0]:.1f} / {rates['gpu bf16'][1]:.1f} "
+            f"tok/s, int8 weights {rates['gpu bf16i8'][0]:.1f} / {rates['gpu bf16i8'][1]:.1f} tok/s "
+            f"(in turns bf16, int8, int8, bf16)")
+    log(f"  9b {what}: {n_q} int8 linears in the LM")
+    del engines
+    torch.cuda.empty_cache()
+    return {"tok_per_s": out, "int8_linears": n_q}
+
+
+def check_int8_against_plain(cfg, params, device, seed: int):
+    """9b: prefill logits of a text request through the LM at
+    ``PLAIN_LAYERS`` layers with int8 weights (``apply_strategy`` of
+    ``"gpu bf16i8"``): the card's path against the plain path on the CPU
+    with the same quantized tree; relative RMS <= ``PLAIN_CHECK_TOL``."""
+    import torch
+
+    from visualrwkv_torch.infer.engine import InferenceEngine
+    from visualrwkv_torch.infer.strategy import apply_strategy, parse_strategy
+
+    c, p = shallow(cfg, params, PLAIN_LAYERS)
+    q = apply_strategy({"rwkv": p["rwkv"]}, parse_strategy("gpu bf16i8"))
+    ids = text_ids(1, 64, seed, device)
+    logits_gpu, _ = InferenceEngine(q, c, device=device).prefill_ids(ids)
+    t0 = time.perf_counter()
+    logits_cpu, _ = InferenceEngine(to_device(q, "cpu"), c, device="cpu").prefill_ids(ids.cpu())
+    cpu_s = time.perf_counter() - t0
+    e = rel_rms(logits_gpu.float().cpu(), logits_cpu.float())
+    log(f"  9b int8 prefill logits, LM cut to {PLAIN_LAYERS} layers: kernels (card) vs plain (CPU) "
+        f"rel_rms={e:.3e} (tol {PLAIN_CHECK_TOL:g}); CPU run {cpu_s:.1f} s")
+    assert torch.isfinite(logits_gpu).all() and e <= PLAIN_CHECK_TOL, e
+    return e
+
+
+def run_x060_flat(cfg, params, device, seed: int, new_tokens: int):
+    """9c: phase 5's four-request batch under ``"gpu bf16 flat"`` (the flat
+    decode state: K10 on the flat layout, one launch a layer a token), the
+    greedy ids equal to those under ``"gpu bf16"`` (the head layout)."""
+    import numpy as np
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.infer.strategy import make_engine
+
+    b = 4
+    ids, images = make_request(cfg, b, 32, seed + b, device)
+    head, flat = make_engine(params, cfg, "gpu bf16"), make_engine(params, cfg, "gpu bf16 flat")
+    head_res, head_ms = timed(lambda: head.generate(ids, images, max_new_tokens=new_tokens, stop_tokens=(-1,)))
+    flat.generate(ids, images, max_new_tokens=2)
+    reset_launches()
+    res, ms = timed(lambda: flat.generate(ids, images, max_new_tokens=new_tokens, stop_tokens=(-1,)))
+    launches = dict(cuda_build.LAUNCHES)
+    same = np.array_equal(res.tokens, head_res.tokens)
+    log(f"  9c x060 7B, 4 requests, 'gpu bf16 flat': generate({new_tokens}) {ms:.1f} ms (head layout "
+        f"{head_ms:.1f} ms), greedy ids equal to the head layout's {same}, first {res.tokens[0, :8].tolist()}")
+    assert same, "x060 flat-state greedy ids differ from the head layout's"
+    want = expected_launches(cfg, prefills=1, flat_decode_steps=new_tokens, encodes=1)
+    return {"generate_ms": ms, "head_generate_ms": head_ms}, launches, want
+
+
+def server_steps(budgets, slots: int) -> int:
+    """Decode steps the server takes for requests of these token budgets
+    (no stop token): each step admits into free slots, then advances all."""
+    queue, active, steps = list(budgets), [], 0
+    while queue or active:
+        while queue and len(active) < slots:
+            active.append(queue.pop(0))
+        steps += 1
+        active = [n - 1 for n in active if n > 1]
+    return steps
+
+
+def _server_run(eng, prompts, slots):
+    from visualrwkv_torch.infer.server import BatchedServer
+
+    server = BatchedServer(eng, max_batch=slots, stop_tokens=(-1,))
+    rids = [server.submit(p, max_new_tokens=n) for p, n in zip(prompts, SERVER_BUDGETS)]
+    out, ms = timed(server.run)
+    assert sorted(out) == rids and [len(out[r]) for r in rids] == list(SERVER_BUDGETS), out
+    return [out[r] for r in rids], ms
+
+
+def run_server(cfg, params, device, seed: int):
+    """9d: ``BatchedServer`` with ``SERVER_SLOTS`` slots serving the
+    ``len(SERVER_BUDGETS)`` text requests (slots retire at their budgets and
+    refill). Under ``"gpu fp32"`` with the LM cut to ``SERVER_LM_LAYERS``
+    layers of full width (compute fp32), each request's greedy ids must be
+    those of ``engine.generate`` for it alone; where they part, the
+    position is logged and its two top logits must be within
+    ``SERVER_TIE_TOL`` of the top one (a tie broken by rounding). Then at
+    full width in bf16: agreement logged, and the server's tok/s."""
+    import numpy as np
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.infer.strategy import make_engine
+
+    prompts = [text_ids(1, 12 + 3 * i, seed + 50 + i, device)[0].tolist() for i in range(len(SERVER_BUDGETS))]
+    c, p = shallow(cfg, params, SERVER_LM_LAYERS)
+    c = c.replace(rwkv=dataclasses.replace(c.rwkv, compute_dtype="float32"))
+    eng = make_engine({"rwkv": p["rwkv"]}, c, "gpu fp32")
+    _server_run(eng, prompts, SERVER_SLOTS)  # warm-up
+    reset_launches()
+    outs, ms = _server_run(eng, prompts, SERVER_SLOTS)
+    launches = dict(cuda_build.LAUNCHES)
+    want = expected_launches(c, prefills=len(prompts), decode_steps=server_steps(SERVER_BUDGETS, SERVER_SLOTS))
+    partings = []
+    for i, (prompt, got, n) in enumerate(zip(prompts, outs, SERVER_BUDGETS)):
+        alone = eng.generate(np.asarray([prompt]), max_new_tokens=n, stop_tokens=(-1,)).tokens[0].tolist()
+        if got == alone:
+            continue
+        j = next(k for k in range(n) if got[k] != alone[k])
+        logits, _ = eng.prefill_ids(np.asarray([prompt + alone[:j]]))
+        top = logits[0].float().topk(2).values
+        gap = float((top[0] - top[1]).abs() / top[0].abs())
+        partings.append({"request": i, "position": j, "top2_gap": gap})
+        log(f"  9d request {i}: server and generate() part at token {j} ({got[j]} / {alone[j]}); "
+            f"top-2 logits {float(top[0]):.6f} / {float(top[1]):.6f}, gap {gap:.2e} of the top "
+            f"(tol {SERVER_TIE_TOL:g})")
+        assert gap < SERVER_TIE_TOL, (i, j, gap)
+    n_tok = sum(SERVER_BUDGETS)
+    log(f"  9d server, LM {SERVER_LM_LAYERS} layers fp32, {len(prompts)} requests on {SERVER_SLOTS} slots: "
+        f"{n_tok} tokens in {ms:.1f} ms; {len(prompts) - len(partings)} of {len(prompts)} requests "
+        f"equal to generate() alone, partings {partings}")
+    del eng
+    eng = make_engine({"rwkv": params["rwkv"]}, cfg, "gpu bf16")
+    _server_run(eng, prompts, SERVER_SLOTS)  # warm-up
+    outs16, ms16 = _server_run(eng, prompts, SERVER_SLOTS)
+    agree16 = sum(got == eng.generate(np.asarray([pr]), max_new_tokens=n, stop_tokens=(-1,)).tokens[0].tolist()
+                  for pr, got, n in zip(prompts, outs16, SERVER_BUDGETS))
+    log(f"  9d server, full width bf16: {n_tok} tokens in {ms16:.1f} ms, {n_tok / (ms16 / 1e3):.1f} tok/s "
+        f"(prefills included); {agree16} of {len(prompts)} requests equal to generate() alone")
+    return {"fp32_ms": ms, "fp32_partings": partings, "bf16_ms": ms16,
+            "bf16_tok_per_s": n_tok / (ms16 / 1e3), "bf16_agree": agree16}, launches, want
+
+
+def check_dispatch_narrow(seed: int, device):
+    """9e (fault C.3): the dispatchers ``wkv7_step_auto``, ``wkv6_step_auto``
+    (head and flat state), ``wkv7`` and ``wkv6`` on CUDA with bf16 inputs and
+    with inputs sliced from a wider tensor along the last axis (and the steps
+    with two leading dimensions). Each must be bit-equal to the same call on
+    contiguous copies (fp32 copies of bf16 step vectors: the step kernels
+    take fp32; bf16 copies of bf16 streams, which the sequence kernels run in
+    bf16), and within tolerance of the plain path on the CPU."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv6 as p6
+    from visualrwkv_torch.ops import wkv7 as p7
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def strided(x):  # the same values, every other element of a wider tensor
+        wide = torch.zeros(*x.shape[:-1], 2 * x.shape[-1], dtype=x.dtype, device=x.device)
+        wide[..., ::2] = x
+        return wide[..., ::2]
+
+    def cpu(xs):
+        return [x.cpu() for x in xs]
+
+    reset_launches()
+    rows = []
+    for family, H in (("x070", 32), ("x060", 64)):
+        step = p7.wkv7_step_auto if family == "x070" else p6.wkv6_step_auto
+        seq = p7.wkv7 if family == "x070" else p6.wkv6
+        if family == "x070":
+            vecs, extra = _wkv_streams(gen, (2, 2, H, 64), torch.float32, device), ()
+            streams = _wkv_streams(gen, (2, 64, H, 64), torch.float32, device)
+        else:
+            vecs, u = _wkv6_streams(gen, (2, 2, H, 64), torch.float32, device)
+            streams, _ = _wkv6_streams(gen, (2, 64, H, 64), torch.float32, device)
+            extra = (u,)
+        s0 = torch.randn(2, 2, H, 64, 64, generator=gen, device=device) * 0.3
+        flat0 = p7.state_to_flat(s0[0]).contiguous()
+        vb = [x.bfloat16() for x in vecs]
+        # steps: bf16 vectors against their fp32 copies, strided against contiguous
+        s, y = step(s0, *vb, *extra)
+        s_f, y_f = step(s0, *(x.float() for x in vb), *extra)
+        assert y.dtype == torch.bfloat16 and torch.equal(y, y_f.bfloat16()) and torch.equal(s, s_f), family
+        s_x, y_x = step(s0, *(strided(x) for x in vecs), *extra)
+        s_c, y_c = step(s0, *vecs, *extra)
+        assert torch.equal(y_x, y_c) and torch.equal(s_x, s_c), family
+        s_p, y_p = step(s0.cpu(), *cpu(vecs), *cpu(extra))
+        e_step = max(rel_rms(y_c.cpu(), y_p), rel_rms(s_c.float().cpu(), s_p))
+        fs, fy = step(flat0, *(strided(x[0]).bfloat16() for x in vecs), *extra)
+        fs_c, fy_c = step(flat0, *(x[0].bfloat16().float() for x in vecs), *extra)
+        assert torch.equal(fs, fs_c) and torch.equal(fy, fy_c.bfloat16()), family
+        # sequences: bf16 strided streams against contiguous bf16 copies, fp32 strided against contiguous
+        sb = [strided(x.bfloat16()) for x in streams]
+        y1, st1 = seq(*sb, *extra)
+        y2, st2 = seq(*(x.contiguous() for x in sb), *extra)
+        assert y1.dtype == torch.bfloat16 and torch.equal(y1, y2) and torch.equal(st1, st2), family
+        y3, st3 = seq(*(strided(x) for x in streams), *extra)
+        y4, st4 = seq(*streams, *extra)
+        assert torch.equal(y3, y4) and torch.equal(st3, st4), family
+        mixed = [streams[0].bfloat16()] + list(streams[1:])  # mixed dtypes run in fp32
+        y5, _ = seq(*mixed, *extra)
+        y6, _ = seq(*(x.float() for x in mixed), *extra)
+        assert y5.dtype == torch.bfloat16 and torch.equal(y5, y6.bfloat16()), family
+        y_plain, st_plain = seq(*cpu(streams), *cpu(extra))
+        e_seq = max(rel_rms(y4.cpu(), y_plain), rel_rms(st4.cpu(), st_plain))
+        y_plain16, _ = seq(*(x.float().cpu() for x in sb), *cpu(extra))  # the same bf16 values
+        e_bf16 = rel_rms(y1.float().cpu(), y_plain16)
+        log(f"  9e {family}: bf16 / strided / [2, 2, H, 64] step vectors and bf16 / strided / mixed "
+            f"streams bit-equal to the calls on contiguous copies; against the plain path: step "
+            f"{e_step:.3e} (tol 1e-3), sequence fp32 {e_seq:.3e} (tol 1e-3), bf16 streams {e_bf16:.3e} "
+            f"(tol 1e-2)")
+        assert e_step <= 1e-3 and e_seq <= 1e-3 and e_bf16 <= 1e-2, (family, e_step, e_seq, e_bf16)
+        rows.append({"family": family, "step_rel_rms": e_step, "seq_rel_rms": e_seq, "bf16_rel_rms": e_bf16})
+    launches = dict(cuda_build.LAUNCHES)
+    for name in ("wkv7_step", "wkv7_fwd", "wkv6_step", "wkv6_step_flat", "wkv6_fwd", "wkv7_step_flat"):
+        assert launches.get(name, 0) > 0, (name, launches)
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 # the phases' steps
 # ---------------------------------------------------------------------------
 
@@ -2640,16 +3064,17 @@ def build(cfg, seed: int, device):
 
 def serve(cfg, params, device, seed: int):
     """:func:`run_serving`, logged. Returns (its numbers, launches, the
-    launches it implies, the greedy ids of the four-request batch)."""
+    launches it implies, the greedy ids of the four-request batch, those of
+    the one request)."""
     runs, launches, want, peak_gib = run_serving(cfg, params, device, NEW_TOKENS, seed)
     head_tokens = runs[-1].pop("tokens")
-    runs[0].pop("tokens")
+    one_tokens = runs[0].pop("tokens")
     for r in runs:
         log(f"  {r['run']}: prompt {r['prompt_tokens']} tokens, TTFT {r['ttft_ms']:.1f} ms, "
             f"generate({NEW_TOKENS}) {r['generate_ms']:.1f} ms, "
             f"decode {r['decode_tok_per_s']:.1f} tok/s, first ids {r['first_ids']}")
     log(f"  peak memory over the counted run: {peak_gib:.2f} GiB")
-    return {"runs": runs, "peak_gib": peak_gib}, launches, want, head_tokens
+    return {"runs": runs, "peak_gib": peak_gib}, launches, want, head_tokens, one_tokens
 
 
 def plain_check_serving(serving, cfg, params, seed: int, device):
@@ -2735,7 +3160,8 @@ def main(argv=None) -> int:
     k24 = {key: v for key, v in PTXAS.items() if key[1] == "wkv_step_kernel"}
     want24 = {("wkv7", "wkv_step_kernel", (7, dt, flat, rows)) for dt in (0, 1) for flat in (0, 1)
               for rows in (8, 16, 32, 64)}
-    want24 |= {("wkv6", "wkv_step_kernel", (6, dt, 0, rows)) for dt in (0, 1) for rows in (8, 16, 32, 64)}
+    want24 |= {("wkv6", "wkv_step_kernel", (6, dt, flat, rows)) for dt in (0, 1) for flat in (0, 1)
+               for rows in (8, 16, 32, 64)}
     assert set(k24) == want24, f"K2 / K4 / K10: ptxas reported {sorted(k24)}, not {sorted(want24)}"
     assert not any(v.get("spill_bytes", 0) for v in k24.values()), \
         f"a K2 / K4 / K10 instantiation spills: {k24}"
@@ -2761,6 +3187,7 @@ def main(argv=None) -> int:
     check_wkv7_function_ragged(gen, dev)
     kernels["attention_fwd_relpos"], kernels["attention_fwd_mha"] = check_attention(gen, dev)
     kernels["wkv6_fwd"], kernels["wkv6_step"] = check_wkv6_fwd(gen, dev), check_wkv6_step(gen, dev)
+    kernels["wkv6_step_flat"] = check_wkv6_step_flat(gen, dev)
     kernels["wkv6_fwd_res"], kernels["wkv6_bwd"] = check_wkv6_train(gen, dev)
     check_wkv6_paths(gen, dev)
     check_wkv6_bwd_paths(gen, dev)
@@ -2775,7 +3202,7 @@ def main(argv=None) -> int:
     log("phase 3: flagship VisualRWKV-7 1B5 serving, full width, seeded random bf16 weights")
     cfg = flagship_cfg()
     params = build(cfg, args.seed, dev)
-    serving, launches, want, head_tokens = serve(cfg, params, dev, args.seed)
+    serving, launches, want, head_tokens, one_tokens = serve(cfg, params, dev, args.seed)
     assert_launches("serving, head layout", launches, want)
     flat_run, flat_launches, flat_want = run_serving_flat(cfg, params, dev, NEW_TOKENS, args.seed,
                                                           head_tokens)
@@ -2793,6 +3220,24 @@ def main(argv=None) -> int:
     assert_launches("serving, packed", packed_launches, packed_want)
     serving["runs"].append(packed_run)
     plain_check_serving(serving, cfg, params, args.seed, dev)
+
+    # phase 9, on phase 3's model (before training touches anything) -------
+    log("phase 9a/9b/9d: serving a checkpoint, on phase 3's model")
+    phase9, phase9_s = {}, {}
+    t9 = time.perf_counter()
+    phase9["checkpoint"], ckpt_launches, ckpt_want = run_checkpoint_round_trip(cfg, params, dev, args.seed,
+                                                                               one_tokens)
+    assert_launches("9a checkpoint round trip", ckpt_launches, ckpt_want)
+    phase9_s["9a"] = time.perf_counter() - t9
+    t9 = time.perf_counter()
+    phase9["decode_tok_per_s"] = {"x070": decode_rates(cfg, params, dev, args.seed, "x070 1B5")}
+    phase9["int8_plain_rel_rms"] = {"x070": check_int8_against_plain(cfg, params, dev, args.seed + 13)}
+    phase9_s["9b x070"] = time.perf_counter() - t9
+    t9 = time.perf_counter()
+    phase9["server"], server_launches, server_want = run_server(cfg, params, dev, args.seed)
+    assert_launches("9d server", server_launches, server_want)
+    phase9_s["9d"] = time.perf_counter() - t9
+    torch.cuda.empty_cache()
 
     # phase 4 --------------------------------------------------------------
     log(f"phase 4: flagship VisualRWKV-7 1B5 training, full width, micro-batch {TRAIN_MICRO_BSZ} x "
@@ -2824,9 +3269,18 @@ def main(argv=None) -> int:
         "tokens, linear projector) serving, full width, seeded random bf16 weights")
     cfg6 = x060_serving_cfg()
     params = build(cfg6, args.seed, dev)
-    serving6, launches6, want6, _ = serve(cfg6, params, dev, args.seed)
+    serving6, launches6, want6, _, _ = serve(cfg6, params, dev, args.seed)
     assert_launches("x060 serving", launches6, want6)
     plain_check_serving(serving6, cfg6, params, args.seed, dev)
+    log("phase 9b/9c: serving a checkpoint, on phase 5's model")
+    t9 = time.perf_counter()
+    phase9["decode_tok_per_s"]["x060"] = decode_rates(cfg6, params, dev, args.seed, "x060 7B")
+    phase9["int8_plain_rel_rms"]["x060"] = check_int8_against_plain(cfg6, params, dev, args.seed + 13)
+    phase9_s["9b x060"] = time.perf_counter() - t9
+    t9 = time.perf_counter()
+    phase9["x060_flat"], flat6_launches, flat6_want = run_x060_flat(cfg6, params, dev, args.seed, NEW_TOKENS)
+    assert_launches("9c x060 flat state", flat6_launches, flat6_want)
+    phase9_s["9c"] = time.perf_counter() - t9
     del params  # the 7B leaves the card before phase 6
     torch.cuda.empty_cache()
 
@@ -2858,6 +3312,16 @@ def main(argv=None) -> int:
     want_v2 = dict.fromkeys(REPLACES, 0)
     want_v2["wkv7_fwd_v2"] = 1
     assert_launches("wkv7_v2", v2_launches, want_v2)
+    torch.cuda.empty_cache()
+
+    # phase 9e -------------------------------------------------------------
+    log("phase 9e: the CUDA dispatchers on bf16, strided and [..., H, N] inputs (fault C.3)")
+    t9 = time.perf_counter()
+    phase9["dispatch_c3"], c3_launches = check_dispatch_narrow(args.seed + 17, dev)
+    phase9_s["9e"] = time.perf_counter() - t9
+    phase9["seconds"] = phase9_s
+    log(f"  phase 9 took {sum(phase9_s.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase9_s.items()))
     torch.cuda.empty_cache()
 
     # profiles, after every counted run: each model built again from its seed
@@ -2907,7 +3371,8 @@ def main(argv=None) -> int:
     by_path = {"serving_head": launches, "serving_flat": flat_launches,
                "serving_packed": packed_launches, "training": train_launches, **option_launches,
                "serving_x060": launches6, "training_x060": train_launches6, **tower_launches,
-               "wkv7_v2": v2_launches}
+               "wkv7_v2": v2_launches, "checkpoint_round_trip": ckpt_launches, "server": server_launches,
+               "serving_x060_flat": flat6_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -2922,7 +3387,7 @@ def main(argv=None) -> int:
     log(json.dumps({"card": card, "build_s": build_s, "serving": serving, "training": training,
                     "serving_x060": serving6, "training_x060": training6, "tower_grads": towers,
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
-                    "wkv7_v2": v2_run}))
+                    "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches}))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

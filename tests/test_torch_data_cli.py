@@ -98,7 +98,7 @@ def test_cli_dummy_run_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--n_seq", "2"], ["--num_nodes", "2"], ["--n_data", "2"],
-                                   ["--model_path", "x.pth"],
+                                   ["--n_data", "4", "--n_seq", "2"],
                                    ["--coordinator_address", "localhost:1234"]])
 def test_cli_flags_of_unported_paths_raise(tmp_path, flags):
     with pytest.raises(NotImplementedError):

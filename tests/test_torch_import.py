@@ -22,8 +22,13 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "visualrwkv_tpu"))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
+
+# the serving slice's modules, which the walk must reach
+SERVING_MODULES = ("convert.pth_import", "convert.vision_import", "infer.quant", "infer.strategy",
+                   "infer.server", "apps.demo", "apps.serve", "apps.export")
 
 
 def test_port_imports_no_jax():
@@ -34,6 +39,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 24, out.stdout  # every subpackage was walked, train/ and data/ included
+    walked = set(out.stdout.splitlines()[1].split())
+    assert {f"visualrwkv_torch.{m}" for m in SERVING_MODULES} <= walked, out.stdout
 
 
 def test_entry_points_default_to_cuda():
@@ -80,9 +87,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         InferenceEngine({}, VLMConfig(), state_layout="rows", device="cpu")
     assert InferenceEngine({}, VLMConfig(), state_layout="flat", device="cpu").state_layout == "flat"
-    x060 = VLMConfig(rwkv=RWKVConfig(version="x060"))
-    with pytest.raises(NotImplementedError):  # the flat decode state is x070's only
-        InferenceEngine({}, x060, state_layout="flat", device="cpu")
+    x060 = VLMConfig(rwkv=RWKVConfig(version="x060"))  # x060 carries the flat state too
+    assert InferenceEngine({}, x060, state_layout="flat", device="cpu").state_layout == "flat"
 
 
 _IMPORT_SCRIPTS = """

@@ -235,8 +235,9 @@ def test_dispatch_validates_shapes():
     args = _t(_inputs(1, 16, 2, seed=10))
     with pytest.raises(ValueError, match="bonus u"):
         pw.wkv6(*args[:4], args[4][:1])
-    with pytest.raises(NotImplementedError):
-        pw.wkv6_step_auto(torch.zeros(1, 64, 128), *[a[:, 0] for a in args[:4]], args[4])
+    # a 3-D state is the flat layout [B, N, H*N]; any other 3-D shape is refused
+    with pytest.raises(ValueError, match="flat"):
+        pw.wkv6_step_auto(torch.zeros(1, 64, 64), *[a[:, 0] for a in args[:4]], args[4])
 
 
 def test_gradcheck_floored_scan_float64():

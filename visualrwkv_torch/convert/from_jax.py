@@ -6,7 +6,9 @@ The input is the JAX tree with every leaf a numpy array (a caller turns
 ``jax.Array`` leaves into numpy first; nothing here imports JAX). Layout
 changes, so that both packages compute the same function:
 
-- linears ``{"weight": [in, out]}`` -> ``[out, in]`` (the RWKV projections,
+- linears ``{"weight": [in, out]}`` -> ``[out, in]``, and int8 linears
+  ``{"weight_q": int8 [in, out], "scale": [out]}`` (``infer.quant``) ->
+  ``weight_q`` ``[out, in]``, the scale unchanged (the RWKV projections,
   x060's ``att.gate`` and ``ffn.receptance`` among them, the head, the ViT /
   SAM qkv, proj, fc1, fc2, and the projector);
 - patch embeddings ``[p*p*3, C]`` in (ph, pw, c) raster order -> a Conv2d
@@ -36,6 +38,8 @@ _VIT_LINEARS = {("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2"
 
 
 def _t(x, device, dtype) -> torch.Tensor:
+    if np.asarray(x).dtype == np.int8:  # int8 weights stay int8 whatever ``dtype`` is
+        return torch.from_numpy(np.array(x, order="C")).to(device)
     x = torch.from_numpy(np.array(x, dtype=np.float32, order="C"))  # a writable copy
     return x.to(device=device, dtype=dtype or torch.float32)
 
@@ -49,8 +53,11 @@ def _tree(tree, device, dtype):
 
 
 def _linear_T(p: Params) -> Params:
+    """Transpose a linear's weight, or an int8 linear's ``weight_q`` (its
+    per-output-channel ``scale`` is unchanged)."""
     out = dict(p)
-    out["weight"] = np.asarray(p["weight"]).T
+    key = "weight_q" if "weight_q" in p else "weight"
+    out[key] = np.asarray(p[key]).T
     return out
 
 
@@ -99,7 +106,7 @@ def _tower(tree: Params, tcfg) -> Params:
 
 
 def _proj(tree: Params) -> Params:
-    if "weight" in tree:  # linear projector
+    if "weight" in tree or "weight_q" in tree:  # linear projector
         return _linear_T(tree)
     return {"gate": _linear_T(tree["gate"]), "o_proj": _linear_T(tree["o_proj"]),
             "ln_v": tree["ln_v"]}
@@ -135,6 +142,8 @@ def _np_tree(tree):
         return {k: _np_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_np_tree(v) for v in tree]
+    if tree.dtype == torch.int8:
+        return tree.detach().cpu().numpy()
     return tree.detach().float().cpu().numpy()
 
 

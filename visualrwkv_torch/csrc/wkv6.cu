@@ -11,7 +11,10 @@
 // the body of K2 / K4 (wkv7.cu) without a, b and the (S a) b^T term and with
 // the bonus: a block a slice of value rows of one head, 16-byte state
 // accesses, every state load in flight before the first sum; the design and
-// its bound are described there.
+// its bound are described there. wkv6_step_flat is the same kernel on the
+// flat decode state [B, 64, H*64] (FLAT 1: a head's rows H*64 apart, as K4
+// reads them), the counterpart of the JAX package's wkv6_step_flat (jnp,
+// not a pallas_call); it is bit-equal to K10 on the same state.
 
 #include "wkv6_chunk.cuh"
 #include "wkv_step.cuh"
@@ -132,6 +135,15 @@ int wkv6_step(int state_dtype, int rows, int B, int H, int n, const void* s_in, 
               const float* w, const float* k, const float* v, const float* u, void* s_out,
               float* y, void* stream) {
   return step::launch_step<6, 0>(state_dtype, rows, B, H, n, s_in, r, w, k, v, nullptr, nullptr, u,
+                                 s_out, y, stream);
+}
+
+// K10 on the flat state [B, 64, H*64] (element [b, i, h*64 + j] is
+// S[b, h, i, j]), fp32 or bf16: FLAT 1, K4's addressing; rows as K10's.
+int wkv6_step_flat(int state_dtype, int rows, int B, int H, int n, const void* s_in, const float* r,
+                   const float* w, const float* k, const float* v, const float* u, void* s_out,
+                   float* y, void* stream) {
+  return step::launch_step<6, 1>(state_dtype, rows, B, H, n, s_in, r, w, k, v, nullptr, nullptr, u,
                                  s_out, y, stream);
 }
 

@@ -116,15 +116,15 @@ class InferenceEngine:
         ("float32", or "bfloat16" to halve the decode state traffic; the step
         math stays fp32). state_layout: "head" carries the WKV state as
         [B, H, 64, 64]; "flat" carries it as [B, 64, H*64] during decode
-        (``ops.wkv7.wkv7_step_flat``, kernel K4 on CUDA; x070 only).
-        ``params`` must be on ``device`` (CUDA unless the caller asks for
-        the CPU)."""
+        (``ops.wkv7.wkv7_step_flat``, kernel K4 on CUDA; x060:
+        ``ops.wkv6.wkv6_step_flat``, K10 on the flat layout). ``params``
+        must be on ``device`` (CUDA unless the caller asks for the CPU);
+        their large linears may be int8 (``infer.quant``,
+        ``infer.strategy``)."""
         if state_layout not in ("head", "flat"):
             raise ValueError(f"unknown state_layout {state_layout!r}")
         if state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown state_dtype {state_dtype!r}")
-        if state_layout == "flat" and cfg.rwkv.version != "x070":
-            raise NotImplementedError(f"state_layout='flat' is not ported for {cfg.rwkv.version}")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -187,3 +187,13 @@ class InferenceEngine:
             tuple(stop_tokens), generator,
         )
         return GenerateResult(*(t.cpu().numpy() for t in (tokens, lengths, tls, tps)))
+
+    def decode_text(self, result: GenerateResult, tokenizer, strip_stop: bool = True) -> List[str]:
+        """Each row's generated ids as text, the final stop token left out."""
+        outs = []
+        for row, n in zip(result.tokens, result.lengths):
+            ids = [int(t) for t in row[: int(n)]]
+            if strip_stop and ids and ids[-1] in (0, STOP_TOKEN_INDEX):
+                ids = ids[:-1]
+            outs.append(tokenizer.decode(ids))
+        return outs

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from visualrwkv_torch.config import STOP_TOKEN_INDEX, RWKVConfig
+from visualrwkv_torch.infer.quant import dequantize_weight
 from visualrwkv_torch.ops.wkv7 import wkv7, wkv7_step_auto
 
 Tensor = torch.Tensor
@@ -187,8 +188,11 @@ def group_norm(p: Params, x: Tensor, num_groups: int, eps: float) -> Tensor:
 
 
 def linear(p: Params, x: Tensor, dt: torch.dtype) -> Tensor:
-    """x @ W^T with operands in ``dt``; fp32 result."""
-    return F.linear(x.to(dt), p["weight"].to(dt)).float()
+    """x @ W^T with operands in ``dt``; fp32 result. An int8 linear
+    (``infer.quant``: ``weight_q``, ``scale``) is dequantised to ``dt``
+    first, as the JAX package's ``linear`` does."""
+    w = dequantize_weight(p, dt) if "weight_q" in p else p["weight"].to(dt)
+    return F.linear(x.to(dt), w).float()
 
 
 def _lora(x: Tensor, w: Tensor, dt: torch.dtype) -> Tensor:

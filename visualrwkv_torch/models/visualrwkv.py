@@ -48,12 +48,29 @@ def init_visualrwkv_params(cfg: VLMConfig, seed: int = 0, device="cuda",
     return params
 
 
+def _has_int8(tree) -> bool:
+    if isinstance(tree, dict):
+        return "weight_q" in tree or any(_has_int8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_int8(v) for v in tree)
+    return False
+
+
 def encode_images(params: Params, cfg: VLMConfig, images: Dict[str, Tensor],
                   normalized: bool = False) -> Tensor:
     """Per-tower pixel batches -> [N_img, tokens, n_embd]: adaptive pooling
     to ``num_token_per_image`` tokens, or CLIP grid pooling when
     ``grid_size != -2``. No gradient reaches the towers; the projector is
-    differentiable."""
+    differentiable. The towers and the projector take float weights only:
+    a tree quantized whole (``infer.strategy`` with int8 weights quantizes
+    them too, as the JAX package does, whose towers then fail on the
+    missing ``weight``) raises here."""
+    for part in ("vit", "proj"):
+        if _has_int8(params.get(part)):
+            raise ValueError(
+                f"params[{part!r}] holds int8 weights (weight_q): the vision towers and the "
+                "projector take float weights only, so this tree serves text requests only"
+            )
     with torch.no_grad():
         feats = backbone_features(params["vit"], cfg.vision, images, cfg.rwkv.compute_dtype,
                                   normalized)

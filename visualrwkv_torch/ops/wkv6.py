@@ -17,7 +17,8 @@ do (``visualrwkv_tpu/ops/wkv6.py:173-178``): the chunked form's
 The floor binds only where ``exp(w_raw) > 80 / chunk``, and its gradient
 there is zero. The one-token step has no floor, as in the JAX package.
 
-* :func:`wkv6_step` — one token (no floor).
+* :func:`wkv6_step` — one token (no floor); :func:`wkv6_step_flat` the
+  same on the flat decode state ``[B, N_v, H*N_k]``.
 * :func:`wkv6_reference` — the sequential scan, fp32; with ``chunk`` it
   applies the decay floor (the plain version of kernel K7).
 * :func:`wkv6_chunked` — the chunked matmul form of the JAX package.
@@ -37,7 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from visualrwkv_torch.ops import wkv6_cuda
+from visualrwkv_torch.ops import wkv6_cuda, wkv7_cuda
 from visualrwkv_torch.ops.padding import pad_steps
 
 Tensor = torch.Tensor
@@ -78,6 +79,26 @@ def wkv6_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: 
     y = torch.einsum("...ij,...j->...i", state, r) + bonus * v  # against the OLD state
     state = state * w[..., None, :] + v[..., :, None] * k[..., None, :]
     return state, y.to(out_dtype)
+
+
+def wkv6_step_flat(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
+                   u: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`wkv6_step` on the flat state ``[B, N_v, H*N_k]`` (element
+    ``[b, i, h*N + j]`` is ``S[b, h, i, j]``); vectors ``[B, H, N]``, u
+    ``[H, N]``; no decay floor. The JAX package's ``wkv6_step_flat``, sum
+    for sum (the plain version of K10 on the flat layout). Returns (new
+    state in the carried dtype and layout, y in r's dtype)."""
+    B, N, HN = state.shape
+    H = HN // N
+    f32 = torch.float32
+    out_dtype = r.dtype
+    r, k, v, u = (x.to(f32) for x in (r, k, v, u))
+    w = torch.exp(-torch.exp(w_raw.to(f32)))
+    s4 = state.to(f32).reshape(B, N, H, N)  # [B, i, H, j]
+    bonus = (u * k * r).sum(-1)  # [B, H]
+    y = (s4 * r[:, None]).sum(-1).transpose(1, 2) + bonus[..., None] * v
+    s4 = s4 * w[:, None] + v.transpose(1, 2)[..., None] * k[:, None]
+    return s4.reshape(B, N, HN).to(state.dtype), y.to(out_dtype)
 
 
 def wkv6_reference(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
@@ -254,24 +275,42 @@ def wkv6(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     CUDA tensors launch kernel K7 (``csrc/wkv6.cu``) and CPU tensors take
     the plain path (:func:`wkv6_plain`). Any ``chunk >= 1`` on both devices
     (the decay floor -80 / chunk; the kernels' 16-step chunks pick a factor
-    form for it), and ``u`` is taken in fp32 on CUDA."""
+    form for it), and ``u`` is taken in fp32 on CUDA. Without a gradient the
+    kernel takes streams of any float dtype and layout, as the plain path
+    does: it runs in their common dtype (fp32 or bf16, else fp32), made
+    contiguous, and y returns in r's dtype."""
     _validate(r, w_raw, k, v, u)
     inputs = (r, w_raw, k, v, u.float().contiguous() if r.is_cuda else u, initial_state)
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
         return WKV6Function.apply(*inputs, chunk)
     if r.is_cuda:
-        return wkv6_cuda.wkv6_fwd(*inputs, chunk)
+        u32 = wkv7_cuda.operand(u, torch.float32)
+        return wkv7_cuda.run_streams(lambda r, w, k, v, s0: wkv6_cuda.wkv6_fwd(r, w, k, v, u32, s0, chunk),
+                                     inputs[:4], initial_state)
     return wkv6_plain(*inputs, chunk)
 
 
 def wkv6_step_auto(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
                    u: Tensor) -> Tuple[Tensor, Tensor]:
-    """Decode-step entry point on the head layout ``[B, H, Nv, Nk]``: CPU
-    tensors take :func:`wkv6_step`, CUDA tensors launch kernel K10 (new state
-    in the carried dtype, fp32 or bf16). The flat layout is not ported for
-    x060."""
-    if state.dim() != 4:
-        raise NotImplementedError("wkv6_step_auto: only the head state layout [B, H, N, N] is ported")
+    """Decode-step entry point on vectors ``[B, H, N]``. A state with one
+    more dimension is the head layout ``[B, H, Nv, Nk]``: CPU tensors take
+    :func:`wkv6_step`, CUDA tensors launch kernel K10. A state with as many
+    dimensions as the vectors is the flat layout ``[B, Nv, H*Nk]``:
+    :func:`wkv6_step_flat`, or K10 on the flat layout. The kernels' new
+    state keeps the carried dtype (fp32 or bf16); their vectors may be of
+    any float dtype and layout, as on the CPU (``wkv7_cuda.run_step``),
+    and y returns in r's dtype on both devices."""
+    vecs = (r, w_raw, k, v)
+    if state.dim() == r.dim():
+        H, N = r.shape[-2], r.shape[-1]
+        if state.shape[-2:] != (N, H * N):
+            raise ValueError(
+                f"wkv6_step_auto: state {tuple(state.shape)} is not the flat "
+                f"[B, {N}, {H * N}] wkv6 layout"
+            )
+        if state.is_cuda:
+            return wkv7_cuda.run_step(wkv6_cuda.wkv6_step_flat, state, vecs, (u,))
+        return wkv6_step_flat(state, *vecs, u)
     if state.is_cuda:
-        return wkv6_cuda.wkv6_step(state, r, w_raw, k, v, u.float().contiguous())
-    return wkv6_step(state, r, w_raw, k, v, u)
+        return wkv7_cuda.run_step(wkv6_cuda.wkv6_step, state, vecs, (u,))
+    return wkv6_step(state, *vecs, u)

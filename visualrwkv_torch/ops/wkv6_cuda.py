@@ -1,5 +1,6 @@
 """Wrappers of the WKV6 CUDA kernels: K7 ``wkv6_fwd``, K8 ``wkv6_fwd_res``
-and K10 ``wkv6_step`` (``csrc/wkv6.cu``) and K9 ``wkv6_bwd``
+and K10 ``wkv6_step`` / ``wkv6_step_flat`` (the head and the flat decode
+state, ``csrc/wkv6.cu``) and K9 ``wkv6_bwd``
 (``csrc/wkv6_train.cu``). They take CUDA tensors only; the dispatchers in
 :mod:`visualrwkv_torch.ops.wkv6` send CPU tensors to the plain versions.
 
@@ -55,6 +56,8 @@ def _lib() -> ctypes.CDLL:
         lib.wkv6_fwd_smem_bytes.restype = _I
         lib.wkv6_step.argtypes = [_I] * 5 + [_P] * 9
         lib.wkv6_step.restype = _I
+        lib.wkv6_step_flat.argtypes = [_I] * 5 + [_P] * 9
+        lib.wkv6_step_flat.restype = _I
     return lib
 
 
@@ -97,16 +100,19 @@ def fwd_plan(B: int, H: int, dtype: torch.dtype) -> dict:
             "smem_bytes": smem}
 
 
-def step_plan(B: int, H: int, state_dtype: torch.dtype) -> dict:
+def step_plan(B: int, H: int, state_dtype: torch.dtype, flat: bool = False) -> dict:
     """K10's launch for B * H heads (``wkv7_cuda.step_launch``: the kernel
     body of K2). An fp32 state takes K2's rows (``wkv7_cuda.step_plan``): 32,
     two a thread, 128 blocks at the 7B's B=1 H=64. A bf16 state takes whole
     heads at every batch, two rows a thread: at B=1 H=64 its 64 blocks of 8
     KiB read 7-8 % faster on the H100 than 128 blocks of 4 KiB, L2-hot and
-    L2-cold (``PERF.md``)."""
+    L2-cold (``PERF.md``). On the flat state (``flat``) an fp32 state takes
+    K4's rows (``wkv7_cuda.step_plan(..., flat=True)``), a bf16 state whole
+    heads; the rows change no arithmetic, so the flat K10 is bit-equal to
+    K10."""
     if state_dtype == torch.bfloat16:
         return wkv7_cuda.step_launch(B, H, state_dtype, 64)
-    return wkv7_cuda.step_plan(B, H, state_dtype)
+    return wkv7_cuda.step_plan(B, H, state_dtype, flat)
 
 
 def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
@@ -235,8 +241,9 @@ def wkv6_bwd(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor, zin: Ten
     return (*grads, du_part.sum((0, 2)), ds0)
 
 
-def _step_args(name: str, state: Tensor, vecs, u: Tensor) -> Tuple[int, int, dict]:
-    """Check a step's state, vectors and bonus; (B, H, :func:`step_plan`)."""
+def _step_args(name: str, state: Tensor, vecs, u: Tensor, flat: bool = False) -> Tuple[int, int, dict]:
+    """Check a step's state (the head layout, or the flat one when ``flat``),
+    vectors and bonus; (B, H, :func:`step_plan`)."""
     r = vecs[0]
     dev = state.device
     _check_cuda(name, (state,) + tuple(vecs), dev)
@@ -244,8 +251,9 @@ def _step_args(name: str, state: Tensor, vecs, u: Tensor) -> Tuple[int, int, dic
         raise ValueError(f"{name}: vectors must be [B, H, 64]; got {tuple(r.shape)}")
     B, H, N = r.shape
     _check_u(name, u, H, dev)
-    if state.shape != (B, H, N, N):
-        raise ValueError(f"{name}: state must be {(B, H, N, N)}; got {tuple(state.shape)}")
+    want = (B, N, H * N) if flat else (B, H, N, N)
+    if state.shape != want:
+        raise ValueError(f"{name}: state must be {want}; got {tuple(state.shape)}")
     if state.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: state must be fp32 or bf16; got {state.dtype}")
     if any(x.dtype != torch.float32 or x.shape != (B, H, N) for x in vecs):
@@ -253,7 +261,23 @@ def _step_args(name: str, state: Tensor, vecs, u: Tensor) -> Tuple[int, int, dic
                          f"{[(x.dtype, tuple(x.shape)) for x in vecs]}")
     if any(x.data_ptr() % 16 for x in (state, u) + tuple(vecs)):
         raise ValueError(f"{name}: the kernel reads 16 bytes at once; every tensor must start 16-byte aligned")
-    return B, H, step_plan(B, H, state.dtype)
+    return B, H, step_plan(B, H, state.dtype, flat)
+
+
+def _step(name: str, flat: bool, state: Tensor, vecs, u: Tensor) -> Tuple[Tensor, Tensor]:
+    B, H, plan = _step_args(name, state, vecs, u, flat)
+    dev = state.device
+    s_out = torch.empty_like(state)
+    y = torch.empty_like(vecs[0])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(
+            _DTYPE_CODE[state.dtype], plan["rows"], B, H, 64, state.data_ptr(),
+            *(x.data_ptr() for x in vecs), u.data_ptr(), s_out.data_ptr(), y.data_ptr(), _stream(dev),
+        )
+    cuda_build.check(lib, err, name)
+    cuda_build.LAUNCHES[name] += 1
+    return s_out, y
 
 
 def wkv6_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
@@ -261,29 +285,27 @@ def wkv6_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
     """K10: state ``[B, H, 64, 64]`` fp32 or bf16, vectors ``[B, H, 64]`` fp32
     (the decode step's dtype), u fp32 ``[H, 64]``; no decay floor. Laid out
     by :func:`step_plan`. Returns (new state in the state's dtype, fp32 y)."""
-    vecs = (r, w_raw, k, v)
-    B, H, plan = _step_args("wkv6_step", state, vecs, u)
-    dev = state.device
-    s_out = torch.empty_like(state)
-    y = torch.empty_like(r)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.wkv6_step(
-            _DTYPE_CODE[state.dtype], plan["rows"], B, H, 64, state.data_ptr(),
-            *(x.data_ptr() for x in vecs), u.data_ptr(), s_out.data_ptr(), y.data_ptr(), _stream(dev),
-        )
-    cuda_build.check(lib, err, "wkv6_step")
-    cuda_build.LAUNCHES["wkv6_step"] += 1
-    return s_out, y
+    return _step("wkv6_step", False, state, (r, w_raw, k, v), u)
 
 
-def step_floor(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor) -> None:
-    """The launch floor of :func:`wkv6_step` on these inputs: the empty kernel
-    of ``csrc/launch_floor.cu`` launched on K10's grid and block
+def wkv6_step_flat(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
+                   u: Tensor) -> Tuple[Tensor, Tensor]:
+    """K10 on the flat state ``[B, 64, H*64]`` (element ``[b, i, h*64 + j]``
+    is ``S[b, h, i, j]``), fp32 or bf16: the same kernel with K4's row
+    stride, bit-equal to :func:`wkv6_step` on the same state. Returns (new
+    state in the state's dtype and layout, fp32 y ``[B, H, 64]``)."""
+    return _step("wkv6_step_flat", True, state, (r, w_raw, k, v), u)
+
+
+def step_floor(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
+               flat: bool = False) -> None:
+    """The launch floor of :func:`wkv6_step` (:func:`wkv6_step_flat` when
+    ``flat``, on a flat state) on these inputs: the empty kernel of
+    ``csrc/launch_floor.cu`` launched on K10's grid and block
     (:func:`step_plan`) with K10's pointers. It computes nothing and no path
     calls it; it is timed beside K10."""
     vecs = (r, w_raw, k, v)
-    B, H, plan = _step_args("step_floor", state, vecs, u)
+    B, H, plan = _step_args("step_floor", state, vecs, u, flat)
     dev = state.device
     lib = _floor_lib()
     with torch.cuda.device(dev):

@@ -528,7 +528,10 @@ def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
     ``chunk`` is, at any T (the steps past T of its last chunk are identity
     steps inside the kernel), and its envelope is K5's: finite up to w_raw
     of about 2.4 on a whole chunk, where the models keep w_raw <= -0.5. CPU
-    tensors take :func:`wkv7_plain` (:func:`wkv7_packed_plain`)."""
+    tensors take :func:`wkv7_plain` (:func:`wkv7_packed_plain`). The
+    kernels take streams of any float dtype and layout, as the plain path
+    does: they run in the streams' common dtype (fp32 or bf16, else fp32),
+    made contiguous, and y returns in r's dtype."""
     _validate(r, w_raw, k, v, a, b)
     if _IMPL_MODE == "chunked":
         return wkv7_plain(r, w_raw, k, v, a, b, initial_state, chunk)
@@ -537,27 +540,32 @@ def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):
         return (WKV7PackedFunction if packed else WKV7Function).apply(*inputs)
     if r.is_cuda:
-        return (wkv7_cuda.wkv7_fwd_packed if packed else wkv7_cuda.wkv7_fwd)(*inputs)
+        kernel = wkv7_cuda.wkv7_fwd_packed if packed else wkv7_cuda.wkv7_fwd
+        return wkv7_cuda.run_streams(kernel, inputs[:6], initial_state)
     return (wkv7_packed_plain if packed else wkv7_plain)(*inputs, chunk)
 
 
 def wkv7_step_auto(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
                    a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
-    """Decode-step entry point. A 4-D state is the head layout
-    ``[B, H, Nv, Nk]``: CPU tensors take :func:`wkv7_step`, CUDA tensors
-    launch kernel K2. A 3-D state is the flat layout ``[B, Nv, H*Nk]``:
+    """Decode-step entry point on vectors ``[B, H, N]``. A state with one
+    more dimension is the head layout ``[B, H, Nv, Nk]``: CPU tensors take
+    :func:`wkv7_step`, CUDA tensors launch kernel K2. A state with as many
+    dimensions as the vectors is the flat layout ``[B, Nv, H*Nk]``:
     :func:`wkv7_step_flat` or kernel K4. The kernels' new state keeps the
-    carried dtype (fp32 or bf16)."""
-    if state.dim() == 3:
+    carried dtype (fp32 or bf16). On CUDA the vectors may be of any float
+    dtype and layout and carry more leading dimensions than B, as on the CPU
+    (``wkv7_cuda.run_step``); y returns in r's dtype on both devices."""
+    vecs = (r, w_raw, k, v, a, b)
+    if state.dim() == r.dim():
         H, N = r.shape[-2], r.shape[-1]
         if state.shape[-2:] != (N, H * N):
             raise ValueError(
-                f"wkv7_step_auto: 3-D state {tuple(state.shape)} is not the flat "
+                f"wkv7_step_auto: state {tuple(state.shape)} is not the flat "
                 f"[B, {N}, {H * N}] wkv7 layout"
             )
         if state.is_cuda:
-            return wkv7_cuda.wkv7_step_flat(state, r, w_raw, k, v, a, b)
-        return wkv7_step_flat(state, r, w_raw, k, v, a, b)
+            return wkv7_cuda.run_step(wkv7_cuda.wkv7_step_flat, state, vecs)
+        return wkv7_step_flat(state, *vecs)
     if state.is_cuda:
-        return wkv7_cuda.wkv7_step(state, r, w_raw, k, v, a, b)
-    return wkv7_step(state, r, w_raw, k, v, a, b)
+        return wkv7_cuda.run_step(wkv7_cuda.wkv7_step, state, vecs)
+    return wkv7_step(state, *vecs)

@@ -265,6 +265,34 @@ def _check_cuda(name: str, xs, device) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def operand(x: Tensor, dtype: torch.dtype) -> Tensor:
+    """``x`` as the kernels take it: in ``dtype``, contiguous and starting
+    16-byte aligned (a copy only where ``x`` is not already so)."""
+    x = x.to(dtype).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def stream_dtype(xs) -> torch.dtype:
+    """The dtype the sequence kernels run a call's streams in: their common
+    dtype where a kernel has it (fp32 or bf16), else fp32."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return dt if dt in _DTYPE_CODE else torch.float32
+
+
+def run_streams(kernel, streams, initial_state) -> Tuple[Tensor, Tensor]:
+    """A sequence kernel ``kernel(*streams, initial_state) -> (y, state)`` on
+    streams of any float dtypes and layouts, as the plain path takes them:
+    the streams become operands in their common dtype (:func:`stream_dtype`),
+    the initial state an fp32 one. Returns (y in the first stream's dtype,
+    the kernel's fp32 state)."""
+    dt = stream_dtype(streams)
+    s0 = None if initial_state is None else operand(initial_state, torch.float32)
+    y, s = kernel(*(operand(x, dt) for x in streams), s0)
+    return y.to(streams[0].dtype), s
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -508,6 +536,24 @@ def _step(name: str, flat: bool, state: Tensor, vecs) -> Tuple[Tensor, Tensor]:
     cuda_build.check(lib, err, name)
     cuda_build.LAUNCHES[name] += 1
     return s_out, y
+
+
+def run_step(kernel, state: Tensor, vecs, extra=()) -> Tuple[Tensor, Tensor]:
+    """A decode-step kernel on vectors ``[..., H, N]`` of any float dtype and
+    layout and a state ``[..., H, Nv, Nk]`` (or flat ``[..., Nv, H*Nk]``) of
+    any float dtype, as the plain steps take them: the leading dimensions
+    fold into B, the vectors (and ``extra``, e.g. RWKV-6's bonus) become fp32
+    contiguous operands, the state keeps its dtype where the kernel has it
+    (fp32 or bf16, else fp32). Returns (new state in the kernel's state dtype
+    and the state's shape, y in the vectors' dtype and shape)."""
+    r = vecs[0]
+    H, N = r.shape[-2:]
+    sdt = state.dtype if state.dtype in (torch.float32, torch.bfloat16) else torch.float32
+    s_in = operand(state, sdt)
+    s_in = s_in.reshape((-1,) + tuple(state.shape[-(state.dim() - r.dim() + 2):]))
+    xs = [operand(x, torch.float32).reshape(-1, H, N) for x in vecs]
+    s, y = kernel(s_in, *xs, *(operand(x, torch.float32) for x in extra))
+    return s.reshape(state.shape), y.reshape(r.shape).to(r.dtype)
 
 
 def step_floor(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,

@@ -29,7 +29,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data_file", default="", type=str)
     p.add_argument("--image_folder", default="", type=str)
     p.add_argument("--proj_dir", default="out", type=str)
-    p.add_argument("--model_path", default="", type=str, help="checkpoint import (not ported)")
+    p.add_argument("--model_path", default="", type=str,
+                   help="a reference RWKV .pth whose LM weights replace the initialised ones")
     p.add_argument("--device", default="cuda", type=str, help="cuda (default) or cpu")
     p.add_argument("--vocab_size", default=65536, type=int)
     p.add_argument("--n_layer", default=12, type=int)
@@ -92,11 +93,31 @@ def check_ported(args) -> None:
         "--n_data > 1": (args.n_data or 1) > 1,
         "--num_nodes > 1": args.num_nodes > 1,
         "--coordinator_address": bool(args.coordinator_address),
-        "--model_path": bool(args.model_path),
     }
     for name, on in unported.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet")
+
+
+def load_lm_weights(init, loaded, where: str = "rwkv"):
+    """``loaded`` (an imported checkpoint's LM) in place of the leaves of
+    ``init``, on their device and in their dtype. Raises ``ValueError`` when
+    the structure or any shape differs: the checkpoint's geometry must be
+    the one the flags configure."""
+    if isinstance(init, dict):
+        if not isinstance(loaded, dict) or set(init) != set(loaded):
+            got = sorted(loaded) if isinstance(loaded, dict) else type(loaded).__name__
+            raise ValueError(f"{where}: the checkpoint has {got}, the model {sorted(init)}")
+        return {k: load_lm_weights(init[k], loaded[k], f"{where}.{k}") for k in init}
+    if isinstance(init, (list, tuple)):
+        if not isinstance(loaded, (list, tuple)) or len(init) != len(loaded):
+            got = len(loaded) if isinstance(loaded, (list, tuple)) else type(loaded).__name__
+            raise ValueError(f"{where}: the checkpoint has {got} entries, the model {len(init)}")
+        return [load_lm_weights(a, b, f"{where}[{i}]") for i, (a, b) in enumerate(zip(init, loaded))]
+    if tuple(init.shape) != tuple(loaded.shape):
+        raise ValueError(f"{where}: the checkpoint's shape {tuple(loaded.shape)} is not the "
+                         f"model's {tuple(init.shape)}")
+    return loaded.to(device=init.device, dtype=init.dtype)
 
 
 def make_configs(args):
@@ -217,6 +238,11 @@ def main(argv=None):
             args.vocab_size, tok.vocab_size,
         )
     params = init_visualrwkv_params(vlm_cfg, seed=0, device=args.device)
+    if args.model_path:  # a reference .pth: its LM replaces the initialised one
+        from visualrwkv_torch.convert.pth_import import import_rwkv_state_dict, load_pth
+
+        params["rwkv"] = load_lm_weights(params["rwkv"], import_rwkv_state_dict(load_pth(args.model_path)))
+        logging.info("loaded RWKV weights from %s", args.model_path)
     trainer = Trainer(vlm_cfg, tcfg, params, device=args.device, proj_dir=args.proj_dir, log_every=1)
     del params  # the fp32 init tree must not outlive the trainer's cast copy
 
