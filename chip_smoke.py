@@ -62,7 +62,10 @@ Phases (any failure exits non-zero; nothing is caught):
    autograd of the floored sequential scan; x060 at ``chunk_len`` 8, 4 and 1
    (the decay floors -10, -20 and -80) through ``ops.wkv6.wkv6``, K7 and, at
    T = 2040 under autograd, K8 + K9, against ``wkv6_plain(..., chunk)``, with
-   K7, K8 and K9 timed at each floor.
+   K7, K8 and K9 timed at each floor; the RWKV-4 sequence forward K17 at
+   the x040 prefill's shapes (B = 1 and 4, T = 1056, C = 2048; k near 80 on
+   a quarter of the channels; bf16 k, v) against the plain loop
+   (``WKV4_CASES``).
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -114,13 +117,30 @@ Phases (any failure exits non-zero; nothing is caught):
    ``generate()`` alone (fp32 at 4 layers, then full width bf16); (e) fault
    C.3: the four WKV dispatchers on bf16, strided and ``[..., H, N]``
    inputs, bit-equal to the same calls on contiguous copies.
+10. Speculative decoding (``infer/speculative.py``) with the int8
+   self-draft at k = 2 and 4: (a) phase 3's LM cut to 4 layers in fp32
+   (a text prompt of the image request's length: the towers run bf16
+   only), B = 1 and 4, greedy ids bit-equal to ``generate()``'s; (b)-(d)
+   phase 3's model at full width in bf16 on its one-image requests, B = 1
+   and 4: ids agreeing with ``generate()``'s, launches of each run (K2
+   2 (k + 1) 24 times a round: the draft's k + 1 steps and the verify
+   trail's k + 1 positions; no K1 inside the loop), rounds, mean
+   acceptance, and decode tok/s in turns against greedy decode; then
+   phase 5's x060 7B cut to 4 fp32 layers, lossless, with one verify
+   pass alone launching K10 k + 1 times a layer.
+11. The legacy families: RWKV-5 World 1.5B (x052) and RWKV-4 World 1.5B
+   (x040) behind phase 5's CLIP-L/14 @336 and linear projector, phase 3's
+   runs (x052: K7 a prefill, K10 a token, and the flat state with the head
+   layout's ids; x040: K17 a prefill, an fp32 state at B = 1 and 4), with
+   launch counts, TTFT, decode tok/s, peak memory and the plain check.
 
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
 runs, each model built again from its seed: once the profiler has been used in a
 process it slows every later launch of a host-bound loop.
 
-The line before the last is the JSON list of kernels; the last line is
+The whole run's time is logged before the card's name; the line before
+the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
 """
@@ -166,14 +186,19 @@ REPLACES = {
     "wkv7_fwd_v2": "visualrwkv_tpu/ops/wkv7_pallas.py:1142",
     # jnp in the JAX package, not a pallas_call: x060's decode step on the flat state
     "wkv6_step_flat": "visualrwkv_tpu/ops/wkv6.py:50",
+    # a lax.scan in the JAX package, not a pallas_call: x040's sequence form
+    "wkv4_fwd": "visualrwkv_tpu/ops/wkv4.py:41",
 }
 # the WKV kernels each LM family launches: (prefill, decode step, training
 # forward, training backward); "x070 packed" under set_wkv_impl("packed")
 WKV_KERNELS = {"x070": ("wkv7_fwd", "wkv7_step", "wkv7_fwd_res", "wkv7_bwd"),
                "x070 packed": ("wkv7_fwd_packed", "wkv7_step", "wkv7_fwd_res_packed", "wkv7_bwd_packed"),
-               "x060": ("wkv6_fwd", "wkv6_step", "wkv6_fwd_res", "wkv6_bwd")}
+               "x060": ("wkv6_fwd", "wkv6_step", "wkv6_fwd_res", "wkv6_bwd"),
+               "x052": ("wkv6_fwd", "wkv6_step", "wkv6_fwd_res", "wkv6_bwd"),
+               # x040's decode step is elementwise torch, and its LM is not trained here
+               "x040": ("wkv4_fwd", None, None, None)}
 # the decode step each LM family launches on the flat state
-FLAT_STEP = {"x070": "wkv7_step_flat", "x060": "wkv6_step_flat"}
+FLAT_STEP = {"x070": "wkv7_step_flat", "x060": "wkv6_step_flat", "x052": "wkv6_step_flat"}
 # Greedy tokens a request generates in the counted run.
 NEW_TOKENS = 32
 # LM depth of the kernel-vs-plain prefill comparison (its plain side runs on
@@ -239,6 +264,7 @@ SOURCES = {
     "attention_bwd_dkv_mha": "visualrwkv_torch/csrc/attention_bwd.cu",
     "wkv7_fwd_v2": "visualrwkv_torch/csrc/wkv7_v2.cu",
     "wkv6_step_flat": "visualrwkv_torch/csrc/wkv6.cu",
+    "wkv4_fwd": "visualrwkv_torch/csrc/wkv4.cu",
 }
 
 
@@ -1422,6 +1448,64 @@ def check_wkv6_step_flat(gen, dev):
     return out
 
 
+# K17's cases: (B, T, C, k/v dtype, k near 80 on a quarter of the channels,
+# initial state). x040 1B5's prefill (577 image tokens + 32, or the 1024 +
+# 32 of the flagship's prompt length) at B=1 and B=4 with fp32 k, v (the
+# model passes fp32); k in [78, 82] on every fourth channel, where e^k
+# summed over the steps would overflow fp32 without the max tracking; bf16
+# k, v. Tolerance: relative RMS 1e-5 on y and on the final state, both
+# sides fp32 arithmetic.
+WKV4_CASES = ((1, 1056, 2048, "float32", False, False), (4, 1056, 2048, "float32", False, True),
+              (1, 1056, 2048, "float32", True, True), (1, 1056, 2048, "bfloat16", False, True))
+WKV4_TOL = 1e-5
+
+
+def check_wkv4(gen, dev):
+    """K17 (``wkv4_cuda.wkv4_fwd``) against ``ops.wkv4.wkv4_plain`` (the
+    reference's loop over T, on the card) at ``WKV4_CASES``, with its plan
+    logged."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv4 as pw
+    from visualrwkv_torch.ops import wkv4_cuda
+
+    out = []
+    for B, T, C, dname, big_k, with_state in WKV4_CASES:
+        dt = getattr(torch, dname)
+        case = (f"B={B} T={T} C={C} {dname} k, v{', k near 80 on every 4th channel' if big_k else ''}, "
+                f"{'with' if with_state else 'no'} initial state")
+        w = -torch.exp(torch.rand(C, generator=gen, device=dev) * 8 - 5)
+        u = torch.randn(C, generator=gen, device=dev) * 0.5
+        k = torch.randn(B, T, C, generator=gen, device=dev)
+        v = torch.randn(B, T, C, generator=gen, device=dev)
+        if big_k:
+            k[..., ::4] = 78 + 4 * torch.rand(B, T, C // 4, generator=gen, device=dev)
+        k, v = k.to(dt), v.to(dt)
+        s0 = None
+        if with_state:
+            s0 = torch.stack([torch.randn(B, C, generator=gen, device=dev),
+                              torch.rand(B, C, generator=gen, device=dev) + 0.5,
+                              torch.randn(B, C, generator=gen, device=dev)], -1).contiguous()
+        plan = wkv4_cuda.fwd_plan(B, C)
+        log(f"  wkv4_fwd [{case}] plan: {plan['blocks']} blocks of {plan['threads']} threads, one a (b, c); "
+            f"ptxas {[v for key, v in PTXAS.items() if key[0] == 'wkv4']}")
+        c = Check("wkv4_fwd", case)
+        y, s = wkv4_cuda.wkv4_fwd(w, u, k, v, s0)
+        y_ref, s_ref = pw.wkv4_plain(w, u, k, v, s0)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all() and torch.isfinite(s).all()
+        c.compare("y (fp32)", y, y_ref, WKV4_TOL)
+        c.compare("final state (fp32)", s, s_ref, WKV4_TOL)
+        fn = lambda: wkv4_cuda.wkv4_fwd(w, u, k, v, s0)
+        k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
+        p_ms = cuda_ms(lambda: pw.wkv4_plain(w, u, k, v, s0), reps=1, warmup=1)
+        # k, v read and y written once, w and u, the states in and out
+        nbytes = 2 * B * T * C * k.element_size() + B * T * C * 4 + 2 * C * 4 + B * C * 12 * (2 if with_state else 1)
+        ops = 24 * B * T * C  # a step: 4 exp (~4 operations each), a divide, 3 max, ~6 multiply-adds
+        out.append(dict(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager), plan=plan))
+    return out
+
+
 def check_wkv6_train(gen, dev):
     """K8 (forward that saves the chunk states) and K9 (backward) at the
     1.6B training path's shapes, with a non-zero initial state and a non-zero
@@ -2008,15 +2092,14 @@ def expected_launches(cfg, prefills: int = 0, decode_steps: int = 0, encodes: in
     fwd, step, fwd_res, bwd = WKV_KERNELS[family]
     fwd_res_per_block = 2 if grad_cp and grad_cp != "wkv" else 1
     want = dict.fromkeys(REPLACES, 0)
-    want.update({
-        fwd: L * prefills,
-        step: L * decode_steps,
-        fwd_res: L * train_micro_batches * fwd_res_per_block,
-        bwd: L * train_micro_batches,
-        "attention_fwd_relpos": relpos_per_encode * encodes,
-        "attention_fwd_mha": mha_per_encode * encodes,
-    })
-    want[FLAT_STEP[cfg.rwkv.version]] = L * flat_decode_steps
+    for name, n in ((fwd, L * prefills), (step, L * decode_steps),
+                    (fwd_res, L * train_micro_batches * fwd_res_per_block), (bwd, L * train_micro_batches)):
+        if name is not None:  # None: no kernel there (x040's decode step is elementwise torch)
+            want[name] = n
+    want["attention_fwd_relpos"] = relpos_per_encode * encodes
+    want["attention_fwd_mha"] = mha_per_encode * encodes
+    if flat_decode_steps:
+        want[FLAT_STEP[cfg.rwkv.version]] = L * flat_decode_steps
     return want
 
 
@@ -2044,10 +2127,14 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def run_serving(cfg, params, device, new_tokens: int, seed: int):
+SERVING_PLAN = (("1 request, fp32 state", 1, "float32"), ("4 requests, bf16 state", 4, "bfloat16"))
+
+
+def run_serving(cfg, params, device, new_tokens: int, seed: int, plan=SERVING_PLAN):
     """The main path: one request (fp32 state), then four in one batch (bf16
-    state), through ``InferenceEngine.generate``. Returns the per-run
-    numbers, the launch counts of exactly this run and the counts it implies."""
+    state; ``plan`` may say otherwise), through ``InferenceEngine.generate``.
+    Returns the per-run numbers, the launch counts of exactly this run and
+    the counts it implies."""
     import numpy as np
     import torch
 
@@ -2055,7 +2142,6 @@ def run_serving(cfg, params, device, new_tokens: int, seed: int):
     from visualrwkv_torch.infer.engine import InferenceEngine
 
     runs = []
-    plan = (("1 request, fp32 state", 1, "float32"), ("4 requests, bf16 state", 4, "bfloat16"))
     engines = {sdt: InferenceEngine(params, cfg, state_dtype=sdt, device=device) for _, _, sdt in plan}
     reqs = {b: make_request(cfg, b, 32, seed + b, device) for _, b, _ in plan}
 
@@ -3052,6 +3138,201 @@ def check_dispatch_narrow(seed: int, device):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 10: speculative decoding; phase 11: the legacy families
+# ---------------------------------------------------------------------------
+
+# proposal windows, batches, and the LM depth of the fp32 lossless checks
+SPEC_KS = (2, 4)
+SPEC_BATCHES = (1, 4)
+SPEC_FP32_LAYERS = 4
+
+
+def expected_spec_launches(cfg, rounds: int, k: int, encodes: int):
+    """Launches of one ``SpeculativeEngine.generate`` with a draft of the
+    target's family and depth (the int8 self-draft): the target's and the
+    draft's prefills, ``encodes`` tower passes, and each round k + 1 draft
+    decode steps (``lm_decode_step``: K2 / K10 once a layer) and a verify
+    pass whose trail takes k + 1 more step launches a layer
+    (``wkv*_scan_states``); no prefill kernel inside the loop."""
+    want = expected_launches(cfg, prefills=2, encodes=encodes)
+    want[WKV_KERNELS[cfg.rwkv.version][1]] = 2 * rounds * (k + 1) * cfg.rwkv.n_layer
+    return want
+
+
+def int8_self_draft(params):
+    """The int8 self-draft of a VLM tree: its LM through
+    ``quantize_self_draft``, the towers and projector the target's (the
+    towers serve bf16 only: ``models/visualrwkv.py::encode_images``)."""
+    from visualrwkv_torch.infer.speculative import quantize_self_draft
+
+    return dict(params, rwkv=quantize_self_draft(params["rwkv"]))
+
+
+def spec_fp32_check(cfg, params, device, seed: int, what: str, batches=SPEC_BATCHES, ks=SPEC_KS):
+    """10(a), and x060's check: the LM cut to ``SPEC_FP32_LAYERS`` layers of
+    full width in fp32 with its int8 self-draft; at each batch and k the
+    greedy ids of ``SpeculativeEngine.generate`` must equal
+    ``InferenceEngine.generate``'s bit for bit, and the launches of each run
+    the loop's (:func:`expected_spec_launches`). A verify pass alone
+    (``forward_states`` over k + 1 tokens) must launch the step kernel
+    k + 1 times a layer and nothing else. The prompt is text of the image
+    request's length: the towers run bf16 only (K3), so an fp32 model has
+    none; the image's bf16 run is :func:`run_spec_full`'s."""
+    import numpy as np
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.config import VisionConfig
+    from visualrwkv_torch.infer.engine import InferenceEngine
+    from visualrwkv_torch.infer.speculative import SpeculativeEngine, forward_states
+    from visualrwkv_torch.models.rwkv7 import embed
+
+    c, p = shallow(cfg, params, SPEC_FP32_LAYERS)
+    c = c.replace(rwkv=dataclasses.replace(c.rwkv, compute_dtype="float32"), vision=VisionConfig(towers=()))
+    p = {"rwkv": to_device(p["rwkv"], device, torch.float32)}
+    draft = int8_self_draft(p)
+    eng = InferenceEngine(p, c, device=device)
+    step = WKV_KERNELS[c.rwkv.version][1]
+    recs, launches = [], {}
+    for B in batches:
+        ids = text_ids(B, cfg.num_token_per_image + 32, seed + 60 + B, device)
+        ref = eng.generate(ids, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,))
+        for k in ks:
+            spec = SpeculativeEngine(p, c, draft, c, k=k, device=device)
+            reset_launches()
+            res = spec.generate(ids, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,))
+            launches = dict(cuda_build.LAUNCHES)
+            assert_launches(f"{what} speculative B={B} k={k}", launches,
+                            expected_spec_launches(c, res.rounds, k, encodes=0))
+            equal = bool(np.array_equal(res.tokens, ref.tokens))
+            acc = float(res.accepted.sum()) / (res.rounds * k * B)
+            log(f"  {what}, LM {SPEC_FP32_LAYERS} layers fp32, B={B} k={k}: {res.rounds} rounds, "
+                f"mean acceptance {acc:.3f}, ids bit-equal to generate()'s: {equal}")
+            assert equal, f"{what} B={B} k={k}: speculative ids differ from greedy decode's"
+            recs.append({"batch": B, "k": k, "rounds": res.rounds, "acceptance": acc, "ids_equal": equal})
+    _, st = eng.prefill_ids(ids)
+    for k in ks:
+        window = ids[:, -(k + 1):]
+        reset_launches()
+        with torch.no_grad():
+            logits, trail = forward_states(p["rwkv"], c.rwkv, embed(p["rwkv"], window), st)
+        torch.cuda.synchronize()
+        verify = dict(cuda_build.LAUNCHES)
+        want = dict.fromkeys(REPLACES, 0)
+        want[step] = (k + 1) * c.rwkv.n_layer
+        assert_launches(f"{what} one verify pass, k={k}", verify, want)
+        assert trail[0].wkv.shape[:2] == (ids.shape[0], k + 1) and torch.isfinite(logits).all()
+    return recs, launches
+
+
+def run_spec_full(cfg, params, device, seed: int):
+    """10(b)-(d): phase 3's model at full width in bf16 with its int8
+    self-draft, phase 3's one-image requests (B = 1 and 4, ``NEW_TOKENS``
+    greedy tokens, fp32 state as the engine's default): (b) how many ids
+    agree with ``generate()``'s; (d) the launches of one counted run at each
+    k (:func:`expected_spec_launches`); (c) decode tok/s in turns (greedy,
+    k = 2, k = 4, k = 4, k = 2, greedy), each run's prefills taken out:
+    ``(generate time - prefill time) / tokens``, with the target's and the
+    draft's prefill each timed alone (median of 3)."""
+    import numpy as np
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.infer.engine import InferenceEngine
+    from visualrwkv_torch.infer.speculative import SpeculativeEngine
+
+    draft = int8_self_draft(params)
+    eng = InferenceEngine(params, cfg, device=device)
+    deng = InferenceEngine(draft, cfg, device=device)
+    specs = {k: SpeculativeEngine(params, cfg, draft, cfg, k=k, device=device) for k in SPEC_KS}
+    out, launches = {}, {}
+    for B in SPEC_BATCHES:
+        ids, images = make_request(cfg, B, 32, seed + B, device)
+        ref = eng.generate(ids, images, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,))
+        ttft = sorted(timed(lambda: eng.prefill_ids(ids, images))[1] for _ in range(3))[1]
+        dttft = sorted(timed(lambda: deng.prefill_ids(ids, images))[1] for _ in range(3))[1]
+        rec = {"ttft_ms": ttft, "draft_prefill_ms": dttft, "runs": {}}
+        for k, spec in specs.items():
+            spec.generate(ids, images, max_new_tokens=2, stop_tokens=(-1,))  # warm-up
+            reset_launches()
+            res = spec.generate(ids, images, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,))
+            launches[f"B={B} k={k}"] = dict(cuda_build.LAUNCHES)
+            assert_launches(f"10(d) speculative B={B} k={k}", launches[f"B={B} k={k}"],
+                            expected_spec_launches(cfg, res.rounds, k, encodes=2))
+            agree = int((res.tokens == ref.tokens).sum())
+            rows = int((res.tokens == ref.tokens).all(1).sum())
+            acc = float(res.accepted.sum()) / (res.rounds * k * B)
+            rec["runs"][f"k={k}"] = {"rounds": res.rounds, "acceptance": acc, "ids_agree": agree,
+                                     "rows_equal": rows, "k2_per_round": 2 * (k + 1) * cfg.rwkv.n_layer,
+                                     "ms": []}
+            log(f"  10(b) B={B} k={k}: {res.rounds} rounds, mean acceptance {acc:.3f}, {agree} of "
+                f"{res.tokens.size} ids equal to generate()'s ({rows} of {B} rows whole); first "
+                f"{res.tokens[0, :8].tolist()} / {ref.tokens[0, :8].tolist()}")
+            assert np.isfinite(res.tokens).all() and res.tokens.shape == (B, NEW_TOKENS)
+        greedy_ms = []
+        for what in ("greedy", *(f"k={k}" for k in SPEC_KS), *(f"k={k}" for k in reversed(SPEC_KS)), "greedy"):
+            if what == "greedy":
+                greedy_ms.append(timed(lambda: eng.generate(ids, images, max_new_tokens=NEW_TOKENS,
+                                                            stop_tokens=(-1,)))[1])
+            else:
+                k = int(what[2:])
+                rec["runs"][what]["ms"].append(timed(lambda: specs[k].generate(
+                    ids, images, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,)))[1])
+        rec["greedy_ms"] = greedy_ms
+        rec["greedy_tok_per_s"] = [B * NEW_TOKENS / ((ms - ttft) / 1e3) for ms in greedy_ms]
+        for k in SPEC_KS:
+            r = rec["runs"][f"k={k}"]
+            r["tok_per_s"] = [B * NEW_TOKENS / ((ms - ttft - dttft) / 1e3) for ms in r["ms"]]
+        log(f"  10(c) B={B}: TTFT {ttft:.1f} ms, draft prefill {dttft:.1f} ms; decode tok/s in turns: greedy "
+            + ", ".join(f"{v:.1f}" for v in rec["greedy_tok_per_s"]) + "; "
+            + "; ".join(f"k={k} " + ", ".join(f"{v:.1f}" for v in rec["runs"][f"k={k}"]["tok_per_s"])
+                        for k in SPEC_KS))
+        out[f"B={B}"] = rec
+    return out, launches
+
+
+def legacy_cfg(version: str):
+    """RWKV-5 World 1.5B ("x052", head size 64) or RWKV-4 World 1.5B ("x040"):
+    L24 D2048, vocabulary 65536, behind phase 5's CLIP-L/14 @336 tower (every
+    patch and the CLS token: 577 image tokens) and linear projector."""
+    from visualrwkv_torch.config import RWKVConfig
+
+    return x060_serving_cfg().replace(rwkv=RWKVConfig(
+        n_layer=24, n_embd=2048, vocab_size=65536, head_size=64, version=version,
+        compute_dtype="bfloat16", ctx_len=2048))
+
+
+def run_legacy(version: str, seed: int, device):
+    """Phase 11 for one family: the model built from ``seed``, phase 3's runs
+    (one image request with an fp32 state, then four in a batch: a bf16
+    state for x052, fp32 for x040, which refuses bf16), each with its
+    launch counts; x052's four requests again on the flat state (K10 FLAT
+    1) with the head layout's ids; the prefill logits against the plain path
+    on the CPU at ``PLAIN_LAYERS`` layers."""
+    import torch
+
+    cfg = legacy_cfg(version)
+    params = build(cfg, seed, device)
+    plan = SERVING_PLAN if version == "x052" else (
+        ("1 request, fp32 state", 1, "float32"), ("4 requests, fp32 state", 4, "float32"))
+    serving, launches, want, head_tokens, _ = serve(cfg, params, device, seed, plan)
+    assert_launches(f"{version} serving", launches, want)
+    paths = {f"serving_{version}": launches}
+    if version == "x052":
+        flat_run, flat_launches, flat_want = run_serving_flat(cfg, params, device, NEW_TOKENS, seed,
+                                                              head_tokens)
+        log(f"  {flat_run['run']}: generate({NEW_TOKENS}) {flat_run['generate_ms']:.1f} ms (the head "
+            f"layout again, right after: {flat_run['head_layout_again_ms']:.1f} ms), greedy ids equal "
+            f"to the head layout's")
+        assert_launches("x052 serving, flat layout", flat_launches, flat_want)
+        serving["runs"].append(flat_run)
+        paths["serving_x052_flat"] = flat_launches
+    plain_check_serving(serving, cfg, params, seed, device)
+    del params
+    torch.cuda.empty_cache()
+    return serving, paths
+
+
 def build(cfg, seed: int, device):
     import torch
 
@@ -3062,11 +3343,11 @@ def build(cfg, seed: int, device):
     return params
 
 
-def serve(cfg, params, device, seed: int):
+def serve(cfg, params, device, seed: int, plan=SERVING_PLAN):
     """:func:`run_serving`, logged. Returns (its numbers, launches, the
     launches it implies, the greedy ids of the four-request batch, those of
     the one request)."""
-    runs, launches, want, peak_gib = run_serving(cfg, params, device, NEW_TOKENS, seed)
+    runs, launches, want, peak_gib = run_serving(cfg, params, device, NEW_TOKENS, seed, plan)
     head_tokens = runs[-1].pop("tokens")
     one_tokens = runs[0].pop("tokens")
     for r in runs:
@@ -3118,6 +3399,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
 
     # phase 1 --------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3171,6 +3453,9 @@ def main(argv=None) -> int:
     want16 |= {("wkv7_v2", "wkv7_v2_state_kernel", (1, 1, cols, 3)) for cols in (16, 32, 64)}
     assert set(k16) == want16, f"K16: ptxas reported {sorted(k16)}, not {sorted(want16)}"
     assert not any(v.get("spill_bytes", 0) for v in k16.values()), f"a K16 instantiation spills: {k16}"
+    k17 = {key: v for key, v in PTXAS.items() if key[0] == "wkv4"}
+    assert len(k17) == 2, f"K17: ptxas reported {sorted(k17)}, not 2 dtypes"
+    assert not any(v.get("spill_bytes", 0) for v in k17.values()), f"a K17 instantiation spills: {k17}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
@@ -3196,6 +3481,7 @@ def main(argv=None) -> int:
     for key, (dq_cases, dkv_cases) in bwd.items():
         kernels[f"attention_bwd_dq_{key}"], kernels[f"attention_bwd_dkv_{key}"] = dq_cases, dkv_cases
     kernels["wkv7_fwd_v2"] = check_wkv7_v2(gen, dev)
+    kernels["wkv4_fwd"] = check_wkv4(gen, dev)
     torch.cuda.empty_cache()
 
     # phase 3 --------------------------------------------------------------
@@ -3237,6 +3523,17 @@ def main(argv=None) -> int:
     phase9["server"], server_launches, server_want = run_server(cfg, params, dev, args.seed)
     assert_launches("9d server", server_launches, server_want)
     phase9_s["9d"] = time.perf_counter() - t9
+    torch.cuda.empty_cache()
+
+    # phase 10, on phase 3's model ------------------------------------------
+    log(f"phase 10: speculative decoding with the int8 self-draft, k in {SPEC_KS}, on phase 3's model")
+    phase10, phase10_s = {}, {}
+    t10 = time.perf_counter()
+    phase10["x070_fp32"], spec_fp32_launches = spec_fp32_check(cfg, params, dev, args.seed, "10(a) x070 1B5")
+    phase10_s["10a"] = time.perf_counter() - t10
+    t10 = time.perf_counter()
+    phase10["x070_bf16"], spec_launches = run_spec_full(cfg, params, dev, args.seed)
+    phase10_s["10b-d"] = time.perf_counter() - t10
     torch.cuda.empty_cache()
 
     # phase 4 --------------------------------------------------------------
@@ -3281,6 +3578,11 @@ def main(argv=None) -> int:
     phase9["x060_flat"], flat6_launches, flat6_want = run_x060_flat(cfg6, params, dev, args.seed, NEW_TOKENS)
     assert_launches("9c x060 flat state", flat6_launches, flat6_want)
     phase9_s["9c"] = time.perf_counter() - t9
+    log("phase 10, x060: speculative decoding on phase 5's model, LM cut to fp32 layers")
+    t10 = time.perf_counter()
+    phase10["x060_fp32"], spec6_launches = spec_fp32_check(cfg6, params, dev, args.seed, "10 x060 7B",
+                                                           batches=(1,))
+    phase10_s["10 x060"] = time.perf_counter() - t10
     del params  # the 7B leaves the card before phase 6
     torch.cuda.empty_cache()
 
@@ -3323,6 +3625,20 @@ def main(argv=None) -> int:
     log(f"  phase 9 took {sum(phase9_s.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase9_s.items()))
     torch.cuda.empty_cache()
+    phase10["seconds"] = phase10_s
+
+    # phase 11 -------------------------------------------------------------
+    log("phase 11: the legacy families, RWKV-5 World 1.5B (x052) and RWKV-4 World 1.5B (x040), behind "
+        "CLIP-L/14 @336 (577 image tokens) and a linear projector, seeded random bf16 weights")
+    phase11, legacy_launches = {}, {}
+    for version in ("x052", "x040"):
+        t11 = time.perf_counter()
+        phase11[version], paths = run_legacy(version, args.seed, dev)
+        phase11[version]["seconds"] = time.perf_counter() - t11
+        legacy_launches.update(paths)
+    phase10_s["11"] = sum(phase11[v]["seconds"] for v in phase11)
+    log(f"  phases 10 and 11 took {sum(phase10_s.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase10_s.items()))
 
     # profiles, after every counted run: each model built again from its seed
     log("profiles: one prefill and 9 decode steps a serving model, one step a training model, "
@@ -3372,7 +3688,9 @@ def main(argv=None) -> int:
                "serving_packed": packed_launches, "training": train_launches, **option_launches,
                "serving_x060": launches6, "training_x060": train_launches6, **tower_launches,
                "wkv7_v2": v2_launches, "checkpoint_round_trip": ckpt_launches, "server": server_launches,
-               "serving_x060_flat": flat6_launches}
+               "serving_x060_flat": flat6_launches, "spec_x070_fp32": spec_fp32_launches,
+               **{f"spec_x070 {k}": v for k, v in spec_launches.items()}, "spec_x060_fp32": spec6_launches,
+               **legacy_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -3387,7 +3705,9 @@ def main(argv=None) -> int:
     log(json.dumps({"card": card, "build_s": build_s, "serving": serving, "training": training,
                     "serving_x060": serving6, "training_x060": training6, "tower_grads": towers,
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
-                    "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches}))
+                    "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches,
+                    "phase10": phase10, "phase11": phase11}))
+    log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ without the saved states, built through ``csrc/wkv7.cu`` and
 through ``csrc/wkv7_train.cu``), the WKV7 decode steps K2 / K4
 (``csrc/wkv_step.cuh``, built through ``csrc/wkv7.cu``) or the WKV6 decode
 step K10 (the same body, built through ``csrc/wkv6.cu``) or the chunk-batched
-WKV7 forward K16 (``csrc/wkv7_v2.cu``).
+WKV7 forward K16 (``csrc/wkv7_v2.cu``) or the RWKV-4 sequence forward K17
+(``csrc/wkv4.cu``).
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
     python3 chip_variants.py base stages2          # some of them
@@ -23,6 +24,7 @@ WKV7 forward K16 (``csrc/wkv7_v2.cu``).
     python3 chip_variants.py --wkv7step [names]    # K2 / K4: WKV7STEP_VARIANTS
     python3 chip_variants.py --wkv6step [names]    # K10: WKV6STEP_VARIANTS
     python3 chip_variants.py --v2 [names]          # K16: V2_VARIANTS
+    python3 chip_variants.py --wkv4 [names]        # K17: WKV4_VARIANTS
 
 A variant is the source with text substitutions (each names the design
 choice it undoes, or the part of the work it leaves out). Each is compiled
@@ -48,7 +50,9 @@ L2-cold, each exact variant held against the plain step (y <= 1e-3, the
 new state 1e-3 fp32, 1e-2 bf16); or K10 at ``WKV6STEP_CASES`` in the same
 way; or K16 at ``V2_CASES``, whole and each phase alone, each exact variant
 held against ``wkv7_v2_plain`` (y and the final state <= 1e-2 with bf16
-streams, 1e-3 with fp32). The card's name and power limit come first, the SDPA forward's time
+streams, 1e-3 with fp32); or K17 at ``WKV4_VARIANT_CASES``, each exact
+variant held against ``wkv4_plain`` (y and the final state <= 1e-5). The
+card's name and power limit come first, the SDPA forward's time
 at each no-bias case next (K3), and one ``VARIANT {json}`` line a variant
 last (its times in turn order).
 """
@@ -399,6 +403,20 @@ WKV6STEP_VARIANTS = {
 }
 # K10 timed: (kernel, B, state dtype) at H=64, L2-hot and L2-cold
 WKV6STEP_CASES = tuple(("wkv6_step", B, dname) for B in (1, 4, 32) for dname in ("float32", "bfloat16"))
+# K17: name -> ([(text in wkv4.cu, replacement)], None, exact): steps of k
+# and v loaded ahead of the walk (PREFETCH; the base 1: the next step's), and
+# "fast_math", the exps and the divide on the approximate special-function
+# unit (__expf, __fdividef: another rounding; its error is printed, not held)
+_PREFETCH = "constexpr int PREFETCH = 1;"
+WKV4_VARIANTS = {
+    "base": ([], None, True),
+    **{f"prefetch{n}": ([(_PREFETCH, f"constexpr int PREFETCH = {n};")], None, True) for n in (4, 8, 16, 32)},
+    "fast_math": ([("= expf(", "= __expf("),
+                   ("(e1 * aa + e2 * vt) / (e1 * bb + e2)", "__fdividef(e1 * aa + e2 * vt, e1 * bb + e2)")],
+                  None, False),
+}
+# K17 timed: (B, T, C, k/v dtype) of the x040 prefill, fp32 as the model passes them
+WKV4_VARIANT_CASES = ((1, 1056, 2048, "float32"), (4, 1056, 2048, "float32"))
 # K16: name -> ([(text in wkv7_v2.cu, replacement)], None, exact): phase 2's
 # value columns a block (with bf16 streams chosen by the blocks to reach,
 # V2_BLOCKS; V2_COLS_F32 with fp32 streams), its chunks of operands in flight
@@ -714,6 +732,41 @@ def time_step(names, libs, dev, family=7) -> int:
     return 0
 
 
+def time_wkv4(names, libs, dev) -> int:
+    """K17 at ``WKV4_VARIANT_CASES`` under each variant, in turns, each
+    exact variant held against ``wkv4_plain`` (y and the final state
+    relative RMS <= 1e-5)."""
+    import torch
+
+    import chip_smoke as cs
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv4 as pw
+    from visualrwkv_torch.ops import wkv4_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for B, T, C, dname in WKV4_VARIANT_CASES:
+        w = -torch.exp(torch.rand(C, generator=gen, device=dev) * 8 - 5)
+        u = torch.randn(C, generator=gen, device=dev) * 0.5
+        k, v = (torch.randn(B, T, C, generator=gen, device=dev).to(getattr(torch, dname)) for _ in range(2))
+        cases.append((f"B={B} T={T} C={C} {dname}", (w, u, k, v), pw.wkv4_plain(w, u, k, v)))
+    times = {n: {c[0]: [] for c in cases} for n in names}
+    for name in names + names[::-1]:
+        cuda_build._LIBS["wkv4"] = libs[name]
+        for case, xs, (y_ref, s_ref) in cases:
+            y, s = wkv4_cuda.wkv4_fwd(*xs)
+            torch.cuda.synchronize()
+            e_y, e_s = cs.rel_rms(y, y_ref), cs.rel_rms(s, s_ref)
+            print(f"  {name} [{case}] y rel_rms {e_y:.3e}, final state {e_s:.3e}", flush=True)
+            if WKV4_VARIANTS[name][2]:
+                assert e_y <= 1e-5 and e_s <= 1e-5, (name, case, e_y, e_s)
+            times[name][case].append(cs.cuda_ms(lambda xs=xs: wkv4_cuda.wkv4_fwd(*xs)))
+    for name in names:
+        print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
+    return 0
+
+
 def time_v2(names, libs, dev) -> int:
     """K16 at ``V2_CASES`` under each variant, in turns: the whole call and
     each phase alone (``wkv7_cuda.wkv7_fwd_v2_phase``); each exact variant
@@ -754,12 +807,12 @@ def time_v2(names, libs, dev) -> int:
 
 
 def main(argv) -> int:
-    kinds = ("wkv6", "wkv6bwd", "wkv7", "wkv7fwd", "wkv7bwd", "wkv7step", "wkv6step", "v2")
+    kinds = ("wkv6", "wkv6bwd", "wkv7", "wkv7fwd", "wkv7bwd", "wkv7step", "wkv6step", "v2", "wkv4")
     kind = argv[0][2:] if argv and argv[0][2:] in kinds and argv[0][:2] == "--" else None
     argv = argv[1:] if kind else argv
     known = {"wkv6": WKV6_VARIANTS, "wkv6bwd": WKV6BWD_VARIANTS, "wkv7": WKV7_VARIANTS,
              "wkv7fwd": WKV7FWD_VARIANTS, "wkv7bwd": WKV7BWD_VARIANTS, "wkv7step": WKV7STEP_VARIANTS,
-             "wkv6step": WKV6STEP_VARIANTS, "v2": V2_VARIANTS, None: VARIANTS}[kind]
+             "wkv6step": WKV6STEP_VARIANTS, "v2": V2_VARIANTS, "wkv4": WKV4_VARIANTS, None: VARIANTS}[kind]
     names = argv or list(known)
     bad = [n for n in names if n not in known]
     if bad:
@@ -798,6 +851,8 @@ def main(argv) -> int:
         return time_step(names, build(names, "wkv7", WKV7STEP_VARIANTS, headers=("wkv_step.cuh",)), dev)
     if kind == "v2":
         return time_v2(names, build(names, "wkv7_v2", V2_VARIANTS), dev)
+    if kind == "wkv4":
+        return time_wkv4(names, build(names, "wkv4", WKV4_VARIANTS), dev)
     if kind == "wkv6step":
         return time_step(names, build(names, "wkv6", WKV6STEP_VARIANTS, headers=("wkv_step.cuh",)), dev, 6)
     if kind == "wkv7bwd":

@@ -26,9 +26,10 @@ print(" ".join(names))
 assert not bad, bad
 """
 
-# the serving slice's modules, which the walk must reach
+# the serving slices' modules, which the walk must reach
 SERVING_MODULES = ("convert.pth_import", "convert.vision_import", "infer.quant", "infer.strategy",
-                   "infer.server", "apps.demo", "apps.serve", "apps.export")
+                   "infer.server", "apps.demo", "apps.serve", "apps.export", "infer.speculative",
+                   "apps.benchmark", "models.rwkv5", "models.rwkv4", "ops.wkv4", "ops.wkv4_cuda")
 
 
 def test_port_imports_no_jax():
@@ -77,9 +78,12 @@ def test_unported_options_raise():
     from visualrwkv_torch.config import RWKVConfig, VLMConfig
     from visualrwkv_torch.infer.engine import InferenceEngine
 
-    for version in ("x052", "x040"):
-        with pytest.raises(NotImplementedError):
-            RWKVConfig(version=version)
+    from visualrwkv_tpu.config import RWKVConfig as JaxRWKVConfig
+
+    for version in ("x052", "x040"):  # ported: they build with the JAX package's dim_ffn
+        cfg = RWKVConfig(version=version, n_embd=2048)
+        assert cfg.dim_ffn == JaxRWKVConfig(version=version, n_embd=2048).dim_ffn
+        assert cfg.dim_ffn == (8192 if version == "x040" else 7168)
     for kw in ({"uhd_fusion": True}, {"n_vtc_layer": 1},
                {"bidirectional_image": True}, {"image_scanning": "zigzag"}):
         with pytest.raises(NotImplementedError):

@@ -1,6 +1,6 @@
 """Configuration of the port: the fields of the JAX configuration tree that
-the VisualRWKV-7 and VisualRWKV-6 serving and training paths read, plus the
-token constants.
+the VisualRWKV-7 / -6 serving and training paths and the legacy RWKV-5.2 /
+RWKV-4 serving paths read, plus the token constants.
 
 Options of the JAX configuration that select paths the port does not have
 yet raise ``NotImplementedError`` when the configuration is built, so that a
@@ -20,13 +20,17 @@ IMAGE_TOKEN_INDEX = 65535
 STOP_TOKEN_INDEX = 261  # "\n\n" in the RWKV World vocabulary
 
 
+VERSIONS = ("x070", "x060", "x052", "x040")
+
+
 def _round_up(x: float, m: int) -> int:
     return int((int(x) + m - 1) // m * m)
 
 
 @dataclass(frozen=True)
 class RWKVConfig:
-    """RWKV language model configuration: RWKV-7 ("x070") or RWKV-6 ("x060")."""
+    """RWKV language model configuration: RWKV-7 ("x070"), RWKV-6 ("x060"),
+    RWKV-5.2 ("x052") or RWKV-4 ("x040")."""
 
     n_layer: int = 12
     n_embd: int = 768
@@ -36,19 +40,18 @@ class RWKVConfig:
     head_size_divisor: int = 8
     ctx_len: int = 2048
     dim_att: int = 0  # 0 -> n_embd
-    dim_ffn: int = 0  # 0 -> 4 * n_embd (x070), 3.5 * n_embd rounded to 32 (x060)
+    dim_ffn: int = 0  # 0 -> 4 * n_embd (x070, x040), 3.5 * n_embd rounded to 32 (x060, x052)
     chunk_len: int = 16  # WKV chunk length (T is left-padded to a multiple)
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
-        if self.version not in ("x070", "x060"):
-            raise NotImplementedError(
-                f"RWKV version {self.version!r} is not ported yet (x070, x060)"
-            )
+        if self.version not in VERSIONS:
+            raise ValueError(f"unknown RWKV version {self.version!r}; expected one of {VERSIONS}")
         if self.dim_att == 0:
             object.__setattr__(self, "dim_att", self.n_embd)
         if self.dim_ffn == 0:
-            ffn = self.n_embd * 4 if self.version == "x070" else _round_up(self.n_embd * 3.5, 32)
+            four = self.version in ("x070", "x040")  # RWKV-4 World models ship 4x FFNs too
+            ffn = self.n_embd * 4 if four else _round_up(self.n_embd * 3.5, 32)
             object.__setattr__(self, "dim_ffn", ffn)
 
     @property

@@ -8,14 +8,16 @@ changes, so that both packages compute the same function:
 
 - linears ``{"weight": [in, out]}`` -> ``[out, in]``, and int8 linears
   ``{"weight_q": int8 [in, out], "scale": [out]}`` (``infer.quant``) ->
-  ``weight_q`` ``[out, in]``, the scale unchanged (the RWKV projections,
-  x060's ``att.gate`` and ``ffn.receptance`` among them, the head, the ViT /
+  ``weight_q`` ``[out, in]``, the scale unchanged (the RWKV projections of
+  every family, the ``att.gate`` of x060 / x052 and the ``ffn.receptance``
+  of x060 / x052 / x040 among them, the head, the ViT /
   SAM qkv, proj, fc1, fc2, and the projector);
 - patch embeddings ``[p*p*3, C]`` in (ph, pw, c) raster order -> a Conv2d
   weight ``[C, 3, p, p]``;
 - the SAM neck convolutions HWIO -> OIHW;
 - everything else (LoRA factors ``[in, out]``, x060's ``time_maa_w2``
   ``[5, dm, C]``, ``time_decay_w1/w2`` and ``time_faaaa`` ``[H, N]``,
+  x052's ``time_decay`` ``[H, N]``, x040's ``time_decay`` / ``time_first``,
   embeddings, norms, tokens, rel-pos tables, mixing vectors) unchanged.
 """
 

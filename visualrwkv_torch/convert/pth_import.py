@@ -89,8 +89,8 @@ def detect_rwkv_version(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     signature (``att.r_k`` / ``att.w0``). Returns ``{"version": "x040" |
     "x052" | "x060" | "x070", "n_layer", "n_embd", "vocab_size",
     "head_size", "n_head"}``, as the JAX package does; raises on other
-    generations and on a dict without LM keys. (The port builds x070 and x060
-    models; ``RWKVConfig`` raises for the others.)"""
+    generations and on a dict without LM keys. The port builds all four
+    families."""
     keys = {}
     for k, v in state_dict.items():  # LM keys only: towers carry "blocks." too
         k = k[len("rwkv."):] if k.startswith("rwkv.") else k

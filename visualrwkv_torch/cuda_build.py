@@ -21,7 +21,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 SOURCES = ("wkv7", "wkv7_train", "wkv7_packed", "wkv7_v2", "wkv6", "wkv6_train", "attention",
-           "attention_bwd", "launch_floor")
+           "attention_bwd", "launch_floor", "wkv4")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -54,8 +54,10 @@ def _prefill(params: Params, cfg: VLMConfig, x_emb: Tensor,
     bulk = T - T % rcfg.chunk_len
     last_logits = None
     # a carried decode state (flat layout, bf16) re-enters prefill in the head layout, fp32
-    states = [st._replace(wkv=state_from_flat(st.wkv, rcfg.n_head)) if st.wkv.dim() == 3 else st
-              for st in states]
+    # (x040's [B, C, 3] triple has one layout)
+    if rcfg.version != "x040":
+        states = [st._replace(wkv=state_from_flat(st.wkv, rcfg.n_head)) if st.wkv.dim() == 3 else st
+                  for st in states]
     if bulk:
         states = [st._replace(wkv=st.wkv.float()) for st in states]
         logits, states = lm.lm_forward(params["rwkv"], rcfg, x_emb[:, :bulk], states=states)
@@ -120,11 +122,22 @@ class InferenceEngine:
         ``ops.wkv6.wkv6_step_flat``, K10 on the flat layout). ``params``
         must be on ``device`` (CUDA unless the caller asks for the CPU);
         their large linears may be int8 (``infer.quant``,
-        ``infer.strategy``)."""
+        ``infer.strategy``). x040 (a ``[B, C, 3]`` (aa, bb, pp) state)
+        takes the head layout and an fp32 state only, as the JAX package
+        rules: the flat layout does not fit its shape, and its max-tracked
+        pp is unsafe in bf16. x052 takes both layouts (K10 on the flat
+        one)."""
         if state_layout not in ("head", "flat"):
             raise ValueError(f"unknown state_layout {state_layout!r}")
         if state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown state_dtype {state_dtype!r}")
+        if cfg.rwkv.version == "x040":
+            if state_layout != "head":
+                raise ValueError("state_layout='flat' requires a matrix-state RWKV version "
+                                 "(x052/x060/x070); x040 carries an aa/bb/pp triple")
+            if state_dtype != "float32":
+                raise ValueError("x040 requires state_dtype='float32' (the log-domain pp carry "
+                                 "is max-tracked and unsafe in bf16)")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg

@@ -172,15 +172,18 @@ def _tmix_output(p: Params, cfg: RWKVConfig, y: Tensor, g: Tensor) -> Tensor:
 
 
 def tmix_x060(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tensor] = None,
-              wkv_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns (out, new_shift_state, new_wkv_state)."""
+              wkv_state: Optional[Tensor] = None, wkv_fn=None) -> Tuple[Tensor, Tensor, Tensor]:
+    """Returns (out, new_shift_state, new_wkv_state). ``wkv_fn`` replaces
+    the WKV op (:func:`visualrwkv_torch.ops.wkv6.wkv6`'s call signature):
+    the speculative verify pass gives ``ops.wkv6.wkv6_scan_states``, and the
+    returned WKV state is then the trail ``[B, T, H, N, N]``."""
     B, T, C = x.shape
     dt = cfg.dtype
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
     r, w_raw, k, v, g = _tmix_inputs(p, cfg, xf, xx)
     shp = (B, T, cfg.n_head, cfg.head_size)
-    y, new_wkv = wkv6(
+    y, new_wkv = (wkv_fn or wkv6)(
         r.to(dt).reshape(shp), w_raw.to(dt).reshape(shp), k.to(dt).reshape(shp),
         v.to(dt).reshape(shp), p["time_faaaa"], initial_state=wkv_state, chunk=cfg.chunk_len,
     )
@@ -213,11 +216,14 @@ def block_x060(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
 
 
 def _block_checkpointed(blk: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
-                        state: Optional[LayerState]):
-    """:func:`block_x060` under activation checkpointing: only the block's
-    inputs are kept and the block runs again in the backward pass."""
+                        state: Optional[LayerState], block=None):
+    """:func:`block_x060` (or ``block``, a block of the same signature: the
+    x052 and x040 families') under activation checkpointing: only the
+    block's inputs are kept and the block runs again in the backward pass."""
+    block = block or block_x060
+
     def run(x, *st):
-        y, ns = block_x060(blk, cfg, layer_id, x, LayerState(*st) if st else None)
+        y, ns = block(blk, cfg, layer_id, x, LayerState(*st) if st else None)
         return (y, *ns)
 
     y, *ns = checkpoint(run, x, *(state or ()), use_reentrant=False, preserve_rng_state=False)

@@ -255,16 +255,20 @@ def _tmix_output(p: Params, cfg: RWKVConfig, y: Tensor, r: Tensor, k: Tensor, v:
 
 
 def tmix_x070(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor, v_first: Optional[Tensor],
-              shift_state: Optional[Tensor] = None, wkv_state: Optional[Tensor] = None
-              ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Returns (out, v_first, new_shift_state, new_wkv_state)."""
+              shift_state: Optional[Tensor] = None, wkv_state: Optional[Tensor] = None,
+              wkv_fn=None) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Returns (out, v_first, new_shift_state, new_wkv_state). ``wkv_fn``
+    replaces the WKV op (:func:`visualrwkv_torch.ops.wkv7.wkv7`'s call
+    signature): the speculative verify pass gives
+    ``ops.wkv7.wkv7_scan_states``, and the returned WKV state is then the
+    trail ``[B, T, H, N, N]``."""
     B, T, C = x.shape
     dt = cfg.dtype
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
     r, w_raw, k, v, a, g, kk, v_first = _tmix_inputs(p, cfg, layer_id, xf, xx, v_first)
     shp = (B, T, cfg.n_head, C // cfg.n_head)
-    y, new_wkv = wkv7(
+    y, new_wkv = (wkv_fn or wkv7)(
         r.to(dt).reshape(shp), w_raw.to(dt).reshape(shp), k.to(dt).reshape(shp),
         v.to(dt).reshape(shp), (-kk).to(dt).reshape(shp), (kk * a).to(dt).reshape(shp),
         initial_state=wkv_state, chunk=cfg.chunk_len,

@@ -1,0 +1,83 @@
+"""Wrapper of the RWKV-4 CUDA kernel K17 ``wkv4_fwd`` (``csrc/wkv4.cu``),
+the sequence forward of the per-channel (aa, bb, pp) recurrence. It is not
+a TPU kernel: the JAX package runs this recurrence as a ``lax.scan`` that
+XLA fuses. It takes CUDA tensors only; :func:`visualrwkv_torch.ops.wkv4.wkv4`
+sends CPU tensors to the plain version. :func:`fwd_plan` chooses the threads
+a block (one thread a (b, c)).
+
+The wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on the current stream, raises on a
+CUDA error, and adds one to ``cuda_build.LAUNCHES["wkv4_fwd"]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from visualrwkv_torch import cuda_build
+from visualrwkv_torch.ops.wkv7_cuda import _check_cuda, _stream
+
+Tensor = torch.Tensor
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# threads a block, the most first, and the blocks to reach: about one for
+# each of the H100's 132 multiprocessors (a thread walks one channel)
+FWD_THREADS = (128, 64, 32)
+FWD_BLOCKS = 128
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("wkv4")
+    if lib.wkv4_fwd.argtypes is None:
+        lib.wkv4_fwd.argtypes = [_I] * 5 + [_P] * 8
+        lib.wkv4_fwd.restype = _I
+    return lib
+
+
+def fwd_plan(B: int, C: int) -> dict:
+    """K17's launch for ``B`` rows of ``C`` channels: the most threads a
+    block of ``FWD_THREADS`` that still gives ``FWD_BLOCKS`` blocks, else
+    the fewest."""
+    n = B * C
+    threads = next((t for t in FWD_THREADS if -(-n // t) >= FWD_BLOCKS), FWD_THREADS[-1])
+    return {"threads": threads, "blocks": -(-n // threads)}
+
+
+def wkv4_fwd(w: Tensor, u: Tensor, k: Tensor, v: Tensor,
+             initial_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """K17: k, v ``[B, T, C]`` fp32 or bf16 (one dtype), w and u fp32 ``[C]``
+    (w the log decay ``-exp(time_decay)``), initial state fp32 ``[B, C, 3]``
+    or None (aa = bb = 0, pp = -1e30). Returns (y fp32 ``[B, T, C]``, final
+    state fp32 ``[B, C, 3]``)."""
+    name = "wkv4_fwd"
+    if k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"{name}: k, v must be one [B, T, C]; got {tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, C = k.shape
+    xs = (w, u, k, v) + (() if initial_state is None else (initial_state,))
+    _check_cuda(name, xs, k.device)
+    if k.dtype not in _DTYPE_CODE or v.dtype != k.dtype:
+        raise ValueError(f"{name}: k, v must be fp32 or bf16, one dtype; got {k.dtype}, {v.dtype}")
+    if any(x.dtype != torch.float32 or x.shape != (C,) for x in (w, u)):
+        raise ValueError(f"{name}: w, u must be fp32 [{C}]; got {[(x.dtype, tuple(x.shape)) for x in (w, u)]}")
+    if initial_state is not None and (initial_state.dtype != torch.float32
+                                      or initial_state.shape != (B, C, 3)):
+        raise ValueError(f"{name}: the state must be fp32 {(B, C, 3)}; got "
+                         f"{initial_state.dtype} {tuple(initial_state.shape)}")
+    dev = k.device
+    y = torch.empty(B, T, C, device=dev)
+    s_out = torch.empty(B, C, 3, device=dev)
+    plan = fwd_plan(B, C)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.wkv4_fwd(_DTYPE_CODE[k.dtype], plan["threads"], B, T, C, w.data_ptr(), u.data_ptr(),
+                           k.data_ptr(), v.data_ptr(),
+                           None if initial_state is None else initial_state.data_ptr(),
+                           y.data_ptr(), s_out.data_ptr(), _stream(dev))
+    cuda_build.check(lib, err, name)
+    cuda_build.LAUNCHES[name] += 1
+    return y, s_out

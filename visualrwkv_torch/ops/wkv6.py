@@ -19,6 +19,9 @@ there is zero. The one-token step has no floor, as in the JAX package.
 
 * :func:`wkv6_step` — one token (no floor); :func:`wkv6_step_flat` the
   same on the flat decode state ``[B, N_v, H*N_k]``.
+* :func:`wkv6_scan_states` — a short window with the state after every
+  position (speculative decoding's verify pass): K10 once a position on
+  CUDA.
 * :func:`wkv6_reference` — the sequential scan, fp32; with ``chunk`` it
   applies the decay floor (the plain version of kernel K7).
 * :func:`wkv6_chunked` — the chunked matmul form of the JAX package.
@@ -99,6 +102,28 @@ def wkv6_step_flat(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor
     y = (s4 * r[:, None]).sum(-1).transpose(1, 2) + bonus[..., None] * v
     s4 = s4 * w[:, None] + v.transpose(1, 2)[..., None] * k[:, None]
     return s4.reshape(B, N, HN).to(state.dtype), y.to(out_dtype)
+
+
+def wkv6_scan_states(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
+                     initial_state: Optional[Tensor] = None,
+                     chunk: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """WKV6 over a short window with the state after every position (the
+    speculative verify pass; see ``ops.wkv7.wkv7_scan_states``): a loop of
+    :func:`wkv6_step` on CPU tensors, kernel K10 once a position on CUDA
+    tensors, each launch writing its state into the trail. No decay floor,
+    as the decode step has none; ``chunk`` is accepted and ignored. Returns
+    (y ``[B, T, H, N]`` in r's dtype, states fp32 ``[B, T, H, N, N]``)."""
+    _validate(r, w_raw, k, v, u)
+    if r.is_cuda:
+        return wkv7_cuda.run_trail(wkv6_cuda.wkv6_step, (r, w_raw, k, v), initial_state, (u,))
+    B, T, H, N = r.shape
+    s = torch.zeros(B, H, N, N, device=r.device) if initial_state is None else initial_state.float()
+    ys, states = [], []
+    for t in range(T):
+        s, y = wkv6_step(s, r[:, t], w_raw[:, t], k[:, t], v[:, t], u)
+        ys.append(y)
+        states.append(s)
+    return torch.stack(ys, 1), torch.stack(states, 1)
 
 
 def wkv6_reference(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,

@@ -29,7 +29,8 @@ import torch
 
 from visualrwkv_torch import cuda_build
 from visualrwkv_torch.ops import wkv7_cuda
-from visualrwkv_torch.ops.wkv7_cuda import _DTYPE_CODE, _check_cuda, _check_streams, _floor_lib, _ptr, _stream
+from visualrwkv_torch.ops.wkv7_cuda import (_DTYPE_CODE, _check_cuda, _check_streams, _floor_lib, _ptr, _stream,
+                                            step_outputs)
 
 Tensor = torch.Tensor
 
@@ -264,11 +265,10 @@ def _step_args(name: str, state: Tensor, vecs, u: Tensor, flat: bool = False) ->
     return B, H, step_plan(B, H, state.dtype, flat)
 
 
-def _step(name: str, flat: bool, state: Tensor, vecs, u: Tensor) -> Tuple[Tensor, Tensor]:
+def _step(name: str, flat: bool, state: Tensor, vecs, u: Tensor, out=None) -> Tuple[Tensor, Tensor]:
     B, H, plan = _step_args(name, state, vecs, u, flat)
     dev = state.device
-    s_out = torch.empty_like(state)
-    y = torch.empty_like(vecs[0])
+    s_out, y = step_outputs(state, vecs[0], out)
     lib = _lib()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
@@ -281,11 +281,13 @@ def _step(name: str, flat: bool, state: Tensor, vecs, u: Tensor) -> Tuple[Tensor
 
 
 def wkv6_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
-              u: Tensor) -> Tuple[Tensor, Tensor]:
+              u: Tensor, out=None) -> Tuple[Tensor, Tensor]:
     """K10: state ``[B, H, 64, 64]`` fp32 or bf16, vectors ``[B, H, 64]`` fp32
     (the decode step's dtype), u fp32 ``[H, 64]``; no decay floor. Laid out
-    by :func:`step_plan`. Returns (new state in the state's dtype, fp32 y)."""
-    return _step("wkv6_step", False, state, (r, w_raw, k, v), u)
+    by :func:`step_plan`. Returns (new state in the state's dtype, fp32 y),
+    written into ``out`` = (state, y) when it is given (a slice of a state
+    trail: ``ops.wkv6.wkv6_scan_states``)."""
+    return _step("wkv6_step", False, state, (r, w_raw, k, v), u, out)
 
 
 def wkv6_step_flat(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,

@@ -26,6 +26,9 @@ with ``w_t = exp(-exp(w_raw_t))``. Streams are ``[B, T, H, N]``; the state is
 * :func:`wkv7_v2` — the chunk-batched forward of the JAX package's
   ``wkv7_pallas_v2`` (chunk 32): kernel K16 on CUDA tensors, its plain
   version :func:`wkv7_v2_plain` on the CPU. No dispatcher calls it.
+* :func:`wkv7_scan_states` — a short window with the state after every
+  position (speculative decoding's verify pass): K2 once a position on
+  CUDA.
 * :func:`wkv7` / :func:`wkv7_step_auto` — dispatch on the tensors' device
   and on :func:`set_wkv_impl`: the plain versions for CPU tensors, the CUDA
   kernels (:mod:`visualrwkv_torch.ops.wkv7_cuda`) for CUDA tensors. Under
@@ -106,6 +109,31 @@ def wkv7_step_flat(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor
     H = r.shape[-2]
     s, y = wkv7_step(state_from_flat(state, H), r, w_raw, k, v, a, b)
     return state_to_flat(s).to(state.dtype), y
+
+
+def wkv7_scan_states(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
+                     initial_state: Optional[Tensor] = None,
+                     chunk: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """WKV7 over a short window, with the state after every position: the
+    speculative verify pass rolls the recurrence back to the last accepted
+    token (``infer.speculative``). CPU tensors take a loop of
+    :func:`wkv7_step`; CUDA tensors launch kernel K2 once a position, each
+    launch writing its state into the trail (``wkv7_cuda.run_trail``).
+    ``chunk`` is accepted and ignored, so that this fits
+    ``tmix_x070(wkv_fn=...)``. Returns (y ``[B, T, H, N]`` in r's dtype,
+    states fp32 ``[B, T, H, N, N]``, ``[:, t]`` the state after position
+    t)."""
+    _validate(r, w_raw, k, v, a, b)
+    if r.is_cuda:
+        return wkv7_cuda.run_trail(wkv7_cuda.wkv7_step, (r, w_raw, k, v, a, b), initial_state)
+    B, T, H, N = r.shape
+    s = torch.zeros(B, H, N, N, device=r.device) if initial_state is None else initial_state.float()
+    ys, states = [], []
+    for t in range(T):
+        s, y = wkv7_step(s, r[:, t], w_raw[:, t], k[:, t], v[:, t], a[:, t], b[:, t])
+        ys.append(y)
+        states.append(s)
+    return torch.stack(ys, 1), torch.stack(states, 1)
 
 
 def state_to_flat(state: Tensor) -> Tensor:

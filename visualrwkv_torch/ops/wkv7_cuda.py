@@ -15,7 +15,9 @@ cotangent through a workspace, then a block for each (b, h, chunk);
 :func:`bwd_plan` gives both launches. K2 and K4 are one kernel whose block
 owns a slice of value rows of one head; :func:`step_plan` chooses how many.
 :func:`step_floor` launches an empty kernel on K2's grid, to measure the
-launch floor (``csrc/launch_floor.cu``; no path runs it).
+launch floor (``csrc/launch_floor.cu``; no path runs it). :func:`run_trail`
+launches a step kernel once a position of a short window, each launch
+writing into the next slice of a state trail (the steps' ``out``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current stream, raises on a
@@ -522,11 +524,23 @@ def _step_args(name: str, flat: bool, state: Tensor, vecs) -> Tuple[int, int, di
     return B, H, step_plan(B, H, state.dtype, flat)
 
 
-def _step(name: str, flat: bool, state: Tensor, vecs) -> Tuple[Tensor, Tensor]:
+def step_outputs(state: Tensor, r: Tensor, out) -> Tuple[Tensor, Tensor]:
+    """A step's outputs: ``out`` = (new state, y), checked to be tensors the
+    kernel may write (a state trail's slices), or new ones."""
+    if out is None:
+        return torch.empty_like(state), torch.empty_like(r)
+    s_out, y = out
+    for x, like in ((s_out, state), (y, r)):
+        if x.shape != like.shape or x.dtype != like.dtype or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"step out: must be contiguous 16-byte aligned {like.dtype} "
+                             f"{tuple(like.shape)}; got {x.dtype} {tuple(x.shape)}")
+    return s_out, y
+
+
+def _step(name: str, flat: bool, state: Tensor, vecs, out=None) -> Tuple[Tensor, Tensor]:
     B, H, plan = _step_args(name, flat, state, vecs)
     dev = state.device
-    s_out = torch.empty_like(state)
-    y = torch.empty_like(vecs[0])
+    s_out, y = step_outputs(state, vecs[0], out)
     lib = _lib()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(
@@ -556,6 +570,31 @@ def run_step(kernel, state: Tensor, vecs, extra=()) -> Tuple[Tensor, Tensor]:
     return s.reshape(state.shape), y.reshape(r.shape).to(r.dtype)
 
 
+def run_trail(kernel, streams, initial_state, extra=()) -> Tuple[Tensor, Tensor]:
+    """A decode-step kernel (K2, K10) over a short window of streams ``[B, T,
+    H, N]`` of any float dtype and layout, one launch a position, each
+    writing its new state into the next slice of a state trail and reading
+    the slice before. ``extra`` are further fp32 operands (RWKV-6's bonus).
+    Returns (y ``[B, T, H, N]`` in the first stream's dtype, the trail fp32
+    ``[B, T, H, N, N]``: ``[:, t]`` is the state after position t)."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in (*streams, initial_state, *extra)):
+        raise NotImplementedError("a state trail on CUDA has no backward: run it under torch.no_grad()")
+    r = streams[0]
+    B, T, H, N = r.shape
+    f32 = torch.float32
+    xs = [x.to(f32).transpose(0, 1).contiguous() for x in streams]  # [T, B, H, N]: x[t] contiguous
+    ex = [operand(x, f32) for x in extra]
+    s = (torch.zeros(B, H, N, N, device=r.device) if initial_state is None
+         else operand(initial_state, f32))
+    trail = torch.empty(T, B, H, N, N, device=r.device)
+    y = torch.empty(T, B, H, N, device=r.device)
+    for t in range(T):
+        kernel(s, *(x[t] for x in xs), *ex, out=(trail[t], y[t]))
+        s = trail[t]
+    return y.transpose(0, 1).to(r.dtype), trail.transpose(0, 1)
+
+
 def step_floor(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
                a: Tensor, b: Tensor) -> None:
     """The launch floor of :func:`wkv7_step` on these inputs: an empty kernel
@@ -575,11 +614,12 @@ def step_floor(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
 
 
 def wkv7_step(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
-              a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+              a: Tensor, b: Tensor, out=None) -> Tuple[Tensor, Tensor]:
     """K2: state ``[B, H, 64, 64]`` fp32 or bf16, vectors ``[B, H, 64]`` fp32
     (the decode step's dtype). Returns (new state in the state's dtype, fp32
-    y)."""
-    return _step("wkv7_step", False, state, (r, w_raw, k, v, a, b))
+    y), written into ``out`` = (state, y) when it is given (a slice of a
+    state trail: ``ops.wkv7.wkv7_scan_states``)."""
+    return _step("wkv7_step", False, state, (r, w_raw, k, v, a, b), out)
 
 
 def wkv7_step_flat(state: Tensor, r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor,
