@@ -133,6 +133,29 @@ Phases (any failure exits non-zero; nothing is caught):
    runs (x052: K7 a prefill, K10 a token, and the flat state with the head
    layout's ids; x040: K17 a prefill, an fp32 state at B = 1 and 4), with
    launch counts, TTFT, decode tok/s, peak memory and the plain check.
+12. The published VisualRWKV-6 / HD / UHD paths, v7.03's token compressor,
+   v5.1 scanning and the host-offloaded optimizer, on the models of phases
+   3, 5 and 6 while they are built (12d after phase 10, 12a and the 7B part
+   of 12c after phase 10's x060 run, 12b, 12c and 12e after phase 6):
+   (a) phase 5's 7B with ``insertion_mode="leftpad"`` and
+   ``bidirectional_image``: one ``vlm_forward_leftpad`` over four one-image
+   prompts of 3600 tokens (the image at four positions, row 0 cut by
+   tail-keep truncation; T_out 4096): K7 32, K3 one encode, its time, and
+   the logits at 2 LM layers against the plain path on the CPU; (b) phase
+   6's 1.6B trained so (the dense loss), 1 + 3 ``Trainer`` steps (K8 48 and
+   K9 24 a step) and the training check; (c) the host-offloaded optimizer:
+   3 steps offloaded and 3 resident from the same parameters on phase 6's
+   1.6B, parameters and optimizer state bit-equal, with the host's memory,
+   the pinned bytes, the bytes copied each way a step, the last step's copy
+   times and peak memory; then phase 5's 7B offloaded (1 + 2 steps, its peak
+   under the card's memory), left out with a line that says so when the
+   host's MemAvailable is below 1.1 times the pinned bytes it needs; (d)
+   phase 3's 1B5 with two compressor blocks copied from its LM, one request
+   (K1 24 + 2 a prefill), then with snake scanning too, and the plain
+   check; (e) UHD on the 1.6B (a projector of twice the input), five views
+   a tower in one batch (K3 as one encode), the fused features and the
+   prefill logits at 2 layers against the plain path fed the card's tower
+   features.
 
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
@@ -2449,21 +2472,22 @@ SLOW_LEAVES = {"x070": ("x_w",), "x060": ("time_maa_x", "time_maa_w")}
 
 
 def run_training(cfg, params, device, seed: int, steps: int = TRAIN_STEPS, grad_cp=True,
-                 packed: bool = False):
+                 packed: bool = False, make_batch=None):
     """The main path of training: ``Trainer`` on ``cfg`` for one warm-up
     step and ``steps`` counted steps, under the checkpoint policy
     ``grad_cp`` and, when ``packed``, ``set_wkv_impl("packed")`` (set back
-    to "auto" before returning). ``params`` (bf16) are updated in place."""
+    to "auto" before returning), on batches of ``make_batch`` (default
+    :func:`train_batch`). ``params`` (bf16) are updated in place."""
     from visualrwkv_torch.ops.wkv7 import set_wkv_impl
 
     set_wkv_impl("packed" if packed else "auto")
     try:
-        return _run_training(cfg, params, device, seed, steps, grad_cp, packed)
+        return _run_training(cfg, params, device, seed, steps, grad_cp, packed, make_batch or train_batch)
     finally:
         set_wkv_impl("auto")
 
 
-def _run_training(cfg, params, device, seed, steps, grad_cp, packed):
+def _run_training(cfg, params, device, seed, steps, grad_cp, packed, make_batch):
     import numpy as np
     import torch
 
@@ -2482,7 +2506,7 @@ def _run_training(cfg, params, device, seed, steps, grad_cp, packed):
                        zip(tree_leaves(trainer.state.opt_state.master), tree_leaves(trainer.params))]
     sums_before = _checksums(tree_leaves(trainer.params))
     master_before = _checksums(masters())
-    batches = [train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100 + i)
+    batches = [make_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100 + i)
                for i in range(steps + 2)]
     tokens = TRAIN_MICRO_BSZ * TRAIN_CTX
 
@@ -2544,29 +2568,50 @@ def profile_training(cfg, params, device, seed: int, grad_cp=True):
     return prof
 
 
-def check_training_against_plain(cfg, params, n_layer: int, seed: int, device="cuda"):
+def noisy(tree, gen, scale: float = 0.02):
+    """``tree`` (fp32 leaves) with seeded noise on every leaf, so that the
+    zero-initialised projections pass signal and gradient; bf16."""
+    import torch
+
+    for leaf in _leaves(tree):
+        leaf.add_(torch.randn(leaf.shape, generator=gen, device=leaf.device) * scale)
+    return to_device(tree, gen.device, torch.bfloat16)
+
+
+def noisy_lm(cfg, params, n_layer: int, seed: int, device):
+    """The model with its LM replaced by ``n_layer`` fresh blocks with noise
+    on every leaf (bf16), the rest of ``params`` as it is: at its random
+    init an RWKV block is the identity, so a check on it would not see the
+    image path."""
+    import torch
+
+    from visualrwkv_torch.models.lm import init_lm_params
+
+    c = cfg.replace(rwkv=dataclasses.replace(cfg.rwkv, n_layer=n_layer))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return c, dict(params, rwkv=noisy(init_lm_params(gen, c.rwkv, device), gen))
+
+
+def check_training_against_plain(cfg, params, n_layer: int, seed: int, device="cuda", make_batch=None,
+                                 lm_alone: bool = True):
     """One loss and the gradients of three leaves (a decay LoRA factor,
     ``head.weight`` and the projector's first weight) from the kernel path
     on the card (bf16 compute) against the plain path on the CPU in fp32,
-    on the same bf16 weights; then the LM alone (text only) in fp32 on both
-    sides, the loss and the first two gradients. The LM is ``n_layer`` fresh
+    on the same bf16 weights and one sample of ``make_batch`` (default
+    :func:`train_batch`; the leftpad loss under ``insertion_mode="leftpad"``);
+    then, with ``lm_alone``, the LM alone (text only) in fp32 on both sides,
+    the loss and the first two gradients. The LM is ``n_layer`` fresh
     blocks with noise on every leaf (so that the zero-initialised
     projections pass gradient), the towers and the projector are the
     model's, whole."""
     import torch
 
-    from visualrwkv_torch.models.lm import init_lm_params
-    from visualrwkv_torch.models.visualrwkv import training_loss
+    from visualrwkv_torch.models.visualrwkv import training_loss, training_loss_leftpad
 
-    c = cfg.replace(rwkv=dataclasses.replace(cfg.rwkv, n_layer=n_layer))
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    rwkv = init_lm_params(gen, c.rwkv, device)
-    for leaf in _leaves(rwkv):
-        leaf.add_(torch.randn(leaf.shape, generator=gen, device=device) * 0.02)
-    p = {"rwkv": to_device(rwkv, device, torch.bfloat16), "vit": params["vit"],
-         "proj": to_device(params["proj"], device, copy=True)}  # the model's is left alone
-    batch = train_batch(c, 1, TRAIN_CTX, seed)
+    c, p = noisy_lm(cfg, params, n_layer, seed, device)
+    p["proj"] = to_device(params["proj"], device, copy=True)  # the model's is left alone
+    batch = (make_batch or train_batch)(c, 1, TRAIN_CTX, seed)
     lora = "w1" if c.rwkv.version == "x070" else "time_decay_w1"
     named = {f"rwkv.blocks[1].att.{lora}": lambda t: t["rwkv"]["blocks"][1]["att"][lora],
              "rwkv.head.weight": lambda t: t["rwkv"]["head"]["weight"],
@@ -2575,8 +2620,12 @@ def check_training_against_plain(cfg, params, n_layer: int, seed: int, device="c
     def run(tree, cfg_, dev, images=batch["images"]):
         gets = [get for name, get in named.items() if name.split(".")[0] in tree]
         leaves = [get(tree).requires_grad_(True) for get in gets]
-        loss = training_loss(tree, cfg_, batch["input_ids"], batch["labels"], images,
-                             grad_cp=True, ce_chunk_t=128, device=dev)
+        if cfg_.insertion_mode == "leftpad":
+            loss = training_loss_leftpad(tree, cfg_, batch["input_ids"], batch["labels"], images,
+                                         grad_cp=True, device=dev)
+        else:
+            loss = training_loss(tree, cfg_, batch["input_ids"], batch["labels"], images,
+                                 grad_cp=True, ce_chunk_t=128, device=dev)
         return loss.detach().float().cpu(), [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
 
     def compare(what, a, b, loss_tol, grad_tol):
@@ -2601,12 +2650,13 @@ def check_training_against_plain(cfg, params, n_layer: int, seed: int, device="c
     out = compare(f"LM cut to {n_layer} layers, towers whole, card bf16 vs CPU fp32 "
                   f"(CPU run {cpu_s:.1f} s)", card, cpu, TRAIN_CHECK_LOSS_TOL,
                   TRAIN_CHECK_GRAD_TOL[c.rwkv.version])
-    txt = c32.replace(vision=dataclasses.replace(c32.vision, towers=()))
-    p32 = {"rwkv": to_device(p["rwkv"], device, torch.float32)}
-    out["lm_fp32"] = compare("the LM alone, card fp32 vs CPU fp32",
-                             run(p32, txt, device, None),
-                             run(to_device(p32, "cpu"), txt, "cpu", None),
-                             TRAIN_CHECK_FP32_LOSS_TOL, TRAIN_CHECK_FP32_GRAD_TOL)
+    if lm_alone:
+        txt = c32.replace(vision=dataclasses.replace(c32.vision, towers=()))
+        p32 = {"rwkv": to_device(p["rwkv"], device, torch.float32)}
+        out["lm_fp32"] = compare("the LM alone, card fp32 vs CPU fp32",
+                                 run(p32, txt, device, None),
+                                 run(to_device(p32, "cpu"), txt, "cpu", None),
+                                 TRAIN_CHECK_FP32_LOSS_TOL, TRAIN_CHECK_FP32_GRAD_TOL)
     out.update(cpu_s=cpu_s, lm_layers=n_layer)
     return out
 
@@ -3333,6 +3383,428 @@ def run_legacy(version: str, seed: int, device):
     return serving, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the published VisualRWKV-6 / HD / UHD paths, the v7.03 token
+# compressor, v5.1 scanning and the host-offloaded optimizer
+# ---------------------------------------------------------------------------
+
+# 12a: four one-image prompts of LEFTPAD_T_IN tokens, the image token at
+# these positions; every row passes ctx_len (4096), row 0 (no valid label
+# in its head) is cut by tail-keep truncation, the others keep their heads.
+# Row 0's cut stays before its image (T_in - 100 <= ctx_len - 577 + 1), so
+# that its span, flipped at max_idx - off, is its image.
+LEFTPAD_POSITIONS = (100, 300, 1200, 2400)
+LEFTPAD_T_IN = 3600
+# the plain check's two rows under this ctx_len, row 0 tail-kept, row 1 head-kept
+LEFTPAD_CHECK = ((20, 40), 80, 640)
+VTC_LAYERS = 2  # the least depth that runs both directions
+OFFLOAD_STEPS = 3
+OFFLOAD_7B_STEPS = 2
+RAM_MARGIN = 1.1  # the 7B offloaded run needs this many times its pinned bytes available
+
+
+def leftpad_request(cfg, positions, t_in: int, seed: int, device, tail_row: int = 0):
+    """Token ids ``[B, t_in]`` with one image token a row at ``positions``,
+    labels (the text, and for ``tail_row`` only its last 16 tokens: its head
+    holds no valid label, so a cut keeps its tail) and one image a row."""
+    import torch
+
+    from visualrwkv_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from visualrwkv_torch.vision.backbone import tower_configs
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    B = len(positions)
+    ids = torch.randint(10, 65000, (B, t_in), generator=gen, device=device)
+    for b, pos in enumerate(positions):
+        ids[b, pos] = IMAGE_TOKEN_INDEX
+    labels = torch.where(ids == IMAGE_TOKEN_INDEX, IGNORE_INDEX, ids)
+    labels[tail_row, :t_in - 16] = IGNORE_INDEX
+    images = {t: torch.randint(0, 256, (B, c.img_size, c.img_size, 3), generator=gen, device=device,
+                               dtype=torch.uint8)
+              for t, c in tower_configs(cfg.vision).items()}
+    return ids, labels, images
+
+
+def leftpad_train_batch(cfg, batch: int, ctx: int, seed: int):
+    """A leftpad training batch made with numpy from the seed: one image
+    token a sample at a position below 64, the prompt before it and the
+    image token masked in the labels, text long enough that every sample
+    passes ``ctx`` (head-keep truncation: the plan's T_out is ``ctx``)."""
+    import numpy as np
+
+    from visualrwkv_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from visualrwkv_torch.vision.backbone import tower_configs
+
+    rng = np.random.default_rng(seed)
+    vocab, t_in = cfg.rwkv.vocab_size, ctx - cfg.num_token_per_image + 64
+    ids = rng.integers(0, vocab - 1, (batch, t_in))
+    labels = rng.integers(0, vocab - 1, (batch, t_in))
+    for b, pos in enumerate(rng.integers(0, 64, batch)):
+        ids[b, pos] = IMAGE_TOKEN_INDEX
+        labels[b, :pos + 1] = IGNORE_INDEX
+    images = {t: rng.integers(0, 256, (batch, c.img_size, c.img_size, 3), dtype=np.uint8)
+              for t, c in tower_configs(cfg.vision).items()}
+    return {"input_ids": ids, "labels": labels, "images": images}
+
+
+def tail_offsets(cfg, params, ids, labels, plan):
+    """The rows' tail-keep offsets under ``plan`` (``leftpad_insert``'s
+    ``off``), on the host."""
+    import torch
+
+    from visualrwkv_torch.multimodal.insertion import leftpad_insert
+
+    emb = params["rwkv"]["emb"]["weight"]
+    feats = torch.zeros(ids.shape[0], plan.img_len, emb.shape[1], device=ids.device, dtype=emb.dtype)
+    return leftpad_insert(emb, ids, labels, feats, plan)[2].tolist()
+
+
+def run_leftpad_serving(cfg6, params, device, seed: int):
+    """12a: VisualRWKV-6 7B as published: the leftpad insertion and the
+    image span reversed on odd blocks, one ``vlm_forward_leftpad`` over four
+    one-image prompts (the image at four positions, row 0 tail-kept): K7 a
+    block, K3 as one encode; then the logits at ``PLAIN_LAYERS`` layers
+    against the plain path on the CPU."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.models.visualrwkv import vlm_forward_leftpad
+    from visualrwkv_torch.multimodal.insertion import leftpad_plan
+
+    cfg = cfg6.replace(insertion_mode="leftpad", bidirectional_image=True)
+    ids, labels, images = leftpad_request(cfg, LEFTPAD_POSITIONS, LEFTPAD_T_IN, seed + 41, device)
+    plan = leftpad_plan(ids, cfg.num_token_per_image, cfg.rwkv.ctx_len)
+    off = tail_offsets(cfg, params, ids, labels, plan)
+    log(f"  12a plan: {plan}; tail-keep offsets {off}")
+    assert off[0] > 0 and not any(off[1:]) and plan.T_out == cfg.rwkv.ctx_len
+    assert all(plan.max_idx >= o for o in off), "a cut fell inside an image span"
+    fwd = lambda: vlm_forward_leftpad(params, cfg, ids, labels, images, plan=plan, device=device)
+    with torch.no_grad():
+        fwd()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        (logits, new_labels, _), ms = timed(fwd)
+        launches = dict(cuda_build.LAUNCHES)
+    want = expected_launches(cfg, prefills=1, encodes=1)
+    assert logits.shape == (len(LEFTPAD_POSITIONS), plan.T_out, cfg.rwkv.vocab_size)
+    assert torch.isfinite(logits).all()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = logits.shape[0] * logits.shape[1]
+    log(f"  12a vlm_forward_leftpad, B={logits.shape[0]} x T_out={plan.T_out}: {ms:.1f} ms "
+        f"({tokens / (ms / 1e3):.0f} tok/s), peak {peak:.2f} GiB")
+    del logits
+    out = {"ms": ms, "tokens": tokens, "peak_gib": peak, "plan": dataclasses.asdict(plan), "off": off}
+    out["plain_check_rel_rms"], out["plain_check_cpu_s"] = check_leftpad_against_plain(
+        cfg, params, PLAIN_LAYERS, seed + 43, device)
+    torch.cuda.empty_cache()
+    return out, launches, want
+
+
+def check_on_tower_features(what: str, cfg, p, images, run, device):
+    """``run(params, cfg, tower_features, device)`` (logits) of the kernel
+    path on the card against the plain path on the CPU, both in fp32 on the
+    same weights and both fed the towers' features computed once on the
+    card (bf16): the check holds what follows the towers (whose kernels
+    phases 2, 3, 5 and 7 hold), and the CPU runs no tower. In bf16 the two
+    sides round apart, and through noisy blocks their logits drift further
+    apart than ``PLAIN_CHECK_TOL``, which would hide a fault."""
+    import torch
+
+    from visualrwkv_torch.vision.backbone import backbone_tower_features
+
+    c32 = cfg.replace(rwkv=dataclasses.replace(cfg.rwkv, compute_dtype="float32"))
+    body = {k: v for k, v in p.items() if k != "vit"}
+    with torch.no_grad():
+        tower = backbone_tower_features(p["vit"], cfg.vision, images, cfg.rwkv.compute_dtype)
+        card = run(to_device(body, device, torch.float32), c32, tower, device).float().cpu()
+        t0 = time.perf_counter()
+        cpu = run(to_device(body, "cpu", torch.float32), c32, {k: v.cpu() for k, v in tower.items()},
+                  torch.device("cpu")).float()
+        cpu_s = time.perf_counter() - t0
+    e = rel_rms(card, cpu)
+    log(f"  {what} {tuple(cpu.shape)}, LM cut to {cfg.rwkv.n_layer} noisy layers, fp32, on the card's tower "
+        f"features: kernels (card) vs plain (CPU) rel_rms={e:.3e} (tol {PLAIN_CHECK_TOL:g}); CPU run {cpu_s:.1f} s")
+    assert torch.isfinite(card).all() and torch.isfinite(cpu).all()
+    assert e <= PLAIN_CHECK_TOL, e
+    return e, cpu_s
+
+
+def check_leftpad_against_plain(cfg, params, n_layer: int, seed: int, device):
+    """12a's check: ``vlm_forward_leftpad`` logits at every position, the LM
+    cut to ``n_layer`` noisy blocks, two rows under ``LEFTPAD_CHECK``'s
+    ctx_len (row 0 tail-kept, its span flipped at ``max_idx - off``; row 1
+    head-kept)."""
+    from visualrwkv_torch.models.visualrwkv import encode_images, vlm_forward_leftpad
+
+    positions, t_in, ctx = LEFTPAD_CHECK
+    c, p = noisy_lm(cfg, params, n_layer, seed, device)
+    c = c.replace(rwkv=dataclasses.replace(c.rwkv, ctx_len=ctx))
+    ids, labels, images = leftpad_request(c, positions, t_in, seed, device)
+
+    def run(tree, cfg_, tower, dev):
+        feats = encode_images(tree, cfg_, None, tower_features=tower)
+        return vlm_forward_leftpad(tree, cfg_, ids.to(dev), labels.to(dev), image_features=feats,
+                                   device=dev)[0]
+
+    return check_on_tower_features("leftpad + bidirectional logits", c, p, images, run, device)
+
+
+def prefill_logits_run(ids):
+    """``run`` for :func:`check_on_tower_features`: the logits of a
+    stateless forward over ``ids`` with the image features of
+    ``encode_images`` scattered in."""
+    from visualrwkv_torch.models import lm
+    from visualrwkv_torch.models.visualrwkv import encode_images, prepare_embeddings
+
+    def run(tree, cfg_, tower, dev):
+        feats = encode_images(tree, cfg_, None, tower_features=tower)
+        x = prepare_embeddings(tree, cfg_, ids.to(dev), image_features=feats)
+        return lm.lm_forward(tree["rwkv"], cfg_.rwkv, x)[0]
+
+    return run
+
+
+def ttft_ms(eng, ids, images) -> float:
+    """The median of three timed prefills (after the caller's warm-up)."""
+    return sorted(timed(lambda: eng.prefill_ids(ids, images))[1] for _ in range(3))[1]
+
+
+def run_vtc_serving(cfg, params, device, seed: int):
+    """12d: the flagship 1B5 with v7.03's token compressor (``VTC_LAYERS``
+    blocks copied from its LM by ``init_vtc_from_lm``), one one-image
+    request through ``InferenceEngine.generate``: K1 24 + 2 times a
+    prefill; then the same with ``image_scanning="snake"``; the snake
+    configuration's logits against the plain path at ``PLAIN_LAYERS``
+    noisy layers, the compressor copied from them, on the card's tower
+    features. The model's TTFT without the compressor is timed right
+    after, on the same request."""
+    import numpy as np
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.infer.engine import InferenceEngine
+    from visualrwkv_torch.multimodal.vtc import init_vtc_from_lm
+
+    p = dict(params, vtc=init_vtc_from_lm(params["rwkv"], VTC_LAYERS))
+    runs, paths = {}, {}
+    for name, c in (("vtc", cfg.replace(n_vtc_layer=VTC_LAYERS)),
+                    ("vtc_snake", cfg.replace(n_vtc_layer=VTC_LAYERS, image_scanning="snake"))):
+        eng = InferenceEngine(p, c, state_dtype="float32", device=device)
+        ids, images = make_request(c, 1, 32, seed + 1, device)
+        eng.generate(ids, images, max_new_tokens=2)
+        ttft = ttft_ms(eng, ids, images)
+        reset_launches()
+        res, ms = timed(lambda: eng.generate(ids, images, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,)))
+        launches = dict(cuda_build.LAUNCHES)
+        assert res.tokens.shape == (1, NEW_TOKENS) and np.isfinite(res.logits).all()
+        want = expected_launches(c, prefills=1, decode_steps=NEW_TOKENS, encodes=1)
+        want["wkv7_fwd"] += VTC_LAYERS
+        assert_launches(f"12d {name}", launches, want)
+        runs[name] = {"ttft_ms": ttft, "generate_ms": ms, "first_ids": res.tokens[0, :8].tolist()}
+        paths[f"serving_x070_{name}"] = launches
+        log(f"  12d {name}: TTFT {ttft:.1f} ms, generate({NEW_TOKENS}) {ms:.1f} ms, first ids "
+            f"{runs[name]['first_ids']}")
+    runs["ttft_without_ms"] = ttft_ms(InferenceEngine(params, cfg, state_dtype="float32", device=device),
+                                      ids, images)
+    log(f"  12d the same request without the compressor: TTFT {runs['ttft_without_ms']:.1f} ms")
+    # the check: the LM cut to noisy blocks, the compressor copied from them
+    c2, p2 = noisy_lm(c, params, PLAIN_LAYERS, seed + 7, device)
+    p2["vtc"] = init_vtc_from_lm(p2["rwkv"], VTC_LAYERS)
+    ids, images = make_request(c2, 1, 32, seed + 7, device)
+    runs["plain_check_rel_rms"], runs["plain_check_cpu_s"] = check_on_tower_features(
+        "compressor + snake, logits", c2, p2, images, prefill_logits_run(ids), device)
+    torch.cuda.empty_cache()
+    return runs, paths
+
+
+def run_leftpad_training(cfg6t, params, device, seed: int):
+    """12b: VisualRWKV-6 1.6B trained as published (leftpad insertion, the
+    bidirectional span, the dense loss): ``Trainer`` for 1 + 3 steps (K8 48
+    and K9 24 a step), then the loss and three gradients against the plain
+    path on the CPU at ``PLAIN_LAYERS`` layers."""
+    cfg = cfg6t.replace(insertion_mode="leftpad", bidirectional_image=True)
+    training, launches, want = train(cfg, params, device, seed + 50, make_batch=leftpad_train_batch)
+    assert_launches("12b leftpad + bidirectional training", launches, want)
+    training["plain_check"] = check_training_against_plain(cfg, params, PLAIN_LAYERS, seed + 51, device,
+                                                           make_batch=leftpad_train_batch, lm_alone=False)
+    return training, launches
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable of ``/proc/meminfo``, bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def run_offload(cfg, params, device, seed: int):
+    """12c on phase 6's 1.6B: ``OFFLOAD_STEPS`` ``Trainer`` steps with
+    ``offload_optimizer`` and as many resident, each from a copy of the
+    same parameters on the same batches: parameters and optimizer state
+    bit-equal. Logs the host's memory, the pinned bytes, the bytes copied
+    each way a step, the last step's copy times against its step time, and
+    peak device memory of both runs."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.train.optim import tree_leaves
+    from visualrwkv_torch.train.trainer import Trainer
+
+    mem = host_memory()
+    log(f"  12c host memory: MemTotal {mem['MemTotal'] / 1e9:.1f} GB, MemAvailable "
+        f"{mem['MemAvailable'] / 1e9:.1f} GB")
+    tcfg = train_cfg(OFFLOAD_STEPS)
+    batches = [train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 60 + i) for i in range(OFFLOAD_STEPS)]
+    runs, trainers = {}, {}
+    for name, off in (("offloaded", True), ("resident", False)):
+        tc = dataclasses.replace(tcfg, offload_optimizer=off)
+        (tr, build_ms) = timed(lambda: Trainer(cfg, tc, to_device(params, device, copy=True), device=device,
+                                               log_every=1))
+        st = tr._streamed
+        assert (st is not None) == off
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps = []
+        for i, b in enumerate(batches):
+            if st is not None:
+                st.copy_timing = i == len(batches) - 1
+            loss, ms = timed(lambda: float(tr.train_step(b)))
+            steps.append({"loss": loss, "step_ms": ms})
+        launches = dict(cuda_build.LAUNCHES)
+        assert_launches(f"12c {name}", launches, expected_launches(cfg, encodes=OFFLOAD_STEPS,
+                                                                   train_micro_batches=OFFLOAD_STEPS))
+        run = {"build_ms": build_ms, "steps": steps, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launches}
+        if st is not None:
+            run.update(pinned_bytes=st.pinned_bytes, stage_bytes=st.stage_bytes,
+                       copy_bytes_each_way=st.pinned_bytes, groups=len(st.groups),
+                       last_step_copy_ms=st.copy_ms())
+            c = run["last_step_copy_ms"]
+            rate = lambda ms: f"{st.pinned_bytes / 1e6 / ms:.1f} GB/s" if ms > 0 else "not timed"
+            log(f"  12c offloaded: {run['groups']} groups, pinned {st.pinned_bytes / 1e9:.2f} GB (Trainer "
+                f"built in {build_ms / 1e3:.1f} s), device slots {st.stage_bytes / 1e9:.2f} GB, copied "
+                f"{st.pinned_bytes / 1e9:.2f} GB each way a step; last step {steps[-1]['step_ms']:.1f} ms, "
+                f"its copies in {c['in']:.1f} ms ({rate(c['in'])}) and back {c['out']:.1f} ms "
+                f"({rate(c['out'])}) of device time")
+        log(f"  12c {name}: steps " + ", ".join(f"{s['step_ms']:.1f} ms (loss {s['loss']:.4f})" for s in steps)
+            + f"; peak {run['peak_gib']:.2f} GiB")
+        runs[name], trainers[name] = run, tr
+    a, b = trainers["offloaded"], trainers["resident"]
+    assert [s["loss"] for s in runs["offloaded"]["steps"]] == [s["loss"] for s in runs["resident"]["steps"]]
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)))
+    st = a._streamed.opt_state
+    for name in ("mu", "nu", "master"):
+        for x, y in zip(tree_leaves(getattr(st, name)), tree_leaves(getattr(b.state.opt_state, name))):
+            same = same and ((x is None and y is None) or torch.equal(x.to(device), y))
+    log(f"  12c parameters, moments and masters after {OFFLOAD_STEPS} steps, offloaded vs resident: "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    assert same, "the offloaded optimizer's state differs from the resident one's"
+    runs["bit_equal"] = same
+    runs["host_memory"] = mem
+    del a, b, trainers
+    torch.cuda.empty_cache()
+    return runs
+
+
+def run_offload_7b(cfg6, params, device, seed: int):
+    """12c on phase 5's VisualRWKV-6 7B (bf16 parameters, micro-batch 2 x
+    2048): ``Trainer`` with ``offload_optimizer`` for 1 + ``OFFLOAD_7B_STEPS``
+    steps, its peak under the card's memory. Left out, with a line that says
+    so, when the host's MemAvailable is below ``RAM_MARGIN`` times the
+    pinned bytes the state needs (reckoned from the shapes first).
+    ``params`` are trained in place."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.train.offload import group_layout
+    from visualrwkv_torch.train.optim import Optimizer
+    from visualrwkv_torch.train.trainer import Trainer
+
+    tcfg = dataclasses.replace(train_cfg(OFFLOAD_7B_STEPS + 1), offload_optimizer=True)
+    need = 4 * sum(group_layout(Optimizer(tcfg, params, 1, cfg6.rwkv.n_layer), params)[2])
+    mem = host_memory()
+    out = {"pinned_bytes_needed": need, "host_memory": mem}
+    log(f"  12c 7B: the offloaded state needs {need / 1e9:.2f} GB pinned; MemTotal "
+        f"{mem['MemTotal'] / 1e9:.1f} GB, MemAvailable {mem['MemAvailable'] / 1e9:.1f} GB")
+    if mem["MemAvailable"] < RAM_MARGIN * need:
+        log(f"  12c 7B: MemAvailable {mem['MemAvailable'] / 1e9:.1f} GB is below {RAM_MARGIN} x the "
+            f"{need / 1e9:.2f} GB of pinned optimizer state: the 7B offloaded run is left out on this machine")
+        return dict(out, ran=False), None
+    tr, build_ms = timed(lambda: Trainer(cfg6, tcfg, params, device=device, log_every=1))
+    batches = [train_batch(cfg6, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 70 + i) for i in range(OFFLOAD_7B_STEPS + 1)]
+    loss, warm_ms = timed(lambda: float(tr.train_step(batches[0])))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps = []
+    for b in batches[1:]:
+        loss, ms = timed(lambda: float(tr.train_step(b)))
+        assert loss == loss, loss
+        steps.append({"loss": loss, "step_ms": ms})
+    launches = dict(cuda_build.LAUNCHES)
+    assert_launches("12c 7B offloaded", launches, expected_launches(
+        cfg6, encodes=OFFLOAD_7B_STEPS, train_micro_batches=OFFLOAD_7B_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(device).total_memory
+    log(f"  12c 7B offloaded: Trainer built in {build_ms / 1e3:.1f} s, warm-up step {warm_ms:.0f} ms, steps "
+        + ", ".join(f"{s['step_ms']:.1f} ms (loss {s['loss']:.4f})" for s in steps)
+        + f"; peak {peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB")
+    assert peak < total
+    del tr
+    torch.cuda.empty_cache()
+    return dict(out, ran=True, build_ms=build_ms, warmup_ms=warm_ms, steps=steps, peak_gib=peak / 2**30), launches
+
+
+def run_uhd_serving(cfg6t, params, device, seed: int):
+    """12e: UHD on phase 6's 1.6B: ``uhd_fusion`` doubles the projector's
+    input (a new gated-MLP projector from the seed, 2 x 3200 -> 2048); one
+    request whose towers each take five views (the global view and 2x2
+    tiles) in one batch, through ``InferenceEngine.generate``: K3 as one
+    encode (the five views are one batch), K7 24 a prefill. Then the logits
+    at ``PLAIN_LAYERS`` noisy layers against the plain path, on the card's
+    tower features (the fusion, the projector and the LM)."""
+    import numpy as np
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.infer.engine import InferenceEngine
+    from visualrwkv_torch.multimodal.projector import init_projector_params
+
+    c = cfg6t.replace(uhd_fusion=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 80)
+    p = dict(params, proj=init_projector_params(gen, c.proj_type, c.projector_in_dim, c.rwkv.n_embd, device,
+                                                torch.bfloat16))
+    ids, images = make_request(c, 5, 32, seed + 81, device)  # five views of one image
+    ids = ids[:1]
+    eng = InferenceEngine(p, c, state_dtype="float32", device=device)
+    eng.generate(ids, images, max_new_tokens=2)
+    ttft = ttft_ms(eng, ids, images)
+    reset_launches()
+    res, ms = timed(lambda: eng.generate(ids, images, max_new_tokens=NEW_TOKENS, stop_tokens=(-1,)))
+    launches = dict(cuda_build.LAUNCHES)
+    assert res.tokens.shape == (1, NEW_TOKENS) and np.isfinite(res.logits).all()
+    assert_launches("12e UHD serving", launches, expected_launches(c, prefills=1, decode_steps=NEW_TOKENS,
+                                                                   encodes=1))
+    one_view = {t: v[:1] for t, v in images.items()}
+    base = InferenceEngine(params, cfg6t, state_dtype="float32", device=device)
+    base.generate(ids, one_view, max_new_tokens=2)
+    ttft_without = ttft_ms(base, ids, one_view)
+    log(f"  12e UHD, projector {c.projector_in_dim} -> {c.rwkv.n_embd}, five views a tower: TTFT {ttft:.1f} ms "
+        f"(the model without UHD on the global view alone: {ttft_without:.1f} ms), generate({NEW_TOKENS}) "
+        f"{ms:.1f} ms")
+
+    c2, p2 = noisy_lm(c, p, PLAIN_LAYERS, seed + 82, device)
+    e, cpu_s = check_on_tower_features("UHD logits", c2, p2, images, prefill_logits_run(ids), device)
+    torch.cuda.empty_cache()
+    return {"ttft_ms": ttft, "ttft_without_ms": ttft_without, "generate_ms": ms,
+            "plain_check_rel_rms": e, "plain_check_cpu_s": cpu_s}, launches
+
+
 def build(cfg, seed: int, device):
     import torch
 
@@ -3536,6 +4008,14 @@ def main(argv=None) -> int:
     phase10_s["10b-d"] = time.perf_counter() - t10
     torch.cuda.empty_cache()
 
+    # phase 12d, on phase 3's model (before training touches it) ----------
+    log(f"phase 12d: the flagship 1B5 with v7.03's visual token compressor ({VTC_LAYERS} blocks copied "
+        f"from its LM), then with snake scanning too, one one-image request each")
+    phase12, phase12_s = {}, {}
+    t12 = time.perf_counter()
+    phase12["12d"], vtc_launches = run_vtc_serving(cfg, params, dev, args.seed)
+    phase12_s["12d"] = time.perf_counter() - t12
+
     # phase 4 --------------------------------------------------------------
     log(f"phase 4: flagship VisualRWKV-7 1B5 training, full width, micro-batch {TRAIN_MICRO_BSZ} x "
         f"{TRAIN_CTX} tokens, one image a sample, 1 warm-up + {TRAIN_STEPS} counted steps")
@@ -3583,6 +4063,18 @@ def main(argv=None) -> int:
     phase10["x060_fp32"], spec6_launches = spec_fp32_check(cfg6, params, dev, args.seed, "10 x060 7B",
                                                            batches=(1,))
     phase10_s["10 x060"] = time.perf_counter() - t10
+    log("phase 12a: VisualRWKV-6 7B as published, leftpad insertion and the image span reversed on odd "
+        f"blocks: one vlm_forward_leftpad over {len(LEFTPAD_POSITIONS)} one-image prompts of "
+        f"{LEFTPAD_T_IN} tokens, the image at {LEFTPAD_POSITIONS}")
+    t12 = time.perf_counter()
+    phase12["12a"], leftpad_launches, leftpad_want = run_leftpad_serving(cfg6, params, dev, args.seed)
+    assert_launches("12a leftpad + bidirectional serving", leftpad_launches, leftpad_want)
+    phase12_s["12a"] = time.perf_counter() - t12
+    log("phase 12c, 7B: VisualRWKV-6 7B training with the host-offloaded optimizer (trains phase 5's "
+        "parameters in place: its last use)")
+    t12 = time.perf_counter()
+    phase12["12c_7b"], offload7_launches = run_offload_7b(cfg6, params, dev, args.seed)
+    phase12_s["12c 7B"] = time.perf_counter() - t12
     del params  # the 7B leaves the card before phase 6
     torch.cuda.empty_cache()
 
@@ -3596,6 +4088,24 @@ def main(argv=None) -> int:
     assert_launches("x060 training", train_launches6, train_want6)
     training6["plain_check"] = check_training_against_plain(cfg6t, params, PLAIN_LAYERS,
                                                             args.seed + 11, dev)
+    log(f"phase 12b: VisualRWKV-6 1.6B trained as published (leftpad insertion, the bidirectional span, "
+        f"the dense loss), micro-batch {TRAIN_MICRO_BSZ} x {TRAIN_CTX} tokens, 1 warm-up + {TRAIN_STEPS} "
+        f"counted steps")
+    t12 = time.perf_counter()
+    phase12["12b"], leftpad_train_launches = run_leftpad_training(cfg6t, params, dev, args.seed)
+    phase12_s["12b"] = time.perf_counter() - t12
+    log(f"phase 12c: the host-offloaded optimizer on phase 6's 1.6B, {OFFLOAD_STEPS} steps offloaded and "
+        f"{OFFLOAD_STEPS} resident from the same parameters")
+    t12 = time.perf_counter()
+    phase12["12c"] = run_offload(cfg6t, params, dev, args.seed)
+    phase12_s["12c"] = time.perf_counter() - t12
+    log("phase 12e: UHD on phase 6's 1.6B: the global view and 2x2 tiles fused, the projector's input doubled")
+    t12 = time.perf_counter()
+    phase12["12e"], uhd_launches = run_uhd_serving(cfg6t, params, dev, args.seed)
+    phase12_s["12e"] = time.perf_counter() - t12
+    phase12["seconds"] = phase12_s
+    log(f"  phase 12 took {sum(phase12_s.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase12_s.items()))
     del params
     torch.cuda.empty_cache()
 
@@ -3690,7 +4200,12 @@ def main(argv=None) -> int:
                "wkv7_v2": v2_launches, "checkpoint_round_trip": ckpt_launches, "server": server_launches,
                "serving_x060_flat": flat6_launches, "spec_x070_fp32": spec_fp32_launches,
                **{f"spec_x070 {k}": v for k, v in spec_launches.items()}, "spec_x060_fp32": spec6_launches,
-               **legacy_launches}
+               **legacy_launches, **vtc_launches, "serving_x060_leftpad": leftpad_launches,
+               "training_x060_leftpad": leftpad_train_launches,
+               **{f"training_x060_{k}": v["launches"] for k, v in phase12["12c"].items()
+                  if isinstance(v, dict) and "launches" in v},
+               "serving_x060_uhd": uhd_launches,
+               **({"training_x060_7b_offloaded": offload7_launches} if offload7_launches else {})}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -3706,7 +4221,7 @@ def main(argv=None) -> int:
                     "serving_x060": serving6, "training_x060": training6, "tower_grads": towers,
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
                     "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches,
-                    "phase10": phase10, "phase11": phase11}))
+                    "phase10": phase10, "phase11": phase11, "phase12": phase12}))
     log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

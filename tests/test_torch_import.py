@@ -26,10 +26,12 @@ print(" ".join(names))
 assert not bad, bad
 """
 
-# the serving slices' modules, which the walk must reach
+# the later slices' modules, which the walk must reach
 SERVING_MODULES = ("convert.pth_import", "convert.vision_import", "infer.quant", "infer.strategy",
                    "infer.server", "apps.demo", "apps.serve", "apps.export", "infer.speculative",
-                   "apps.benchmark", "models.rwkv5", "models.rwkv4", "ops.wkv4", "ops.wkv4_cuda")
+                   "apps.benchmark", "models.rwkv5", "models.rwkv4", "ops.wkv4", "ops.wkv4_cuda",
+                   "multimodal.insertion", "multimodal.vtc", "multimodal.scanning", "multimodal.uhd",
+                   "data.tiling", "train.offload")
 
 
 def test_port_imports_no_jax():
@@ -75,7 +77,7 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    from visualrwkv_torch.config import RWKVConfig, VLMConfig
+    from visualrwkv_torch.config import RWKVConfig, VisionConfig, VLMConfig
     from visualrwkv_torch.infer.engine import InferenceEngine
 
     from visualrwkv_tpu.config import RWKVConfig as JaxRWKVConfig
@@ -84,10 +86,18 @@ def test_unported_options_raise():
         cfg = RWKVConfig(version=version, n_embd=2048)
         assert cfg.dim_ffn == JaxRWKVConfig(version=version, n_embd=2048).dim_ffn
         assert cfg.dim_ffn == (8192 if version == "x040" else 7168)
-    for kw in ({"uhd_fusion": True}, {"n_vtc_layer": 1},
-               {"bidirectional_image": True}, {"image_scanning": "zigzag"}):
-        with pytest.raises(NotImplementedError):
+    # the published variants' options are ported: they build (their paths
+    # are held against JAX in test_torch_{insertion,variants}.py); values
+    # the JAX package has no path for raise ValueError
+    for kw in ({"uhd_fusion": True}, {"n_vtc_layer": 1}, {"bidirectional_image": True},
+               {"image_scanning": "zigzag"}, {"insertion_mode": "leftpad"}):
+        VLMConfig(**kw)
+    assert VLMConfig(uhd_fusion=True).projector_in_dim == 2 * VLMConfig().projector_in_dim
+    for kw in ({"insertion_mode": "splice"}, {"image_scanning": "diagonal"}):
+        with pytest.raises(ValueError):
             VLMConfig(**kw)
+    with pytest.raises(NotImplementedError):  # a tower the port has not
+        VLMConfig(vision=VisionConfig(towers=("convnext",)))
     with pytest.raises(ValueError):
         InferenceEngine({}, VLMConfig(), state_layout="rows", device="cpu")
     assert InferenceEngine({}, VLMConfig(), state_layout="flat", device="cpu").state_layout == "flat"

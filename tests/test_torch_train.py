@@ -293,8 +293,11 @@ def test_checkpoint_resume_takes_the_same_next_step(model, tmp_path, param_dtype
 
 
 def test_unported_train_options_raise():
+    # the host-offloaded optimizer is ported (tests/test_torch_offload.py);
+    # with bf16_sr it raises, as the JAX trainer does
+    pcfg_mod.TrainConfig(offload_optimizer=True)
     with pytest.raises(NotImplementedError):
-        pcfg_mod.TrainConfig(offload_optimizer=True)
+        pcfg_mod.TrainConfig(offload_optimizer=True, optim_precision="bf16_sr")
     # accepted and ignored: they shape the TPU compilation, not the result
     pcfg_mod.TrainConfig(split_step=True, opt_partition_mb=128, stacked_layers=True)
     # accepted and ignored as the reference does on one device: stage 3 is

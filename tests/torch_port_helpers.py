@@ -36,6 +36,9 @@ def port_cfg(jcfg):
     return pcfg.VLMConfig(
         rwkv=_mirror(jcfg.rwkv, pcfg.RWKVConfig), vision=vision, proj_type=jcfg.proj_type,
         num_token_per_image=jcfg.num_token_per_image, grid_size=jcfg.grid_size,
+        n_vtc_layer=jcfg.n_vtc_layer, bidirectional_image=jcfg.bidirectional_image,
+        image_scanning=jcfg.image_scanning, uhd_fusion=jcfg.uhd_fusion,
+        insertion_mode=jcfg.insertion_mode,
     )
 
 
@@ -68,3 +71,43 @@ def rel_rms(x, ref):
 def to_np(t):
     """A torch tensor -> numpy fp32."""
     return t.detach().float().cpu().numpy()
+
+
+def grads_numpy(params, loss_fn, pcfg):
+    """The loss and its gradient with respect to every leaf of ``params``
+    outside the vision towers, as a JAX-layout numpy tree (the towers' leaves
+    zero). ``loss_fn(params)`` -> a 0-d tensor."""
+    import torch
+
+    from visualrwkv_torch.convert.from_jax import params_to_numpy
+    from visualrwkv_torch.train.optim import tree_map_with_path
+
+    trainable = lambda path: path[0] != "vit"
+    leaves = []
+
+    def mark(path, p):
+        if trainable(path):
+            p.requires_grad_(True)
+            leaves.append(p)
+        return p
+
+    tree_map_with_path(mark, params)
+    loss = loss_fn(params)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    gtree = tree_map_with_path(lambda path, p: next(grads) if trainable(path) else torch.zeros_like(p),
+                               params)
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), params_to_numpy(gtree, pcfg)
+
+
+def assert_grads_match(port_grads, jax_grads, parts, tol):
+    """Each leaf of ``parts`` within ``tol * max |ref|`` of JAX's, and JAX's
+    not all zero."""
+    for part in parts:
+        flat_p = jax.tree_util.tree_leaves_with_path(port_grads[part])
+        flat_j = jax.tree_util.tree_leaves(np_tree(jax_grads[part]))
+        assert len(flat_p) == len(flat_j), part
+        for (path, g), ref in zip(flat_p, flat_j):
+            assert np.abs(ref).max() > 0, (part, jax.tree_util.keystr(path))
+            assert max_rel(g, ref) < tol, (part, jax.tree_util.keystr(path), max_rel(g, ref))

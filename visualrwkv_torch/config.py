@@ -1,6 +1,8 @@
 """Configuration of the port: the fields of the JAX configuration tree that
-the VisualRWKV-7 / -6 serving and training paths and the legacy RWKV-5.2 /
-RWKV-4 serving paths read, plus the token constants.
+the VisualRWKV-7 / -6 serving and training paths, their published variants
+(v6.0 leftpad insertion and the bidirectional image span, HD / UHD tile
+fusion, the v7.03 token compressor, v5.1 patch scanning) and the legacy
+RWKV-5.2 / RWKV-4 serving paths read, plus the token constants.
 
 Options of the JAX configuration that select paths the port does not have
 yet raise ``NotImplementedError`` when the configuration is built, so that a
@@ -21,6 +23,8 @@ STOP_TOKEN_INDEX = 261  # "\n\n" in the RWKV World vocabulary
 
 
 VERSIONS = ("x070", "x060", "x052", "x040")
+SCAN_STRATEGIES = ("unidirection", "bidirection", "multidirection", "rotation", "spiral", "snake",
+                   "zigzag")
 
 
 def _round_up(x: float, m: int) -> int:
@@ -111,29 +115,30 @@ class VLMConfig:
     vision: VisionConfig = field(default_factory=VisionConfig)
     proj_type: str = "mlp"  # "linear" | "mlp" (gated MLP)
     num_token_per_image: int = 1024
-    n_vtc_layer: int = 0
-    bidirectional_image: bool = False
-    image_scanning: str = "unidirection"
+    n_vtc_layer: int = 0  # visual token compressor depth (v7.03); 0 = none
+    bidirectional_image: bool = False  # v6.0 / HD / UHD: odd blocks see the image span reversed
+    image_scanning: str = "unidirection"  # v5.1 patch scan order (multimodal.scanning)
     grid_size: int = -2  # CLIP grid pooling (v5/v6.0); -2 = adaptive pooling instead
-    uhd_fusion: bool = False
+    uhd_fusion: bool = False  # UHD global + 2x2-tile fusion (doubles the projector's input)
+    # "scatter": num_token_per_image image tokens a sample, the features
+    # scattered in place (v7.00). "leftpad": one un-expanded image token a
+    # sample, the text before it left-padded so that the batch's image spans
+    # start together, the features inserted at embedding level (v6.0)
+    insertion_mode: str = "scatter"
 
     def __post_init__(self):
-        unported = {
-            "uhd_fusion": self.uhd_fusion,
-            "n_vtc_layer > 0": self.n_vtc_layer > 0,
-            "bidirectional_image": self.bidirectional_image,
-            "image_scanning != 'unidirection'": self.image_scanning != "unidirection",
-        }
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{name} is not ported yet")
         for t in self.vision.towers:
             if t not in ("dino", "siglip", "sam", "clip"):
                 raise NotImplementedError(f"vision tower {t!r} is not ported yet")
+        if self.insertion_mode not in ("scatter", "leftpad"):
+            raise ValueError(f"insertion_mode must be 'scatter' or 'leftpad'; got {self.insertion_mode!r}")
+        if self.image_scanning not in SCAN_STRATEGIES:
+            raise ValueError(f"unknown image_scanning {self.image_scanning!r}; expected one of "
+                             f"{SCAN_STRATEGIES}")
 
     @property
     def projector_in_dim(self) -> int:
-        return self.vision.embed_dim
+        return self.vision.embed_dim * (2 if self.uhd_fusion else 1)
 
     def replace(self, **kw) -> "VLMConfig":
         return dataclasses.replace(self, **kw)
@@ -146,8 +151,10 @@ class TrainConfig:
     ``split_step``, ``opt_partition_mb`` and ``stacked_layers`` are accepted
     and ignored: they shape how XLA compiles and places the step on a TPU
     (two programs instead of one, optimizer leaf groups, a scan over depth)
-    and do not change the result. Options of paths that are not ported raise
-    ``NotImplementedError``."""
+    and do not change the result. ``offload_optimizer`` keeps the fp32
+    masters and moments in pinned host memory (:mod:`visualrwkv_torch.train.
+    offload`); with ``optim_precision="bf16_sr"`` it raises, as the JAX
+    trainer does."""
 
     lr_init: float = 6e-4
     lr_final: float = 1e-5
@@ -173,7 +180,7 @@ class TrainConfig:
     freeze_proj: bool = False
     enable_state_tuning: bool = False
     zero_stage: int = 1  # optimizer-state sharding; one GPU holds it whole at any stage
-    offload_optimizer: bool = False
+    offload_optimizer: bool = False  # masters and moments in pinned host memory, streamed a group at a time
     param_dtype: str = "float32"  # "bfloat16" / "float16": parameters and gradients stored so
     # "master_fp32": fp32 master weights and Adam moments for parameters stored
     # below fp32; "bf16_sr": no masters, bf16 moments, stochastic rounding
@@ -187,8 +194,10 @@ class TrainConfig:
         # zero_stage >= 3 on one device is the replicated layout (= stage 1),
         # and the reference reads enable_state_tuning nowhere: both are
         # accepted and ignored, as split_step is
-        if self.offload_optimizer:
-            raise NotImplementedError("offload_optimizer is not ported yet")
+        if self.offload_optimizer and self.optim_precision == "bf16_sr":
+            raise NotImplementedError(
+                "offload_optimizer keeps fp32 masters in host memory; optim_precision='bf16_sr' "
+                "keeps a lean state on the device instead: pick one")
         if self.grad_cp not in (False, True, "dots", "wkv"):
             raise ValueError(f"grad_cp must be False, True, 'dots' or 'wkv'; got {self.grad_cp!r}")
         if self.optim_precision not in ("master_fp32", "bf16_sr"):

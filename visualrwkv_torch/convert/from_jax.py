@@ -12,6 +12,8 @@ changes, so that both packages compute the same function:
   every family, the ``att.gate`` of x060 / x052 and the ``ffn.receptance``
   of x060 / x052 / x040 among them, the head, the ViT /
   SAM qkv, proj, fc1, fc2, and the projector);
+- the same for the blocks of the ``"vtc"`` token compressor and the four
+  linears of v5.2's tiny attention (``"tiny_att"``);
 - patch embeddings ``[p*p*3, C]`` in (ph, pw, c) raster order -> a Conv2d
   weight ``[C, 3, p, p]``;
 - the SAM neck convolutions HWIO -> OIHW;
@@ -69,17 +71,36 @@ def _patch_to_conv(w, patch: int):
     return w.reshape(patch, patch, 3, w.shape[-1]).transpose(3, 2, 0, 1)
 
 
-def _rwkv(tree: Params) -> Params:
+def _rwkv_blocks(tree_blocks):
     blocks = []
-    for blk in tree["blocks"]:
+    for blk in tree_blocks:
         nb = {k: v for k, v in blk.items()}
         for part, name in _RWKV_LINEARS:
             if name in blk[part]:  # x070 has no att.gate or ffn.receptance
                 nb[part] = dict(nb[part])
                 nb[part][name] = _linear_T(blk[part][name])
         blocks.append(nb)
-    return {"emb": tree["emb"], "blocks": blocks, "ln_out": tree["ln_out"],
+    return blocks
+
+
+def _rwkv(tree: Params) -> Params:
+    return {"emb": tree["emb"], "blocks": _rwkv_blocks(tree["blocks"]), "ln_out": tree["ln_out"],
             "head": _linear_T(tree["head"])}
+
+
+def _vtc(tree: Params) -> Params:
+    """The token compressor: RWKV blocks and an output LayerNorm."""
+    return {"blocks": _rwkv_blocks(tree["blocks"]), "ln_out": tree["ln_out"]}
+
+
+def _tiny_att(tree: Params) -> Params:
+    """v5.2's tiny attention: four linears and a LayerNorm."""
+    return {k: (v if k == "ln" else _linear_T(v)) for k, v in tree.items()}
+
+
+# optional subtrees beside "rwkv", "vit" and "proj", and their layout change
+# (its own inverse: a transpose)
+_EXTRAS = {"vtc": _vtc, "tiny_att": _tiny_att}
 
 
 def _blocks(blocks):
@@ -121,16 +142,27 @@ def tower_params_from_jax(np_tree: Params, tcfg, device="cuda",
     return _tree(_tower(np_tree, tcfg), resolve_device(device), dtype)
 
 
+def tiny_attention_from_jax(np_tree: Params, device="cuda",
+                            dtype: Optional[torch.dtype] = None) -> Params:
+    """v5.2's tiny-attention parameters (``init_tiny_attention_params``'s
+    tree, numpy leaves) -> the port's layout."""
+    return _tree(_tiny_att(np_tree), resolve_device(device), dtype)
+
+
 def params_from_jax(np_tree: Params, cfg: VLMConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Params:
-    """The JAX ``{"rwkv", "vit", "proj"}`` tree (numpy leaves) -> the port's
-    parameters on ``device`` (stored in ``dtype``, fp32 by default)."""
+    """The JAX ``{"rwkv", "vit", "proj"}`` tree (numpy leaves; with a
+    ``"vtc"`` token compressor or a ``"tiny_att"`` layer where it has one)
+    -> the port's parameters on ``device`` (stored in ``dtype``, fp32 by
+    default). A projector is carried whatever its input width (UHD fusion
+    doubles it)."""
     device = resolve_device(device)
     out: Params = {"rwkv": _rwkv(np_tree["rwkv"])}
     if "vit" in np_tree:
         tcfgs = tower_configs(cfg.vision, cfg.rwkv.compute_dtype)
         out["vit"] = {name: _tower(np_tree["vit"][name], tcfgs[name]) for name in tcfgs}
         out["proj"] = _proj(np_tree["proj"])
+    out.update({k: fn(np_tree[k]) for k, fn in _EXTRAS.items() if k in np_tree})
     return _tree(out, device, dtype)
 
 
@@ -177,4 +209,5 @@ def params_to_numpy(params: Params, cfg: VLMConfig) -> Params:
         tcfgs = tower_configs(cfg.vision, cfg.rwkv.compute_dtype)
         out["vit"] = {name: _tower_to_jax(tree["vit"][name], tcfgs[name]) for name in tcfgs}
         out["proj"] = _proj(tree["proj"])
+    out.update({k: fn(tree[k]) for k, fn in _EXTRAS.items() if k in tree})
     return out

@@ -56,3 +56,26 @@ def lm_decode_step(params: Params, cfg: RWKVConfig, token: Tensor, states: List[
 
 def lm_decode_step_embed(params: Params, cfg: RWKVConfig, x_emb: Tensor, states: List[LayerState]):
     return _FAMILIES[cfg.version][3](params, cfg, x_emb, states)
+
+
+_BLOCKS = {"x060": rwkv6.block_x060, "x052": rwkv5.block_x052, "x040": rwkv4.block_x040}
+
+
+def lm_block_forward(params: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
+                     v_first: Optional[Tensor], state: Optional[LayerState] = None, grad_cp=False):
+    """One block of any family, for the paths that drive the blocks
+    themselves (the bidirectional image span, the visual token compressor).
+    Returns (x, v_first, state); ``v_first`` passes through unchanged but
+    for x070. ``grad_cp`` as in the family's forward: the block runs under
+    its family's activation checkpoint."""
+    if cfg.version == "x070":
+        if grad_cp:
+            return rwkv7._block_checkpointed(params, cfg, layer_id, x, v_first, state,
+                                             rwkv7._remat_context(grad_cp))
+        return rwkv7.block_x070(params, cfg, layer_id, x, v_first, state)
+    block = _BLOCKS[cfg.version]
+    if grad_cp:
+        x, st = rwkv6._block_checkpointed(params, cfg, layer_id, x, state, block=block)
+    else:
+        x, st = block(params, cfg, layer_id, x, state)
+    return x, v_first, st

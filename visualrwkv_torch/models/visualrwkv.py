@@ -1,12 +1,15 @@
-"""VisualRWKV: vision ensemble -> projector -> token scatter -> RWKV LM
-(RWKV-7 or RWKV-6), and the training loss (shifted cross-entropy with the
-L2Wrap logit penalty).
+"""VisualRWKV: vision ensemble -> projector -> token insertion -> RWKV LM,
+and the training loss (shifted cross-entropy with the L2Wrap logit penalty).
 
-Counterpart of ``visualrwkv_tpu/models/visualrwkv.py`` (the unidirectional
-v7.00 path, and the v6.0 CLIP grid pooling) over a parameter dict
-``{"rwkv", "vit", "proj"}``. The vision towers are frozen feature
-extractors: they run without autograd and their features are detached
-before the projector, which is trained.
+Counterpart of ``visualrwkv_tpu/models/visualrwkv.py`` over a parameter
+dict ``{"rwkv", "vit", "proj"}`` (and ``"vtc"`` with the token compressor):
+the v7.00 scatter of ``num_token_per_image`` features into image-token
+slots, and the published VisualRWKV-6 / HD / UHD paths: v6.0's leftpad
+insertion (:func:`vlm_forward_leftpad`), the image span reversed on odd
+blocks (:func:`bidirectional_forward`), CLIP grid pooling, UHD tile fusion,
+the v7.03 token compressor and v5.1 patch scanning (:func:`encode_images`).
+The vision towers are frozen feature extractors: they run without autograd
+and their features are detached before the projector, which is trained.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from visualrwkv_torch.config import IGNORE_INDEX, VLMConfig, resolve_device
+from visualrwkv_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX, STOP_TOKEN_INDEX, VLMConfig, resolve_device
 from visualrwkv_torch.models import lm, rwkv7
+from visualrwkv_torch.multimodal.insertion import LeftpadPlan, leftpad_insert, leftpad_plan
 from visualrwkv_torch.multimodal.projector import (
     adaptive_pool_tokens,
     apply_projector,
@@ -25,7 +29,10 @@ from visualrwkv_torch.multimodal.projector import (
     init_projector_params,
     scatter_image_features,
 )
-from visualrwkv_torch.vision.backbone import backbone_features, init_backbone_params
+from visualrwkv_torch.multimodal.scanning import apply_scanning
+from visualrwkv_torch.multimodal.uhd import fuse_image_features
+from visualrwkv_torch.multimodal.vtc import vtc_forward
+from visualrwkv_torch.vision.backbone import backbone_features, backbone_tower_features, init_backbone_params
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -56,15 +63,29 @@ def _has_int8(tree) -> bool:
     return False
 
 
-def encode_images(params: Params, cfg: VLMConfig, images: Dict[str, Tensor],
-                  normalized: bool = False) -> Tensor:
+def encode_images(params: Params, cfg: VLMConfig, images: Optional[Dict[str, Tensor]],
+                  normalized: bool = False,
+                  tower_features: Optional[Dict[str, Tensor]] = None) -> Tensor:
     """Per-tower pixel batches -> [N_img, tokens, n_embd]: adaptive pooling
     to ``num_token_per_image`` tokens, or CLIP grid pooling when
-    ``grid_size != -2``. No gradient reaches the towers; the projector is
-    differentiable. The towers and the projector take float weights only:
-    a tree quantized whole (``infer.strategy`` with int8 weights quantizes
-    them too, as the JAX package does, whose towers then fail on the
-    missing ``weight``) raises here."""
+    ``grid_size != -2``. No gradient reaches the towers; the projector (and
+    the token compressor) are differentiable. The optional stages:
+
+    - ``uhd_fusion``: each tower's batch holds five views an image (the
+      global view, then 2x2 tiles, ``[5 * N_img, H, W, 3]``), fused by
+      :func:`visualrwkv_torch.multimodal.uhd.fuse_image_features`;
+    - the token compressor, when ``n_vtc_layer > 0`` and ``params`` has a
+      ``"vtc"`` subtree: it runs after the projector in place of the
+      adaptive pooling, which follows it;
+    - ``image_scanning``: the tokens reordered (and repeated) by the scan.
+
+    ``tower_features`` (by tower, as :func:`backbone_tower_features` gives
+    them) stand in for running the towers on ``images``.
+
+    The towers and the projector take float weights only: a tree quantized
+    whole (``infer.strategy`` with int8 weights quantizes them too, as the
+    JAX package does, whose towers then fail on the missing ``weight``)
+    raises here."""
     for part in ("vit", "proj"):
         if _has_int8(params.get(part)):
             raise ValueError(
@@ -72,14 +93,31 @@ def encode_images(params: Params, cfg: VLMConfig, images: Dict[str, Tensor],
                 "projector take float weights only, so this tree serves text requests only"
             )
     with torch.no_grad():
-        feats = backbone_features(params["vit"], cfg.vision, images, cfg.rwkv.compute_dtype,
-                                  normalized)
+        tower = tower_features
+        if tower is None and cfg.uhd_fusion:
+            tower = backbone_tower_features(params["vit"], cfg.vision, images,
+                                            cfg.rwkv.compute_dtype, normalized)
+        if cfg.uhd_fusion:
+            feats = fuse_image_features([tower[t].reshape(-1, 5, *tower[t].shape[1:])
+                                         for t in cfg.vision.towers])
+        elif tower is not None:
+            feats = torch.cat([tower[t] for t in cfg.vision.towers], dim=-1)
+        else:
+            feats = backbone_features(params["vit"], cfg.vision, images, cfg.rwkv.compute_dtype,
+                                      normalized)
     feats = feats.detach()
+    use_vtc = cfg.n_vtc_layer > 0 and "vtc" in params
     if cfg.grid_size != -2:  # expects a CLS-keeping tower (CLIP, keep_cls_feature)
         feats = grid_pooling(feats, cfg.grid_size)
-    else:
+    elif not use_vtc:
         feats = adaptive_pool_tokens(feats, cfg.num_token_per_image)
-    return apply_projector(params["proj"], cfg.proj_type, feats, cfg.rwkv.dtype)
+    feats = apply_projector(params["proj"], cfg.proj_type, feats, cfg.rwkv.dtype)
+    if use_vtc:
+        feats = adaptive_pool_tokens(vtc_forward(params["vtc"], cfg.rwkv, feats),
+                                     cfg.num_token_per_image)
+    if cfg.image_scanning != "unidirection":
+        feats = apply_scanning(feats, cfg.image_scanning)
+    return feats
 
 
 def prepare_embeddings(params: Params, cfg: VLMConfig, input_ids: Tensor,
@@ -95,20 +133,116 @@ def prepare_embeddings(params: Params, cfg: VLMConfig, input_ids: Tensor,
     return scatter_image_features(input_ids, input_embeds, image_features)
 
 
+def image_token_span(input_ids: Tensor) -> Tensor:
+    """The position of each row's first image token (0 where it has none)."""
+    return (input_ids == IMAGE_TOKEN_INDEX).to(torch.uint8).argmax(-1)
+
+
+def _flip_span(x: Tensor, start, length: int) -> Tensor:
+    """``x[:, start:start + length]`` reversed along T. ``start`` is shared
+    (an int or a 0-d tensor) or a row's own (``[B]``: leftpad tail-keep
+    truncation moves a row's span). As JAX's dynamic slice takes it, a
+    negative start counts from the end (a tail-keep row whose cut fell past
+    its span start has one) and the start is then clamped to
+    ``[0, T - length]``. One gather on the device, no host wait."""
+    T = x.shape[1]
+    start = torch.as_tensor(start, device=x.device).reshape(-1, 1)
+    start = torch.where(start < 0, start + T, start).clamp(0, T - length)
+    t = torch.arange(T, device=x.device)[None, :]
+    inside = (t >= start) & (t < start + length)
+    idx = torch.where(inside, 2 * start + length - 1 - t, t).expand(x.shape[0], T)
+    return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def bidirectional_forward(params: Params, cfg: VLMConfig, x: Tensor, img_start, img_len: int,
+                          grad_cp=False) -> Tensor:
+    """Logits of the LM over embeddings ``x`` [B, T, C] where the odd blocks
+    see the image span ``[img_start, img_start + img_len)`` reversed (v6.0
+    / HD / UHD, v6.0/src/model.py:408-431): the span is flipped before and
+    after each odd block. ``img_start`` is shared or a row's own (``[B]``).
+    The sequence is left-padded with STOP-token embeddings to a multiple of
+    ``chunk_len`` and the span start moved by the pad: the padded prefix
+    changes the state, as in the LM's own forward."""
+    rcfg = cfg.rwkv
+    B, T, _ = x.shape
+    pad = (-T) % rcfg.chunk_len
+    if pad:
+        stop = torch.full((B, pad), STOP_TOKEN_INDEX, dtype=torch.long, device=x.device)
+        eos = rwkv7.embed(params["rwkv"], stop)
+        x = torch.cat([eos.to(x.dtype), x], dim=1)
+    start = torch.as_tensor(img_start, device=x.device) + pad
+    v_first = None
+    for i, blk in enumerate(params["rwkv"]["blocks"]):
+        reverse = i % 2 == 1
+        if reverse:
+            x = _flip_span(x, start, img_len)
+        x, v_first, _ = lm.lm_block_forward(blk, rcfg, i, x, v_first, grad_cp=grad_cp)
+        if reverse:
+            x = _flip_span(x, start, img_len)
+    x = rwkv7.layer_norm(params["rwkv"]["ln_out"], x)
+    if pad:
+        x = x[:, pad:]
+    return rwkv7.linear(params["rwkv"]["head"], x, rcfg.dtype)
+
+
+def _on_device(input_ids, images, device):
+    ids = torch.as_tensor(input_ids, device=device).long()
+    if images is not None:
+        images = {t: torch.as_tensor(v, device=device) for t, v in images.items()}
+    return ids, images
+
+
 def vlm_forward(params: Params, cfg: VLMConfig, input_ids, images=None, grad_cp=False,
                 return_hidden: bool = False, device="cuda") -> Tensor:
     """Logits [B, T, vocab] fp32 (or the final hidden states). ``input_ids``
     [B, T] and the per-tower uint8 images (arrays or tensors) are moved to
     ``device``, where ``params`` must already be. Differentiable with respect
     to the LM's and the projector's parameters; ``grad_cp`` as in
-    :func:`visualrwkv_torch.models.rwkv7.rwkv7_forward`."""
+    :func:`visualrwkv_torch.models.rwkv7.rwkv7_forward`. With
+    ``bidirectional_image`` and images, the span of ``num_token_per_image``
+    tokens at row 0's first image token is reversed on the odd blocks (the
+    logits only)."""
     device = resolve_device(device)
-    ids = torch.as_tensor(input_ids, device=device).long()
-    if images is not None:
-        images = {t: torch.as_tensor(v, device=device) for t, v in images.items()}
+    ids, images = _on_device(input_ids, images, device)
     x = prepare_embeddings(params, cfg, ids, images)
+    if cfg.bidirectional_image and images is not None:
+        if return_hidden:
+            raise ValueError("the bidirectional path returns logits only")
+        return bidirectional_forward(params, cfg, x, image_token_span(ids)[0],
+                                     cfg.num_token_per_image, grad_cp)
     out, _ = lm.lm_forward(params["rwkv"], cfg.rwkv, x, grad_cp=grad_cp, return_hidden=return_hidden)
     return out
+
+
+def vlm_forward_leftpad(params: Params, cfg: VLMConfig, input_ids, labels, images=None,
+                        image_features: Optional[Tensor] = None, plan: Optional[LeftpadPlan] = None,
+                        grad_cp=False, return_hidden: bool = False, device="cuda"):
+    """v6.0's forward over samples that carry at most one un-expanded image
+    token each (:mod:`visualrwkv_torch.multimodal.insertion`). Returns
+    (logits or hidden, the realigned labels, the plan): the insertion
+    rearranges the sequence, so the labels move with it. ``plan`` is
+    computed from the token ids on the host when not given. Under
+    ``bidirectional_image`` each row's span of ``flip_len`` tokens is
+    reversed on the odd blocks at ``max_idx - off`` (its tail-keep offset)."""
+    device = resolve_device(device)
+    ids, images = _on_device(input_ids, images, device)
+    labels = torch.as_tensor(labels, device=device).long()
+    if image_features is None:
+        if images is None:
+            raise ValueError("leftpad insertion needs images or image_features")
+        image_features = encode_images(params, cfg, images)
+    if plan is None:
+        plan = leftpad_plan(input_ids, int(image_features.shape[1]), cfg.rwkv.ctx_len)
+    emb, new_labels, off = leftpad_insert(params["rwkv"]["emb"]["weight"], ids, labels,
+                                          image_features, plan)
+    if cfg.bidirectional_image:
+        if return_hidden:
+            raise ValueError("the bidirectional path returns logits only")
+        out = bidirectional_forward(params, cfg, emb, plan.max_idx - off, plan.flip_len, grad_cp)
+    else:
+        out, _ = lm.lm_forward(params["rwkv"], cfg.rwkv, emb, grad_cp=grad_cp,
+                               return_hidden=return_hidden)
+    return out, new_labels, plan
 
 
 # ---------------------------------------------------------------------------
@@ -227,17 +361,28 @@ def chunked_ce_l2wrap(chunk_t: int, head_w: Tensor, hidden: Tensor, labels: Tens
     return _ChunkedCEL2Wrap.apply(chunk_t, head_w, hidden, labels)
 
 
+def training_loss_leftpad(params: Params, cfg: VLMConfig, input_ids, labels, images=None,
+                          plan: Optional[LeftpadPlan] = None, grad_cp=True, device="cuda") -> Tensor:
+    """The training loss of the v6.0 leftpad insertion: the dense loss on
+    the realigned labels (:func:`vlm_forward_leftpad`)."""
+    logits, new_labels, _ = vlm_forward_leftpad(params, cfg, input_ids, labels, images, plan=plan,
+                                                grad_cp=grad_cp, device=device)
+    return _dense_ce_l2wrap(logits, new_labels)
+
+
 def training_loss(params: Params, cfg: VLMConfig, input_ids, labels, images=None,
                   grad_cp=True, chunked_ce: bool = True, ce_chunk_t: int = 128,
                   device="cuda") -> Tensor:
     """Shifted cross-entropy, normalised per sample by its valid-label count,
     then the batch mean, with the L2Wrap penalty. ``chunked_ce`` (default)
     never materialises the full fp32 ``[B, T, vocab]`` logits; it applies when
-    T is a multiple of ``ce_chunk_t``, else the dense loss runs."""
+    T is a multiple of ``ce_chunk_t`` and the forward is not the
+    bidirectional one (which gives logits only), else the dense loss runs."""
     device = resolve_device(device)
     ids = torch.as_tensor(input_ids, device=device).long()
     labels = torch.as_tensor(labels, device=device).long()
-    if chunked_ce and ids.shape[1] % ce_chunk_t == 0:
+    bidirectional = cfg.bidirectional_image and images is not None
+    if chunked_ce and not bidirectional and ids.shape[1] % ce_chunk_t == 0:
         hidden = vlm_forward(params, cfg, ids, images, grad_cp=grad_cp, return_hidden=True,
                              device=device)
         return chunked_ce_l2wrap(ce_chunk_t, params["rwkv"]["head"]["weight"], hidden, labels)

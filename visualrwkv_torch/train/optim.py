@@ -18,7 +18,9 @@ decay, and freezing masks. One step does, in the order of the optax chain:
 Frozen leaves are never touched. Parameters are updated in place, under
 ``torch.no_grad()``; the step needs no kernel of its own (elementwise
 PyTorch ops). The JAX package's ``PartitionedOptimizer`` regroups the same
-math to fit a TPU's memory and has no counterpart here.
+math to fit a TPU's memory and has no counterpart here; its host-offloaded
+optimizer is :mod:`visualrwkv_torch.train.offload`, which runs
+:meth:`Optimizer.update_leaf` on state streamed from host memory.
 """
 
 from __future__ import annotations
@@ -206,12 +208,48 @@ class Optimizer:
     def trainable_leaves(self, params: Params) -> List[Tensor]:
         return [p for p, t in zip(tree_leaves(params), tree_leaves(self.train_mask)) if t]
 
+    def hyper(self, count: int, grads: List[Tensor]):
+        """What one step at ``count`` shares across its leaves: the clip
+        ``(scale, finite)`` over all of ``grads`` (None without clipping),
+        the learning rate, the weight decay and the bias corrections."""
+        cfg = self.cfg
+        clip = global_norm_scale(grads, cfg.grad_clip) if cfg.grad_clip > 0 else None
+        c1, c2 = 1.0 - cfg.beta1**(count + 1), 1.0 - cfg.beta2**(count + 1)
+        return clip, self.lr(count), self.weight_decay(count), c1, c2
+
+    def update_leaf(self, p: Tensor, g: Tensor, mu: Tensor, nu: Tensor, master: Optional[Tensor],
+                    decayed: bool, hyper, gen: Optional[torch.Generator] = None) -> None:
+        """One leaf's update, in place on ``p``, ``mu``, ``nu`` and
+        ``master``; ``hyper`` from :meth:`hyper`. The clip is applied here,
+        leaf by leaf, so that no fp32 copy of the whole gradient tree is
+        alive at once."""
+        cfg = self.cfg
+        clip, lr, wd_now, c1, c2 = hyper
+        if not self.lean:
+            g = g.float()  # master_fp32: the clip and the moments see fp32 gradients
+        g32 = (_clipped(g, *clip) if clip is not None else g).float()
+        mu32 = mu.float().mul_(cfg.beta1).add_(g32, alpha=1.0 - cfg.beta1)
+        nu32 = nu.float().mul_(cfg.beta2).addcmul_(g32, g32, value=1.0 - cfg.beta2)
+        mu.copy_(mu32)
+        nu.copy_(nu32)
+        u = (mu32 / c1) / (torch.sqrt(nu32 / c2) + cfg.adam_eps)
+        target = master if master is not None else p
+        if decayed and wd_now != 0.0:
+            u.add_(target.float(), alpha=wd_now)
+        u.mul_(-lr)
+        if master is not None:
+            master.add_(u)
+            p.copy_(master)
+        elif self.lean and p.dtype == torch.bfloat16:
+            p.copy_(sr_round_bf16(p.float() + u, gen))
+        else:
+            p.add_(u.to(p.dtype))
+
     @torch.no_grad()
     def step(self, params: Params, grads: List[Tensor], state: OptState, step: int) -> None:
         """One update, in place on ``params`` and ``state``. ``grads`` are the
         gradients of :meth:`trainable_leaves`, in that order; ``step`` seeds
         the stochastic rounding of ``bf16_sr``."""
-        cfg = self.cfg
         rows = [
             (p, mu, nu, ms, wd)
             for p, t, mu, nu, ms, wd in zip(*(tree_leaves(x) for x in (
@@ -220,34 +258,11 @@ class Optimizer:
         ]
         if len(rows) != len(grads):
             raise ValueError(f"{len(grads)} gradients for {len(rows)} trainable leaves")
-        # the clip is applied leaf by leaf below, so that no fp32 copy of the
-        # whole gradient tree is alive at once
-        clip = global_norm_scale(grads, cfg.grad_clip) if cfg.grad_clip > 0 else None
-        lr, wd_now = self.lr(state.count), self.weight_decay(state.count)
-        count = state.count + 1
-        c1, c2 = 1.0 - cfg.beta1**count, 1.0 - cfg.beta2**count
+        hyper = self.hyper(state.count, grads)
         gen = sr_generator(step, rows[0][0].device) if self.lean and rows else None
         for (p, mu, nu, master, decayed), g in zip(rows, grads):
-            if not self.lean:
-                g = g.float()  # master_fp32: the clip and the moments see fp32 gradients
-            g32 = (_clipped(g, *clip) if clip is not None else g).float()
-            mu32 = mu.float().mul_(cfg.beta1).add_(g32, alpha=1.0 - cfg.beta1)
-            nu32 = nu.float().mul_(cfg.beta2).addcmul_(g32, g32, value=1.0 - cfg.beta2)
-            mu.copy_(mu32)
-            nu.copy_(nu32)
-            u = (mu32 / c1) / (torch.sqrt(nu32 / c2) + cfg.adam_eps)
-            target = master if master is not None else p
-            if decayed and wd_now != 0.0:
-                u.add_(target.float(), alpha=wd_now)
-            u.mul_(-lr)
-            if master is not None:
-                master.add_(u)
-                p.copy_(master)
-            elif self.lean and p.dtype == torch.bfloat16:
-                p.copy_(sr_round_bf16(p.float() + u, gen))
-            else:
-                p.add_(u.to(p.dtype))
-        state.count = count
+            self.update_leaf(p, g, mu, nu, master, decayed, hyper, gen)
+        state.count += 1
 
 
 def make_optimizer(cfg: TrainConfig, params: Params, total_steps: int, n_layer: int) -> Optimizer:

@@ -12,7 +12,13 @@ optimizer state.
 - the vision towers are frozen: they run without autograd and their leaves
   never change;
 - checkpoints carry the parameters, the optimizer state and the step, so
-  that a resumed run takes the same next step.
+  that a resumed run takes the same next step;
+- ``offload_optimizer`` keeps the fp32 masters and moments in pinned host
+  memory, streamed to the device a group at a time
+  (:mod:`visualrwkv_torch.train.offload`); a partial layer freeze keeps the
+  resident optimizer, as the JAX trainer does;
+- ``insertion_mode="leftpad"``: the loss of the v6.0 insertion, its plan
+  made on the host from each batch's token ids.
 """
 
 from __future__ import annotations
@@ -21,14 +27,16 @@ import dataclasses
 import logging
 import math
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from visualrwkv_torch.config import TrainConfig, VLMConfig, resolve_device
-from visualrwkv_torch.models.visualrwkv import training_loss
+from visualrwkv_torch.models.visualrwkv import training_loss, training_loss_leftpad
+from visualrwkv_torch.multimodal.insertion import LeftpadPlan, leftpad_plan
 from visualrwkv_torch.ops.wkv7 import get_wkv_impl
+from visualrwkv_torch.train.offload import StreamedOffloadOptimizer
 from visualrwkv_torch.train.optim import OptState, Optimizer, make_optimizer, tree_map
 
 log = logging.getLogger(__name__)
@@ -49,13 +57,18 @@ def create_train_state(params: Params, cfg: TrainConfig, vlm_cfg: VLMConfig,
     return TrainState(params=params, opt_state=opt.init(params), step=0), opt
 
 
-def make_loss_fn(cfg: TrainConfig, vlm_cfg: VLMConfig, device) -> Callable[[Params, Dict], Tensor]:
-    """The micro-batch loss: the default scatter insertion of the image
-    features (the JAX package's leftpad insertion and sequence-parallel loss
-    are not ported; the configurations that would select them do not exist
-    in the port)."""
+def make_loss_fn(cfg: TrainConfig, vlm_cfg: VLMConfig, device) -> Callable[..., Tensor]:
+    """The micro-batch loss ``loss_fn(params, micro, plan=None)``: the
+    scatter insertion of the image features, or with
+    ``insertion_mode="leftpad"`` the v6.0 insertion under ``plan`` (the
+    whole batch's :func:`leftpad_plan`, made on the host)."""
 
-    def loss_fn(params: Params, micro: Dict[str, Any]) -> Tensor:
+    def loss_fn(params: Params, micro: Dict[str, Any], plan: Optional[LeftpadPlan] = None) -> Tensor:
+        if vlm_cfg.insertion_mode == "leftpad":
+            return training_loss_leftpad(
+                params, vlm_cfg, micro["input_ids"], micro["labels"], micro.get("images"),
+                plan=plan, grad_cp=cfg.grad_cp, device=device,
+            )
         return training_loss(
             params, vlm_cfg, micro["input_ids"], micro["labels"], micro.get("images"),
             grad_cp=cfg.grad_cp, ce_chunk_t=cfg.ce_chunk_t, device=device,
@@ -120,8 +133,17 @@ class Trainer:
         pd = getattr(torch, train_cfg.param_dtype)
         params = tree_map(
             lambda p: p.detach().to(pd) if p.is_floating_point() else p.detach(), params)
-        state, self.opt = create_train_state(params, train_cfg, vlm_cfg, self.total_steps)
-        self.state = state
+        self._streamed = None
+        if train_cfg.offload_optimizer and 0 < train_cfg.freeze_rwkv_layers < vlm_cfg.rwkv.n_layer:
+            log.info("offload_optimizer: a partial layer freeze keeps the resident optimizer")
+        elif train_cfg.offload_optimizer:
+            self._streamed = StreamedOffloadOptimizer(train_cfg, vlm_cfg, params, self.total_steps,
+                                                      self.device)
+        if self._streamed is not None:
+            self.opt = self._streamed.opt
+            self.state = TrainState(params=params, opt_state=self._streamed.state, step=0)
+        else:
+            self.state, self.opt = create_train_state(params, train_cfg, vlm_cfg, self.total_steps)
         # the trainable leaves, in the optimizer's order, and the micro-batch loss
         self.leaves = self.opt.trainable_leaves(params)
         for p in self.leaves:
@@ -140,9 +162,17 @@ class Trainer:
         optional per-tower ``images`` [A*N_img, H, W, 3]; A =
         ``accumulate_grad_batches``). Returns the loss (a 0-d tensor on the
         device; the caller decides when to wait for it)."""
-        loss, grads = loss_and_grads(self.loss_fn, self.state.params, self.leaves, batch,
+        loss_fn = self.loss_fn
+        if self.vlm_cfg.insertion_mode == "leftpad":  # one plan for the batch's micro-batches
+            plan = leftpad_plan(batch["input_ids"], self.vlm_cfg.num_token_per_image,
+                                self.vlm_cfg.rwkv.ctx_len)
+            loss_fn = lambda params, micro: self.loss_fn(params, micro, plan)
+        loss, grads = loss_and_grads(loss_fn, self.state.params, self.leaves, batch,
                                      self.cfg.accumulate_grad_batches)
-        self.opt.step(self.state.params, grads, self.state.opt_state, self.state.step)
+        if self._streamed is not None:
+            self._streamed.step(self.state.params, grads)
+        else:
+            self.opt.step(self.state.params, grads, self.state.opt_state, self.state.step)
         self.state.step += 1
         return loss
 
@@ -171,17 +201,22 @@ class Trainer:
         payload = {"params": tree_map(lambda p: p.detach(), self.state.params),
                    "step": self.state.step}
         if with_optimizer:
-            payload["opt_state"] = self.state.opt_state.state_dict()
+            st = self._streamed.opt_state if self._streamed is not None else self.state.opt_state
+            payload["opt_state"] = st.state_dict()
         torch.save(payload, path)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore into the live trees (same configuration as the run that
-        saved it); a checkpoint without optimizer state restores the weights."""
-        payload = torch.load(path, map_location=self.device, weights_only=True)
+        saved it); a checkpoint without optimizer state restores the weights.
+        An offloaded optimizer's state goes back into its host buffers."""
+        where = "cpu" if self._streamed is not None else self.device
+        payload = torch.load(path, map_location=where, weights_only=True)
         copy = lambda dst, src: dst if dst is None else dst.copy_(src)
         with torch.no_grad():
             tree_map(copy, self.state.params, payload["params"])
-            if "opt_state" in payload:
+            if "opt_state" in payload and self._streamed is not None:
+                self._streamed.opt_state = payload["opt_state"]
+            elif "opt_state" in payload:
                 st, saved = self.state.opt_state, payload["opt_state"]
                 for name in ("mu", "nu", "master"):
                     tree_map(copy, getattr(st, name), saved[name])

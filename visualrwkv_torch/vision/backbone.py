@@ -51,19 +51,30 @@ def init_backbone_params(gen: torch.Generator, cfg: VisionConfig, compute_dtype=
     return params
 
 
-def backbone_features(params: Params, cfg: VisionConfig, images: Dict[str, Tensor],
-                      compute_dtype: str = "bfloat16", normalized: bool = False) -> Tensor:
-    """Run the enabled towers on their pixel batches (uint8 [N, H, W, 3], or
-    normalised when ``normalized``) and concatenate the patch features:
-    [N, L, sum(dims)] in the compute dtype."""
+def backbone_tower_features(params: Params, cfg: VisionConfig, images: Dict[str, Tensor],
+                            compute_dtype: str = "bfloat16", normalized: bool = False
+                            ) -> Dict[str, Tensor]:
+    """Each enabled tower's patch features on its pixel batch (uint8
+    [N, H, W, 3], or normalised when ``normalized``), in the compute dtype,
+    by tower name: the UHD fusion combines the towers spatially instead of
+    concatenating them per patch."""
     dt = getattr(torch, compute_dtype)
-    feats = []
+    out: Dict[str, Tensor] = {}
     for name, tcfg in tower_configs(cfg, compute_dtype).items():
         x = images[name]
         if not normalized:
             x = normalize_uint8(x, name, dt)
         fn = sam_features if isinstance(tcfg, SAMConfig) else vit_features
-        feats.append(fn(params[name], tcfg, x).to(dt))
+        out[name] = fn(params[name], tcfg, x).to(dt)
+    return out
+
+
+def backbone_features(params: Params, cfg: VisionConfig, images: Dict[str, Tensor],
+                      compute_dtype: str = "bfloat16", normalized: bool = False) -> Tensor:
+    """Run the enabled towers on their pixel batches (uint8 [N, H, W, 3], or
+    normalised when ``normalized``) and concatenate the patch features:
+    [N, L, sum(dims)] in the compute dtype."""
+    feats = list(backbone_tower_features(params, cfg, images, compute_dtype, normalized).values())
     lens = {f.shape[1] for f in feats}
     if len(lens) != 1:
         raise ValueError(f"towers disagree on token count: {lens}")
