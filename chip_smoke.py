@@ -20,19 +20,21 @@ Phases (any failure exits non-zero; nothing is caught):
    bit for bit. The chunked WKV7 prefill forward K1 at the 1B5
    prefill's shapes (B=1 and the serving batch B=4, T=1056), each case
    logging its plan (no K1 / K11 instantiation may spill), at ragged T
-   (0, 1, 8, 24, 1049: ``WKV7_FWD_RAGGED_CASES``) and at the ten inputs of
-   ``WKV7_FWD_RES_PATH_CASES`` against the fp32 sequential scan, with K11
+   (0, 1, 8, 24, 1049: ``WKV7_FWD_RAGGED_CASES``), at phase 13's
+   no-gradient shapes (``WKV7_FWD_PHASE13_CASES``) and at the thirteen
+   inputs of ``WKV7_FWD_RES_PATH_CASES`` against the fp32 sequential scan, with K11
    equal to K1 bit for bit everywhere. The head-pair ("packed") kernels
    K11-K13 are held against their plain versions too, K11 beside K1, and
    K12 must equal K5 bit for bit; the chunked WKV7 training forward K5 /
    K12 at the 1B5 step's shape, each case logging its plan (value rows a block, blocks,
    threads, shared memory held equal to the library's count, registers,
-   spills: no K5 / K12 instantiation may spill), and at ten more inputs
-   against the fp32 sequential scan (``WKV7_FWD_RES_PATH_CASES``); the
+   spills: no K5 / K12 instantiation may spill), and at thirteen more
+   inputs (phase 13's training shapes among them) against the fp32
+   sequential scan (``WKV7_FWD_RES_PATH_CASES``); the
    two-pass chunked backward K6 / K13 at the 1B5 step's shape (K13 equal
    to K6 bit for bit), each case logging both passes' plans and the
-   workspace (no K6 / K13 instantiation may spill), at those ten inputs
-   against fp32 autograd of the sequential scan, and under autograd
+   workspace (no K6 / K13 instantiation may spill), at those thirteen
+   inputs against fp32 autograd of the sequential scan, and under autograd
    through ``ops.wkv7.wkv7`` at T = 2040, chunk 8 (identity-padded to 2048)
    against the plain path;
    K3 beside the SDPA forward with the rel-pos bias (SAM-B at 1024, 768
@@ -55,17 +57,20 @@ Phases (any failure exits non-zero; nothing is caught):
    the 7B prefill's and the 1.6B step's shapes, each case logging its plan
    (value rows a block, blocks, threads, shared memory held equal to the
    library's count, registers, spills: no K7 / K8 instantiation may spill),
-   and at six more geometries against the plain scan only
-   (``WKV6_FWD_PATH_CASES``); the two-pass chunked WKV6 backward K9 at the
+   and at ten more geometries (phase 13's x060 shapes among them) against
+   the plain scan only (``WKV6_FWD_PATH_CASES``); the two-pass chunked WKV6 backward K9 at the
    1.6B step's shape, logging both passes' plans and the workspace (no K9
-   instantiation may spill), and at ``WKV6_BWD_PATH_CASES`` against fp32
+   instantiation may spill), and at ``WKV6_BWD_PATH_CASES`` (phase 13's
+   x060 shapes among them) against fp32
    autograd of the floored sequential scan; x060 at ``chunk_len`` 8, 4 and 1
    (the decay floors -10, -20 and -80) through ``ops.wkv6.wkv6``, K7 and, at
    T = 2040 under autograd, K8 + K9, against ``wkv6_plain(..., chunk)``, with
    K7, K8 and K9 timed at each floor; the RWKV-4 sequence forward K17 at
    the x040 prefill's shapes (B = 1 and 4, T = 1056, C = 2048; k near 80 on
    a quarter of the channels; bf16 k, v) against the plain loop
-   (``WKV4_CASES``).
+   (``WKV4_CASES``), and its VJP K18 at those shapes and the v4 adapter's
+   (B = 8, T = 64) against ``wkv4_bwd_plain``, each case logging its plan
+   (``WKV4_BWD_CASES``).
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -157,6 +162,31 @@ Phases (any failure exits non-zero; nothing is caught):
    prefill logits at 2 layers against the plain path fed the card's tower
    features.
 
+13. The separate variant models, on the models of phases 3 and 6 while
+   they are built (13a-c after phase 4, 13c's x060 and 13d after phase
+   12e) and on phase 11's x040 rebuilt from its seed (13e, after phase
+   11), on seeded random weights, each
+   run with its launch counts asserted and a plain check (the card in
+   fp32 against the CPU in fp32, the model cut to ``PLAIN_LAYERS`` noisy
+   blocks, the towers' features taken from the card; each loss and
+   gradient logged against its limit): (a) v7.10's VRWKV at the 1B5's
+   width (6 blocks, 224 px, 256 patches): 32 images through the ImageNet
+   step and ``topk_accuracy`` (K1 6), one ``imagenet_loss`` forward +
+   backward (K5 6, K6 6); (b) the mixture-FFN on phase 3's LM with
+   ``ffn_v`` / ``ln_v`` behind 13a's VRWKV, B = 2 x 1024 (256 image
+   positions), trained under ``pretrain_mode_mask`` (K5 30, K6 30; only
+   ``vrwkv``, ``ffn_v``, ``ln_v`` take gradients); (c) image-as-state with
+   state tuning on the 1B5 (1024 image tokens of its encode, 256 text, B =
+   2: K5 48, K6 48, every layer's ``time_states`` gradient nonzero), a
+   ``mean_multi_image`` forward over 3 images (K1 48), and the same on
+   phase 6's x060 1.6B (K8 48, K9 48; K7 48); (d) v6.23's hybrid on the
+   1.6B, 6 cross blocks every 4 from the end, the flagship towers' 1024
+   features, B = 2 x 512: a forward (K7 24), a forward + backward (K8 24,
+   K9 24); (e) the v4 adapter (32 queries, 256 features, 2 blocks) behind
+   phase 11's RWKV-4 World 1.5B and CLIP-L/14 @336, B = 8, 32-token
+   captions: the losses and their gradients (K17 24, K18 24), no LM weight
+   taking one.
+
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
 runs, each model built again from its seed: once the profiler has been used in a
@@ -209,8 +239,10 @@ REPLACES = {
     "wkv7_fwd_v2": "visualrwkv_tpu/ops/wkv7_pallas.py:1142",
     # jnp in the JAX package, not a pallas_call: x060's decode step on the flat state
     "wkv6_step_flat": "visualrwkv_tpu/ops/wkv6.py:50",
-    # a lax.scan in the JAX package, not a pallas_call: x040's sequence form
+    # a lax.scan in the JAX package, not a pallas_call: x040's sequence form,
+    # and its gradient (autodiff of that scan)
     "wkv4_fwd": "visualrwkv_tpu/ops/wkv4.py:41",
+    "wkv4_bwd": "visualrwkv_tpu/ops/wkv4.py:41",
 }
 # the WKV kernels each LM family launches: (prefill, decode step, training
 # forward, training backward); "x070 packed" under set_wkv_impl("packed")
@@ -288,6 +320,7 @@ SOURCES = {
     "wkv7_fwd_v2": "visualrwkv_torch/csrc/wkv7_v2.cu",
     "wkv6_step_flat": "visualrwkv_torch/csrc/wkv6.cu",
     "wkv4_fwd": "visualrwkv_torch/csrc/wkv4.cu",
+    "wkv4_bwd": "visualrwkv_torch/csrc/wkv4.cu",
 }
 
 
@@ -465,12 +498,24 @@ def check_wkv7_fwd(gen, dev):
 # chunks before it, a prefill of 1024 image tokens and a 25-token prompt).
 WKV7_FWD_RAGGED_CASES = tuple((1, T, 32, dname, with_state) for T in (0, 1, 8, 24, 1049)
                               for dname in ("bfloat16", "float32") for with_state in (False, True))
+# K1 at phase 13's no-gradient shapes, held as the ragged cases are: (what,
+# B, T, H, stream dtype, initial state). 13a's ImageNet step (32 images of
+# 256 patches); 13c's mean_multi_image forward (3 images of 1024 tokens,
+# from a zero state and from tuned states) and its text pass (B=2, 256
+# tokens from the image state).
+WKV7_FWD_PHASE13_CASES = (
+    ("13a ImageNet step", 32, 256, 32, "bfloat16", False),
+    ("13c mean of three images", 3, 1024, 32, "bfloat16", False),
+    ("13c mean of three images", 3, 1024, 32, "bfloat16", True),
+    ("13c text pass", 2, 256, 32, "bfloat16", True),
+)
 
 
 def check_wkv7_fwd_paths(gen, dev):
-    """K1 at ``WKV7_FWD_RAGGED_CASES`` and at the ten inputs of
-    ``WKV7_FWD_RES_PATH_CASES`` (the chunk solve's stability constructions,
-    w_raw = -0.5 and 2.0 on every channel, B*H = 18 and 128) against the
+    """K1 at ``WKV7_FWD_RAGGED_CASES``, ``WKV7_FWD_PHASE13_CASES`` and the
+    inputs of ``WKV7_FWD_RES_PATH_CASES`` (the chunk solve's stability
+    constructions, w_raw = -0.5 and 2.0 on every channel, B*H = 18 and 128,
+    phase 13's training shapes) against the
     fp32 sequential scan, under the limits of the timed cases: y 1e-2 (bf16
     streams) or 1e-3 (fp32), the final state 1e-3; K11 equal to K1 bit for
     bit everywhere, and at T = 0 the state returned unchanged."""
@@ -482,15 +527,13 @@ def check_wkv7_fwd_paths(gen, dev):
     N = 64
     cases = [(f"ragged T={T}", B, T, H, dname, with_state)
              for B, T, H, dname, with_state in WKV7_FWD_RAGGED_CASES]
+    cases += list(WKV7_FWD_PHASE13_CASES)
     cases += [(what, B, T, H, dname, True) for what, B, T, H, dname in WKV7_FWD_RES_PATH_CASES]
     for what, B, T, H, dname, with_state in cases:
         sdt = getattr(torch, dname)
         case = f"{what}: B={B} T={T} H={H} {dname} streams, {'with' if with_state else 'no'} initial state"
         wkv7_fwd_res_plan(case, B, H, sdt, save=False)
-        if what.startswith("ragged"):
-            xs = _wkv_streams(gen, (B, T, H, N), sdt, dev)
-        else:
-            xs = [x.to(sdt).contiguous() for x in _wkv7_path_streams(gen, what, (B, T, H, N), dev)]
+        xs = [x.to(sdt).contiguous() for x in _wkv7_path_streams(gen, what, (B, T, H, N), dev)]
         s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3 if with_state else None
         y, s = wkv7_cuda.wkv7_fwd(*xs, s0)
         y_ref, s_ref = pw.wkv7_reference(*[x.float() for x in xs], s0)
@@ -872,7 +915,10 @@ def wkv7_bwd_plan(case, B, T, H, dtype):
 # on every channel with |r| <= 1e-3 on a quarter of them; w_raw = 2.0 on
 # every channel (a decay of e^{-7.4} a step: the factors of a chunk reach
 # e^{+-59}); B * H = 18 (16 value rows a block, 72 blocks) and B * H = 128
-# (64 rows, 128 blocks), which no timed case takes.
+# (64 rows, 128 blocks), which no timed case takes; and phase 13's training
+# shapes on RWKV-7-shaped streams: 13a's 32 images of 256 patches, 13b's LM
+# and 13c's image pass (B=2, 1024 tokens), 13b's VRWKV and 13c's text pass
+# (B=2, 256).
 WKV7_FWD_RES_PATH_CASES = (
     ("adversarial", 1, 256, 2, "float32"),
     ("adversarial", 1, 256, 2, "bfloat16"),
@@ -884,6 +930,9 @@ WKV7_FWD_RES_PATH_CASES = (
     ("w_raw = 2.0 on every channel", 2, 256, 32, "bfloat16"),
     ("B*H = 18", 3, 96, 6, "float32"),
     ("B*H = 128", 2, 96, 64, "bfloat16"),
+    ("13a imagenet_loss", 32, 256, 32, "bfloat16"),
+    ("13b LM, 13c image pass", 2, 1024, 32, "bfloat16"),
+    ("13b VRWKV, 13c text pass", 2, 256, 32, "bfloat16"),
 )
 
 
@@ -1202,7 +1251,11 @@ def check_wkv6_fwd(gen, dev):
 # every channel with |r| <= 1e-3 on a quarter of them (the factors of a
 # chunk reach 2^+-58 there), a T that is not a multiple of 16 (K7 only: the
 # last chunk is masked), B * H = 15 heads (16 value rows a block, 60 blocks,
-# which no timed case takes), and B * H = 128 (64 rows, 128 blocks).
+# which no timed case takes), B * H = 128 (64 rows, 128 blocks), and phase
+# 13's x060 shapes on the 1.6B's 32 heads: 13c's image pass (B=2, 1024
+# tokens, from tuned states; K7 alone from zero, as its forward without
+# them runs) and text pass (B=2, 256, from the image state), and 13d's
+# hybrid (B=2, 512, from zero).
 WKV6_FWD_PATH_CASES = (
     ("floor on every channel, |r| <= 1e-3 on a quarter", 2, 256, 32, "bfloat16", True, True),
     ("floor on every channel, |r| <= 1e-3 on a quarter", 2, 256, 32, "float32", True, True),
@@ -1210,6 +1263,10 @@ WKV6_FWD_PATH_CASES = (
     ("ragged T", 1, 601, 64, "bfloat16", True, False),
     ("B*H = 15", 3, 96, 5, "float32", True, True),
     ("B*H = 128", 2, 96, 64, "bfloat16", False, True),
+    ("13c x060 image pass", 2, 1024, 32, "bfloat16", True, True),
+    ("13c x060 forward's image pass", 2, 1024, 32, "bfloat16", False, False),
+    ("13c x060 text pass", 2, 256, 32, "bfloat16", True, True),
+    ("13d hybrid", 2, 512, 32, "bfloat16", False, True),
 )
 
 
@@ -1304,7 +1361,10 @@ def wkv6_bwd_plan(case, B, T, H, dtype):
 # factor forms 1 and 2 with dw_raw non-zero); |r| <= 1e-3 on every fourth
 # channel; one head (B=1 H=1: 16 value rows a block, 4 blocks); B*H = 15,
 # which fills no slice plan but 16 rows; B*H = 128 (64 rows); no initial
-# state; a zero cotangent of the final state.
+# state; a zero cotangent of the final state; phase 13's x060 shapes on the
+# 1.6B's 32 heads: 13c's image pass (B=2, 1024 tokens) and text pass (B=2,
+# 256) from a state, and 13d's hybrid (B=2, 512, from zero, its final state
+# unused).
 WKV6_BWD_PATH_CASES = (
     ("floor on every channel", 2, 256, 32, "float32", 16, True, False),
     ("floor on every channel", 2, 256, 32, "bfloat16", 16, True, False),
@@ -1316,6 +1376,9 @@ WKV6_BWD_PATH_CASES = (
     ("B*H = 128", 2, 96, 64, "bfloat16", 16, True, False),
     ("no initial state", 1, 128, 8, "bfloat16", 16, False, False),
     ("zero final-state cotangent", 1, 128, 8, "float32", 16, True, True),
+    ("13c x060 image pass", 2, 1024, 32, "bfloat16", 16, True, False),
+    ("13c x060 text pass", 2, 256, 32, "bfloat16", 16, True, False),
+    ("13d hybrid", 2, 512, 32, "bfloat16", 16, False, True),
 )
 
 
@@ -1494,24 +1557,12 @@ def check_wkv4(gen, dev):
 
     out = []
     for B, T, C, dname, big_k, with_state in WKV4_CASES:
-        dt = getattr(torch, dname)
         case = (f"B={B} T={T} C={C} {dname} k, v{', k near 80 on every 4th channel' if big_k else ''}, "
                 f"{'with' if with_state else 'no'} initial state")
-        w = -torch.exp(torch.rand(C, generator=gen, device=dev) * 8 - 5)
-        u = torch.randn(C, generator=gen, device=dev) * 0.5
-        k = torch.randn(B, T, C, generator=gen, device=dev)
-        v = torch.randn(B, T, C, generator=gen, device=dev)
-        if big_k:
-            k[..., ::4] = 78 + 4 * torch.rand(B, T, C // 4, generator=gen, device=dev)
-        k, v = k.to(dt), v.to(dt)
-        s0 = None
-        if with_state:
-            s0 = torch.stack([torch.randn(B, C, generator=gen, device=dev),
-                              torch.rand(B, C, generator=gen, device=dev) + 0.5,
-                              torch.randn(B, C, generator=gen, device=dev)], -1).contiguous()
+        w, u, k, v, s0 = _wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev)
         plan = wkv4_cuda.fwd_plan(B, C)
         log(f"  wkv4_fwd [{case}] plan: {plan['blocks']} blocks of {plan['threads']} threads, one a (b, c); "
-            f"ptxas {[v for key, v in PTXAS.items() if key[0] == 'wkv4']}")
+            f"ptxas {[v for key, v in PTXAS.items() if key[:2] == ('wkv4', 'wkv4_fwd_kernel')]}")
         c = Check("wkv4_fwd", case)
         y, s = wkv4_cuda.wkv4_fwd(w, u, k, v, s0)
         y_ref, s_ref = pw.wkv4_plain(w, u, k, v, s0)
@@ -1525,6 +1576,79 @@ def check_wkv4(gen, dev):
         # k, v read and y written once, w and u, the states in and out
         nbytes = 2 * B * T * C * k.element_size() + B * T * C * 4 + 2 * C * 4 + B * C * 12 * (2 if with_state else 1)
         ops = 24 * B * T * C  # a step: 4 exp (~4 operations each), a divide, 3 max, ~6 multiply-adds
+        out.append(dict(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager), plan=plan))
+    return out
+
+
+# K18's cases: WKV4_CASES (the x040 prefill's shapes) and the v4 adapter's
+# LM input (phase 13e: B=8, 32 queries + 32 caption tokens, fp32 k, v as the
+# model passes them). Tolerance: relative RMS of each gradient against
+# wkv4_bwd_plain on the card, both fp32 arithmetic in the same order; the
+# kernel may contract a product and a sum into one fma, and dw / du sum
+# B * T terms with cancellation, so the limit is 1e-4, not K17's 1e-5.
+WKV4_BWD_CASES = WKV4_CASES + ((8, 64, 2048, "float32", False, False),)
+WKV4_BWD_TOL = 1e-4
+
+
+def _wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev):
+    import torch
+
+    w = -torch.exp(torch.rand(C, generator=gen, device=dev) * 8 - 5)
+    u = torch.randn(C, generator=gen, device=dev) * 0.5
+    k = torch.randn(B, T, C, generator=gen, device=dev)
+    v = torch.randn(B, T, C, generator=gen, device=dev)
+    if big_k:
+        k[..., ::4] = 78 + 4 * torch.rand(B, T, C // 4, generator=gen, device=dev)
+    dt = getattr(torch, dname)
+    k, v = k.to(dt), v.to(dt)
+    s0 = None
+    if with_state:
+        s0 = torch.stack([torch.randn(B, C, generator=gen, device=dev),
+                          torch.rand(B, C, generator=gen, device=dev) + 0.5,
+                          torch.randn(B, C, generator=gen, device=dev)], -1).contiguous()
+    return w, u, k, v, s0
+
+
+def check_wkv4_bwd(gen, dev):
+    """K18 (``wkv4_cuda.wkv4_bwd``) against ``ops.wkv4.wkv4_bwd_plain`` (the
+    same reverse walk in torch, on the card) at ``WKV4_BWD_CASES``, with
+    cotangents on y and, with an initial state, on the final state too; its
+    plan logged. The bound counts k, v and dy read and dk, dv written once
+    (w, u, the states and the dw / du partials besides); the workspace of
+    recomputed states is the kernel's own traffic, not the function's."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv4 as pw
+    from visualrwkv_torch.ops import wkv4_cuda
+
+    out = []
+    for B, T, C, dname, big_k, with_state in WKV4_BWD_CASES:
+        case = (f"B={B} T={T} C={C} {dname} k, v{', k near 80 on every 4th channel' if big_k else ''}, "
+                f"{'with' if with_state else 'no'} initial state")
+        w, u, k, v, s0 = _wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev)
+        dy = torch.randn(B, T, C, generator=gen, device=dev)
+        ds = torch.randn(B, C, 3, generator=gen, device=dev) if with_state else None
+        plan = wkv4_cuda.fwd_plan(B, C)
+        log(f"  wkv4_bwd [{case}] plan: {plan['blocks']} blocks of {plan['threads']} threads, one a (b, c), "
+            f"workspace {B * T * 3 * C * 4 / 2**20:.1f} MiB; ptxas "
+            f"{[v for key, v in PTXAS.items() if key[:2] == ('wkv4', 'wkv4_bwd_kernel')]}")
+        c = Check("wkv4_bwd", case)
+        got = wkv4_cuda.wkv4_bwd(w, u, k, v, s0, dy, ds)
+        ref = pw.wkv4_bwd_plain(w, u, k, v, s0, dy, ds)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dw", "du", "dk", "dv", "d initial state"), got, ref):
+            if r is None:
+                assert g is None
+                continue
+            assert torch.isfinite(g).all(), name
+            c.compare(f"{name} (fp32)", g, r, WKV4_BWD_TOL)
+        fn = lambda: wkv4_cuda.wkv4_bwd(w, u, k, v, s0, dy, ds)
+        k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
+        p_ms = cuda_ms(lambda: pw.wkv4_bwd_plain(w, u, k, v, s0, dy, ds), reps=1, warmup=1)
+        # k, v read; dy read and dk, dv written (fp32); w, u read and dw, du
+        # written; with a state, s0 and ds read and ds0 written
+        nbytes = 2 * B * T * C * k.element_size() + 3 * B * T * C * 4 + 4 * C * 4 + (36 * B * C if with_state else 0)
+        ops = 60 * B * T * C  # a step: the update again, then 6 exp (~4 operations each), 2 divides, ~30 others
         out.append(dict(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager), plan=plan))
     return out
 
@@ -2317,6 +2441,10 @@ def _category(kernel_name: str) -> str:
         return "K15 attention_bwd_dkv"
     if "wkv7_v2_" in n:  # both launches of K16
         return "K16 wkv7_fwd_v2"
+    if "wkv4_fwd_kernel" in n:
+        return "K17 wkv4_fwd"
+    if "wkv4_bwd_kernel" in n:
+        return "K18 wkv4_bwd"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")):
         return "matmul (cuBLAS)"
     if "conv" in n or "cudnn" in n:
@@ -2568,14 +2696,16 @@ def profile_training(cfg, params, device, seed: int, grad_cp=True):
     return prof
 
 
-def noisy(tree, gen, scale: float = 0.02):
-    """``tree`` (fp32 leaves) with seeded noise on every leaf, so that the
-    zero-initialised projections pass signal and gradient; bf16."""
+def noisy(tree, gen, scale: float = 0.02, dtype: str = "bfloat16"):
+    """A copy of ``tree`` on the generator's device with seeded noise added
+    in fp32 on every leaf, so that the zero-initialised projections pass
+    signal and gradient; in ``dtype``."""
     import torch
 
-    for leaf in _leaves(tree):
+    out = to_device(tree, gen.device, torch.float32, copy=True)
+    for leaf in _leaves(out):
         leaf.add_(torch.randn(leaf.shape, generator=gen, device=leaf.device) * scale)
-    return to_device(tree, gen.device, torch.bfloat16)
+    return to_device(out, gen.device, getattr(torch, dtype))
 
 
 def noisy_lm(cfg, params, n_layer: int, seed: int, device):
@@ -3805,6 +3935,460 @@ def run_uhd_serving(cfg6t, params, device, seed: int):
             "plain_check_rel_rms": e, "plain_check_cpu_s": cpu_s}, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the separate variant models (v7.10 VRWKV and the mixture-FFN LM,
+# v6.xx image-as-state with state tuning, the v6.23 hybrid, the v4 adapter)
+# ---------------------------------------------------------------------------
+
+VRWKV_PATCH = 14
+VRWKV_PX = 224  # 16 x 16 = 256 patches
+VRWKV_IMAGES = 32
+MIX_T = 1024  # 13b: 256 image positions (VRWKV's patches) and 768 text tokens
+STATE_TEXT = 256  # 13c: text tokens after the image state
+STATE_MEAN_IMAGES = 3
+HYBRID_CROSS, HYBRID_INTERVAL, HYBRID_T = 6, 4, 512  # 13d: no published setting exists; chosen for the 1.6B's 24 blocks
+ADAPTER_B, ADAPTER_CAPTION = 8, 32
+# The plain checks of phase 13: the card in fp32 against the CPU in fp32, on
+# the model cut to PLAIN_LAYERS noisy blocks (the towers' features taken
+# from the card, as phase 12 does): the limits of phase 4's fp32 LM check.
+PHASE13_LOSS_TOL = TRAIN_CHECK_FP32_LOSS_TOL
+PHASE13_GRAD_TOL = TRAIN_CHECK_FP32_GRAD_TOL
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _name(path) -> str:
+    return ".".join(str(k) for k in path)
+
+
+def hold_against_cpu(what: str, run, tree, paths, device, per_layer=()):
+    """``run(tree, device) -> loss`` on the card and on the CPU, fp32 both,
+    same ``tree`` (fp32 leaves): the loss and the gradients of the leaves at
+    ``paths`` (those in ``per_layer`` held a leading index at a time), each
+    nonzero and within ``PHASE13_GRAD_TOL`` (relative RMS) of the CPU's,
+    the loss within ``PHASE13_LOSS_TOL``. Logs every reading against its
+    limit; returns them."""
+    import torch
+
+    def once(t, dev):
+        leaves = [_get(t, p).requires_grad_(True) for p in paths]
+        loss = run(t, dev)
+        grads = torch.autograd.grad(loss, leaves)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        return float(loss.detach()), [g.float().cpu() for g in grads]
+
+    card = once(tree, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = once(to_device(tree, "cpu"), torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    d_loss = abs(card[0] - cpu[0]) / abs(cpu[0])
+    log(f"  {what}: card fp32 vs CPU fp32 (CPU run {cpu_s:.1f} s): loss {card[0]:.6f} vs {cpu[0]:.6f} "
+        f"(relative {d_loss:.2e}, tol {PHASE13_LOSS_TOL:g})")
+    errs = {}
+    for path, g, r in zip(paths, card[1], cpu[1]):
+        parts = [(f"[{i}]", g[i], r[i]) for i in range(g.shape[0])] if path in per_layer else [("", g, r)]
+        for suffix, gi, ri in parts:
+            name = _name(path) + suffix
+            assert torch.isfinite(gi).all() and float(ri.abs().max()) > 0, name
+            errs[name] = rel_rms(gi, ri)
+            log(f"    d loss / d {name}: rel_rms={errs[name]:.3e} (tol {PHASE13_GRAD_TOL:g})")
+    assert d_loss <= PHASE13_LOSS_TOL, (what, d_loss)
+    assert all(e <= PHASE13_GRAD_TOL for e in errs.values()), (what, errs)
+    return {"loss_rel": d_loss, "grad_rel_rms": errs, "cpu_s": cpu_s}
+
+
+def want_only(**counts):
+    want = dict.fromkeys(REPLACES, 0)
+    want.update(counts)
+    return want
+
+
+def _launches():
+    from visualrwkv_torch import cuda_build
+
+    return dict(cuda_build.LAUNCHES)
+
+
+def _text_ce(logits, ids):
+    """Next-token cross-entropy of ``logits`` ``[B, T, V]`` on ``ids``."""
+    import torch.nn.functional as F
+
+    return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]).float(), ids[:, 1:].reshape(-1))
+
+
+def run_vrwkv(seed: int, device):
+    """13a: v7.10's VRWKV at the 1B5's width (C 2048, ``VRWKV_DEPTH``
+    blocks, patch 14, 224 px: 256 patches) on seeded random bf16 weights:
+    ``VRWKV_IMAGES`` uint8 images through the ImageNet step and
+    ``topk_accuracy`` (K1 once a block), then one forward + backward of
+    ``imagenet_loss`` on them (K5, K6 once a block), and the gradients
+    against the plain path on the CPU at ``PLAIN_LAYERS`` blocks in fp32.
+    Returns (numbers, {path: launches}, the parameters, the images,
+    labels)."""
+    import torch
+
+    from visualrwkv_torch.data.transforms import normalize_uint8
+    from visualrwkv_torch.evals.imagenet import imagenet_logits, topk_accuracy
+    from visualrwkv_torch.models.vrwkv import VRWKV_DEPTH, imagenet_loss, init_vrwkv_params, vrwkv_forward
+
+    rc = flagship_cfg().rwkv
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 31)
+    params = init_vrwkv_params(gen, rc, VRWKV_PATCH, device, dtype=torch.bfloat16)
+    pixels = torch.randint(0, 256, (VRWKV_IMAGES, VRWKV_PX, VRWKV_PX, 3), generator=gen, device=device,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 1000, (VRWKV_IMAGES,), generator=gen, device=device)
+    out, paths = {}, {}
+    reset_launches()
+    logits, out["eval_ms"] = timed(lambda: imagenet_logits(params, rc, pixels, VRWKV_PATCH))
+    paths["vrwkv_imagenet_eval"] = _launches()
+    assert_launches("13a ImageNet step", paths["vrwkv_imagenet_eval"], want_only(wkv7_fwd=VRWKV_DEPTH))
+    assert logits.shape == (VRWKV_IMAGES, 1000) and torch.isfinite(logits).all()
+    out["accuracy"] = topk_accuracy(logits.float().cpu().numpy(), labels.cpu().numpy())
+
+    leaves = list(_leaves(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    def step():
+        _, cls = vrwkv_forward(params, rc, normalize_uint8(pixels, "dino", rc.dtype), VRWKV_PATCH)
+        loss = imagenet_loss(cls, labels)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    reset_launches()
+    (loss, grads), out["train_step_ms"] = timed(step)
+    paths["vrwkv_imagenet_train"] = _launches()
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    assert_launches("13a imagenet_loss forward + backward", paths["vrwkv_imagenet_train"],
+                    want_only(wkv7_fwd_res=VRWKV_DEPTH, wkv7_bwd=VRWKV_DEPTH))
+    assert all(torch.isfinite(g).all() for g in grads)
+    out["loss"] = float(loss.detach())
+    log(f"  13a: ImageNet step over {VRWKV_IMAGES} images {out['eval_ms']:.1f} ms, accuracy {out['accuracy']} "
+        f"(random weights); imagenet_loss {out['loss']:.4f}, forward + backward {out['train_step_ms']:.1f} ms")
+    del grads
+
+    # the plain check: 2 noisy blocks, 2 images cut to 112 px (64 patches)
+    c32 = dataclasses.replace(rc, compute_dtype="float32")
+    tree = noisy({"vrwkv": dict(params, blocks=params["blocks"][:PLAIN_LAYERS])}, gen, dtype="float32")
+    px, lb = pixels[:2, :112, :112], labels[:2]
+
+    def run(t, dev):
+        _, cls = vrwkv_forward(t["vrwkv"], c32, normalize_uint8(px.to(dev), "dino", torch.float32), VRWKV_PATCH)
+        return imagenet_loss(cls, lb.to(dev))
+
+    out["plain_check"] = hold_against_cpu(
+        f"13a VRWKV cut to {PLAIN_LAYERS} blocks", run, tree,
+        [("vrwkv", "emb", "weight"), ("vrwkv", "blocks", 1, "att", "w1"), ("vrwkv", "head", "weight")], device)
+    return out, paths, params, pixels, labels
+
+
+def perturb_zero_projections(lm_params, gen, scale: float = 1e-3):
+    """Seeded noise, in place, on the LM's zero-initialised output and value
+    projections: at its random init a block adds nothing to the stream, so
+    no gradient would reach a state or an earlier block through it."""
+    import torch
+
+    for blk in lm_params["blocks"]:
+        for part, name in (("att", "output"), ("ffn", "value")):
+            w = blk[part][name]["weight"]
+            w.add_((torch.randn(w.shape, generator=gen, device=w.device) * scale).to(w.dtype))
+
+
+def run_mixffn(cfg, params, vparams, pixels, labels, seed: int, device):
+    """13b: v7.10's mixture-FFN on phase 3's 1B5 LM with ``ffn_v`` / ``ln_v``
+    added (seeded, bf16), behind 13a's VRWKV: B = 2, T = ``MIX_T`` with the
+    first 256 positions VRWKV's patch features (``ffn_v``) and the rest text
+    (``ffn``); one forward + backward of the LM loss plus ``imagenet_loss``
+    with ``requires_grad`` set by ``pretrain_mode_mask``: only ``vrwkv``,
+    ``ffn_v`` and ``ln_v`` take gradients (K5, K6 once a VRWKV block and
+    once an LM block). Then the plain check at ``PLAIN_LAYERS``."""
+    import torch
+
+    from visualrwkv_torch.data.transforms import normalize_uint8
+    from visualrwkv_torch.models.lm import init_lm_params
+    from visualrwkv_torch.models.rwkv7 import embed
+    from visualrwkv_torch.models.vrwkv import (VRWKV_DEPTH, add_mixture_ffn, imagenet_loss, pretrain_mode_mask,
+                                               rwkv7_mixffn_forward, vrwkv_forward)
+    from visualrwkv_torch.train.optim import tree_leaves_with_path
+
+    rc = cfg.rwkv
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 32)
+    add_mixture_ffn(gen, params["rwkv"], rc, dtype=torch.bfloat16)
+    tree = {"rwkv": params["rwkv"], "vrwkv": vparams}
+    mask = dict(tree_leaves_with_path(pretrain_mode_mask(tree)))
+    named = tree_leaves_with_path(tree)
+    for path, leaf in named:
+        leaf.requires_grad_(mask[path])
+    n_img = (VRWKV_PX // VRWKV_PATCH) ** 2
+    ids = torch.randint(10, 65000, (2, MIX_T - n_img), generator=gen, device=device)
+    pos = torch.zeros(2, MIX_T, dtype=torch.bool, device=device)
+    pos[:, :n_img] = True
+
+    def loss_of(t, c, px, ids, pos, lb):
+        feats, cls = vrwkv_forward(t["vrwkv"], c, normalize_uint8(px, "dino", c.dtype), VRWKV_PATCH)
+        x = torch.cat([feats.to(c.dtype), embed(t["rwkv"], ids).to(c.dtype)], dim=1)
+        logits = rwkv7_mixffn_forward(t["rwkv"], c, x, pos)
+        return _text_ce(logits[:, feats.shape[1]:], ids) + imagenet_loss(cls, lb)
+
+    out = {}
+    reset_launches()
+
+    def step():
+        loss = loss_of(tree, rc, pixels[:2], ids, pos, labels[:2])
+        loss.backward()
+        return loss
+
+    loss, out["train_step_ms"] = timed(step)
+    launches = _launches()
+    n_trained = sum(1 for path, leaf in named if mask[path])
+    for path, leaf in named:
+        assert (leaf.grad is not None) == mask[path], (_name(path), mask[path])
+        if leaf.grad is not None:
+            assert torch.isfinite(leaf.grad).all(), _name(path)
+        leaf.grad = None
+        leaf.requires_grad_(False)
+    L = rc.n_layer
+    assert_launches("13b mixture-FFN forward + backward", launches,
+                    want_only(wkv7_fwd_res=VRWKV_DEPTH + L, wkv7_bwd=VRWKV_DEPTH + L))
+    out.update(loss=float(loss.detach()), trained_leaves=n_trained, frozen_leaves=len(named) - n_trained)
+    log(f"  13b: B=2 x {MIX_T} ({n_img} image positions), loss {out['loss']:.4f}, forward + backward "
+        f"{out['train_step_ms']:.1f} ms; {n_trained} leaves took gradients (vrwkv, ffn_v, ln_v), "
+        f"{len(named) - n_trained} none")
+
+    # the plain check: 2 noisy LM blocks with ffn_v, 2 noisy VRWKV blocks, 112 px (64 patches) + 48 text
+    c = dataclasses.replace(rc, n_layer=PLAIN_LAYERS, compute_dtype="float32")
+    lm = add_mixture_ffn(gen, init_lm_params(gen, c, device), c)
+    t32 = noisy({"rwkv": lm, "vrwkv": dict(vparams, blocks=vparams["blocks"][:PLAIN_LAYERS])}, gen,
+                dtype="float32")
+    px, lb, ids_s = pixels[:1, :112, :112], labels[:1], ids[:1, :48]
+    pos_s = torch.zeros(1, 64 + 48, dtype=torch.bool, device=device)
+    pos_s[:, :64] = True
+    out["plain_check"] = hold_against_cpu(
+        f"13b mixture-FFN, LM and VRWKV cut to {PLAIN_LAYERS} blocks",
+        lambda t, dev: loss_of(t, c, px.to(dev), ids_s.to(dev), pos_s.to(dev), lb.to(dev)), t32,
+        # block 0's: the last block's ffn_v acts on image positions only, which the text loss does not read
+        [("vrwkv", "emb", "weight"), ("rwkv", "blocks", 0, "ffn_v", "key", "weight"),
+         ("rwkv", "blocks", 0, "ln_v", "weight")], device)
+    return out, {"mixffn_train": launches}
+
+
+def run_state_tuning(cfg, params, seed: int, device, what: str, mean_images: bool):
+    """13c on a serving model (x070 or x060): image-as-state with state
+    tuning, B = 2, the images' tokens from the model's encode (towers and
+    projector), a ``STATE_TEXT``-token text; the loss's gradient with
+    respect to ``time_states`` ``[L, H, N, N]`` (the LM frozen: K5 / K8
+    twice a layer, the image pass and the text pass, and K6 / K9 as often),
+    every layer's nonzero; a forward without a gradient (K1 / K7 twice a
+    layer), with ``mean_multi_image`` over ``STATE_MEAN_IMAGES`` images
+    when ``mean_images``; then the plain check at ``PLAIN_LAYERS``."""
+    import torch
+
+    from visualrwkv_torch.models.lm import init_lm_params
+    from visualrwkv_torch.models.rwkv7 import embed
+    from visualrwkv_torch.models.visualrwkv import encode_images
+    from visualrwkv_torch.multimodal.image_as_state import image_as_state_forward, init_time_states
+
+    rc = cfg.rwkv
+    L = rc.n_layer
+    fwd, _, fwd_res, bwd = WKV_KERNELS[rc.version]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 33)
+    n_images = STATE_MEAN_IMAGES if mean_images else 2
+    _, images = make_request(cfg, n_images, 0, seed + 33, device)
+    img = encode_images(params, cfg, images)
+    ids = torch.randint(10, 65000, (2, STATE_TEXT), generator=gen, device=device)
+    text = embed(params["rwkv"], ids)
+    out, paths = {"image_tokens": img.shape[1]}, {}
+    ts = init_time_states(cfg, device).requires_grad_(True)
+
+    def step():
+        loss = _text_ce(image_as_state_forward(params, cfg, text, img[:2], time_states=ts), ids)
+        return loss, torch.autograd.grad(loss, [ts])[0]
+
+    reset_launches()
+    (loss, g), out["state_tuning_ms"] = timed(step)
+    paths[f"state_tuning_{rc.version}"] = _launches()
+    assert_launches(f"13c {what} state tuning", paths[f"state_tuning_{rc.version}"],
+                    want_only(**{fwd_res: 2 * L, bwd: 2 * L}))
+    assert torch.isfinite(g).all()
+    per_layer = g.abs().amax(dim=(1, 2, 3))
+    assert (per_layer > 0).all(), f"a layer's time_states gradient is zero: {per_layer.tolist()}"
+    out.update(loss=float(loss.detach()), grad_max_by_layer=[float(x) for x in per_layer])
+
+    n_fwd = n_images if mean_images else 2
+    reset_launches()
+    with torch.no_grad():
+        logits, out["forward_ms"] = timed(lambda: image_as_state_forward(
+            params, cfg, text, img[:n_fwd], mean_multi_image=mean_images))
+    paths[f"image_as_state_{rc.version}"] = _launches()
+    assert_launches(f"13c {what} forward{', mean of 3 images' if mean_images else ''}",
+                    paths[f"image_as_state_{rc.version}"], want_only(**{fwd: 2 * L}))
+    assert logits.shape == (2, STATE_TEXT, rc.vocab_size) and torch.isfinite(logits).all()
+    log(f"  13c {what}: {img.shape[1]} image tokens, {STATE_TEXT} text, B=2: state tuning loss {out['loss']:.4f}, "
+        f"forward + backward {out['state_tuning_ms']:.1f} ms, time_states gradient nonzero in all {L} layers "
+        f"(max {min(out['grad_max_by_layer']):.2e}..{max(out['grad_max_by_layer']):.2e}); forward "
+        f"{'(mean of ' + str(n_images) + ' images) ' if mean_images else ''}{out['forward_ms']:.1f} ms")
+    del g, logits
+
+    # the plain check: 2 noisy LM blocks, the card's image tokens (256 of one image), 64 text, random time_states
+    c = cfg.replace(rwkv=dataclasses.replace(rc, n_layer=PLAIN_LAYERS, compute_dtype="float32"))
+    ts32 = torch.randn(PLAIN_LAYERS, *ts.shape[1:], generator=gen, device=device) * 0.1
+    t32 = {"rwkv": noisy(init_lm_params(gen, c.rwkv, device), gen, dtype="float32"), "time_states": ts32}
+    img_s, ids_s = img[:1, :256].float(), ids[:1, :64]
+    run = lambda t, dev: _text_ce(image_as_state_forward(t, c, embed(t["rwkv"], ids_s.to(dev)), img_s.to(dev),
+                                                         time_states=t["time_states"]), ids_s.to(dev))
+    out["plain_check"] = hold_against_cpu(f"13c {what} state tuning, LM cut to {PLAIN_LAYERS} layers", run, t32,
+                                          [("time_states",)], device, per_layer=(("time_states",),))
+    return out, paths, img
+
+
+def run_hybrid(cfg, params, seed: int, device):
+    """13d: v6.23's hybrid on phase 6's 1.6B (x060): ``HYBRID_CROSS`` cross
+    blocks every ``HYBRID_INTERVAL`` from the end (seeded fp32, their zero
+    output projections given small noise), fed the flagship towers'
+    projected features (1024 tokens), B = 2, T = ``HYBRID_T``: a forward
+    without a gradient (K7 once a block), then one forward + backward to
+    every parameter (K8, K9 once a block); then the plain check at
+    ``PLAIN_LAYERS`` RWKV blocks and 2 cross blocks at interval 2."""
+    import torch
+
+    from visualrwkv_torch.models.lm import init_lm_params
+    from visualrwkv_torch.models.rwkv7 import embed
+    from visualrwkv_torch.models.visualrwkv import encode_images
+    from visualrwkv_torch.multimodal.hybrid import get_cross_block_indices, hybrid_rwkv_forward, init_cross_block_params
+
+    rc = cfg.rwkv
+    L = rc.n_layer
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 34)
+    cross = [init_cross_block_params(gen, rc, device) for _ in range(HYBRID_CROSS)]
+    for blk in cross:
+        for w in (blk["att"]["output"]["weight"], blk["ffn"]["c_proj"]["weight"]):
+            w.add_(torch.randn(w.shape, generator=gen, device=device) * 1e-3)
+    hyb = dict(params["rwkv"], cross_blocks=to_device(cross, device, torch.bfloat16))
+    _, images = make_request(cfg, 2, 0, seed + 34, device)
+    feats = encode_images(params, cfg, images)
+    ids = torch.randint(10, 65000, (2, HYBRID_T), generator=gen, device=device)
+    out, paths = {"cross_at": get_cross_block_indices(L, HYBRID_CROSS, HYBRID_INTERVAL),
+                  "image_tokens": feats.shape[1]}, {}
+    fwd = lambda t: hybrid_rwkv_forward(t, rc, embed(t, ids), feats, cross_layer_interval=HYBRID_INTERVAL)
+    reset_launches()
+    with torch.no_grad():
+        logits, out["forward_ms"] = timed(lambda: fwd(hyb))
+    paths["hybrid_forward"] = _launches()
+    assert_launches("13d hybrid forward", paths["hybrid_forward"], want_only(wkv6_fwd=L))
+    assert torch.isfinite(logits).all()
+    del logits
+    leaves = list(_leaves(hyb))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+
+    def step():
+        loss = _text_ce(fwd(hyb), ids)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    reset_launches()
+    (loss, grads), out["train_step_ms"] = timed(step)
+    paths["hybrid_train"] = _launches()
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    assert_launches("13d hybrid forward + backward", paths["hybrid_train"], want_only(wkv6_fwd_res=L, wkv6_bwd=L))
+    assert all(torch.isfinite(g).all() for g in grads)
+    out["loss"] = float(loss.detach())
+    del grads
+    log(f"  13d: {L} RWKV-6 blocks + {HYBRID_CROSS} cross blocks at {sorted(out['cross_at'])}, {feats.shape[1]} "
+        f"image features, B=2 x {HYBRID_T}: forward {out['forward_ms']:.1f} ms; loss {out['loss']:.4f}, "
+        f"forward + backward {out['train_step_ms']:.1f} ms")
+
+    # the plain check: 2 noisy RWKV blocks, 2 noisy cross blocks at interval 2, one row, the card's features
+    c = dataclasses.replace(rc, n_layer=PLAIN_LAYERS, compute_dtype="float32")
+    lm = init_lm_params(gen, c, device)
+    lm["cross_blocks"] = [init_cross_block_params(gen, c, device) for _ in range(2)]
+    t32 = {"rwkv": noisy(lm, gen, dtype="float32")}
+    f_s, ids_s = feats[:1].float(), ids[:1, :64]
+    run = lambda t, dev: _text_ce(hybrid_rwkv_forward(t["rwkv"], c, embed(t["rwkv"], ids_s.to(dev)), f_s.to(dev),
+                                                      cross_layer_interval=2), ids_s.to(dev))
+    out["plain_check"] = hold_against_cpu(
+        f"13d hybrid, {PLAIN_LAYERS} RWKV blocks + 2 cross blocks", run, t32,
+        [("rwkv", "cross_blocks", 0, "att", "query", "weight"), ("rwkv", "cross_blocks", 1, "ffn", "c_fc", "weight"),
+         ("rwkv", "blocks", 1, "att", "time_decay_w1"), ("rwkv", "head", "weight")], device)
+    return out, paths
+
+
+def run_adapter(cfg, params, seed: int, device):
+    """13e: the v4 adapter (``AdapterConfig()``: 32 queries, 256 features, 2
+    blocks) behind phase 11's RWKV-4 World 1.5B (x040) and its CLIP-L/14
+    @336 + linear projector: B = ``ADAPTER_B`` images, ``ADAPTER_CAPTION``
+    -token captions of seeded lengths; the ITC + ITM + LM losses and their
+    gradients to every adapter leaf (K17 once an LM block forward, K18 once
+    backward), no LM weight taking one; then the adapter's gradients against
+    the plain path on the CPU at ``PLAIN_LAYERS`` LM layers."""
+    import torch
+
+    from visualrwkv_torch.models.lm import init_lm_params
+    from visualrwkv_torch.models.visualrwkv import encode_images
+    from visualrwkv_torch.multimodal.adapter_v4 import AdapterConfig, adapter_pretrain_losses, init_adapter_params
+
+    rc = cfg.rwkv
+    L = rc.n_layer
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 35)
+    _, images = make_request(cfg, ADAPTER_B, 0, seed + 35, device)
+    feats = encode_images(params, cfg, images)
+    adapter = init_adapter_params(gen, rc, AdapterConfig(), device)
+    ids = torch.randint(10, 65000, (ADAPTER_B, ADAPTER_CAPTION), generator=gen, device=device)
+    lengths = torch.randint(1, ADAPTER_CAPTION + 1, (ADAPTER_B,), generator=gen, device=device)
+    mask = torch.arange(ADAPTER_CAPTION, device=device)[None, :] < lengths[:, None]
+    ids = torch.where(mask, ids, 0)
+    a_leaves, lm_leaves = list(_leaves(adapter)), list(_leaves(params["rwkv"]))
+    for leaf in a_leaves + lm_leaves:  # the LM's marked too: none may take a gradient
+        leaf.requires_grad_(True)
+
+    def step():
+        total, parts = adapter_pretrain_losses(adapter, params["rwkv"], rc, feats, ids, mask)
+        return total, parts, torch.autograd.grad(total, a_leaves + lm_leaves, allow_unused=True)
+
+    out = {"image_tokens": feats.shape[1]}
+    reset_launches()
+    (total, parts, grads), out["train_step_ms"] = timed(step)
+    launches = _launches()
+    for leaf in a_leaves + lm_leaves:
+        leaf.requires_grad_(False)
+    assert_launches("13e adapter losses + backward", launches, want_only(wkv4_fwd=L, wkv4_bwd=L))
+    assert all(g is None for g in grads[len(a_leaves):]), "an LM weight took a gradient"
+    got = [g for g in grads[:len(a_leaves)] if g is not None]
+    assert len(got) == len(a_leaves) - 1 and all(torch.isfinite(g).all() for g in got)  # the ITM bias is not added
+    out.update(loss=float(total.detach()), **{k: float(v.detach()) for k, v in parts.items()})
+    log(f"  13e: adapter over {feats.shape[1]} CLIP features, B={ADAPTER_B}, {ADAPTER_CAPTION}-token captions: "
+        f"loss {out['loss']:.4f} (itc {out['loss_itc']:.4f}, itm {out['loss_itm']:.4f}, lm {out['loss_lm']:.4f}), "
+        f"forward + backward {out['train_step_ms']:.1f} ms; {len(got)} adapter leaves took gradients, no LM weight")
+    del grads, got
+
+    # the plain check: 2 noisy x040 blocks, a noisy adapter (its temperature kept), 2 rows, the card's features
+    c = dataclasses.replace(rc, n_layer=PLAIN_LAYERS, compute_dtype="float32")
+    t32 = {"rwkv": noisy(init_lm_params(gen, c, device), gen, dtype="float32"),
+           "adapter": noisy(adapter, gen, dtype="float32")}
+    t32["adapter"]["temperature"].fill_(AdapterConfig.temperature_init)
+    f_s, ids_s, m_s = feats[:2].float(), ids[:2], mask[:2]
+    run = lambda t, dev: adapter_pretrain_losses(t["adapter"], t["rwkv"], c, f_s.to(dev), ids_s.to(dev),
+                                                 m_s.to(dev))[0]
+    out["plain_check"] = hold_against_cpu(
+        f"13e adapter, x040 LM cut to {PLAIN_LAYERS} layers", run, t32,
+        [("adapter", "task_embs"), ("adapter", "blocks", 0, "att", "query", "weight"),
+         ("adapter", "blocks", 1, "ffn", "c_proj", "weight"), ("adapter", "ln_vision", "weight"),
+         ("adapter", "vision_proj", "weight"), ("adapter", "text_proj", "weight"),
+         ("adapter", "itm_head", "weight"), ("adapter", "temperature")], device)
+    return out, {"adapter_train": launches}
+
+
 def build(cfg, seed: int, device):
     import torch
 
@@ -3925,12 +4509,14 @@ def main(argv=None) -> int:
     want16 |= {("wkv7_v2", "wkv7_v2_state_kernel", (1, 1, cols, 3)) for cols in (16, 32, 64)}
     assert set(k16) == want16, f"K16: ptxas reported {sorted(k16)}, not {sorted(want16)}"
     assert not any(v.get("spill_bytes", 0) for v in k16.values()), f"a K16 instantiation spills: {k16}"
-    k17 = {key: v for key, v in PTXAS.items() if key[0] == "wkv4"}
-    assert len(k17) == 2, f"K17: ptxas reported {sorted(k17)}, not 2 dtypes"
-    assert not any(v.get("spill_bytes", 0) for v in k17.values()), f"a K17 instantiation spills: {k17}"
+    for kname, kernel in (("K17", "wkv4_fwd_kernel"), ("K18", "wkv4_bwd_kernel")):
+        k4 = {key: v for key, v in PTXAS.items() if key[:2] == ("wkv4", kernel)}
+        assert len(k4) == 2, f"{kname}: ptxas reported {sorted(k4)}, not 2 dtypes"
+        assert not any(v.get("spill_bytes", 0) for v in k4.values()), f"a {kname} instantiation spills: {k4}"
 
     # phase 2 --------------------------------------------------------------
     log("phase 2: kernels against their plain versions on the card")
+    t2 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     kernels = {"wkv7_fwd": check_wkv7_fwd(gen, dev), "wkv7_step": check_wkv7_step(gen, dev),
@@ -3954,7 +4540,9 @@ def main(argv=None) -> int:
         kernels[f"attention_bwd_dq_{key}"], kernels[f"attention_bwd_dkv_{key}"] = dq_cases, dkv_cases
     kernels["wkv7_fwd_v2"] = check_wkv7_v2(gen, dev)
     kernels["wkv4_fwd"] = check_wkv4(gen, dev)
+    kernels["wkv4_bwd"] = check_wkv4_bwd(gen, dev)
     torch.cuda.empty_cache()
+    log(f"  phase 2 took {time.perf_counter() - t2:.1f} s")
 
     # phase 3 --------------------------------------------------------------
     log("phase 3: flagship VisualRWKV-7 1B5 serving, full width, seeded random bf16 weights")
@@ -4038,6 +4626,32 @@ def main(argv=None) -> int:
             finally:
                 set_wkv_impl("auto")
     training["option_runs"] = option_runs
+
+    # phase 13a-c, on phase 3's model (its last use) ------------------------
+    log(f"phase 13a: v7.10 VRWKV at the 1B5's width (C 2048, 6 blocks, patch {VRWKV_PATCH}, {VRWKV_PX} px), seeded "
+        f"random bf16 weights: {VRWKV_IMAGES} images through the ImageNet step, then imagenet_loss forward + backward")
+    phase13, phase13_s, phase13_launches = {}, {}, {}
+    t13 = time.perf_counter()
+    phase13["13a"], p13, vparams, vpixels, vlabels = run_vrwkv(args.seed, dev)
+    phase13_launches.update(p13)
+    phase13_s["13a"] = time.perf_counter() - t13
+    gen13 = torch.Generator(device=dev)
+    gen13.manual_seed(args.seed + 30)
+    perturb_zero_projections(params["rwkv"], gen13)
+    log(f"phase 13b: v7.10's mixture-FFN on phase 3's 1B5 LM with ffn_v / ln_v, behind 13a's VRWKV, B=2 x {MIX_T}, "
+        f"trained under pretrain_mode_mask")
+    t13 = time.perf_counter()
+    phase13["13b"], p13 = run_mixffn(cfg, params, vparams, vpixels, vlabels, args.seed, dev)
+    phase13_launches.update(p13)
+    phase13_s["13b"] = time.perf_counter() - t13
+    del vparams, vpixels, vlabels
+    torch.cuda.empty_cache()
+    log(f"phase 13c, x070: image-as-state with state tuning on phase 3's 1B5 (1024 image tokens, {STATE_TEXT} text, "
+        f"B=2), then mean_multi_image over {STATE_MEAN_IMAGES} images")
+    t13 = time.perf_counter()
+    phase13["13c_x070"], p13, _ = run_state_tuning(cfg, params, args.seed, dev, "x070 1B5", mean_images=True)
+    phase13_launches.update(p13)
+    phase13_s["13c x070"] = time.perf_counter() - t13
     del params
     torch.cuda.empty_cache()
 
@@ -4106,6 +4720,19 @@ def main(argv=None) -> int:
     phase12["seconds"] = phase12_s
     log(f"  phase 12 took {sum(phase12_s.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase12_s.items()))
+    perturb_zero_projections(params["rwkv"], gen13)
+    log(f"phase 13c, x060: image-as-state with state tuning on phase 6's 1.6B (1024 image tokens, {STATE_TEXT} "
+        f"text, B=2)")
+    t13 = time.perf_counter()
+    phase13["13c_x060"], p13, _ = run_state_tuning(cfg6t, params, args.seed, dev, "x060 1.6B", mean_images=False)
+    phase13_launches.update(p13)
+    phase13_s["13c x060"] = time.perf_counter() - t13
+    log(f"phase 13d: v6.23's hybrid on phase 6's 1.6B, {HYBRID_CROSS} cross blocks every {HYBRID_INTERVAL} from the "
+        f"end, the flagship towers' 1024 projected features, B=2 x {HYBRID_T}")
+    t13 = time.perf_counter()
+    phase13["13d"], p13 = run_hybrid(cfg6t, params, args.seed, dev)
+    phase13_launches.update(p13)
+    phase13_s["13d"] = time.perf_counter() - t13
     del params
     torch.cuda.empty_cache()
 
@@ -4146,9 +4773,22 @@ def main(argv=None) -> int:
         phase11[version], paths = run_legacy(version, args.seed, dev)
         phase11[version]["seconds"] = time.perf_counter() - t11
         legacy_launches.update(paths)
+    log(f"phase 13e: the v4 adapter behind phase 11's RWKV-4 World 1.5B (x040), rebuilt from its seed, and "
+        f"CLIP-L/14 @336, B={ADAPTER_B}, {ADAPTER_CAPTION}-token captions")
+    t13 = time.perf_counter()
+    cfg4 = legacy_cfg("x040")
+    params = init_model(cfg4, args.seed, dev)
+    phase13["13e"], p13 = run_adapter(cfg4, params, args.seed, dev)
+    phase13_launches.update(p13)
+    phase13_s["13e"] = time.perf_counter() - t13
+    del params
+    torch.cuda.empty_cache()
     phase10_s["11"] = sum(phase11[v]["seconds"] for v in phase11)
     log(f"  phases 10 and 11 took {sum(phase10_s.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase10_s.items()))
+    phase13["seconds"] = phase13_s
+    log(f"  phase 13 took {sum(phase13_s.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase13_s.items()))
 
     # profiles, after every counted run: each model built again from its seed
     log("profiles: one prefill and 9 decode steps a serving model, one step a training model, "
@@ -4205,7 +4845,8 @@ def main(argv=None) -> int:
                **{f"training_x060_{k}": v["launches"] for k, v in phase12["12c"].items()
                   if isinstance(v, dict) and "launches" in v},
                "serving_x060_uhd": uhd_launches,
-               **({"training_x060_7b_offloaded": offload7_launches} if offload7_launches else {})}
+               **({"training_x060_7b_offloaded": offload7_launches} if offload7_launches else {}),
+               **phase13_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -4221,7 +4862,7 @@ def main(argv=None) -> int:
                     "serving_x060": serving6, "training_x060": training6, "tower_grads": towers,
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
                     "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches,
-                    "phase10": phase10, "phase11": phase11, "phase12": phase12}))
+                    "phase10": phase10, "phase11": phase11, "phase12": phase12, "phase13": phase13}))
     log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -31,7 +31,9 @@ SERVING_MODULES = ("convert.pth_import", "convert.vision_import", "infer.quant",
                    "infer.server", "apps.demo", "apps.serve", "apps.export", "infer.speculative",
                    "apps.benchmark", "models.rwkv5", "models.rwkv4", "ops.wkv4", "ops.wkv4_cuda",
                    "multimodal.insertion", "multimodal.vtc", "multimodal.scanning", "multimodal.uhd",
-                   "data.tiling", "train.offload")
+                   "data.tiling", "train.offload", "models.vrwkv", "evals.imagenet",
+                   "multimodal.image_as_state", "multimodal.hybrid", "multimodal.contrastive",
+                   "multimodal.adapter_v4")
 
 
 def test_port_imports_no_jax():

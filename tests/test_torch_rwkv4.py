@@ -8,9 +8,9 @@ projections carry signal.
 Tolerances: the recurrence, fp32 on both sides, relative RMS <= 1e-6 (the
 same operations: ~1e-7 is seen), with k near 80 on a quarter of the
 channels, where the sums would overflow fp32 without the max tracking;
-fp32 logits max |delta| <= 1e-5 * max |ref| (~4e-7 is seen). Kernel K17
-itself runs on the card only: ``chip_smoke.py`` holds it against
-``wkv4_plain``."""
+fp32 logits max |delta| <= 1e-5 * max |ref| (~4e-7 is seen). Kernels K17
+and K18 run on the card only: ``chip_smoke.py`` holds them against
+``wkv4_plain`` and ``wkv4_bwd_plain``."""
 
 import jax
 import jax.numpy as jnp
@@ -78,9 +78,9 @@ def test_wkv4_and_step_match_jax(big_k):
 
 
 def test_wkv4_plain_is_differentiable():
-    """On the CPU the sequence form is the plain loop, which autograd
-    differentiates (as JAX differentiates its scan): a finite-difference
-    check in float64."""
+    """On the CPU the sequence form's gradient is ``WKV4Function``'s plain
+    backward (``wkv4_bwd_plain``; JAX differentiates its scan): a
+    finite-difference check in float64."""
     w, u, k, v, _ = _wkv4_inputs(1, 5, 8, 4, False)
     xs = [torch.from_numpy(x).double().requires_grad_(True) for x in (w, u, k, v)]
     assert torch.autograd.gradcheck(lambda *a: pw.wkv4(*a)[0], xs, eps=1e-6, atol=1e-5)

@@ -42,6 +42,14 @@ def port_cfg(jcfg):
     )
 
 
+def oracle_jit(fun):
+    """``jax.jit`` for a test's JAX oracle, compiled at XLA's backend
+    optimisation level 0: the same HLO program with less LLVM optimisation
+    of its machine code (results agree to rounding), compiled in about 40%
+    less time on the CPU, where these programs run once on small inputs."""
+    return jax.jit(fun, compiler_options={"xla_backend_optimization_level": 0})
+
+
 def np_tree(params):
     """A JAX parameter tree with numpy leaves."""
     return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), params)

@@ -13,14 +13,25 @@ changes, so that both packages compute the same function:
   of x060 / x052 / x040 among them, the head, the ViT /
   SAM qkv, proj, fc1, fc2, and the projector);
 - the same for the blocks of the ``"vtc"`` token compressor and the four
-  linears of v5.2's tiny attention (``"tiny_att"``);
+  linears of v5.2's tiny attention (``"tiny_att"``), for v7.10's
+  mixture-FFN leaves (``ffn_v.key`` / ``ffn_v.value`` of each block) and its
+  ``"vrwkv"`` encoder (the patch embedding ``[p*p*3, C]`` in (row, col,
+  channel) order becomes a linear ``[C, p*p*3]``: the port keeps the
+  matmul, and the ImageNet head), for v6.23's ``cross_blocks`` beside the
+  LM's blocks and the v4 ``"adapter"`` (its cross blocks, ``vision_proj``,
+  ``text_proj``, ``itm_head``), and for v6.21's ``"memory_read"`` layers
+  (``mem_read``, ``mem_gate``);
 - patch embeddings ``[p*p*3, C]`` in (ph, pw, c) raster order -> a Conv2d
   weight ``[C, 3, p, p]``;
 - the SAM neck convolutions HWIO -> OIHW;
 - everything else (LoRA factors ``[in, out]``, x060's ``time_maa_w2``
   ``[5, dm, C]``, ``time_decay_w1/w2`` and ``time_faaaa`` ``[H, N]``,
   x052's ``time_decay`` ``[H, N]``, x040's ``time_decay`` / ``time_first``,
-  embeddings, norms, tokens, rel-pos tables, mixing vectors) unchanged.
+  embeddings, norms, tokens, rel-pos tables, mixing vectors, state tuning's
+  ``"time_states"`` ``[L, H, N, N]``, in the JAX orientation for x070 and
+  x060 alike) unchanged.
+
+``"rwkv"`` is optional: a tree may hold a ``"vrwkv"`` encoder alone.
 """
 
 from __future__ import annotations
@@ -37,7 +48,10 @@ from visualrwkv_torch.vision.sam import SAMConfig
 Params = Dict[str, Any]
 
 _RWKV_LINEARS = {("att", "receptance"), ("att", "key"), ("att", "value"), ("att", "output"),
-                 ("att", "gate"), ("ffn", "key"), ("ffn", "value"), ("ffn", "receptance")}
+                 ("att", "gate"), ("ffn", "key"), ("ffn", "value"), ("ffn", "receptance"),
+                 ("ffn_v", "key"), ("ffn_v", "value")}
+_CROSS_LINEARS = {("att", "query"), ("att", "key"), ("att", "value"), ("att", "output"),
+                  ("ffn", "c_fc"), ("ffn", "c_proj")}
 _VIT_LINEARS = {("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")}
 
 
@@ -71,21 +85,46 @@ def _patch_to_conv(w, patch: int):
     return w.reshape(patch, patch, 3, w.shape[-1]).transpose(3, 2, 0, 1)
 
 
-def _rwkv_blocks(tree_blocks):
+def _rwkv_blocks(tree_blocks, linears=_RWKV_LINEARS):
     blocks = []
     for blk in tree_blocks:
         nb = {k: v for k, v in blk.items()}
-        for part, name in _RWKV_LINEARS:
-            if name in blk[part]:  # x070 has no att.gate or ffn.receptance
+        for part, name in linears:
+            if name in blk.get(part, ()):  # x070 has no att.gate or ffn.receptance, most no ffn_v
                 nb[part] = dict(nb[part])
                 nb[part][name] = _linear_T(blk[part][name])
         blocks.append(nb)
     return blocks
 
 
+def _cross_blocks(tree_blocks):
+    """Cross-attention blocks (v6.23, the v4 adapter)."""
+    return _rwkv_blocks(tree_blocks, _CROSS_LINEARS)
+
+
 def _rwkv(tree: Params) -> Params:
-    return {"emb": tree["emb"], "blocks": _rwkv_blocks(tree["blocks"]), "ln_out": tree["ln_out"],
-            "head": _linear_T(tree["head"])}
+    out = {"emb": tree["emb"], "blocks": _rwkv_blocks(tree["blocks"]), "ln_out": tree["ln_out"],
+           "head": _linear_T(tree["head"])}
+    if "cross_blocks" in tree:
+        out["cross_blocks"] = _cross_blocks(tree["cross_blocks"])
+    return out
+
+
+def _vrwkv(tree: Params) -> Params:
+    """v7.10's encoder: the LM layout, and the patch embedding a linear."""
+    return dict(_rwkv(tree), emb=_linear_T(tree["emb"]))
+
+
+def _adapter(tree: Params) -> Params:
+    out = dict(tree, blocks=_cross_blocks(tree["blocks"]))
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        out[name] = _linear_T(tree[name])
+    return out
+
+
+def _memory_read(layers) -> list:
+    """v6.21's memory-read parameters, one dict a layer."""
+    return [dict(m, mem_read=_linear_T(m["mem_read"]), mem_gate=_linear_T(m["mem_gate"])) for m in layers]
 
 
 def _vtc(tree: Params) -> Params:
@@ -100,7 +139,8 @@ def _tiny_att(tree: Params) -> Params:
 
 # optional subtrees beside "rwkv", "vit" and "proj", and their layout change
 # (its own inverse: a transpose)
-_EXTRAS = {"vtc": _vtc, "tiny_att": _tiny_att}
+_EXTRAS = {"vtc": _vtc, "tiny_att": _tiny_att, "vrwkv": _vrwkv, "adapter": _adapter,
+           "memory_read": _memory_read, "time_states": lambda t: t}
 
 
 def _blocks(blocks):
@@ -151,13 +191,13 @@ def tiny_attention_from_jax(np_tree: Params, device="cuda",
 
 def params_from_jax(np_tree: Params, cfg: VLMConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Params:
-    """The JAX ``{"rwkv", "vit", "proj"}`` tree (numpy leaves; with a
-    ``"vtc"`` token compressor or a ``"tiny_att"`` layer where it has one)
+    """The JAX ``{"rwkv", "vit", "proj"}`` tree (numpy leaves; with the
+    optional subtrees of ``_EXTRAS`` where it has them)
     -> the port's parameters on ``device`` (stored in ``dtype``, fp32 by
     default). A projector is carried whatever its input width (UHD fusion
     doubles it)."""
     device = resolve_device(device)
-    out: Params = {"rwkv": _rwkv(np_tree["rwkv"])}
+    out: Params = {"rwkv": _rwkv(np_tree["rwkv"])} if "rwkv" in np_tree else {}
     if "vit" in np_tree:
         tcfgs = tower_configs(cfg.vision, cfg.rwkv.compute_dtype)
         out["vit"] = {name: _tower(np_tree["vit"][name], tcfgs[name]) for name in tcfgs}
@@ -204,7 +244,7 @@ def params_to_numpy(params: Params, cfg: VLMConfig) -> Params:
     """The port's ``{"rwkv", "vit", "proj"}`` parameters -> the JAX package's
     tree with fp32 numpy leaves: :func:`params_from_jax` reversed."""
     tree = _np_tree(params)
-    out: Params = {"rwkv": _rwkv(tree["rwkv"])}
+    out: Params = {"rwkv": _rwkv(tree["rwkv"])} if "rwkv" in tree else {}
     if "vit" in tree:
         tcfgs = tower_configs(cfg.vision, cfg.rwkv.compute_dtype)
         out["vit"] = {name: _tower_to_jax(tree["vit"][name], tcfgs[name]) for name in tcfgs}

@@ -3,7 +3,7 @@ the legacy VisualRWKV-v4. Counterpart of ``visualrwkv_tpu/models/rwkv4.py``.
 
 Static token-shift mixes as x052, a per-channel (headless) recurrence with
 the log-domain (aa, bb, pp) state (:mod:`visualrwkv_torch.ops.wkv4`: kernel
-K17 for a sequence on CUDA), a sigmoid receptance, and x052's squared-ReLU
+K17 for a sequence on CUDA, K18 its gradient), a sigmoid receptance, and x052's squared-ReLU
 ChannelMix. The tree is the checkpoint's: ``blocks.N.att.{time_decay,
 time_first, time_mix_k/v/r, key/value/receptance/output}``,
 ``blocks.N.ffn.{time_mix_k/r, key/receptance/value}``, and ``blocks.0.ln0``
@@ -111,8 +111,9 @@ def rwkv4_forward(params: Params, cfg: RWKVConfig, x: Tensor,
                   return_hidden: bool = False) -> Tuple[Tensor, List[LayerState]]:
     """Forward over input embeddings ``x`` [B, T, C]: the per-channel
     recurrence takes any T, so nothing is padded. The RNN is frozen in the
-    reference (only the v4 adapter trains); on CUDA its recurrence (K17)
-    has no backward, on the CPU autograd differentiates it."""
+    reference (only the v4 adapter trains), and a gradient with respect to
+    its input runs through ``ops.wkv4.WKV4Function`` (K17 forward, K18
+    backward on CUDA; their plain versions on the CPU)."""
     return legacy_forward(params, cfg, x, states, grad_cp, return_hidden, block_x040, pad=0)
 
 
