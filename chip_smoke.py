@@ -186,6 +186,21 @@ Phases (any failure exits non-zero; nothing is caught):
    phase 11's RWKV-4 World 1.5B and CLIP-L/14 @336, B = 8, 32-token
    captions: the losses and their gradients (K17 24, K18 24), no LM weight
    taking one.
+14. The evaluation suite (``visualrwkv_torch.evals``), on phase 3's model
+   while it is built (after phase 12d), each part with its launch counts
+   asserted: (a) ``EVAL_QUESTIONS`` one-image questions written in memory
+   (numpy images: no PIL) through the runner's per-batch step
+   ``eval_batch`` at ``EVAL_BATCHES``, ``NEW_TOKENS`` greedy tokens: the
+   records in the reference's schema, each batch's ids equal to a direct
+   ``generate()`` on it, questions/s and decode tok/s; then batched against
+   single on 4 noisy fp32 LM layers (equal ids); (b) ``rank_candidates``
+   over ``RANK_CANDIDATES`` at k = ``RANK_K`` (K2 ``max_len`` x 24 at
+   B = k), and at ``PLAIN_LAYERS`` noisy fp32 layers against the CPU's
+   plain path (first-token probabilities and CEs within
+   ``EVAL_PLAIN_TOL``); (c) ``perplexity`` of ~``PPL_TOKENS`` tokens at
+   stride ``PPL_STRIDE`` (K1 24 a window, the last ragged) and one
+   ``RWKVLoglikelihood.loglikelihood``, both held the same way; (d) (a)
+   on the flat state (K4 in K2's place, ids equal to (a)'s).
 
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
@@ -4389,6 +4404,292 @@ def run_adapter(cfg, params, seed: int, device):
     return out, {"adapter_train": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the evaluation suite on phase 3's model
+# ---------------------------------------------------------------------------
+
+
+EVAL_QUESTIONS = 8
+EVAL_BATCHES = (1, 4)
+EVAL_BUCKET = 64  # one length bucket holds every question of the phase
+EVAL_TEXTS = ("What is in the image?", "Describe this image in detail.", "What color is the object?",
+              "How many people are there?", "Is there a dog in the picture?", "What is written on the sign?",
+              "Where was this photo taken?", "What is the man holding in his hand?")
+RANK_CANDIDATES = ("cat", "dog", "a red bird", "two small fish", "green car")
+RANK_K = 3
+PPL_TOKENS = 2100  # about: the text's words are seeded, its tokens counted after encoding
+PPL_STRIDE = 1024
+PPL_WORDS = ("the", "cat", "sat", "on", "a", "mat", "and", "then", "ran", "to", "house", "river", "under",
+             "bright", "sky", "with", "two", "small", "dogs", "near", "old", "tree", "while", "birds", "sang")
+# the fp32 holds of phase 14 against the CPU's plain path (b, c): relative
+EVAL_PLAIN_TOL = 1e-4
+
+
+def eval_questions(cfg, tok, seed: int):
+    """Phase 14's questions, written in memory: one image each (uint8 arrays
+    a tower from the seed), prompts of one length bucket. Returns (lines,
+    prompts, ids [N, T], images by tower [N, S, S, 3])."""
+    import numpy as np
+
+    from visualrwkv_torch.evals.runner import bucket_pad_ids, prepare_question, tower_image_sizes
+
+    rng = np.random.default_rng(seed)
+    lines = [{"question_id": i, "image": f"q{i}.jpg", "text": "<image>\n" + EVAL_TEXTS[i % len(EVAL_TEXTS)]}
+             for i in range(EVAL_QUESTIONS)]
+    items = [prepare_question(line, tok, cfg, 1) for line in lines]
+    ids = [bucket_pad_ids(it["input_ids"], EVAL_BUCKET) for it in items]
+    assert len({x.shape[-1] for x in ids}) == 1, [x.shape for x in ids]
+    images = {t: rng.integers(0, 256, (EVAL_QUESTIONS, s, s, 3), dtype=np.uint8)
+              for t, s in tower_image_sizes(cfg).items()}
+    return lines, [it["input_text"] for it in items], np.stack(ids), images
+
+
+def _eval_run(eng, tok, qs, B: int):
+    """Every question through ``eval_batch`` B at a time: (records, ids,
+    lengths, per-batch ms)."""
+    import numpy as np
+
+    from visualrwkv_torch.evals.runner import eval_batch
+
+    lines, prompts, ids, images = qs
+    recs, toks, lens, ms = [], [], [], []
+    for s in range(0, len(lines), B):
+        imgs = None if images is None else {t: v[s:s + B] for t, v in images.items()}
+        (r, res), t = timed(lambda: eval_batch(eng, tok, ids[s:s + B], imgs, lines[s:s + B], prompts[s:s + B],
+                                                max_new_tokens=NEW_TOKENS))
+        recs += r
+        toks.append(res.tokens)
+        lens.append(res.lengths)
+        ms.append(t)
+    return recs, np.concatenate(toks), np.concatenate(lens), ms
+
+
+def _check_records(recs, lines):
+    import math
+
+    keys = {"question_id", "prompt", "text", "avg_logit", "avg_prob", "model_id", "metadata"}
+    assert [r["question_id"] for r in recs] == [q["question_id"] for q in lines]
+    for r in recs:
+        assert set(r) == keys, sorted(r)
+        assert math.isfinite(float(r["avg_logit"])) and 0.0 <= float(r["avg_prob"]) <= 1.0, r
+
+
+def run_eval_runner(cfg, params, device, seed: int, layout: str = "head", head_ids=None):
+    """14(a), and (d) with ``layout="flat"``: the runner's per-batch step
+    ``evals.runner.eval_batch`` over phase 14's questions at each of
+    ``EVAL_BATCHES``, greedy, ``NEW_TOKENS`` tokens: the records in the
+    reference's schema with finite averages, each batch's ids equal to a
+    direct ``engine.generate`` on it (head layout) or to the head layout's
+    (flat), and each batch size's launches (prefill, encode and decode
+    steps a batch; K4 in K2's place on the flat state). Logs questions/s
+    and decode tok/s (the batch's time less a prefill of it, timed alone)."""
+    import numpy as np
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.data.tokenizer import get_tokenizer
+    from visualrwkv_torch.infer.engine import InferenceEngine
+
+    tok = get_tokenizer()
+    qs = eval_questions(cfg, tok, seed + 140)
+    lines, _, ids, images = qs
+    eng = InferenceEngine(params, cfg, state_layout=layout, device=device)
+    eng.generate(ids[:1], {t: v[:1] for t, v in images.items()}, max_new_tokens=2)  # warm-up
+    out, launches, all_ids = {}, {}, {}
+    for B in EVAL_BATCHES:
+        reset_launches()
+        recs, toks, lens, ms = _eval_run(eng, tok, qs, B)
+        launches[B] = dict(cuda_build.LAUNCHES)
+        n_batch = len(lines) // B
+        steps = dict(flat_decode_steps=NEW_TOKENS * n_batch) if layout == "flat" \
+            else dict(decode_steps=NEW_TOKENS * n_batch)
+        assert_launches(f"14{'d' if layout == 'flat' else 'a'} runner, {layout} state, B={B}", launches[B],
+                        expected_launches(cfg, prefills=n_batch, encodes=n_batch, **steps))
+        _check_records(recs, lines)
+        all_ids[B] = (toks, lens)
+        if layout == "head":
+            for s in range(0, len(lines), B):
+                ref = eng.generate(ids[s:s + B], {t: v[s:s + B] for t, v in images.items()},
+                                   max_new_tokens=NEW_TOKENS, do_sample=False, stop_tokens=(0, 261))
+                assert np.array_equal(ref.tokens, toks[s:s + B]) and np.array_equal(ref.lengths, lens[s:s + B]), \
+                    f"14(a) B={B}: eval_batch's ids differ from generate()'s on the same batch"
+        else:
+            assert np.array_equal(toks, head_ids[B][0]), f"14(d) B={B}: flat-state ids differ from the head layout's"
+        prefill_ms = sorted(timed(lambda: eng.prefill_ids(ids[:B], {t: v[:B] for t, v in images.items()}))[1]
+                            for _ in range(3))[1]
+        total_s = sum(ms) / 1e3
+        per_q = {k: v / len(lines) for k, v in launches[B].items() if v}
+        out[B] = {"batch_ms": ms, "questions_per_s": len(lines) / total_s, "prefill_ms": prefill_ms,
+                  "decode_tok_per_s": B * NEW_TOKENS / ((np.median(ms) - prefill_ms) / 1e3),
+                  "launches_per_question": per_q, "first_text": recs[0]["text"][:40],
+                  "mean_avg_prob": float(np.mean([float(r["avg_prob"]) for r in recs]))}
+        log(f"  14{'d' if layout == 'flat' else 'a'} {layout} state, eval_batch={B}: {len(lines)} questions in "
+            f"{total_s:.2f} s ({out[B]['questions_per_s']:.2f} questions/s), median batch "
+            f"{np.median(ms):.1f} ms, prefill alone {prefill_ms:.1f} ms, decode "
+            f"{out[B]['decode_tok_per_s']:.1f} tok/s; launches a question {per_q}"
+            + ("; ids equal to generate()'s" if layout == "head" else "; ids equal to the head layout's"))
+    return out, launches, all_ids
+
+
+def fp32_lm(cfg, params, n_layer: int, seed: int, device):
+    """An LM of the model's width with ``n_layer`` fresh noisy blocks
+    (:func:`noisy_lm`: at its random init a block adds nothing to the
+    stream, so its kernels would not show), in fp32 and without towers
+    (they take bf16 only: K3), on ``device``."""
+    import torch
+
+    from visualrwkv_torch.config import VisionConfig
+
+    c, p = noisy_lm(cfg, params, n_layer, seed, device)
+    c = c.replace(rwkv=dataclasses.replace(c.rwkv, compute_dtype="float32"), vision=VisionConfig(towers=()))
+    return c, {"rwkv": to_device(p["rwkv"], device, torch.float32)}
+
+
+def check_eval_batched_fp32(cfg, params, device, seed: int):
+    """14(a)'s hold: ``SPEC_FP32_LAYERS`` noisy LM layers in fp32 (:func:`fp32_lm`),
+    phase 14's questions as text of their length (no towers), through
+    ``eval_batch`` at each batch size: equal ids."""
+    import numpy as np
+
+    from visualrwkv_torch.data.tokenizer import get_tokenizer
+    from visualrwkv_torch.infer.engine import InferenceEngine
+
+    c, p = fp32_lm(cfg, params, SPEC_FP32_LAYERS, seed + 145, device)
+    tok = get_tokenizer()
+    lines, prompts, ids, _ = eval_questions(cfg, tok, seed + 140)
+    text = text_ids(len(lines), ids.shape[1], seed + 141, device).cpu().numpy()
+    eng = InferenceEngine(p, c, device=device)
+    runs = {B: _eval_run(eng, tok, (lines, prompts, text, None), B) for B in EVAL_BATCHES}
+    (_, t1, l1, _), (_, t4, l4, _) = runs[EVAL_BATCHES[0]], runs[EVAL_BATCHES[1]]
+    equal = bool(np.array_equal(t1, t4) and np.array_equal(l1, l4))
+    log(f"  14(a) noisy LM {SPEC_FP32_LAYERS} layers fp32, text prompts of {ids.shape[1]} tokens: eval_batch={EVAL_BATCHES[1]} "
+        f"ids equal to eval_batch={EVAL_BATCHES[0]}'s: {equal}")
+    assert equal, "14(a): batched ids differ from single ones in fp32"
+    return equal
+
+
+def _rel(x, ref):
+    return abs(x - ref) / abs(ref)
+
+
+def run_rank(cfg, params, device, seed: int):
+    """14(b): ``rank_candidates`` on one image question with
+    ``RANK_CANDIDATES``, k = ``RANK_K``, on the full model (timed, its
+    launches: one prefill and encode, then K2 ``max_len`` x n_layer at B = k);
+    then at ``PLAIN_LAYERS`` LM layers in fp32 on a text prompt, the card
+    against the plain path on the CPU: first-token probabilities and CEs
+    within ``EVAL_PLAIN_TOL`` relative, the same best candidate."""
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.data.tokenizer import get_tokenizer
+    from visualrwkv_torch.evals.rank import normalize_candidates, rank_candidates
+    from visualrwkv_torch.infer.engine import InferenceEngine
+
+    tok = get_tokenizer()
+    lines, _, ids, images = eval_questions(cfg, tok, seed + 142)
+    ids, images = ids[:1], {t: v[:1] for t, v in images.items()}
+    eng = InferenceEngine(params, cfg, device=device)
+    rank_candidates(eng, tok, ids, images, RANK_CANDIDATES, k=RANK_K)  # warm-up
+    reset_launches()
+    (best, ranked), ms = timed(lambda: rank_candidates(eng, tok, ids, images, RANK_CANDIDATES, k=RANK_K))
+    launches = dict(cuda_build.LAUNCHES)
+    max_len = max(len(tok.encode(c)) for c in normalize_candidates(RANK_CANDIDATES))
+    want = expected_launches(cfg, prefills=1, encodes=1, decode_steps=max_len)
+    assert_launches(f"14b rank, k={RANK_K}", launches, want)
+    prefill_ms = sorted(timed(lambda: eng.prefill_ids(ids, images))[1] for _ in range(3))[1]
+    log(f"  14(b) rank_candidates, {len(RANK_CANDIDATES)} candidates, k={RANK_K}, longest {max_len} tokens: "
+        f"{ms:.1f} ms (the prefill alone {prefill_ms:.1f} ms); best {best!r}; K2 {launches.get('wkv7_step', 0)} launches "
+        f"at B={RANK_K}; " + ", ".join(f"{c!r} p={p:.3e} ce={ce:.3f}" for c, p, ce in ranked))
+    c, p = fp32_lm(cfg, params, PLAIN_LAYERS, seed + 146, device)
+    prompt = text_ids(1, 64, seed + 143, device)
+    got = rank_candidates(InferenceEngine(p, c, device=device), tok, prompt, None, RANK_CANDIDATES, k=RANK_K)
+    ref = rank_candidates(InferenceEngine(to_device(p, "cpu"), c, device="cpu"), tok, prompt.cpu(), None,
+                          RANK_CANDIDATES, k=RANK_K)
+    errs = [max(_rel(a[1], b[1]), _rel(a[2], b[2])) for a, b in zip(got[1], ref[1])]
+    log(f"  14(b) noisy LM {PLAIN_LAYERS} layers fp32, 64-token text prompt: card vs plain (CPU) first_prob / ce "
+        f"max rel {max(errs):.3e} (tol {EVAL_PLAIN_TOL:g}); best {got[0]!r} and {ref[0]!r}")
+    assert got[0] == ref[0] and [a[0] for a in got[1]] == [b[0] for b in ref[1]], (got, ref)
+    assert max(errs) <= EVAL_PLAIN_TOL, (got, ref)
+    return {"ms": ms, "prefill_ms": prefill_ms, "max_len": max_len, "best": best,
+            "ranked": [list(r) for r in ranked], "plain_max_rel": max(errs)}, launches
+
+
+def ppl_text(seed: int) -> str:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return " ".join(PPL_WORDS[i] for i in rng.integers(0, len(PPL_WORDS), PPL_TOKENS))
+
+
+def run_text_evals(cfg, params, device, seed: int):
+    """14(c): ``perplexity`` of a seeded text of about ``PPL_TOKENS`` tokens
+    at ``PPL_STRIDE`` (the last window ragged) and one
+    ``RWKVLoglikelihood.loglikelihood`` on the full LM, each one stateless
+    prefill (K1 a layer) a window; then at ``PLAIN_LAYERS`` LM layers in
+    fp32, both within ``EVAL_PLAIN_TOL`` relative of the plain path on the
+    CPU."""
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.data.tokenizer import get_tokenizer
+    from visualrwkv_torch.evals.lm_harness import RWKVLoglikelihood, perplexity
+
+    tok = get_tokenizer()
+    text = ppl_text(seed + 144)
+    n_tok = len(tok.encode(text)) + 1
+    windows = -(-(n_tok - 1) // PPL_STRIDE)
+    assert (n_tok - 1) % PPL_STRIDE, "the last window must be ragged"
+    ctx, cont = "The capital of France is", " Paris, a city on the river Seine."
+    lm_p = params["rwkv"]
+    perplexity(lm_p, cfg.rwkv, tok, text[:200], stride=PPL_STRIDE)  # warm-up
+    reset_launches()
+    ppl, ms = timed(lambda: perplexity(lm_p, cfg.rwkv, tok, text, stride=PPL_STRIDE))
+    launches = {"perplexity": dict(cuda_build.LAUNCHES)}
+    assert_launches("14c perplexity", launches["perplexity"], expected_launches(cfg, prefills=windows))
+    scorer = RWKVLoglikelihood(lm_p, cfg.rwkv, tok)
+    reset_launches()
+    (ll, greedy), ll_ms = timed(lambda: scorer.loglikelihood(ctx, cont))
+    launches["loglikelihood"] = dict(cuda_build.LAUNCHES)
+    assert_launches("14c loglikelihood", launches["loglikelihood"], expected_launches(cfg, prefills=1))
+    log(f"  14(c) perplexity over {n_tok} tokens at stride {PPL_STRIDE} ({windows} windows, the last "
+        f"{(n_tok - 1) % PPL_STRIDE}): {ppl:.2f} in {ms:.1f} ms ({(n_tok - 1) / (ms / 1e3):.0f} tok/s), K1 "
+        f"{launches['perplexity'].get('wkv7_fwd', 0)} launches; loglikelihood {ll:.3f} (greedy {greedy}) in {ll_ms:.1f} ms")
+    c, p = fp32_lm(cfg, params, PLAIN_LAYERS, seed + 146, device)
+    p_cpu = to_device(p["rwkv"], "cpu")
+    got = (perplexity(p["rwkv"], c.rwkv, tok, text, stride=PPL_STRIDE),
+           RWKVLoglikelihood(p["rwkv"], c.rwkv, tok).loglikelihood(ctx, cont))
+    ref = (perplexity(p_cpu, c.rwkv, tok, text, stride=PPL_STRIDE),
+           RWKVLoglikelihood(p_cpu, c.rwkv, tok).loglikelihood(ctx, cont))
+    errs = (_rel(got[0], ref[0]), _rel(got[1][0], ref[1][0]))
+    log(f"  14(c) noisy LM {PLAIN_LAYERS} layers fp32: card vs plain (CPU) perplexity {got[0]:.4f} / {ref[0]:.4f} "
+        f"(rel {errs[0]:.3e}), loglikelihood {got[1][0]:.5f} / {ref[1][0]:.5f} (rel {errs[1]:.3e}), tol "
+        f"{EVAL_PLAIN_TOL:g}; greedy flags {got[1][1]} / {ref[1][1]}")
+    assert max(errs) <= EVAL_PLAIN_TOL and got[1][1] == ref[1][1], (got, ref)
+    return {"tokens": n_tok, "windows": windows, "perplexity": ppl, "ms": ms,
+            "tok_per_s": (n_tok - 1) / (ms / 1e3), "loglikelihood": ll, "loglikelihood_ms": ll_ms,
+            "plain_rel": list(errs)}, launches
+
+
+def run_evals(cfg, params, device, seed: int):
+    """Phase 14, (a) to (d), on phase 3's model. Returns (numbers, launches by path, seconds by part)."""
+    out, by_path, secs = {}, {}, {}
+    t = time.perf_counter()
+    out["14a"], runner_launches, head_ids = run_eval_runner(cfg, params, device, seed)
+    out["14a"]["fp32_batched_equal"] = check_eval_batched_fp32(cfg, params, device, seed)
+    by_path.update({f"eval_runner B={B}": v for B, v in runner_launches.items()})
+    secs["14a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["14b"], by_path["eval_rank"] = run_rank(cfg, params, device, seed)
+    secs["14b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["14c"], text_launches = run_text_evals(cfg, params, device, seed)
+    by_path.update({f"eval_{k}": v for k, v in text_launches.items()})
+    secs["14c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["14d"], flat_launches, _ = run_eval_runner(cfg, params, device, seed, layout="flat", head_ids=head_ids)
+    by_path.update({f"eval_runner_flat B={B}": v for B, v in flat_launches.items()})
+    secs["14d"] = time.perf_counter() - t
+    out["seconds"] = secs
+    log(f"  phase 14 took {sum(secs.values()):.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out, by_path
+
+
 def build(cfg, seed: int, device):
     import torch
 
@@ -4603,6 +4904,13 @@ def main(argv=None) -> int:
     t12 = time.perf_counter()
     phase12["12d"], vtc_launches = run_vtc_serving(cfg, params, dev, args.seed)
     phase12_s["12d"] = time.perf_counter() - t12
+
+    # phase 14, on phase 3's model (before training touches it) -----------
+    log(f"phase 14: the evaluation suite on phase 3's 1B5: the runner's per-batch step over {EVAL_QUESTIONS} "
+        f"one-image questions at eval_batch {EVAL_BATCHES}, answer ranking, perplexity and loglikelihood, the "
+        f"runner on the flat state")
+    phase14, eval_launches = run_evals(cfg, params, dev, args.seed)
+    torch.cuda.empty_cache()
 
     # phase 4 --------------------------------------------------------------
     log(f"phase 4: flagship VisualRWKV-7 1B5 training, full width, micro-batch {TRAIN_MICRO_BSZ} x "
@@ -4846,7 +5154,7 @@ def main(argv=None) -> int:
                   if isinstance(v, dict) and "launches" in v},
                "serving_x060_uhd": uhd_launches,
                **({"training_x060_7b_offloaded": offload7_launches} if offload7_launches else {}),
-               **phase13_launches}
+               **phase13_launches, **eval_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -4862,7 +5170,8 @@ def main(argv=None) -> int:
                     "serving_x060": serving6, "training_x060": training6, "tower_grads": towers,
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
                     "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches,
-                    "phase10": phase10, "phase11": phase11, "phase12": phase12, "phase13": phase13}))
+                    "phase10": phase10, "phase11": phase11, "phase12": phase12, "phase13": phase13,
+                    "phase14": phase14}))
     log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -33,7 +33,10 @@ SERVING_MODULES = ("convert.pth_import", "convert.vision_import", "infer.quant",
                    "multimodal.insertion", "multimodal.vtc", "multimodal.scanning", "multimodal.uhd",
                    "data.tiling", "train.offload", "models.vrwkv", "evals.imagenet",
                    "multimodal.image_as_state", "multimodal.hybrid", "multimodal.contrastive",
-                   "multimodal.adapter_v4")
+                   "multimodal.adapter_v4", "evals.loaders", "evals.converters", "evals.score",
+                   "evals.runner", "evals.cli", "evals.hfds", "evals.rank", "evals.lm_harness",
+                   "evals.metrics.vqa", "evals.metrics.simple", "evals.metrics.gqa", "evals.metrics.m4c",
+                   "evals.metrics.interleave", "evals.metrics.videomme")
 
 
 def test_port_imports_no_jax():

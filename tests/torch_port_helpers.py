@@ -35,7 +35,8 @@ def port_cfg(jcfg):
     )
     return pcfg.VLMConfig(
         rwkv=_mirror(jcfg.rwkv, pcfg.RWKVConfig), vision=vision, proj_type=jcfg.proj_type,
-        num_token_per_image=jcfg.num_token_per_image, grid_size=jcfg.grid_size,
+        num_token_per_image=jcfg.num_token_per_image, image_position=jcfg.image_position,
+        grid_size=jcfg.grid_size,
         n_vtc_layer=jcfg.n_vtc_layer, bidirectional_image=jcfg.bidirectional_image,
         image_scanning=jcfg.image_scanning, uhd_fusion=jcfg.uhd_fusion,
         insertion_mode=jcfg.insertion_mode,

@@ -57,7 +57,9 @@ def text_fn(engine, tokenizer):
 
 
 def _device(args) -> str:
-    if args.strategy:
+    """The device of ``--strategy`` when one is given (the flag is optional:
+    the eval CLIs have none), else ``--device``."""
+    if getattr(args, "strategy", ""):
         from visualrwkv_torch.infer.strategy import parse_strategy
 
         return parse_strategy(args.strategy).torch_device
@@ -69,7 +71,7 @@ def _engine(params, cfg, args):
     ``--state_layout``."""
     from visualrwkv_torch.infer.engine import InferenceEngine
 
-    if args.strategy:  # a reference-style strategy string, e.g. "gpu bf16i8 s16"
+    if getattr(args, "strategy", ""):  # a reference-style strategy string, e.g. "gpu bf16i8 s16"
         from visualrwkv_torch.infer.strategy import make_engine
 
         return make_engine(params, cfg, args.strategy)

@@ -115,6 +115,7 @@ class VLMConfig:
     vision: VisionConfig = field(default_factory=VisionConfig)
     proj_type: str = "mlp"  # "linear" | "mlp" (gated MLP)
     num_token_per_image: int = 1024
+    image_position: str = "first"  # "first" | "middle" | "last": where a prompt's images go (v6.0 sandwich)
     n_vtc_layer: int = 0  # visual token compressor depth (v7.03); 0 = none
     bidirectional_image: bool = False  # v6.0 / HD / UHD: odd blocks see the image span reversed
     image_scanning: str = "unidirection"  # v5.1 patch scan order (multimodal.scanning)
@@ -130,6 +131,8 @@ class VLMConfig:
         for t in self.vision.towers:
             if t not in ("dino", "siglip", "sam", "clip"):
                 raise NotImplementedError(f"vision tower {t!r} is not ported yet")
+        if self.image_position not in ("first", "middle", "last"):
+            raise ValueError(f"image_position must be 'first', 'middle' or 'last'; got {self.image_position!r}")
         if self.insertion_mode not in ("scatter", "leftpad"):
             raise ValueError(f"insertion_mode must be 'scatter' or 'leftpad'; got {self.insertion_mode!r}")
         if self.image_scanning not in SCAN_STRATEGIES:

@@ -15,7 +15,7 @@ import torch
 
 from visualrwkv_torch.config import RWKVConfig
 from visualrwkv_torch.models import rwkv4, rwkv5, rwkv6, rwkv7
-from visualrwkv_torch.models.rwkv7 import LayerState
+from visualrwkv_torch.models.rwkv7 import LayerState, embed  # noqa: F401  (every family's token embedding)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -48,6 +48,12 @@ def lm_forward(params: Params, cfg: RWKVConfig, x: Tensor,
                states: Optional[List[LayerState]] = None, grad_cp=False,
                return_hidden: bool = False) -> Tuple[Tensor, List[LayerState]]:
     return _FAMILIES[cfg.version][1](params, cfg, x, states, grad_cp, return_hidden)
+
+
+def lm_forward_tokens(params: Params, cfg: RWKVConfig, tokens: Tensor,
+                      states: Optional[List[LayerState]] = None, grad_cp=False) -> Tuple[Tensor, List[LayerState]]:
+    """:func:`lm_forward` over token ids ``[B, T]`` (their embeddings)."""
+    return lm_forward(params, cfg, embed(params, tokens), states, grad_cp)
 
 
 def lm_decode_step(params: Params, cfg: RWKVConfig, token: Tensor, states: List[LayerState]):
