@@ -202,6 +202,20 @@ Phases (any failure exits non-zero; nothing is caught):
    ``RWKVLoglikelihood.loglikelihood``, both held the same way; (d) (a)
    on the flat state (K4 in K2's place, ids equal to (a)'s).
 
+15. The tooling (after every timed phase: its trace leaves the profiler
+   attached), each part with its launch counts: (a) ``ops.kernel_bench``
+   at the JAX bench's default shapes (B=8, T=512, H=32, N=64, bf16
+   streams): K1, K7 and the dispatch gradients (K5 + K6, K8 + K9) against
+   the fp32 sequential scan, within phase 2's limits (``KBENCH_*_TOL``);
+   (b) the 1B5 rebuilt from its seed through ``Trainer.run_epoch`` for
+   ``TOOLING_STEPS`` steps, its ``train_log.txt`` (under ``chiprun_out/``)
+   read back, ``device_memory()``'s peaks, one more step under
+   ``profile_trace`` whose Chrome trace names K5's and K6's launches; (c)
+   the CUDA allocator recording every allocation from that build on: the
+   live bytes at the peak of those steps grouped by the innermost frame
+   inside ``visualrwkv_torch/``, the ``MEMORY_TOP`` largest printed beside
+   the reckoning of phase 4.
+
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
 runs, each model built again from its seed: once the profiler has been used in a
@@ -224,6 +238,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# Every Trainer of this script writes its train_log.txt here (git-ignored).
+TRAIN_LOG_DIR = os.path.join(HERE, "chiprun_out", "train_logs")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -348,58 +364,20 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def eager_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Mean time of ``fn`` over ``reps`` back-to-back eager calls (CUDA events
-    around the run): the larger of the device time and the host's cost of
-    issuing the call."""
-    import torch
+def eager_ms(fn, **kw) -> float:
+    """``visualrwkv_torch.utils.timing.eager_ms``: back-to-back eager calls
+    between CUDA events, the host's cost of issuing them included."""
+    from visualrwkv_torch.utils import timing
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timing.eager_ms(fn, **kw)
 
 
-_SIDE_STREAM = []
+def cuda_ms(fn, **kw) -> float:
+    """``visualrwkv_torch.utils.timing.cuda_ms``: the device time of one call,
+    replayed from a CUDA graph between CUDA events."""
+    from visualrwkv_torch.utils import timing
 
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 2, replays: int = 3) -> float:
-    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, replayed ``replays`` times between CUDA events, so the host's
-    cost of issuing the launches is not in it. One side stream serves every
-    capture: cuBLAS keeps a workspace for each stream it has run on, which
-    would otherwise stay allocated through the later phases' peaks."""
-    import torch
-
-    if not _SIDE_STREAM:
-        _SIDE_STREAM.append(torch.cuda.Stream())
-    side = _SIDE_STREAM[0]
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (replays * reps)
+    return timing.cuda_ms(fn, **kw)
 
 
 def rel_rms(x, ref) -> float:
@@ -2602,11 +2580,15 @@ def reckon_train_memory(cfg, tcfg, params, trainable) -> dict:
 
 
 def _checksums(tree):
-    """(sum, sum of absolute values) of every leaf, in float64, as one tensor."""
+    """(sum, sum of absolute values) of every leaf, in float64, as one
+    tensor. Without autograd: on leaves that require a gradient, ``abs``
+    would save its float64 input in a graph that the result keeps alive
+    (12.4 GB for the 1B5's trainable leaves, through the counted steps)."""
     import torch
 
-    return torch.stack([torch.stack([p.double().sum(), p.double().abs().sum()])
-                        for p in _leaves(tree)]).cpu()
+    with torch.no_grad():
+        return torch.stack([torch.stack([p.double().sum(), p.double().abs().sum()])
+                            for p in _leaves(tree)]).cpu()
 
 
 # Mixing vectors whose only gradient runs through a zero-initialised LoRA
@@ -2639,7 +2621,10 @@ def _run_training(cfg, params, device, seed, steps, grad_cp, packed, make_batch)
     from visualrwkv_torch.train.trainer import Trainer
 
     tcfg = train_cfg(steps + 1, grad_cp)
-    trainer = Trainer(cfg, tcfg, params, device=device, log_every=1)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"  held on the card before the Trainer: {held_gb:.2f} GB (the model's parameters and what the "
+        f"earlier phases keep)")
+    trainer = Trainer(cfg, tcfg, params, device=device, proj_dir=TRAIN_LOG_DIR, log_every=1)
     reckoned = reckon_train_memory(cfg, tcfg, trainer.params, trainer.leaves)
     log("  memory reckoned from the shapes (GB): "
         + ", ".join(f"{k} {v:.2f}" for k, v in reckoned.items()))
@@ -2691,7 +2676,8 @@ def _run_training(cfg, params, device, seed, steps, grad_cp, packed, make_batch)
         assert moved[paths.index(path)], path
     del trainer
     return {"grad_cp": grad_cp, "packed": packed, "steps": counted, "warmup_ms": warm_ms,
-            "reckoned_gb": reckoned, "peak_gib": max(s["peak_gib"] for s in counted)}, launches, want
+            "reckoned_gb": reckoned, "held_before_gb": held_gb,
+            "peak_gib": max(s["peak_gib"] for s in counted)}, launches, want
 
 
 def profile_training(cfg, params, device, seed: int, grad_cp=True):
@@ -2700,7 +2686,7 @@ def profile_training(cfg, params, device, seed: int, grad_cp=True):
     optimizer apart."""
     from visualrwkv_torch.train.trainer import Trainer, loss_and_grads
 
-    trainer = Trainer(cfg, train_cfg(2, grad_cp), params, device=device, log_every=1)
+    trainer = Trainer(cfg, train_cfg(2, grad_cp), params, device=device, proj_dir=TRAIN_LOG_DIR, log_every=1)
     batch = train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100)
     trainer.train_step(batch)
     out = {}
@@ -3809,7 +3795,7 @@ def run_offload(cfg, params, device, seed: int):
     for name, off in (("offloaded", True), ("resident", False)):
         tc = dataclasses.replace(tcfg, offload_optimizer=off)
         (tr, build_ms) = timed(lambda: Trainer(cfg, tc, to_device(params, device, copy=True), device=device,
-                                               log_every=1))
+                                               proj_dir=TRAIN_LOG_DIR, log_every=1))
         st = tr._streamed
         assert (st is not None) == off
         torch.cuda.reset_peak_memory_stats()
@@ -3880,7 +3866,8 @@ def run_offload_7b(cfg6, params, device, seed: int):
         log(f"  12c 7B: MemAvailable {mem['MemAvailable'] / 1e9:.1f} GB is below {RAM_MARGIN} x the "
             f"{need / 1e9:.2f} GB of pinned optimizer state: the 7B offloaded run is left out on this machine")
         return dict(out, ran=False), None
-    tr, build_ms = timed(lambda: Trainer(cfg6, tcfg, params, device=device, log_every=1))
+    tr, build_ms = timed(lambda: Trainer(cfg6, tcfg, params, device=device, proj_dir=TRAIN_LOG_DIR,
+                                         log_every=1))
     batches = [train_batch(cfg6, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 70 + i) for i in range(OFFLOAD_7B_STEPS + 1)]
     loss, warm_ms = timed(lambda: float(tr.train_step(batches[0])))
     torch.cuda.reset_peak_memory_stats()
@@ -4690,6 +4677,183 @@ def run_evals(cfg, params, device, seed: int):
     return out, by_path
 
 
+# Phase 15: the tooling on the card. (a) the kernel bench at the JAX bench's
+# default shapes; its CUDA rows are held to phase 2's limits for the same
+# kernels: y 1e-2 (bf16 streams), the final state 1e-3, the gradients of
+# fp32 streams 1e-3.
+KBENCH_ARGV = ("all", "--B", "8", "--T", "512")
+KBENCH_Y_TOL, KBENCH_S_TOL, KBENCH_GRAD_TOL = 1e-2, 1e-3, 1e-3
+# (b) Trainer.run_epoch steps; (c) the memory holders printed at the peak.
+TOOLING_STEPS = 2
+MEMORY_TOP = 10
+# 15(c) records every allocation from the model's build on; the trace must
+# hold them all (a replay of a trace that wrapped would miss live blocks).
+MEMORY_MAX_ENTRIES = 2_000_000
+
+
+def run_kernel_bench(device):
+    """Phase 15(a): ``kernel_bench.main`` on the card. Every CUDA row (K1,
+    K7, and the dispatch gradients: K5 + K6, K8 + K9) within the limits of
+    phase 2; a failed CUDA row exits the bench non-zero, and so this run."""
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import kernel_bench
+
+    reset_launches()
+    rows = kernel_bench.main(list(KBENCH_ARGV))
+    launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    checked = 0
+    for r in rows:
+        assert "error" not in r or r["impl"] not in ("cuda", "dispatch grads"), r
+        if r["impl"] == "cuda":
+            assert r["y_err"] <= KBENCH_Y_TOL and r["s_err"] <= KBENCH_S_TOL, r
+            checked += 1
+        elif r["impl"] == "dispatch grads":
+            assert all(e <= KBENCH_GRAD_TOL for e in r["grad_err"].values()), r
+            checked += 1
+    assert checked == 4, rows
+    log(f"  kernel bench: CUDA rows within y {KBENCH_Y_TOL:g}, state {KBENCH_S_TOL:g}, gradients "
+        f"{KBENCH_GRAD_TOL:g}; launches {launches}")
+    for name in ("wkv7_fwd", "wkv7_fwd_res", "wkv7_bwd", "wkv6_fwd", "wkv6_fwd_res", "wkv6_bwd"):
+        assert launches.get(name, 0) > 0, (name, launches)
+    return {"rows": rows}, launches
+
+
+def _memory_holders(snapshot, device_index: int, top: int):
+    """Replays the allocator's trace (every allocation since the recording
+    began) and returns the peak of live bytes, the number of events, and
+    the live blocks at that peak grouped by the innermost frame inside
+    ``visualrwkv_torch/`` (else the innermost frame of this script), the
+    ``top`` largest first."""
+    trace = snapshot["device_traces"][device_index]
+    live, total, peak, at_peak = {}, 0, 0, {}
+    for e in trace:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], e.get("frames", []))
+            total += e["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+        elif e["action"] in ("free_requested", "free_completed") and e["addr"] in live:
+            total -= live.pop(e["addr"])[0]
+
+    def site(frames):
+        for want in ("visualrwkv_torch" + os.sep, os.path.basename(__file__)):
+            for f in frames:
+                if want in f["filename"]:
+                    path = f["filename"]
+                    path = path[path.index("visualrwkv_torch"):] if "visualrwkv_torch" in path else os.path.basename(path)
+                    return f"{path}:{f['line']} {f['name']}"
+        return "(no frame of the port or this script)"
+
+    holders = {}
+    for size, frames in at_peak.values():
+        h = holders.setdefault(site(frames), [0, 0])
+        h[0] += size
+        h[1] += 1
+    ranked = sorted(holders.items(), key=lambda kv: -kv[1][0])
+    return peak, len(trace), [{"site": s, "gb": b / 1e9, "blocks": n} for s, (b, n) in ranked[:top]]
+
+
+def run_tooling_training(cfg, seed: int, device):
+    """Phase 15(b) and (c) on the 1B5 rebuilt from its seed, with the CUDA
+    allocator recording every allocation from the build on (Python
+    stacks). (b) ``Trainer.run_epoch`` for ``TOOLING_STEPS`` steps, its
+    ``train_log.txt`` under ``chiprun_out/`` read back (the header, the
+    configuration line, one epoch line whose loss is the last logged one),
+    ``device_memory()``'s peaks, and one more step under ``profile_trace``
+    (its Chrome trace, written under ``build/``, names K5's and K6's
+    launches). (c) the peak of those steps by allocation site, from the
+    allocator's trace, beside the reckoning of phase 4."""
+    import shutil
+
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.train.trainer import Trainer
+    from visualrwkv_torch.utils.observability import device_memory, profile_trace
+
+    proj_dir = os.path.join(HERE, "chiprun_out", "phase15_train")
+    trace_dir = os.path.join(HERE, "build", "phase15_trace")
+    for d in (proj_dir, trace_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(context="alloc", stacks="python", max_entries=MEMORY_MAX_ENTRIES)
+    try:
+        params = init_model(cfg, seed, device)
+        tcfg = train_cfg(TOOLING_STEPS)
+        trainer = Trainer(cfg, tcfg, params, device=device, proj_dir=proj_dir, log_every=1)
+        batches = [train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100 + i) for i in range(TOOLING_STEPS + 1)]
+        reset_launches()
+        t0 = time.perf_counter()
+        last = trainer.run_epoch(lambda s: batches[s], epoch=0)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        assert_launches("Trainer.run_epoch", launches, expected_launches(
+            cfg, encodes=TOOLING_STEPS, train_micro_batches=TOOLING_STEPS))
+        lines = open(os.path.join(proj_dir, "train_log.txt")).read().splitlines()
+        fields = lines[2].split() if len(lines) == 3 else []
+        log(f"  train_log.txt: {lines[0]!r}, a configuration line of {len(lines[1])} characters, {lines[2:]!r}")
+        assert lines[0].startswith("NEW RUN ") and json.loads(lines[1])["train"]["epoch_steps"] == TOOLING_STEPS
+        assert fields[0] == "0" and fields[1] == f"{trainer.history[-1]['loss']:.6f}" == f"{last:.6f}", lines
+        mem = device_memory()
+        log(f"  device_memory(): allocated peak {mem['allocated_bytes.all.peak'] / 1e9:.3f} GB, reserved peak "
+            f"{mem['reserved_bytes.all.peak'] / 1e9:.3f} GB, {len(mem)} byte counters; {TOOLING_STEPS} steps in "
+            f"{epoch_s:.1f} s under memory recording")
+
+        with profile_trace(trace_dir):
+            trainer.train_step(batches[-1])
+            torch.cuda.synchronize()
+        (trace,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir) if f.endswith(".json")]
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        named = {k: sum(k in n for n in kernels) for k in ("wkv7_fwd_res_kernel", "wkv7_bwd_state_kernel",
+                                                           "wkv7_bwd_chunk_kernel")}
+        log(f"  profile_trace: {os.path.getsize(trace) / 1e6:.1f} MB Chrome trace, {len(kernels)} kernel events, "
+            f"K5 / K6 launches named: {named}")
+        assert all(named.values()), named
+        shutil.rmtree(trace_dir)
+
+        torch.cuda.synchronize()
+        snapshot = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    allocator_peak = torch.cuda.max_memory_allocated() - base_bytes
+    peak, n_events, top = _memory_holders(snapshot, torch.cuda.current_device(), MEMORY_TOP)
+    del snapshot
+    assert n_events < MEMORY_MAX_ENTRIES, f"the allocator's trace wrapped at {n_events} events"
+    reckoned = reckon_train_memory(cfg, tcfg, trainer.params, trainer.leaves)
+    log(f"  memory at the peak of the steps: {peak / 1e9:.3f} GB live by the replay of {n_events} events "
+        f"(the allocator's own peak {allocator_peak / 1e9:.3f} GB above the {base_bytes / 1e9:.3f} GB held "
+        f"before the build; reckoned {reckoned['sum']:.2f} GB before activations and temporaries); the "
+        f"{MEMORY_TOP} largest holders by allocation site:")
+    for h in top:
+        log(f"    {h['gb']:8.3f} GB in {h['blocks']:5d} blocks  {h['site']}")
+    del trainer, params, batches
+    torch.cuda.empty_cache()
+    return {"train_log": lines[2:], "loss": last, "epoch_s_recording": epoch_s,
+            "allocated_peak_bytes": mem["allocated_bytes.all.peak"],
+            "reserved_peak_bytes": mem["reserved_bytes.all.peak"], "profile_kernels_named": named,
+            "memory_peak_gb": peak / 1e9, "allocator_peak_gb": allocator_peak / 1e9, "trace_events": n_events,
+            "reckoned_gb": reckoned, "top_holders": top}, launches
+
+
+def run_tooling(cfg, seed: int, device):
+    """Phase 15, (a) to (c). Returns (numbers, launches by path)."""
+    out, by_path, secs = {}, {}, {}
+    t = time.perf_counter()
+    out["15a"], by_path["kernel_bench"] = run_kernel_bench(device)
+    secs["15a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["15bc"], by_path["tooling_run_epoch"] = run_tooling_training(cfg, seed, device)
+    secs["15bc"] = time.perf_counter() - t
+    out["seconds"] = secs
+    log(f"  phase 15 took {sum(secs.values()):.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out, by_path
+
+
 def build(cfg, seed: int, device):
     import torch
 
@@ -5098,6 +5262,13 @@ def main(argv=None) -> int:
     log(f"  phase 13 took {sum(phase13_s.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase13_s.items()))
 
+    # phase 15: the tooling, after every timed phase (its profile_trace
+    # leaves the profiler attached), on the 1B5 rebuilt from its seed ---------
+    log(f"phase 15: the tooling on the card: (a) kernel_bench {' '.join(KBENCH_ARGV)}; (b) the 1B5 through "
+        f"Trainer.run_epoch for {TOOLING_STEPS} steps, its train_log.txt, device_memory() and one step under "
+        f"profile_trace; (c) the peak of those steps by allocation site")
+    phase15, tooling_launches = run_tooling(cfg, args.seed, dev)
+
     # profiles, after every counted run: each model built again from its seed
     log("profiles: one prefill and 9 decode steps a serving model, one step a training model, "
         "one forward + backward a tower")
@@ -5154,7 +5325,7 @@ def main(argv=None) -> int:
                   if isinstance(v, dict) and "launches" in v},
                "serving_x060_uhd": uhd_launches,
                **({"training_x060_7b_offloaded": offload7_launches} if offload7_launches else {}),
-               **phase13_launches, **eval_launches}
+               **phase13_launches, **eval_launches, **tooling_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -5171,7 +5342,7 @@ def main(argv=None) -> int:
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
                     "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches,
                     "phase10": phase10, "phase11": phase11, "phase12": phase12, "phase13": phase13,
-                    "phase14": phase14}))
+                    "phase14": phase14, "phase15": phase15}))
     log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -9,6 +9,7 @@ import json
 import numpy as np
 import pytest
 
+import torch_port_helpers  # noqa: F401  (caps torch's CPU threads)
 from visualrwkv_torch.data import conversation as pconv
 from visualrwkv_torch.data import dataset as pds
 from visualrwkv_torch.data import tokenizer as ptok
@@ -89,6 +90,10 @@ def test_cli_dummy_run_on_cpu(tmp_path):
     assert losses[-1] <= losses[0]
     assert trainer.state.step == 4
     assert (tmp_path / "rwkv-0.pth").exists()
+    # the run log: the NEW RUN header, the configuration, one line for epoch 0
+    log_lines = (tmp_path / "train_log.txt").read_text().splitlines()
+    assert log_lines[0].startswith("NEW RUN ") and len(log_lines) == 3
+    assert log_lines[2].split()[:2] == ["0", f"{losses[-1]:.6f}"]
     # the same flags build the same dummy configuration as the JAX CLI
     pa = pcli.apply_dummy_overrides(pcli.build_argparser().parse_args(["--dummy"]))
     ja = jcli.apply_dummy_overrides(jcli.build_argparser().parse_args(["--dummy"]))

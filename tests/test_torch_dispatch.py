@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401  (caps torch's CPU threads)
 from visualrwkv_torch.ops import wkv6 as p6
 from visualrwkv_torch.ops import wkv7 as p7
 from visualrwkv_torch.ops import wkv7_cuda

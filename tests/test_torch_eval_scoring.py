@@ -11,6 +11,7 @@ import json
 
 import pytest
 
+import torch_port_helpers  # noqa: F401  (caps torch's CPU threads)
 from visualrwkv_torch.evals import score as pscore
 from visualrwkv_torch.evals.metrics import gqa as pgqa
 from visualrwkv_torch.evals.metrics import interleave as pinterleave

@@ -254,6 +254,10 @@ def test_loglikelihood_and_perplexity_match_jax(model):
     logits = plm._forward_logits(peng.params["rwkv"], pcfg.rwkv, ctx)
     cont = [int(logits[-1].argmax())]
     assert pscore.loglikelihood_tokens(ctx, cont)[1] and jscore.loglikelihood_tokens(ctx, cont)[1]
+    # an empty continuation: JAX's loop does not run and gives (0.0, True)
+    assert jscore.loglikelihood_tokens([1, 2, 3], []) == (0.0, True)
+    for got in (pscore.loglikelihood_tokens([1, 2, 3], []), pscore.loglikelihood("1 2 3", "")):
+        assert got == (0.0, True) and type(got[0]) is float, got
     text = "hello world, this is a test of a few windows of text. " * 3
     for stride in (8, 1024):  # ragged windows, and one window
         ppl = plm.perplexity(peng.params["rwkv"], pcfg.rwkv, ptok, text, stride=stride)

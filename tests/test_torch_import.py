@@ -12,6 +12,8 @@ import sys
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401  (caps torch's CPU threads)
+
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
 _IMPORT_ALL = """
@@ -36,7 +38,9 @@ SERVING_MODULES = ("convert.pth_import", "convert.vision_import", "infer.quant",
                    "multimodal.adapter_v4", "evals.loaders", "evals.converters", "evals.score",
                    "evals.runner", "evals.cli", "evals.hfds", "evals.rank", "evals.lm_harness",
                    "evals.metrics.vqa", "evals.metrics.simple", "evals.metrics.gqa", "evals.metrics.m4c",
-                   "evals.metrics.interleave", "evals.metrics.videomme")
+                   "evals.metrics.interleave", "evals.metrics.videomme", "utils.observability",
+                   "utils.calc_ctxlen", "utils.scan_hyperparameter", "utils.timing", "ops.kernel_bench",
+                   "data.tools", "native.fast_tokenizer")
 
 
 def test_port_imports_no_jax():
@@ -51,7 +55,7 @@ def test_port_imports_no_jax():
     assert {f"visualrwkv_torch.{m}" for m in SERVING_MODULES} <= walked, out.stdout
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     from visualrwkv_torch.config import RWKVConfig, VisionConfig, VLMConfig
     from visualrwkv_torch.infer.engine import InferenceEngine
     from visualrwkv_torch.models.visualrwkv import init_visualrwkv_params, vlm_forward
@@ -74,7 +78,14 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         training_loss({}, cfg, [[1, 2]], [[1, 2]])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Trainer(cfg, TrainConfig(), {})
+        Trainer(cfg, TrainConfig(), {}, proj_dir=str(tmp_path))
+    from visualrwkv_torch.ops import kernel_bench
+    from visualrwkv_torch.utils.observability import device_memory
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kernel_bench.main(["wkv7", "--B", "1", "--T", "16", "--H", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_memory()
     # the CPU, when asked for, works
     params = init_visualrwkv_params(cfg, device="cpu")
     logits = vlm_forward(params, cfg, [[1, 2, 3]], device="cpu")

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from test_torch_vlm import _cfgs, _inputs
-from torch_port_helpers import max_rel, np_tree, perturbed, to_np
+from torch_port_helpers import max_rel, np_tree, oracle_jit, perturbed, to_np
 from visualrwkv_torch.config import IGNORE_INDEX
 from visualrwkv_torch.convert.from_jax import params_from_jax, params_to_numpy
 from visualrwkv_torch.models import visualrwkv as pm
@@ -47,11 +47,12 @@ def _jax_loss_and_grads(case, chunked, grad_cp=True):
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     jimages = {k: jnp.asarray(v) for k, v in images.items()}
 
-    def f(p):
-        return jm.training_loss(p, jcfg, jnp.asarray(ids), jnp.asarray(labels), jimages,
+    def f(p, ids, labels, images):
+        return jm.training_loss(p, jcfg, ids, labels, images,
                                 grad_cp=grad_cp, chunked_ce=chunked, ce_chunk_t=CHUNK_T)
 
-    loss, grads = jax.value_and_grad(f)(jparams)
+    # one jitted program a call: eagerly JAX compiles every primitive apart
+    loss, grads = oracle_jit(jax.value_and_grad(f))(jparams, jnp.asarray(ids), jnp.asarray(labels), jimages)
     return float(loss), np_tree(grads)
 
 

@@ -86,11 +86,11 @@ def _kw(**kw):
     return base
 
 
-def _port(model, jcfg=None, **kw):
+def _port(model, proj_dir, jcfg=None, **kw):
     jcfg = jcfg or model[0]
     pcfg = port_cfg(jcfg)
     return Trainer(pcfg, pcfg_mod.TrainConfig(**_kw(**kw)), params_from_jax(model[1], pcfg, device="cpu"),
-                   device="cpu", log_every=1)
+                   device="cpu", proj_dir=str(proj_dir), log_every=1)
 
 
 def _state_equal(a: Trainer, b: Trainer):
@@ -105,14 +105,14 @@ def _state_equal(a: Trainer, b: Trainer):
 
 @pytest.mark.parametrize("version,param_dtype", [("x070", "float32"), ("x070", "bfloat16"),
                                                   ("x060", "bfloat16")])
-def test_offloaded_steps_bit_equal_to_resident(version, param_dtype):
+def test_offloaded_steps_bit_equal_to_resident(version, param_dtype, tmp_path):
     """Three steps (warm-up, weight decay, the global clip) from one tree:
     parameters, both moments and the fp32 masters bit-equal. The state sits
     in the host buffers, one a group: block 0, blocks 1 and 2, the rest."""
     model = _model(version)
     batches = [_batch(s) for s in range(3)]
-    res = _port(model, param_dtype=param_dtype)
-    off = _port(model, param_dtype=param_dtype, offload_optimizer=True)
+    res = _port(model, tmp_path, param_dtype=param_dtype)
+    off = _port(model, tmp_path, param_dtype=param_dtype, offload_optimizer=True)
     assert res._streamed is None and isinstance(off._streamed, StreamedOffloadOptimizer)
     assert len(off._streamed.groups) == 4
     for t in (res, off):
@@ -137,7 +137,7 @@ def test_offloaded_trainer_matches_jax_offload(model, tmp_path):
         jnp.asarray, tree), mesh=make_mesh(n_data=1), proj_dir=str(tmp_path), log_every=1)
     assert jt._streamed is not None
     jt.run_epoch(lambda s: batches[s], epoch=0)
-    pt = _port(model, offload_optimizer=True)
+    pt = _port(model, tmp_path, offload_optimizer=True)
     pt.run_epoch(lambda s: batches[s], epoch=0)
     np.testing.assert_allclose([h["loss"] for h in pt.history], [h["loss"] for h in jt.history],
                                rtol=2e-4, atol=2e-5)
@@ -156,8 +156,8 @@ def test_offload_with_leftpad_batches(tmp_path):
     model = _model("x060")
     jcfg = dataclasses.replace(model[0], insertion_mode="leftpad")
     batches = [_batch(20 + s, leftpad=True) for s in range(3)]
-    res = _port(model, jcfg)
-    off = _port(model, jcfg, offload_optimizer=True)
+    res = _port(model, tmp_path, jcfg)
+    off = _port(model, tmp_path, jcfg, offload_optimizer=True)
     for t in (res, off):
         t.run_epoch(lambda s: batches[s], epoch=0)
     _state_equal(res, off)
@@ -172,10 +172,10 @@ def test_offloaded_checkpoint_round_trip(model, tmp_path):
     """Two steps, save, wipe the host state, load: the third step equals an
     uninterrupted run's, bit for bit, and the restored state is the saved."""
     batches = [_batch(30 + s) for s in range(3)]
-    a = _port(model, param_dtype="bfloat16", offload_optimizer=True)
+    a = _port(model, tmp_path, param_dtype="bfloat16", offload_optimizer=True)
     for s in range(3):
         a.train_step(batches[s])
-    b = _port(model, param_dtype="bfloat16", offload_optimizer=True)
+    b = _port(model, tmp_path, param_dtype="bfloat16", offload_optimizer=True)
     for s in range(2):
         b.train_step(batches[s])
     path = str(tmp_path / "ckpt.pt")
@@ -191,19 +191,19 @@ def test_offloaded_checkpoint_round_trip(model, tmp_path):
     _state_equal(a, b)
 
 
-def test_offload_options_as_the_jax_trainer_takes_them(model, caplog):
+def test_offload_options_as_the_jax_trainer_takes_them(model, caplog, tmp_path):
     """``bf16_sr`` with offload raises; a partial layer freeze keeps the
     resident optimizer and says so on one line; built directly on such a
     tree the offloaded optimizer refuses its non-uniform block masks."""
     with pytest.raises(NotImplementedError):
         pcfg_mod.TrainConfig(offload_optimizer=True, optim_precision="bf16_sr")
     with caplog.at_level(logging.INFO, logger="visualrwkv_torch.train.trainer"):
-        tr = _port(model, offload_optimizer=True, freeze_rwkv_layers=2)
+        tr = _port(model, tmp_path, offload_optimizer=True, freeze_rwkv_layers=2)
     assert tr._streamed is None
     assert any("partial layer freeze keeps the resident optimizer" in r.message for r in caplog.records)
     pcfg = port_cfg(model[0])
     with pytest.raises(ValueError, match="uniform block masks"):
         StreamedOffloadOptimizer(pcfg_mod.TrainConfig(**_kw(offload_optimizer=True, freeze_rwkv_layers=2)),
                                  pcfg, tr.params, 3, device="cpu")
-    whole = _port(model, offload_optimizer=True, freeze_rwkv_layers=3)  # every LM block frozen: uniform
+    whole = _port(model, tmp_path, offload_optimizer=True, freeze_rwkv_layers=3)  # every LM block frozen: uniform
     assert whole._streamed is not None and [len(g) for g in whole._streamed.groups] == [len(whole.leaves)]

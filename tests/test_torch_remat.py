@@ -21,7 +21,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from test_torch_loss import _jax_loss_and_grads, _port_loss_and_grads, assert_matches_jax, case  # noqa: F401
 from test_torch_rwkv6 import _cfgs as _cfgs6
 from test_torch_rwkv6 import _ids, _vlm, model  # noqa: F401
-from torch_port_helpers import max_rel, to_np
+from torch_port_helpers import max_rel, oracle_jit, to_np
 from visualrwkv_torch import config as pcfg
 from visualrwkv_torch.convert.from_jax import params_to_numpy
 from visualrwkv_torch.models import lm as plm
@@ -127,7 +127,7 @@ def test_x060_policies_are_the_full_checkpoint(model, grad_cp):  # noqa: F811
         logits, _ = jlm.lm_forward(p, jc, j6.embed(p, jnp.asarray(ids)), grad_cp=grad_cp)
         return (logits * cot).sum()
 
-    j_grads = jax.tree_util.tree_leaves(jax.grad(j_loss)(jax.tree_util.tree_map(jnp.asarray, tree)))
+    j_grads = jax.tree_util.tree_leaves(oracle_jit(jax.grad(j_loss))(jax.tree_util.tree_map(jnp.asarray, tree)))
 
     def port(policy):
         leaves = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(True), dict(params))

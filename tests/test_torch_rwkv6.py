@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import max_rel, np_tree, perturbed, rel_rms, to_np
+from torch_port_helpers import max_rel, np_tree, oracle_jit, perturbed, rel_rms, to_np
 from visualrwkv_torch import config as pcfg
 from visualrwkv_torch.convert.from_jax import params_from_jax, params_to_numpy
 from visualrwkv_torch.models import lm as plm
@@ -189,7 +189,7 @@ def test_gradients_match_jax(model):
         logits, _ = jlm.lm_forward(p, jc, j6.embed(p, jnp.asarray(ids)), grad_cp=True)
         return (logits * cot).sum()
 
-    j_grads = np_tree(jax.grad(j_loss)(jax.tree_util.tree_map(jnp.asarray, tree)))
+    j_grads = np_tree(oracle_jit(jax.grad(j_loss))(jax.tree_util.tree_map(jnp.asarray, tree)))
     leaves = {k: v for k, v in params.items()}
     leaves = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(True), leaves)
     flat = jax.tree_util.tree_leaves(leaves)

@@ -79,10 +79,10 @@ def _tcfg(mod, **kw):
     return mod.TrainConfig(**base)
 
 
-def _port_trainer(model, **kw):
+def _port_trainer(model, proj_dir, **kw):
     _, pcfg, tree = model
     return Trainer(pcfg, _tcfg(pcfg_mod, **kw), params_from_jax(tree, pcfg, device="cpu"),
-                   device="cpu", log_every=1)
+                   device="cpu", proj_dir=str(proj_dir), log_every=1)
 
 
 def test_schedules_match_jax():
@@ -147,7 +147,7 @@ def test_three_trainer_steps_match_jax(model, tmp_path, param_dtype):
     _, pcfg, _ = model
     batches = [_batch(s) for s in range(3)]
     j_losses, j_params = _jax_run(model, tmp_path, batches, param_dtype=param_dtype)
-    tr = _port_trainer(model, param_dtype=param_dtype)
+    tr = _port_trainer(model, tmp_path, param_dtype=param_dtype)
     tr.run_epoch(lambda s: batches[s], epoch=0)
     p_losses = [h["loss"] for h in tr.history]
     back = params_to_numpy(tr.params, pcfg)
@@ -166,9 +166,9 @@ def test_three_trainer_steps_match_jax(model, tmp_path, param_dtype):
         assert masters and all(m.dtype == torch.float32 for m in masters)
 
 
-def test_frozen_leaves_do_not_change_and_trainable_do(model):
+def test_frozen_leaves_do_not_change_and_trainable_do(model, tmp_path):
     _, pcfg, tree = model
-    tr = _port_trainer(model, freeze_rwkv_layers=1)
+    tr = _port_trainer(model, tmp_path, freeze_rwkv_layers=1)
     before = popt.tree_map(lambda p: p.detach().clone(), tr.params)
     tr.run_epoch(lambda s: _batch(s), epoch=0)
     mask = tr.opt.train_mask
@@ -178,13 +178,13 @@ def test_frozen_leaves_do_not_change_and_trainable_do(model):
         assert t == (path[0] != "vit" and path[:3] != ("rwkv", "blocks", 0)), path
 
 
-def test_accumulation_2x1_equals_1x2(model):
+def test_accumulation_2x1_equals_1x2(model, tmp_path):
     """Two micro-batches of one sample accumulate to the step of one
     micro-batch of two: the loss is normalised per sample, so the means
     agree. fp32, max |delta| <= 1e-5 * max |ref| after 2 steps."""
     big = _batch(7, bsz=2)
-    a = _port_trainer(model, micro_bsz=2, accumulate_grad_batches=1, epoch_steps=2)
-    b = _port_trainer(model, micro_bsz=1, accumulate_grad_batches=2, epoch_steps=2)
+    a = _port_trainer(model, tmp_path, micro_bsz=2, accumulate_grad_batches=1, epoch_steps=2)
+    b = _port_trainer(model, tmp_path, micro_bsz=1, accumulate_grad_batches=2, epoch_steps=2)
     la = a.run_epoch(lambda s: big, epoch=0)
     lb = b.run_epoch(lambda s: big, epoch=0)
     assert abs(la - lb) <= 1e-5 * abs(la)
@@ -250,7 +250,7 @@ def test_bf16_sr_accumulates_tiny_updates():
     assert 5e-3 < drift < 2e-2, drift  # E[drift] ~ 100 * 1e-4
 
 
-def test_bf16_sr_training_tracks_fp32(model):
+def test_bf16_sr_training_tracks_fp32(model, tmp_path):
     """The master-less bf16 mode over 20 steps on a fixed batch: the loss
     falls and lands within 0.25 of the fp32 run, the band of the JAX
     package's test. PyTorch's and JAX's random streams differ, so the mode
@@ -259,7 +259,7 @@ def test_bf16_sr_training_tracks_fp32(model):
     fixed = _batch(5, bsz=4)
     final = {}
     for pd, mode in (("float32", "master_fp32"), ("bfloat16", "bf16_sr")):
-        tr = _port_trainer(model, lr_init=1e-2, lr_final=1e-2, warmup_steps=0, weight_decay=0.0,
+        tr = _port_trainer(model, tmp_path, lr_init=1e-2, lr_final=1e-2, warmup_steps=0, weight_decay=0.0,
                            epoch_steps=20, micro_bsz=4, param_dtype=pd, optim_precision=mode)
         tr.run_epoch(lambda s: fixed, epoch=0)
         final[mode] = [h["loss"] for h in tr.history]
@@ -276,14 +276,14 @@ def test_bf16_sr_training_tracks_fp32(model):
 def test_checkpoint_resume_takes_the_same_next_step(model, tmp_path, param_dtype, mode):
     batches = [_batch(s) for s in range(3)]
     kw = dict(param_dtype=param_dtype, optim_precision=mode)
-    a = _port_trainer(model, **kw)
+    a = _port_trainer(model, tmp_path, **kw)
     for s in range(2):
         a.train_step(batches[s])
     path = str(tmp_path / "ckpt.pth")
     a.save_checkpoint(path)
     loss_a = float(a.train_step(batches[2]))
 
-    b = _port_trainer(model, **kw)
+    b = _port_trainer(model, tmp_path, **kw)
     b.load_checkpoint(path)
     assert b.state.step == 2 and b.state.opt_state.count == 2
     loss_b = float(b.train_step(batches[2]))

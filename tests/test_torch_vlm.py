@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _tiny_vlm_cfg
-from torch_port_helpers import max_rel, np_tree, perturbed, port_cfg, rel_rms, to_np
+from torch_port_helpers import max_rel, np_tree, oracle_jit, perturbed, port_cfg, rel_rms, to_np
 from visualrwkv_torch.convert.from_jax import params_from_jax
 from visualrwkv_torch.infer.engine import InferenceEngine
 from visualrwkv_torch.models import lm as plm
@@ -57,7 +57,8 @@ def _inputs(B=2, T=40, seed=0):
 
 def _jax_logits(tree, jcfg, ids, images):
     jp = jax.tree_util.tree_map(jnp.asarray, tree)
-    out = j_vlm_forward(jp, jcfg, jnp.asarray(ids), {k: jnp.asarray(v) for k, v in images.items()})
+    out = oracle_jit(lambda p, ids, images: j_vlm_forward(p, jcfg, ids, images))(
+        jp, jnp.asarray(ids), {k: jnp.asarray(v) for k, v in images.items()})
     return np.asarray(out.astype(jnp.float32))
 
 

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from test_torch_loss import _sorted
-from torch_port_helpers import max_rel, np_tree, perturbed, port_cfg, port_tower_cfg, to_np
+from torch_port_helpers import max_rel, np_tree, oracle_jit, perturbed, port_cfg, port_tower_cfg, to_np
 from visualrwkv_torch import config as pcfg_mod
 from visualrwkv_torch.convert.from_jax import params_from_jax, params_to_numpy, tower_params_from_jax
 from visualrwkv_torch.infer.engine import InferenceEngine
@@ -187,7 +187,7 @@ def test_training_loss_and_gradients_match_jax(model, chunked):
         return jm.training_loss(p, jcfg, jnp.asarray(ids), jnp.asarray(labels), _j(images),
                                 grad_cp=True, chunked_ce=chunked, ce_chunk_t=16)
 
-    j_loss, j_grads = jax.value_and_grad(f)(jax.tree_util.tree_map(jnp.asarray, tree))
+    j_loss, j_grads = oracle_jit(jax.value_and_grad(f))(jax.tree_util.tree_map(jnp.asarray, tree))
     j_grads = np_tree(j_grads)
     params = params_from_jax(tree, pcfg, device="cpu")
     leaves = tree_leaves(params)
@@ -227,7 +227,7 @@ def test_three_trainer_steps_match_jax(model, tmp_path):
                   mesh=make_mesh(n_data=1), proj_dir=str(tmp_path), log_every=1)
     jt.run_epoch(lambda s: batches[s], epoch=0)
     pt = Trainer(pcfg, pcfg_mod.TrainConfig(**kw), params_from_jax(tree, pcfg, device="cpu"),
-                 device="cpu", log_every=1)
+                 device="cpu", proj_dir=str(tmp_path / "port"), log_every=1)
     pt.run_epoch(lambda s: batches[s], epoch=0)
     np.testing.assert_allclose([h["loss"] for h in pt.history], [h["loss"] for h in jt.history],
                                rtol=1e-4)

@@ -13,6 +13,7 @@ import sys
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401  (caps torch's CPU threads)
 from visualrwkv_torch.ops import wkv6_cuda
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))

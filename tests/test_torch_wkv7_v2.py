@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401  (caps torch's CPU threads)
 from test_torch_wkv7 import _inputs, _state
 from test_wkv7_stability import _adversarial_inputs
 from visualrwkv_torch.ops import wkv7 as pw

@@ -1,10 +1,28 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: configuration mirroring, numpy parameter trees, error measures."""
+package: configuration mirroring, numpy parameter trees, error measures.
+
+Importing this module sets torch's CPU threads for the test process to one
+(every ``tests/test_torch_*.py`` imports it): the port's tests run many
+small CPU ops, and pytest-xdist runs several test processes side by side,
+each of which would otherwise start an intra-op pool as wide as the
+machine and fight the others (and XLA's own pool) for its cores. One
+thread, not two: with two, a CPU kernel's result can differ from one
+process to the next, and the SAM attention gradient of
+``test_torch_attention_bwd.py`` then read 2e-5 against JAX in about a third
+of the processes (3.8e-7 otherwise; its limit is 1e-5)."""
 
 import dataclasses
 
 import jax
 import numpy as np
+import torch
+
+TORCH_THREADS = 1
+torch.set_num_threads(TORCH_THREADS)
+try:
+    torch.set_num_interop_threads(TORCH_THREADS)
+except RuntimeError:  # the inter-op pool has already started in this process
+    pass
 
 from visualrwkv_torch import config as pcfg
 from visualrwkv_torch.vision.sam import SAMConfig as PortSAMConfig

@@ -43,13 +43,14 @@ class RWKVLoglikelihood:
     def loglikelihood_tokens(self, context: List[int], continuation: List[int]) -> Tuple[float, bool]:
         """(sum log p(continuation | context), is_greedy)."""
         logits = _forward_logits(self.params, self.cfg, context + continuation)
+        # long, also when empty: an empty continuation scores (0.0, True)
         pos = torch.as_tensor([len(context) + j - 1 for j in range(len(continuation))],
-                              device=logits.device)
-        tgt = torch.as_tensor(continuation, device=logits.device)
+                              dtype=torch.long, device=logits.device)
+        tgt = torch.as_tensor(continuation, dtype=torch.long, device=logits.device)
         at = logits[pos]
         logp = torch.log_softmax(at, -1).gather(-1, tgt[:, None])[:, 0].cpu()
         greedy = bool((at.argmax(-1) == tgt).all())
-        return sum(float(x) for x in logp), greedy
+        return sum((float(x) for x in logp), 0.0), greedy
 
     def loglikelihood(self, context: str, continuation: str) -> Tuple[float, bool]:
         ctx = self.tok.encode(context) if context else [0]

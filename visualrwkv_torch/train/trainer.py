@@ -18,7 +18,10 @@ optimizer state.
   (:mod:`visualrwkv_torch.train.offload`); a partial layer freeze keeps the
   resident optimizer, as the JAX trainer does;
 - ``insertion_mode="leftpad"``: the loss of the v6.0 insertion, its plan
-  made on the host from each batch's token ids.
+  made on the host from each batch's token ids;
+- ``<proj_dir>/train_log.txt``: a ``NEW RUN`` header, the run configuration
+  and one line an epoch, with the meter's rates mirrored to wandb under
+  ``wandb_project`` (:mod:`visualrwkv_torch.utils.observability`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from visualrwkv_torch.multimodal.insertion import LeftpadPlan, leftpad_plan
 from visualrwkv_torch.ops.wkv7 import get_wkv_impl
 from visualrwkv_torch.train.offload import StreamedOffloadOptimizer
 from visualrwkv_torch.train.optim import OptState, Optimizer, make_optimizer, tree_map
+from visualrwkv_torch.train.schedule import cosine_warmup_lr
+from visualrwkv_torch.utils.observability import ThroughputMeter, TrainLogWriter
 
 log = logging.getLogger(__name__)
 Tensor = torch.Tensor
@@ -150,6 +155,9 @@ class Trainer:
             p.requires_grad_(True)
         self.loss_fn = make_loss_fn(train_cfg, vlm_cfg, self.device)
         self.history: List[Dict[str, Any]] = []
+        self.meter = ThroughputMeter()
+        self.train_log = TrainLogWriter(proj_dir, run_config={"train": vars(train_cfg)},
+                                        wandb_project=train_cfg.wandb_project)
         log.info("trainer: %s on %s, WKV mode %s, grad_cp %r", vlm_cfg.rwkv.version, self.device,
                  get_wkv_impl(), train_cfg.grad_cp)
 
@@ -183,7 +191,9 @@ class Trainer:
         for s in range(cfg.epoch_steps):
             batch = batch_fn(s)
             loss = self.train_step(batch)
-            tokens += int(np.prod(np.shape(batch["input_ids"])))
+            n_tokens = int(np.prod(np.shape(batch["input_ids"])))
+            tokens += n_tokens
+            rates = self.meter.step(len(batch["input_ids"]), n_tokens)
             if s % self.log_every == 0 or s == cfg.epoch_steps - 1:
                 last_loss = float(loss)  # waits for the device
                 now = time.perf_counter()
@@ -194,6 +204,10 @@ class Trainer:
                          epoch, s, cfg.epoch_steps, last_loss, math.exp(min(last_loss, 20)), lr, rate)
                 self.history.append({"epoch": epoch, "step": s, "loss": last_loss, "lr": lr,
                                      "token/s": rate})
+                self.train_log.log_step({"loss": last_loss, **rates})
+        lr_now = cosine_warmup_lr(self.state.step, cfg.lr_init, cfg.lr_final, cfg.warmup_steps,
+                                  self.total_steps)
+        self.train_log.log_epoch(epoch, last_loss, lr_now)
         return last_loss
 
     def save_checkpoint(self, path: str, with_optimizer: bool = True) -> None:
