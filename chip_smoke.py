@@ -216,6 +216,27 @@ Phases (any failure exits non-zero; nothing is caught):
    inside ``visualrwkv_torch/``, the ``MEMORY_TOP`` largest printed beside
    the reckoning of phase 4.
 
+16. Multi-GPU training on the one card (before phase 15), over a one-rank
+   NCCL process group (``nccl_group``: ``parallel.distributed.initialize``
+   on a free localhost port): (a) the flagship 1B5 rebuilt from its seed,
+   ``PHASE16_STEPS`` steps on phase 4's batches of the plain ``Trainer``,
+   then of ``Trainer(mesh=make_mesh(n_data=1))`` at ``zero_stage`` 1 and 3
+   from the same parameters (the fp32 bucketed gradient reduction, the
+   one-rank ZeRO parts and gathers): their losses and parameters equal
+   the plain run's, launches as phase 4's; ``training_loss_seq`` on one
+   seq rank (the WKV ring of one shard: K5 from zero, from the identity and
+   from the entry state, twice under ``grad_cp``) against
+   ``training_loss`` on phase 4's batch, the loss within ``SEQ1_LOSS_TOL``,
+   each trainable leaf's gradient within ``SEQ1_GRAD_TOL``; the ring of
+   ``RING_SHARDS`` shards on the card (``_ring_on_one_card``: the port's
+   ``_ring_entry_states`` over the shards stacked along B, a roll for the
+   exchange; fp32 streams, an initial state) against the whole sequence,
+   so that K6 differentiates the identity runs; then the x060 1.6B of phase 6 the
+   same way (K8 / K9). Two gloo processes on the one card are not run: gloo
+   takes CUDA tensors in its all-reduce, all-gather and reduce-scatter, but
+   its send / receive (the ring's and the halos' ``ppermute``) aborts the
+   process (``PERF.md`` §6, multi-GPU).
+
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
 runs, each model built again from its seed: once the profiler has been used in a
@@ -4854,6 +4875,278 @@ def run_tooling(cfg, seed: int, device):
     return out, by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-GPU training (process groups, ZeRO, context parallelism)
+# ---------------------------------------------------------------------------
+
+PHASE16_STEPS = 2
+# the ring composed on one card (the exchanges of its ranks done in place):
+# fp32 streams at the training shape, against the whole sequence; 16 shards
+# of 128 steps, so that a shard's entry state still carries its initial
+# state (over 1024 steps the transition R underflows to 0)
+RING_SHARDS = 16
+RING_TOL = 1e-4
+# training_loss_seq on a seq group of one against training_loss: the same
+# kernels on the same inputs, so equal is expected; held at these limits
+SEQ1_LOSS_TOL = 1e-6
+SEQ1_GRAD_TOL = 1e-3
+
+
+def nccl_group(device):
+    """This process as rank 0 of a one-rank NCCL group (tcp rendezvous on a
+    free localhost port): the path of ``train/cli.py`` under torchrun on one
+    card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from visualrwkv_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert distributed.initialize(coordinator_address=f"localhost:{port}", num_processes=1, process_id=0,
+                                  device=device)
+    assert dist.get_backend() == "nccl", dist.get_backend()
+
+
+def _clone(tree):
+    import torch
+
+    from visualrwkv_torch.train.optim import tree_map
+
+    with torch.no_grad():
+        return tree_map(lambda t: t.clone(), tree)
+
+
+def _mesh_steps(cfg, params, device, seed: int, zero_stage: int, mesh):
+    """``PHASE16_STEPS`` steps of a ``Trainer`` (on ``mesh``, or plain when
+    None) on phase 4's batches from a copy of ``params``: (losses, step ms,
+    the parameters after them, launches, peak GiB above what was held
+    before the ``Trainer``: the model and the earlier runs' parameters)."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.train.trainer import Trainer
+
+    tcfg = dataclasses.replace(train_cfg(PHASE16_STEPS), zero_stage=zero_stage)
+    held = torch.cuda.memory_allocated()
+    trainer = Trainer(cfg, tcfg, _clone(params), device=device, proj_dir=TRAIN_LOG_DIR, log_every=1, mesh=mesh)
+    batches = [train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100 + i) for i in range(PHASE16_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, ms = [], []
+    for b in batches:
+        loss, t = timed(lambda: float(trainer.train_step(b)))
+        losses.append(loss)
+        ms.append(t)
+    launches = dict(cuda_build.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30  # above what the phase held before
+    final = trainer.full_params()
+    del trainer
+    torch.cuda.empty_cache()
+    return losses, ms, final, launches, peak
+
+
+def _ring_on_one_card(family: str, xs, extra, s0, group_size: int):
+    """The context-parallel ring of ``ops/wkv_sp.py`` for ``group_size``
+    ranks on one card: the shards stacked along B, so that the port's own
+    ``_ring_entry_states`` runs every shard at once from zero and from the
+    identity (K5 / K8 through the dispatcher), relaxes the entry states in
+    its ``group_size - 1`` sweeps with a roll over the shards in place of the
+    ring's ``ppermute``, and the shards run again from their entry states.
+    Returns y and the final state (the last shard's), differentiable through
+    every run (the identity runs get a cotangent through ``s0 @ R``)."""
+    import torch
+
+    from visualrwkv_torch.ops.wkv6 import wkv6
+    from visualrwkv_torch.ops.wkv7 import wkv7
+    from visualrwkv_torch.ops.wkv_sp import _ring_entry_states
+
+    D = group_size
+    B, T, H, N = xs[0].shape
+    # [B, T, ...] -> [D * B, T / D, ...], shard-major
+    stacked = [x.reshape(B, D, T // D, *x.shape[2:]).transpose(0, 1).reshape(D * B, T // D, *x.shape[2:])
+               for x in xs]
+    if family == "x070":
+        call = lambda S_in: wkv7(*stacked, initial_state=S_in)
+    else:
+        call = lambda S_in: wkv6(*stacked, *extra, initial_state=S_in)
+    z0 = torch.cat([s0.float(), s0.new_zeros((D - 1) * B, H, N, N, dtype=torch.float32)])
+    is_first = (torch.arange(D * B, device=s0.device) < B).view(-1, 1, 1, 1)
+    roll = lambda S: S.view(D, B, H, N, N).roll(1, 0).view(D * B, H, N, N)
+    y, s = call(_ring_entry_states(call, z0, D, is_first, roll))
+    return y.reshape(D, B, T // D, H, N).transpose(0, 1).reshape(B, T, H, N), s[-B:]
+
+
+def check_ring_one_card(family: str, gen, device):
+    """16(a): the ring's arithmetic with its identity-state runs on the card,
+    fp32 streams at the training shape (B=2, T=2048, H=32) from an initial
+    state, against the whole sequence through the same dispatcher: y, the
+    final state and the gradients of sum(y * cy) + sum(s * cs) with respect
+    to the streams and the initial state (through the identity and zero
+    runs' final-state cotangents and the entry states' gradients) within
+    ``RING_TOL`` relative rms. Returns (numbers, launches)."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops.wkv6 import wkv6
+    from visualrwkv_torch.ops.wkv7 import wkv7
+
+    shape = (2, TRAIN_CTX, 32, 64)
+    if family == "x070":
+        xs, extra = _wkv_streams(gen, shape, torch.float32, device), ()
+        whole = lambda *s, initial_state: wkv7(*s, initial_state=initial_state)
+    else:
+        xs, u = _wkv6_streams(gen, shape, torch.float32, device)
+        extra = (u,)
+        whole = lambda *s, initial_state: wkv6(*s, u, initial_state=initial_state)
+    s0 = torch.randn(shape[0], shape[2], 64, 64, generator=gen, device=device) * 0.3
+    xs = [x.requires_grad_(True) for x in xs + [s0]]
+    cy = torch.randn(shape, generator=gen, device=device)
+    cs = torch.randn(shape[0], shape[2], 64, 64, generator=gen, device=device)
+    y, s = whole(*xs[:-1], initial_state=xs[-1])
+    ref = torch.autograd.grad((y * cy).sum() + (s * cs).sum(), xs)
+    reset_launches()
+    (y_r, s_r), ms = timed(lambda: _ring_on_one_card(family, xs[:-1], extra, xs[-1], RING_SHARDS))
+    grads = torch.autograd.grad((y_r * cy).sum() + (s_r * cs).sum(), xs)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    errs = {"y": rel_rms(y_r.detach(), y.detach()), "final state": rel_rms(s_r.detach(), s.detach())}
+    errs.update({f"d{i}": rel_rms(g, g_ref) for i, (g, g_ref) in enumerate(zip(grads, ref))})
+    log(f"  ring of {RING_SHARDS} shards on one card, {family}, fp32 streams {shape}: rel rms {errs} "
+        f"(limit {RING_TOL}); forward {ms:.1f} ms; launches {launches}")
+    assert max(errs.values()) < RING_TOL, errs
+    fwd_res, bwd = WKV_KERNELS[family][2:]
+    want = dict.fromkeys(REPLACES, 0)
+    want[fwd_res] = want[bwd] = 3  # every shard at once from 0, from I and from its entry
+    assert_launches(f"ring of {RING_SHARDS} shards, {family}", launches, want)
+    return {"rel_rms": errs, "forward_ms": ms}, launches
+
+
+def check_seq_loss_one_rank(cfg, params, device, seed: int, mesh, what: str):
+    """16(a): ``training_loss_seq`` on a seq group of one rank (the ring of
+    one shard: K5 / K8 from zero, from the identity and from the entry
+    state, each again in the recompute of ``grad_cp``; the halos a copy)
+    against ``training_loss`` on phase 4's batch: the loss within
+    ``SEQ1_LOSS_TOL`` and each trainable leaf's gradient within
+    ``SEQ1_GRAD_TOL`` relative rms (equal expected). Returns (numbers,
+    launches of the seq loss and gradient)."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.models.visualrwkv import _on_device, prepare_embeddings, training_loss, training_loss_seq
+    from visualrwkv_torch.parallel.mesh import axis_group
+    from visualrwkv_torch.train.trainer import Trainer, shift_labels
+
+    trainer = Trainer(cfg, train_cfg(1), params, device=device, proj_dir=TRAIN_LOG_DIR, log_every=1)
+    b = train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100)
+    ids, images = _on_device(b["input_ids"], b["images"], device)
+    labels = torch.as_tensor(b["labels"], device=device)
+    p = trainer.params
+
+    def plain():
+        loss = training_loss(p, cfg, ids, labels, images, grad_cp=True, ce_chunk_t=128, device=device)
+        return loss, torch.autograd.grad(loss, trainer.leaves)
+
+    def seq():
+        emb = prepare_embeddings(p, cfg, ids, images)
+        loss = training_loss_seq(p, cfg, None, shift_labels(labels), grad_cp=True, ce_chunk_t=128,
+                                 seq_group=axis_group(mesh, "seq"), data_group=axis_group(mesh, "data"),
+                                 embeds=emb, device=device)
+        return loss, torch.autograd.grad(loss, trainer.leaves)
+
+    for fn in (plain, seq):  # once each to warm up (the seq group's first collective makes its communicator)
+        fn()
+    (loss_p, g_p), plain_ms = timed(plain)
+    reset_launches()
+    (loss_s, g_s), seq_ms = timed(seq)
+    launches = dict(cuda_build.LAUNCHES)
+    loss_err = abs(float(loss_s) - float(loss_p)) / abs(float(loss_p))
+    errs = [rel_rms(a, b_) for a, b_ in zip(g_s, g_p)]
+    equal = float(loss_s) == float(loss_p) and all(torch.equal(a, b_) for a, b_ in zip(g_s, g_p))
+    log(f"  {what}: training_loss_seq on one seq rank {float(loss_s):.6f} against training_loss "
+        f"{float(loss_p):.6f} (rel {loss_err:.2e}, limit {SEQ1_LOSS_TOL}); gradients worst rel rms "
+        f"{max(errs):.2e} over {len(errs)} leaves (limit {SEQ1_GRAD_TOL}); bit-equal: {equal}; loss + "
+        f"gradients {seq_ms:.1f} ms against {plain_ms:.1f} ms")
+    assert loss_err <= SEQ1_LOSS_TOL and max(errs) <= SEQ1_GRAD_TOL, (loss_err, max(errs))
+    want = expected_launches(cfg, encodes=1, train_micro_batches=1)
+    fwd_res, bwd = WKV_KERNELS[cfg.rwkv.version][2:]
+    want[fwd_res] = 6 * cfg.rwkv.n_layer  # 3 runs a block, twice under grad_cp
+    want[bwd] = cfg.rwkv.n_layer  # one shard: only the run from the entry state gets a cotangent
+    assert_launches(f"{what} training_loss_seq", launches, want)
+    del trainer, g_p, g_s
+    torch.cuda.empty_cache()
+    return {"loss": float(loss_s), "loss_rel_err": loss_err, "grad_rel_rms_max": max(errs),
+            "bit_equal": equal, "seq_ms": seq_ms, "plain_ms": plain_ms}, launches
+
+
+def run_multigpu(seed: int, device):
+    """Phase 16(a): the multi-process training path on the one card, over a
+    one-rank NCCL group. On the flagship 1B5 (phase 4's configuration and
+    batches): ``PHASE16_STEPS`` steps of the plain ``Trainer``, then of
+    ``Trainer(mesh=make_mesh(n_data=1))`` at ``zero_stage`` 1 and 3 from the
+    same parameters, whose losses and parameters must equal the plain
+    run's (the collectives of one rank copy; ZeRO's parts are whole leaves);
+    ``training_loss_seq`` on one seq rank against ``training_loss``; the
+    ring of ``RING_SHARDS`` shards on the card. Then the x060 1.6B of phase 6
+    through ``wkv6_seq_shard`` the same way. Returns (numbers, launches by
+    path)."""
+    import torch
+
+    from visualrwkv_torch.parallel.mesh import make_mesh
+
+    nccl_group(device)
+    out, by_path, secs = {}, {}, {}
+    cfg = flagship_cfg()
+    t = time.perf_counter()
+    params = init_model(cfg, seed, device)
+    mesh = make_mesh(n_data=1)
+    runs = {"plain": _mesh_steps(cfg, params, device, seed, 1, None)}
+    for zero in (1, 3):
+        runs[f"zero{zero}"] = _mesh_steps(cfg, params, device, seed, zero, mesh)
+    plain_losses, plain_ms, plain_final, plain_launches, plain_peak = runs["plain"]
+    want = expected_launches(cfg, encodes=PHASE16_STEPS, train_micro_batches=PHASE16_STEPS)
+    assert_launches("16(a) plain Trainer", plain_launches, want)
+    out["trainer"] = {"plain": {"losses": plain_losses, "step_ms": plain_ms, "peak_gib": plain_peak}}
+    for name in ("zero1", "zero3"):
+        losses, ms, final, launches, peak = runs[name]
+        assert_launches(f"16(a) Trainer(mesh=make_mesh(n_data=1)), {name}", launches, want)
+        by_path[f"multigpu_{name}"] = launches
+        equal_losses = losses == plain_losses
+        diff = [max_abs(a, b) for a, b in zip(_leaves(final), _leaves(plain_final))]
+        log(f"  {name}: losses {losses} (plain {plain_losses}), step ms {[f'{m:.1f}' for m in ms]} (plain "
+            f"{[f'{m:.1f}' for m in plain_ms]}), peak {peak:.2f} GiB (plain {plain_peak:.2f}); parameters "
+            f"after {PHASE16_STEPS} steps: max |delta| {max(diff):.3e} over {len(diff)} leaves")
+        assert equal_losses and max(diff) == 0.0, f"{name} differs from the plain Trainer on one rank"
+        out["trainer"][name] = {"losses": losses, "step_ms": ms, "peak_gib": peak, "bit_equal": True}
+    del runs, plain_final
+    torch.cuda.empty_cache()
+    secs["16a trainer"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["seq_x070"], by_path["multigpu_seq_x070"] = check_seq_loss_one_rank(
+        cfg, params, device, seed, make_mesh(n_data=1, n_seq=1), "x070 1B5")
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 16)
+    out["ring_x070"], by_path["multigpu_ring_x070"] = check_ring_one_card("x070", gen, device)
+    secs["16a seq x070"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg6 = x060_training_cfg()
+    params = init_model(cfg6, seed, device)
+    out["seq_x060"], by_path["multigpu_seq_x060"] = check_seq_loss_one_rank(
+        cfg6, params, device, seed, make_mesh(n_data=1, n_seq=1), "x060 1.6B")
+    del params
+    torch.cuda.empty_cache()
+    out["ring_x060"], by_path["multigpu_ring_x060"] = check_ring_one_card("x060", gen, device)
+    secs["16a seq x060"] = time.perf_counter() - t
+    out["seconds"] = secs
+    log(f"  phase 16 took {sum(secs.values()):.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out, by_path
+
+
 def build(cfg, seed: int, device):
     import torch
 
@@ -5262,12 +5555,20 @@ def main(argv=None) -> int:
     log(f"  phase 13 took {sum(phase13_s.values()):.1f} s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase13_s.items()))
 
+    # phase 16: multi-GPU training on the one card, over a one-rank NCCL
+    # group (before phase 15, whose profile_trace slows every later launch)
+    log("phase 16(a): a one-rank NCCL group: the 1B5's Trainer on make_mesh(n_data=1) at zero_stage 1 and 3 "
+        "against the plain Trainer; training_loss_seq on one seq rank against training_loss (x070 1B5, x060 "
+        f"1.6B); the ring of {RING_SHARDS} shards on the card")
+    phase16, multigpu_launches = run_multigpu(args.seed, dev)
+
     # phase 15: the tooling, after every timed phase (its profile_trace
     # leaves the profiler attached), on the 1B5 rebuilt from its seed ---------
     log(f"phase 15: the tooling on the card: (a) kernel_bench {' '.join(KBENCH_ARGV)}; (b) the 1B5 through "
         f"Trainer.run_epoch for {TOOLING_STEPS} steps, its train_log.txt, device_memory() and one step under "
         f"profile_trace; (c) the peak of those steps by allocation site")
     phase15, tooling_launches = run_tooling(cfg, args.seed, dev)
+
 
     # profiles, after every counted run: each model built again from its seed
     log("profiles: one prefill and 9 decode steps a serving model, one step a training model, "
@@ -5325,7 +5626,7 @@ def main(argv=None) -> int:
                   if isinstance(v, dict) and "launches" in v},
                "serving_x060_uhd": uhd_launches,
                **({"training_x060_7b_offloaded": offload7_launches} if offload7_launches else {}),
-               **phase13_launches, **eval_launches, **tooling_launches}
+               **phase13_launches, **eval_launches, **tooling_launches, **multigpu_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -5342,7 +5643,10 @@ def main(argv=None) -> int:
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
                     "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches,
                     "phase10": phase10, "phase11": phase11, "phase12": phase12, "phase13": phase13,
-                    "phase14": phase14, "phase15": phase15}))
+                    "phase14": phase14, "phase15": phase15, "phase16": phase16}))
+    from visualrwkv_torch.parallel import distributed
+
+    distributed.shutdown()
     log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -105,9 +105,31 @@ def test_cli_dummy_run_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--n_seq", "2"], ["--num_nodes", "2"], ["--n_data", "2"],
                                    ["--n_data", "4", "--n_seq", "2"],
                                    ["--coordinator_address", "localhost:1234"]])
-def test_cli_flags_of_unported_paths_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError):
+def test_cli_flags_of_unported_paths_raise(tmp_path, monkeypatch, flags):
+    """These flags raised NotImplementedError until multi-process training
+    was ported; they now run (``tests/test_torch_parallel_cli.py`` runs them
+    under torchrun). In one process without a process group, a mesh the
+    group does not cover raises ValueError, and ``--coordinator_address``
+    reaches ``init_process_group`` as its rendezvous (gloo for the CPU,
+    stopped here before it connects)."""
+    import torch.distributed as dist
+
+    calls = []
+
+    def init_process_group(*args, **kw):
+        calls.append((args, kw))
+        raise RuntimeError("rendezvous reached")
+
+    monkeypatch.setattr(dist, "init_process_group", init_process_group)
+    coordinator = flags[0] == "--coordinator_address"
+    with pytest.raises(RuntimeError if coordinator else ValueError):
         pcli.main(["--dummy", "--device", "cpu", "--proj_dir", str(tmp_path)] + flags)
+    if coordinator:
+        (args, kw), = calls
+        assert args == ("gloo",) and kw["init_method"] == "tcp://localhost:1234"
+        assert kw["world_size"] == 1 and kw["rank"] == 0
+    else:
+        assert not calls
 
 
 @pytest.mark.parametrize("flags", [["--wkv_impl", "packed"], ["--wkv_impl", "pallas"],

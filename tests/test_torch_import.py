@@ -40,7 +40,8 @@ SERVING_MODULES = ("convert.pth_import", "convert.vision_import", "infer.quant",
                    "evals.metrics.vqa", "evals.metrics.simple", "evals.metrics.gqa", "evals.metrics.m4c",
                    "evals.metrics.interleave", "evals.metrics.videomme", "utils.observability",
                    "utils.calc_ctxlen", "utils.scan_hyperparameter", "utils.timing", "ops.kernel_bench",
-                   "data.tools", "native.fast_tokenizer")
+                   "data.tools", "native.fast_tokenizer", "parallel.distributed", "parallel.mesh",
+                   "parallel.collectives", "parallel.zero", "ops.wkv_sp")
 
 
 def test_port_imports_no_jax():

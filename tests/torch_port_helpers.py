@@ -138,3 +138,47 @@ def assert_grads_match(port_grads, jax_grads, parts, tol):
         for (path, g), ref in zip(flat_p, flat_j):
             assert np.abs(ref).max() > 0, (part, jax.tree_util.keystr(path))
             assert max_rel(g, ref) < tol, (part, jax.tree_util.keystr(path), max_rel(g, ref))
+
+
+def start_ranks(suite, world, out_dir, timeout=600):
+    """Start ``tests/torch_parallel_worker.py``'s ``suite`` on ``world``
+    ranks of a gloo process group (one OS process a rank, one torch thread
+    each, rendezvous through a file in ``out_dir``) and return ``finish()``,
+    which waits for them and returns each rank's results (``{name:
+    array}``): the caller computes its references meanwhile. The ranks'
+    output goes to files, not pipes: a full pipe would stall a rank inside a
+    collective and with it every other."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(repo, "tests", "torch_parallel_worker.py")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "MASTER_ADDR", "MASTER_PORT",
+                                                            "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env.update(PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    init = os.path.join(str(out_dir), f"init_{suite}")
+    logs = [os.path.join(str(out_dir), f"log_{suite}_{r}.txt") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, worker, suite, str(r), str(world), init,
+                                           str(out_dir)], cwd=repo, env=env, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+
+    def finish():
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, path in zip(procs, logs):
+            assert p.returncode == 0, open(path).read()[-4000:]
+        return [dict(np.load(os.path.join(str(out_dir), f"{suite}_{r}.npz"))) for r in range(world)]
+
+    return finish

@@ -182,7 +182,7 @@ class TrainConfig:
     freeze_emb: bool = False
     freeze_proj: bool = False
     enable_state_tuning: bool = False
-    zero_stage: int = 1  # optimizer-state sharding; one GPU holds it whole at any stage
+    zero_stage: int = 1  # under a mesh, 1: optimizer state split over the data ranks, 3: parameters too
     offload_optimizer: bool = False  # masters and moments in pinned host memory, streamed a group at a time
     param_dtype: str = "float32"  # "bfloat16" / "float16": parameters and gradients stored so
     # "master_fp32": fp32 master weights and Adam moments for parameters stored
@@ -194,9 +194,10 @@ class TrainConfig:
     wandb_project: str = ""
 
     def __post_init__(self):
-        # zero_stage >= 3 on one device is the replicated layout (= stage 1),
-        # and the reference reads enable_state_tuning nowhere: both are
-        # accepted and ignored, as split_step is
+        # zero_stage takes effect under a mesh (train/trainer.py); on one
+        # device every stage keeps the whole state. The reference reads
+        # enable_state_tuning nowhere: it is accepted and ignored, as
+        # split_step is
         if self.offload_optimizer and self.optim_precision == "bf16_sr":
             raise NotImplementedError(
                 "offload_optimizer keeps fp32 masters in host memory; optim_precision='bf16_sr' "

@@ -37,10 +37,13 @@ from visualrwkv_torch.models.rwkv7 import (
     _uniform,
     embed,
     group_norm,
+    halo_shift,
     layer_norm,
     linear,
 )
 from visualrwkv_torch.ops.wkv6 import wkv6, wkv6_step_auto
+from visualrwkv_torch.ops.wkv7 import wkv_seq_axis
+from visualrwkv_torch.parallel.zero import materialize
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -205,6 +208,7 @@ def cmix_x060(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tenso
 
 def block_x060(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
                state: Optional[LayerState] = None) -> Tuple[Tensor, LayerState]:
+    p = materialize(p)  # ZeRO-3: the block's slices gathered (parallel.zero)
     if layer_id == 0:
         x = layer_norm(p["ln0"], x)
     att_shift, wkv_state, ffn_shift = state if state is not None else (None, None, None)
@@ -260,6 +264,44 @@ def rwkv6_forward(params: Params, cfg: RWKVConfig, x: Tensor,
     if return_hidden:
         return x, new_states
     return linear(params["head"], x, cfg.dtype), new_states
+
+
+def rwkv6_forward_seq(params: Params, cfg: RWKVConfig, x: Tensor, group=None, grad_cp=False,
+                      return_hidden: bool = False) -> Tensor:
+    """The x060 counterpart of :func:`visualrwkv_torch.models.rwkv7.
+    rwkv7_forward_seq` (the JAX package's ``rwkv6_forward_seq``): the halo
+    token shift and the WKV6 ring over ``group``, no ``v_first``; any
+    ``grad_cp`` but False checkpoints each block whole."""
+    if grad_cp not in GRAD_CP:
+        raise ValueError(f"grad_cp must be one of {GRAD_CP}; got {grad_cp!r}")
+    T = x.shape[1]
+    if T % cfg.chunk_len:
+        raise ValueError(f"seq-parallel shards must be chunk-aligned: T_local={T}, "
+                         f"chunk_len={cfg.chunk_len}")
+
+    def body(p, xx, i):
+        p = materialize(p)
+        with wkv_seq_axis(group):
+            if i == 0:
+                xx = layer_norm(p["ln0"], xx)
+            xin = layer_norm(p["ln1"], xx)
+            yy, _, _ = tmix_x060(p["att"], cfg, xin, halo_shift(xin.float(), group), None)
+            xx = xx + yy
+            xin2 = layer_norm(p["ln2"], xx)
+            ff, _ = cmix_x060(p["ffn"], cfg, xin2, halo_shift(xin2.float(), group))
+        return xx + ff
+
+    for i, blk in enumerate(params["blocks"]):
+        if grad_cp:
+            x = checkpoint(lambda xx, blk=blk, i=i: body(blk, xx, i), x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(blk, x, i)
+
+    x = layer_norm(params["ln_out"], x)
+    if return_hidden:
+        return x
+    return linear(params["head"], x, cfg.dtype)
 
 
 # ---------------------------------------------------------------------------

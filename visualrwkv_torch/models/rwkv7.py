@@ -27,7 +27,9 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from visualrwkv_torch.config import STOP_TOKEN_INDEX, RWKVConfig
 from visualrwkv_torch.infer.quant import dequantize_weight
-from visualrwkv_torch.ops.wkv7 import wkv7, wkv7_step_auto
+from visualrwkv_torch.ops.wkv7 import wkv7, wkv7_step_auto, wkv_seq_axis
+from visualrwkv_torch.parallel.collectives import group_rank, ppermute
+from visualrwkv_torch.parallel.zero import materialize
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -290,6 +292,7 @@ def cmix_x070(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tenso
 
 def block_x070(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor, v_first: Optional[Tensor],
                state: Optional[LayerState] = None) -> Tuple[Tensor, Tensor, LayerState]:
+    p = materialize(p)  # ZeRO-3: the block's slices gathered (parallel.zero)
     if layer_id == 0:
         x = layer_norm(p["ln0"], x)
     att_shift, wkv_state, ffn_shift = state if state is not None else (None, None, None)
@@ -394,6 +397,61 @@ def rwkv7_forward(params: Params, cfg: RWKVConfig, x: Tensor,
     if return_hidden:
         return x, new_states
     return linear(params["head"], x, cfg.dtype), new_states
+
+
+def halo_shift(t: Tensor, group) -> Tensor:
+    """The token-shift carry of a rank's part of a split token axis: the
+    left neighbour's last position of ``t`` [B, T, C] (zeros on the first
+    rank, as the unsplit shift's position 0 sees)."""
+    recv = ppermute(t[:, -1].contiguous(), group, 1)
+    first = recv.new_full((), group_rank(group) == 0, dtype=torch.bool)  # a fill: no host wait
+    return torch.where(first, torch.zeros_like(recv), recv)  # recv stays in the graph
+
+
+def rwkv7_forward_seq(params: Params, cfg: RWKVConfig, x: Tensor, group=None, grad_cp=False,
+                      return_hidden: bool = False) -> Tensor:
+    """Context-parallel forward over this rank's part ``x`` [B, T_local, C]
+    of a token axis split over the process group ``group`` (the JAX
+    package's ``rwkv7_forward_seq``, run there inside ``shard_map``).
+
+    A block is per-token but for two couplings across the split, both made
+    here: the 1-token shift (:func:`halo_shift` of each post-LN stream, in
+    fp32) and the WKV recurrence (the ring of :mod:`visualrwkv_torch.ops.
+    wkv_sp`, through ``ops.wkv7.wkv_seq_axis``). ``T_local`` must be a
+    multiple of ``cfg.chunk_len``: no shard is padded. ``grad_cp`` as in
+    :func:`rwkv7_forward`; the recomputed block exchanges its halos and runs
+    its ring again. Returns this rank's logits (or hidden after ``ln_out``)."""
+    context_fn = _remat_context(grad_cp)
+    T = x.shape[1]
+    if T % cfg.chunk_len:
+        raise ValueError(f"seq-parallel shards must be chunk-aligned: T_local={T}, "
+                         f"chunk_len={cfg.chunk_len}")
+
+    def body(p, xx, vf, i):
+        p = materialize(p)
+        with wkv_seq_axis(group):  # inside the body, so that a recompute runs the ring too
+            if i == 0:
+                xx = layer_norm(p["ln0"], xx)
+            xin = layer_norm(p["ln1"], xx)
+            yy, vf, _, _ = tmix_x070(p["att"], cfg, i, xin, vf, halo_shift(xin.float(), group), None)
+            xx = xx + yy
+            xin2 = layer_norm(p["ln2"], xx)
+            ff, _ = cmix_x070(p["ffn"], cfg, xin2, halo_shift(xin2.float(), group))
+        return xx + ff, vf
+
+    v_first = None
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    for i, blk in enumerate(params["blocks"]):
+        if grad_cp:
+            x, v_first = checkpoint(lambda xx, vf, blk=blk, i=i: body(blk, xx, vf, i), x, v_first,
+                                    use_reentrant=False, preserve_rng_state=False, **kw)
+        else:
+            x, v_first = body(blk, x, v_first, i)
+
+    x = layer_norm(params["ln_out"], x)
+    if return_hidden:
+        return x
+    return linear(params["head"], x, cfg.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from visualrwkv_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX, STOP_TOKEN_INDEX, VLMConfig, resolve_device
-from visualrwkv_torch.models import lm, rwkv7
+from visualrwkv_torch.models import lm, rwkv6, rwkv7
 from visualrwkv_torch.multimodal.insertion import LeftpadPlan, leftpad_insert, leftpad_plan
 from visualrwkv_torch.multimodal.projector import (
     adaptive_pool_tokens,
@@ -32,6 +33,7 @@ from visualrwkv_torch.multimodal.projector import (
 from visualrwkv_torch.multimodal.scanning import apply_scanning
 from visualrwkv_torch.multimodal.uhd import fuse_image_features
 from visualrwkv_torch.multimodal.vtc import vtc_forward
+from visualrwkv_torch.parallel.collectives import all_reduce_replicated, group_size
 from visualrwkv_torch.vision.backbone import backbone_features, backbone_tower_features, init_backbone_params
 
 Tensor = torch.Tensor
@@ -301,64 +303,132 @@ def _dense_ce_l2wrap(logits: Tensor, labels: Tensor) -> Tensor:
     return l2wrap((ce / counts).mean(), logits)
 
 
+def _ce_stats(chunk_t: int, head_w: Tensor, hidden: Tensor, lbl_next: Tensor, valid: Tensor) -> Tensor:
+    """Per-sample fp32 sums of the shifted CE over ``hidden``'s T, one
+    T-chunk of logits at a time."""
+    w = head_w.to(hidden.dtype)
+    ce = torch.zeros(hidden.shape[0], dtype=torch.float32, device=hidden.device)
+    for s in range(0, hidden.shape[1], chunk_t):
+        sl = slice(s, s + chunk_t)
+        ce = ce + _ce_sums(F.linear(hidden[:, sl], w).float(), lbl_next[:, sl], valid[:, sl])
+    return ce
+
+
+def _ce_l2wrap_grads(chunk_t: int, head_w: Tensor, hidden: Tensor, lbl_next: Tensor, valid: Tensor,
+                     counts: Tensor, g: Tensor, l2: float):
+    """(d head_w, d hidden) of the CE mean ``g``-scaled over per-sample
+    ``counts``, plus the L2Wrap injection ``max_logit * l2`` at each
+    position's argmax, NOT scaled by ``g`` (the reference's L2Wrap)."""
+    B, T, C = hidden.shape
+    V = head_w.shape[0]
+    dt = hidden.dtype
+    w = head_w.to(dt)
+    scale = (g.float() / (B * counts.float()))[:, None, None]  # [B, 1, 1]
+    dw = torch.zeros(V, C, dtype=torch.float32, device=hidden.device)
+    dh = torch.empty_like(hidden)
+    for s in range(0, T, chunk_t):
+        sl = slice(s, s + chunk_t)
+        h_c = hidden[:, sl]
+        logits = F.linear(h_c, w).float()
+        vl = valid[:, sl, None]
+        safe = torch.where(valid[:, sl], lbl_next[:, sl], 0).clamp(0, V - 1)
+        maxx, ids = logits.max(-1, keepdim=True)
+        dlogits = torch.softmax(logits, -1) * vl
+        dlogits.scatter_add_(-1, safe[..., None], -vl.float())
+        dlogits *= scale
+        dlogits.scatter_add_(-1, ids, maxx * l2)
+        dl = dlogits.to(dt)
+        dh[:, sl] = (dl @ w).to(dt)  # fp32 accumulation inside the matmul
+        dw += (dl.reshape(-1, V).t() @ h_c.reshape(-1, C)).float()
+    return dw.to(head_w.dtype), dh
+
+
 class _ChunkedCEL2Wrap(torch.autograd.Function):
     """Head matmul + shifted CE + L2Wrap, one T-chunk at a time in both
     passes, so that at most one fp32 ``[B, chunk, V]`` block of logits is
     alive. Same numbers as :func:`_dense_ce_l2wrap` on ``hidden @ head^T``.
     The head matmuls run in ``hidden``'s dtype with fp32 results; the
-    head-weight gradient accumulates in fp32 across chunks."""
+    head-weight gradient accumulates in fp32 across chunks.
+
+    The labels are PRE-SHIFTED (``labels_next[t]`` is the target of position
+    t). Under a token axis split over ``seq_group`` (the JAX package's
+    ``chunked_ce_l2wrap_sp``) ``hidden`` is this rank's part: the per-sample
+    CE sums and valid counts are summed over the group, so that each sample
+    is normalised over its whole sequence, and the result is this rank's row
+    mean. The L2Wrap injection is ``1e-4 / (B_local * T_global)`` a
+    position: the trainer averages gradients over the data ranks
+    (``parallel.collectives``), which makes it the reference's
+    ``1e-4 / (B_global * T_global)``."""
 
     @staticmethod
-    def forward(ctx, chunk_t, head_w, hidden, labels):
-        B, T, C = hidden.shape
-        dt = hidden.dtype
-        lbl_next, valid = _shifted_labels(labels)
-        w = head_w.to(dt)
-        ce = torch.zeros(B, dtype=torch.float32, device=hidden.device)
-        for s in range(0, T, chunk_t):
-            sl = slice(s, s + chunk_t)
-            logits = F.linear(hidden[:, sl], w).float()
-            ce = ce + _ce_sums(logits, lbl_next[:, sl], valid[:, sl])
-        counts = valid.sum(1).clamp_min(1)
-        ctx.save_for_backward(head_w, hidden, lbl_next, valid, counts)
+    def forward(ctx, chunk_t, head_w, hidden, labels_next, seq_group):
+        B, T, _ = hidden.shape
+        valid = labels_next != IGNORE_INDEX
+        stats = torch.stack([_ce_stats(chunk_t, head_w, hidden, labels_next, valid),
+                             valid.sum(1).float()])
+        if seq_group is not None:
+            dist.all_reduce(stats, group=seq_group)
+        ce, counts = stats[0], stats[1].clamp_min(1)
+        ctx.save_for_backward(head_w, hidden, labels_next, valid, counts)
         ctx.chunk_t = chunk_t
+        ctx.l2 = L2WRAP_FACTOR / (B * T * group_size(seq_group))  # the full T, whatever the chunk
         return (ce / counts).mean()
 
     @staticmethod
     def backward(ctx, g):
-        head_w, hidden, lbl_next, valid, counts = ctx.saved_tensors
-        chunk_t = ctx.chunk_t
-        B, T, C = hidden.shape
-        V = head_w.shape[0]
-        dt = hidden.dtype
-        w = head_w.to(dt)
-        scale = (g.float() / (B * counts.float()))[:, None, None]  # [B, 1, 1]
-        l2 = L2WRAP_FACTOR / (B * T)  # the full T, whatever the chunk
-        dw = torch.zeros(V, C, dtype=torch.float32, device=hidden.device)
-        dh = torch.empty_like(hidden)
-        for s in range(0, T, chunk_t):
-            sl = slice(s, s + chunk_t)
-            h_c = hidden[:, sl]
-            logits = F.linear(h_c, w).float()
-            vl = valid[:, sl, None]
-            safe = torch.where(valid[:, sl], lbl_next[:, sl], 0).clamp(0, V - 1)
-            maxx, ids = logits.max(-1, keepdim=True)
-            dlogits = torch.softmax(logits, -1) * vl
-            dlogits.scatter_add_(-1, safe[..., None], -vl.float())
-            dlogits *= scale
-            dlogits.scatter_add_(-1, ids, maxx * l2)  # L2Wrap: not scaled by g
-            dl = dlogits.to(dt)
-            dh[:, sl] = (dl @ w).to(dt)  # fp32 accumulation inside the matmul
-            dw += (dl.reshape(-1, V).t() @ h_c.reshape(-1, C)).float()
-        return None, dw.to(head_w.dtype), dh, None
+        head_w, hidden, labels_next, valid, counts = ctx.saved_tensors
+        dw, dh = _ce_l2wrap_grads(ctx.chunk_t, head_w, hidden, labels_next, valid, counts, g, ctx.l2)
+        return None, dw, dh, None, None
 
 
 def chunked_ce_l2wrap(chunk_t: int, head_w: Tensor, hidden: Tensor, labels: Tensor) -> Tensor:
     """``head_w`` [V, C], ``hidden`` [B, T, C] with T a multiple of
     ``chunk_t``, ``labels`` [B, T] (unshifted, ``IGNORE_INDEX`` where masked)."""
+    return chunked_ce_l2wrap_sp(chunk_t, head_w, hidden, _shifted_labels(labels)[0])
+
+
+def chunked_ce_l2wrap_sp(chunk_t: int, head_w: Tensor, hidden: Tensor, labels_next: Tensor,
+                         seq_group=None) -> Tensor:
+    """``hidden`` [B, T_local, C] with T_local a multiple of ``chunk_t``,
+    ``labels_next`` [B, T_local] pre-shifted (``labels_next[t]`` is the
+    target of position t): :class:`_ChunkedCEL2Wrap`."""
     if hidden.shape[1] % chunk_t:
         raise ValueError(f"T={hidden.shape[1]} must be a multiple of chunk_t={chunk_t}")
-    return _ChunkedCEL2Wrap.apply(chunk_t, head_w, hidden, labels)
+    return _ChunkedCEL2Wrap.apply(chunk_t, head_w, hidden, labels_next, seq_group)
+
+
+def training_loss_seq(params: Params, cfg: VLMConfig, input_ids, labels_next, grad_cp=True,
+                      ce_chunk_t: int = 128, seq_group=None, data_group=None,
+                      embeds: Optional[Tensor] = None, device="cuda") -> Tensor:
+    """The training loss under context parallelism (the JAX package's
+    ``training_loss_seq``), x070 and x060: this rank holds its rows (of its
+    ``data`` index) and its token range (of its ``seq`` index).
+
+    ``labels_next`` are pre-shifted on the host, before the split, so that
+    each rank holds its own positions' targets. Text batches pass this
+    rank's ``input_ids``; image batches pass ``embeds``, this rank's range of
+    the embeddings with the image features scattered in, built from its
+    rows' whole sequences (``prepare_embeddings``). Returns the loss over
+    every rank's rows, the same on each, whose backward is the identity:
+    each rank's gradients are then its own part, to be summed over the seq
+    ranks and averaged over the data ranks."""
+    device = resolve_device(device)
+    rcfg = cfg.rwkv
+    forward_seq = {"x070": rwkv7.rwkv7_forward_seq, "x060": rwkv6.rwkv6_forward_seq}.get(rcfg.version)
+    if forward_seq is None:
+        raise NotImplementedError("sequence-parallel training supports RWKV-7/RWKV-6 "
+                                  f"(x070/x060); got version={rcfg.version!r}")
+    labels_next = torch.as_tensor(labels_next, device=device).long()
+    if embeds is None:
+        ids = torch.as_tensor(input_ids, device=device).long()
+        embeds = rwkv7.embed(params["rwkv"], ids.clamp(0, rcfg.vocab_size - 1))
+    hidden = forward_seq(params["rwkv"], rcfg, embeds, group=seq_group, grad_cp=grad_cp,
+                         return_hidden=True)
+    T_local = embeds.shape[1]
+    chunk = ce_chunk_t if T_local % ce_chunk_t == 0 else T_local
+    local = chunked_ce_l2wrap_sp(chunk, params["rwkv"]["head"]["weight"], hidden, labels_next,
+                                 seq_group)
+    return all_reduce_replicated(local, data_group, mean=True)
 
 
 def training_loss_leftpad(params: Params, cfg: VLMConfig, input_ids, labels, images=None,

@@ -20,10 +20,11 @@ def pad_steps(xs, w_index: int, steps: int):
     r = k = v = 0 (WKV6) and a decay of exactly 1 such a step leaves the
     state as it is and gives y = 0, so the real steps' outputs, the final
     state and every gradient of the real steps are those of the unpadded
-    call."""
+    call. The streams come back contiguous, as the kernels take them (a
+    T-slice of a stream, as a token split gives, is strided)."""
     T = xs[0].shape[1]
     if steps == T:
-        return tuple(xs)
+        return tuple(x.contiguous() for x in xs)
     return tuple(torch.cat([x, x.new_full((x.shape[0], steps - T) + tuple(x.shape[2:]),
                                           PAD_W_RAW if i == w_index else 0.0)], 1)
                  for i, x in enumerate(xs))

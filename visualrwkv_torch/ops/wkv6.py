@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from visualrwkv_torch.ops import wkv6_cuda, wkv7_cuda
+from visualrwkv_torch.ops import wkv7
 from visualrwkv_torch.ops.padding import pad_steps
 
 Tensor = torch.Tensor
@@ -270,7 +271,7 @@ class WKV6Function(torch.autograd.Function):
         T = r.shape[1]
         xs = pad_steps((r, w_raw, k, v), 1, T + (-T) % SAVE_EVERY)
         fwd = wkv6_cuda.wkv6_fwd_res if r.is_cuda else wkv6_fwd_res_plain
-        y, s, zin = fwd(*xs, u, initial_state, chunk=chunk)
+        y, s, zin = fwd(*xs, u, None if initial_state is None else initial_state.contiguous(), chunk=chunk)
         ctx.save_for_backward(*xs, u, zin)
         ctx.has_initial = initial_state is not None
         ctx.chunk, ctx.steps = chunk, T
@@ -303,7 +304,13 @@ def wkv6(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, u: Tensor,
     form for it), and ``u`` is taken in fp32 on CUDA. Without a gradient the
     kernel takes streams of any float dtype and layout, as the plain path
     does: it runs in their common dtype (fp32 or bf16, else fp32), made
-    contiguous, and y returns in r's dtype."""
+    contiguous, and y returns in r's dtype. Inside ``ops.wkv7.wkv_seq_axis``
+    it runs the context-parallel ring (``ops.wkv_sp.wkv6_seq_shard``)."""
+    seq_group = wkv7.current_seq_axis()
+    if seq_group is not None:  # the token axis is split over a process group
+        from visualrwkv_torch.ops.wkv_sp import wkv6_seq_shard
+
+        return wkv6_seq_shard(r, w_raw, k, v, u, initial_state, chunk, group=seq_group)
     _validate(r, w_raw, k, v, u)
     inputs = (r, w_raw, k, v, u.float().contiguous() if r.is_cuda else u, initial_state)
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs):

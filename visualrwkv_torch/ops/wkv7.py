@@ -35,11 +35,15 @@ with ``w_t = exp(-exp(w_raw_t))``. Streams are ``[B, T, H, N]``; the state is
   autograd, :class:`WKV7Function` (K5 forward, K6 backward) or, packed,
   :class:`WKV7PackedFunction` (K12, K13); both run their forward through
   the operator ``visualrwkv_torch::wkv7_fwd_res``, which the selective
-  checkpoint policy ``grad_cp="wkv"`` saves.
+  checkpoint policy ``grad_cp="wkv"`` saves. Inside :func:`wkv_seq_axis`
+  (context parallelism, the token axis split over a process group) both
+  :func:`wkv7` and ``ops.wkv6.wkv6`` run the ring of
+  :mod:`visualrwkv_torch.ops.wkv_sp` instead.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -72,6 +76,35 @@ def set_wkv_impl(mode: str) -> None:
 def get_wkv_impl() -> str:
     """The mode :func:`set_wkv_impl` selected."""
     return _IMPL_MODE
+
+
+# The seq process group of :func:`wkv_seq_axis` (None: no token split). The
+# JAX package's ``wkv_spmd`` / ``set_wkv_spmd`` partition a Pallas call over
+# a mesh's batch and head axes; here each process runs its own rows, so they
+# have no counterpart.
+_WKV_SEQ_AXIS = None
+
+
+def current_seq_axis():
+    """The seq process group declared by :func:`wkv_seq_axis` (None when not
+    under one)."""
+    return _WKV_SEQ_AXIS
+
+
+@contextlib.contextmanager
+def wkv_seq_axis(group):
+    """Declare that the WKV calls made inside run on this rank's part of a
+    token axis split over the process group ``group``: :func:`wkv7` and
+    ``ops.wkv6.wkv6`` then run the context-parallel ring
+    (:mod:`visualrwkv_torch.ops.wkv_sp`). ``None`` clears it (the ring's own
+    local runs); a ring of one rank takes a process group of size one."""
+    global _WKV_SEQ_AXIS
+    prev = _WKV_SEQ_AXIS
+    _WKV_SEQ_AXIS = group
+    try:
+        yield
+    finally:
+        _WKV_SEQ_AXIS = prev
 
 
 def _validate(r, w, k, v, a, b):
@@ -481,7 +514,8 @@ def wkv7_fwd_res_op(r, w_raw, k, v, a, b, initial_state, packed):
 def _fwd_saving(ctx, packed: bool, r, w_raw, k, v, a, b, initial_state):
     T = r.shape[1]
     xs = pad_steps((r, w_raw, k, v, a, b), 1, T + (-T) % wkv7_cuda.CHUNK)
-    y, s, zin = torch.ops.visualrwkv_torch.wkv7_fwd_res(*xs, initial_state, packed)
+    s0 = None if initial_state is None else initial_state.contiguous()
+    y, s, zin = torch.ops.visualrwkv_torch.wkv7_fwd_res(*xs, s0, packed)
     ctx.save_for_backward(*xs, zin)
     ctx.has_initial = initial_state is not None
     ctx.steps = T
@@ -560,6 +594,10 @@ def wkv7(r: Tensor, w_raw: Tensor, k: Tensor, v: Tensor, a: Tensor, b: Tensor,
     kernels take streams of any float dtype and layout, as the plain path
     does: they run in the streams' common dtype (fp32 or bf16, else fp32),
     made contiguous, and y returns in r's dtype."""
+    if _WKV_SEQ_AXIS is not None:
+        from visualrwkv_torch.ops.wkv_sp import wkv7_seq_shard
+
+        return wkv7_seq_shard(r, w_raw, k, v, a, b, initial_state, chunk, group=_WKV_SEQ_AXIS)
     _validate(r, w_raw, k, v, a, b)
     if _IMPL_MODE == "chunked":
         return wkv7_plain(r, w_raw, k, v, a, b, initial_state, chunk)

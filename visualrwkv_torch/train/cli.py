@@ -1,10 +1,20 @@
 """Training CLI. Counterpart of ``visualrwkv_tpu/train/cli.py``: the flags of
-the reference ``train.py`` over the single-GPU trainer. The two training
-stages (pretrain, finetune) are the same invocation with different freeze
-flags.
+the reference ``train.py`` over the trainer, on one GPU or one process a GPU.
+The two training stages (pretrain, finetune) are the same invocation with
+different freeze flags.
 
     python -m visualrwkv_torch.train.cli --dummy            # tiny run on the card
     python -m visualrwkv_torch.train.cli --dummy --device cpu
+    torchrun --nproc_per_node 8 -m visualrwkv_torch.train.cli --n_seq 2 ...  # data=4 x seq=2
+
+Several processes join one process group (NCCL on the GPUs, gloo with
+``--device cpu``): from torchrun's variables, or from
+``--coordinator_address`` / ``--num_nodes`` (the process count) /
+``--node_rank`` or the ``VRWKV_*`` variables
+(:mod:`visualrwkv_torch.parallel.distributed`). ``--n_data`` (default: the
+process count over ``--n_seq``) and ``--n_seq`` shape the mesh; the global
+batch is ``micro_bsz * n_data * accumulate_grad_batches`` and each data
+rank reads its own rows of the dataset.
 
 ``--dummy`` synthesises a tiny dataset with random images on the fly (it needs
 PIL) and trains a 2-layer, 128-wide model with tiny towers for 4 steps.
@@ -64,13 +74,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--freeze_emb", default=0, type=int)
     p.add_argument("--freeze_proj", default=0, type=int)
     p.add_argument("--zero_stage", default=1, type=int)
-    p.add_argument("--n_data", default=None, type=int, help="data-parallel size (not ported)")
-    p.add_argument("--n_seq", default=1, type=int, help="context-parallel size (not ported)")
-    p.add_argument("--num_nodes", default=1, type=int, help="host processes (not ported)")
+    p.add_argument("--n_data", default=None, type=int,
+                   help="data-parallel size (default: the process count over --n_seq)")
+    p.add_argument("--n_seq", default=1, type=int,
+                   help="context-parallel size (tokens split on T; x070/x060, scatter-insertion image "
+                   "batches, see ops/wkv_sp.py)")
+    p.add_argument("--num_nodes", default=1, type=int,
+                   help="process count of a run started without torchrun (one process a GPU)")
     p.add_argument("--coordinator_address", default="", type=str,
-                   help="host:port of process 0 of a multi-process run (not ported; empty: one process)")
+                   help="host:port of process 0 (or VRWKV_COORDINATOR_ADDRESS, or torchrun's "
+                   "MASTER_ADDR / MASTER_PORT); empty: one process")
     p.add_argument("--node_rank", default=-1, type=int,
-                   help="this process's id; one process ignores it, as the reference does")
+                   help="this process's id (or VRWKV_PROCESS_ID, or torchrun's RANK)")
     p.add_argument("--dummy", action="store_true", help="dummy-data smoke run")
     p.add_argument("--dtype", default="bfloat16", type=str)
     p.add_argument("--wkv_impl", default="auto", choices=["auto", "pallas", "chunked", "packed"],
@@ -87,16 +102,20 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for flags that select a path the port does not have."""
+    """Raise for a configuration the port does not run yet: tensor
+    parallelism over a ``model`` axis and the offloaded optimizer under ZeRO
+    sharding over several data ranks (ROADMAP item A.17b). The CLI's own
+    flags all run; ``n_model`` and ``offload_optimizer`` are read where a
+    caller's namespace carries them."""
     unported = {
-        "--n_seq > 1": args.n_seq > 1,
-        "--n_data > 1": (args.n_data or 1) > 1,
-        "--num_nodes > 1": args.num_nodes > 1,
-        "--coordinator_address": bool(args.coordinator_address),
+        "a model axis (n_model > 1)": getattr(args, "n_model", 1) > 1,
+        "offload_optimizer under ZeRO over data ranks": (
+            getattr(args, "offload_optimizer", False) and args.zero_stage >= 1
+            and (args.n_data or 1) > 1),
     }
     for name, on in unported.items():
         if on:
-            raise NotImplementedError(f"{name} is not ported yet")
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP item A.17b)")
 
 
 def load_lm_weights(init, loaded, where: str = "rwkv"):
@@ -154,11 +173,17 @@ def make_configs(args):
     return vlm_cfg, tcfg
 
 
-def make_dummy(args, tmp_dir: Path):
-    """Synthesise a tiny LLaVA-format dataset + images."""
+def make_dummy(args, tmp_dir: Path, write: bool = True):
+    """Synthesise a tiny LLaVA-format dataset + images (``write=False``:
+    only point ``args`` at them, for the processes that wait for rank 0)."""
     from PIL import Image
 
     img_dir = tmp_dir / "images"
+    data_file = tmp_dir / "dummy.json"
+    args.data_file = str(data_file)
+    args.image_folder = str(img_dir)
+    if not write:
+        return args
     img_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
     records = []
@@ -173,10 +198,7 @@ def make_dummy(args, tmp_dir: Path):
                 {"from": "gpt", "value": f"This is number {i}."},
             ],
         })
-    data_file = tmp_dir / "dummy.json"
     data_file.write_text(json.dumps(records))
-    args.data_file = str(data_file)
-    args.image_folder = str(img_dir)
     return args
 
 
@@ -214,10 +236,26 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = build_argparser().parse_args(argv)
     check_ported(args)
+    from visualrwkv_torch.parallel import distributed
+    from visualrwkv_torch.parallel.mesh import axis_index, axis_size, make_mesh
+
+    distributed.initialize(  # no-op unless flags or the environment ask for several processes
+        coordinator_address=args.coordinator_address or None,
+        num_processes=args.num_nodes if args.num_nodes > 1 else None,
+        process_id=args.node_rank if args.node_rank >= 0 else None,
+        device=args.device,
+    )
+    device = distributed.device_for(args.device)
+    rank0 = distributed.process_index() == 0
+    mesh = make_mesh(n_data=args.n_data, n_seq=args.n_seq)
     os.makedirs(args.proj_dir, exist_ok=True)
     if args.dummy:
         args = apply_dummy_overrides(args)
-        args = make_dummy(args, Path(args.proj_dir) / "dummy_data")
+        args = make_dummy(args, Path(args.proj_dir) / "dummy_data", write=rank0)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()  # rank 0 has written the dummy data
 
     from visualrwkv_torch.data.dataset import DatasetConfig, VisualRWKVDataset, batches_for_epoch
     from visualrwkv_torch.data.tokenizer import get_tokenizer
@@ -237,15 +275,20 @@ def main(argv=None):
             "CLAMPED in the loss (finite but wrong); use the full vocab for real training",
             args.vocab_size, tok.vocab_size,
         )
-    params = init_visualrwkv_params(vlm_cfg, seed=0, device=args.device)
+    params = init_visualrwkv_params(vlm_cfg, seed=0, device=device)  # the same on every rank
     if args.model_path:  # a reference .pth: its LM replaces the initialised one
         from visualrwkv_torch.convert.pth_import import import_rwkv_state_dict, load_pth
 
         params["rwkv"] = load_lm_weights(params["rwkv"], import_rwkv_state_dict(load_pth(args.model_path)))
         logging.info("loaded RWKV weights from %s", args.model_path)
-    trainer = Trainer(vlm_cfg, tcfg, params, device=args.device, proj_dir=args.proj_dir, log_every=1)
+    trainer = Trainer(vlm_cfg, tcfg, params, device=device, proj_dir=args.proj_dir, log_every=1,
+                      mesh=mesh)
     del params  # the fp32 init tree must not outlive the trainer's cast copy
 
+    # reference real_bsz = nodes * devices * micro_bsz (train.py:98): the
+    # global batch is micro_bsz * n_data * accumulate_grad_batches, and each
+    # data rank reads its own rows (the ranks of one seq group the same rows)
+    n_data = axis_size(mesh, "data")
     ds_cfg = DatasetConfig(
         data_file=args.data_file, image_folder=args.image_folder,
         ctx_len=args.ctx_len, num_token_per_image=args.num_token_per_image,
@@ -255,18 +298,27 @@ def main(argv=None):
         tower_sizes={"dino": vlm_cfg.vision.image_size, "siglip": vlm_cfg.vision.image_size,
                      "sam": vlm_cfg.vision.sam_image_size},
     )
-    dataset = VisualRWKVDataset(ds_cfg, tok)
+    dataset = VisualRWKVDataset(ds_cfg, tok, world_size=n_data, rank=axis_index(mesh, "data"))
+    if rank0:
+        logging.info("global batch %d (micro_bsz %d x data %d x accumulate %d), seq %d",
+                     args.micro_bsz * n_data * args.accumulate_grad_batches, args.micro_bsz, n_data,
+                     args.accumulate_grad_batches, axis_size(mesh, "seq"))
 
     for epoch in range(args.epoch_begin, args.epoch_begin + args.epoch_count):
         loss = trainer.run_epoch(batches_for_epoch(dataset, epoch), epoch)
-        logging.info("epoch %d done, loss %.4f", epoch, loss)
+        if rank0:
+            logging.info("epoch %d done, loss %.4f", epoch, loss)
         periodic = args.epoch_save > 0 and (epoch + 1) % args.epoch_save == 0
         if periodic or epoch == args.epoch_begin + args.epoch_count - 1:
             path = str(Path(args.proj_dir).absolute() / f"rwkv-{epoch}.pth")
-            trainer.save_checkpoint(path)
-            logging.info("saved checkpoint %s", path)
+            trainer.save_checkpoint(path)  # every rank: the ZeRO parts are gathered
+            if rank0:
+                logging.info("saved checkpoint %s", path)
     return trainer
 
 
 if __name__ == "__main__":
+    from visualrwkv_torch.parallel import distributed as _distributed
+
     main()
+    _distributed.shutdown()

@@ -1,6 +1,6 @@
-"""Single-GPU trainer. Counterpart of ``visualrwkv_tpu/train/trainer.py``
-without its meshes: one device holds the parameters, the gradients and the
-optimizer state.
+"""The trainer. Counterpart of ``visualrwkv_tpu/train/trainer.py``: one
+device, or one process a device over a ``(data, seq)`` mesh
+(:mod:`visualrwkv_torch.parallel.mesh`; ``model`` is not ported).
 
 - a train step is the loss and its gradient over ``accumulate_grad_batches``
   micro-batches of ``micro_bsz`` samples (a loop; the mean of the losses and
@@ -22,6 +22,28 @@ optimizer state.
 - ``<proj_dir>/train_log.txt``: a ``NEW RUN`` header, the run configuration
   and one line an epoch, with the meter's rates mirrored to wandb under
   ``wandb_project`` (:mod:`visualrwkv_torch.utils.observability`).
+
+With a mesh, each process is given its own rows (its ``data`` index's part
+of the global batch, :func:`visualrwkv_torch.parallel.mesh.data_rows`):
+
+- data parallelism: the gradients are reduced once a step, after the last
+  micro-batch, summed over every rank in fp32 buckets and divided by the
+  data size (:func:`visualrwkv_torch.parallel.collectives.reduce_gradients`);
+- ``zero_stage >= 1`` (ZeRO-1): each data rank keeps the optimizer state of
+  its part of every leaf the rule splits; ``zero_stage >= 3`` (ZeRO-3): the
+  parameters too, and each block's leaves are gathered just before the
+  block runs (:mod:`visualrwkv_torch.parallel.zero`), again under
+  ``grad_cp`` in the backward, and their gradients reduce-scattered;
+- context parallelism (``seq > 1``): the labels are shifted on the host,
+  then each rank takes its token range and runs
+  :func:`visualrwkv_torch.models.visualrwkv.training_loss_seq` (x070 and
+  x060; image batches build their rows' embeddings whole on each seq rank,
+  then keep the range; leftpad and bidirectional image batches raise, as in
+  the JAX package);
+- the reported loss is the mean over the data ranks; the log, the history
+  and ``train_log.txt`` come from rank 0 only; a checkpoint is gathered and
+  written by rank 0 in the one-process format, and each rank reads its part
+  back.
 """
 
 from __future__ import annotations
@@ -34,13 +56,29 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from visualrwkv_torch.config import TrainConfig, VLMConfig, resolve_device
-from visualrwkv_torch.models.visualrwkv import training_loss, training_loss_leftpad
+from visualrwkv_torch.models.visualrwkv import (
+    _on_device,
+    _shifted_labels,
+    prepare_embeddings,
+    training_loss,
+    training_loss_leftpad,
+    training_loss_seq,
+)
 from visualrwkv_torch.multimodal.insertion import LeftpadPlan, leftpad_plan
 from visualrwkv_torch.ops.wkv7 import get_wkv_impl
+from visualrwkv_torch.parallel.collectives import (
+    all_gather_along,
+    all_reduce_replicated,
+    gather_leaf,
+    reduce_gradients,
+)
+from visualrwkv_torch.parallel.mesh import axis_group, axis_index, axis_size, seq_range, zero_sharding
+from visualrwkv_torch.parallel.zero import ZeroPlan, gathering
 from visualrwkv_torch.train.offload import StreamedOffloadOptimizer
-from visualrwkv_torch.train.optim import OptState, Optimizer, make_optimizer, tree_map
+from visualrwkv_torch.train.optim import OptState, make_optimizer, tree_leaves, tree_map
 from visualrwkv_torch.train.schedule import cosine_warmup_lr
 from visualrwkv_torch.utils.observability import ThroughputMeter, TrainLogWriter
 
@@ -56,30 +94,61 @@ class TrainState:
     step: int
 
 
-def create_train_state(params: Params, cfg: TrainConfig, vlm_cfg: VLMConfig,
-                       total_steps: int) -> Tuple[TrainState, Optimizer]:
-    opt = make_optimizer(cfg, params, total_steps, vlm_cfg.rwkv.n_layer)
-    return TrainState(params=params, opt_state=opt.init(params), step=0), opt
-
-
-def make_loss_fn(cfg: TrainConfig, vlm_cfg: VLMConfig, device) -> Callable[..., Tensor]:
+def make_loss_fn(cfg: TrainConfig, vlm_cfg: VLMConfig, device, mesh=None) -> Callable[..., Tensor]:
     """The micro-batch loss ``loss_fn(params, micro, plan=None)``: the
     scatter insertion of the image features, or with
     ``insertion_mode="leftpad"`` the v6.0 insertion under ``plan`` (the
-    whole batch's :func:`leftpad_plan`, made on the host)."""
+    whole batch's :func:`leftpad_plan`, made on the host). With a mesh the
+    loss is the mean over the data ranks, whose backward is the identity
+    (each rank's gradients are its own rows'); under ``seq > 1`` the micro
+    batch's labels must be pre-shifted (:func:`shift_labels`) and its
+    arrays whole along T: the loss takes this rank's range."""
+    data_group = axis_group(mesh, "data")
+    if axis_size(mesh, "seq") > 1:
+        if vlm_cfg.rwkv.version not in ("x070", "x060"):
+            raise NotImplementedError("sequence-parallel training supports RWKV-7/RWKV-6 "
+                                      f"(x070/x060); got version={vlm_cfg.rwkv.version!r}")
+        seq_group = axis_group(mesh, "seq")
+
+        def seq_loss_fn(params: Params, micro: Dict[str, Any], plan=None) -> Tensor:
+            ids, images = _on_device(micro["input_ids"], micro.get("images"), device)
+            labels_next = seq_range(torch.as_tensor(micro["labels"], device=device), mesh)
+            kw = dict(grad_cp=cfg.grad_cp, ce_chunk_t=cfg.ce_chunk_t, seq_group=seq_group,
+                      data_group=data_group, device=device)
+            if images is None:
+                return training_loss_seq(params, vlm_cfg, seq_range(ids, mesh), labels_next, **kw)
+            if vlm_cfg.insertion_mode == "leftpad" or vlm_cfg.bidirectional_image:
+                raise NotImplementedError(
+                    "sequence-parallel image training supports the default scatter insertion only "
+                    "(leftpad reshapes T per batch; bidirectional needs the whole span)")
+            emb = seq_range(prepare_embeddings(params, vlm_cfg, ids, images), mesh)
+            return training_loss_seq(params, vlm_cfg, None, labels_next, embeds=emb, **kw)
+
+        return seq_loss_fn
 
     def loss_fn(params: Params, micro: Dict[str, Any], plan: Optional[LeftpadPlan] = None) -> Tensor:
         if vlm_cfg.insertion_mode == "leftpad":
-            return training_loss_leftpad(
+            loss = training_loss_leftpad(
                 params, vlm_cfg, micro["input_ids"], micro["labels"], micro.get("images"),
                 plan=plan, grad_cp=cfg.grad_cp, device=device,
             )
-        return training_loss(
-            params, vlm_cfg, micro["input_ids"], micro["labels"], micro.get("images"),
-            grad_cp=cfg.grad_cp, ce_chunk_t=cfg.ce_chunk_t, device=device,
-        )
+        else:
+            loss = training_loss(
+                params, vlm_cfg, micro["input_ids"], micro["labels"], micro.get("images"),
+                grad_cp=cfg.grad_cp, ce_chunk_t=cfg.ce_chunk_t, device=device,
+            )
+        return loss if mesh is None else all_reduce_replicated(loss, data_group, mean=True)
 
     return loss_fn
+
+
+def shift_labels(labels):
+    """Labels for position t are labels[t + 1], the last position has none
+    (``IGNORE_INDEX``): made on the host before a token split, so that each
+    rank holds its own positions' targets (the JAX trainer's pre-shift)."""
+    if isinstance(labels, Tensor):
+        return _shifted_labels(labels)[0]
+    return _shifted_labels(torch.from_numpy(np.asarray(labels)))[0].numpy()
 
 
 def _micro_batches(batch: Dict[str, Any], accum: int) -> List[Dict[str, Any]]:
@@ -106,7 +175,7 @@ def loss_and_grads(loss_fn: Callable, params: Params, leaves: List[Tensor], batc
     for micro in _micro_batches(batch, accum):
         loss = loss_fn(params, micro)
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
-        g = [torch.zeros_like(p) if x is None else x for p, x in zip(leaves, g)]
+        g = [torch.zeros_like(p) if x is None else x.contiguous() for p, x in zip(leaves, g)]
         total = loss.detach() if total is None else total + loss.detach()
         if grads is None:
             grads = list(g)
@@ -123,14 +192,20 @@ class Trainer:
     checkpoints."""
 
     def __init__(self, vlm_cfg: VLMConfig, train_cfg: TrainConfig, params: Params,
-                 device="cuda", proj_dir: str = "out", log_every: int = 10):
+                 device="cuda", proj_dir: str = "out", log_every: int = 10, mesh=None):
         """``params`` must be on ``device`` (CUDA unless the caller asks for
-        the CPU). Floating leaves are cast to ``train_cfg.param_dtype``;
-        the optimizer keeps fp32 masters of trainable leaves stored below
-        fp32 unless ``optim_precision="bf16_sr"``."""
+        the CPU), whole on every rank. Floating leaves are cast to
+        ``train_cfg.param_dtype``; the optimizer keeps fp32 masters of
+        trainable leaves stored below fp32 unless ``optim_precision="bf16_sr"``.
+        ``mesh``: a :func:`visualrwkv_torch.parallel.mesh.make_mesh` mesh
+        (None: one device)."""
         self.device = resolve_device(device)
         self.vlm_cfg = vlm_cfg
         self.cfg = train_cfg
+        self.mesh = mesh
+        self.n_data = axis_size(mesh, "data")
+        self.n_seq = axis_size(mesh, "seq")
+        self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
         self.proj_dir = proj_dir
         self.log_every = log_every
         self.total_steps = (train_cfg.epoch_begin + train_cfg.epoch_count) * train_cfg.epoch_steps
@@ -138,7 +213,17 @@ class Trainer:
         pd = getattr(torch, train_cfg.param_dtype)
         params = tree_map(
             lambda p: p.detach().to(pd) if p.is_floating_point() else p.detach(), params)
+        zero = None
+        if mesh is not None and train_cfg.zero_stage >= 1 and not train_cfg.offload_optimizer:
+            zero = ZeroPlan(stage=3 if train_cfg.zero_stage >= 3 else 1,
+                            axes=zero_sharding(params, self.n_data), n=self.n_data,
+                            index=axis_index(mesh, "data"), group=axis_group(mesh, "data"))
+        self.zero = zero
         self._streamed = None
+        if train_cfg.offload_optimizer and mesh is not None and (
+                self.n_data > 1 or train_cfg.zero_stage >= 3):
+            raise NotImplementedError("offload_optimizer under ZeRO sharding over data ranks is not "
+                                      "ported yet (ROADMAP item A.17b)")
         if train_cfg.offload_optimizer and 0 < train_cfg.freeze_rwkv_layers < vlm_cfg.rwkv.n_layer:
             log.info("offload_optimizer: a partial layer freeze keeps the resident optimizer")
         elif train_cfg.offload_optimizer:
@@ -148,35 +233,108 @@ class Trainer:
             self.opt = self._streamed.opt
             self.state = TrainState(params=params, opt_state=self._streamed.state, step=0)
         else:
-            self.state, self.opt = create_train_state(params, train_cfg, vlm_cfg, self.total_steps)
+            self.opt = make_optimizer(train_cfg, params, self.total_steps, vlm_cfg.rwkv.n_layer, zero)
+            if zero is not None and zero.stage >= 3:  # a rank keeps its part of each split leaf
+                params = tree_map(lambda p, ax: p if ax is None else zero.part(p, ax).clone(),
+                                  params, zero.axes)
+            self.state = TrainState(params=params, opt_state=self.opt.init(params), step=0)
+        # ZeRO-3: the split dim of each part, by the part's identity (updates are in place)
+        self._split: Dict[int, int] = {}
+        if zero is not None and zero.stage >= 3:
+            self._split = {id(p): ax for p, ax in zip(tree_leaves(params), tree_leaves(zero.axes))
+                           if ax is not None}
         # the trainable leaves, in the optimizer's order, and the micro-batch loss
         self.leaves = self.opt.trainable_leaves(params)
         for p in self.leaves:
             p.requires_grad_(True)
-        self.loss_fn = make_loss_fn(train_cfg, vlm_cfg, self.device)
+        self.loss_fn = make_loss_fn(train_cfg, vlm_cfg, self.device, mesh)
         self.history: List[Dict[str, Any]] = []
         self.meter = ThroughputMeter()
-        self.train_log = TrainLogWriter(proj_dir, run_config={"train": vars(train_cfg)},
-                                        wandb_project=train_cfg.wandb_project)
-        log.info("trainer: %s on %s, WKV mode %s, grad_cp %r", vlm_cfg.rwkv.version, self.device,
-                 get_wkv_impl(), train_cfg.grad_cp)
+        self.train_log = (TrainLogWriter(proj_dir, run_config={"train": vars(train_cfg)},
+                                         wandb_project=train_cfg.wandb_project)
+                          if self.rank0 else None)
+        log.info("trainer: %s on %s, WKV mode %s, grad_cp %r, mesh data=%d seq=%d, zero_stage %d",
+                 vlm_cfg.rwkv.version, self.device, get_wkv_impl(), train_cfg.grad_cp,
+                 self.n_data, self.n_seq, train_cfg.zero_stage)
 
     @property
     def params(self) -> Params:
+        """The live parameter tree (under ZeRO-3 each rank's parts:
+        :meth:`full_params` gathers them)."""
         return self.state.params
+
+    # -- ZeRO-3 gathers ----------------------------------------------------
+
+    def _gather_tree(self, tree):
+        """``tree`` with every ZeRO-3 part replaced by its differentiable
+        gather (the other leaves as they are)."""
+        seq_group = axis_group(self.mesh, "seq") if self.n_seq > 1 else None
+        return tree_map(lambda t: t if id(t) not in self._split
+                        else gather_leaf(t, self._split[id(t)], self.zero.group, seq_group), tree)
+
+    def _gathered_outside_blocks(self, params: Params) -> Params:
+        """Every part gathered but the LM blocks' of the families whose
+        blocks gather their own (``parallel.zero.materialize``)."""
+        own = self.vlm_cfg.rwkv.version in ("x070", "x060")
+        out = {k: self._gather_tree(v) for k, v in params.items() if k != "rwkv"}
+        out["rwkv"] = {k: v if own and k == "blocks" else self._gather_tree(v)
+                       for k, v in params["rwkv"].items()}
+        return out
+
+    @torch.no_grad()
+    def _whole(self, tree, of_params: bool):
+        """``tree`` (the parameters, or a tree of optimizer state shaped like
+        them) with each split leaf gathered whole; every rank must call it."""
+        z = self.zero
+        if z is None or (of_params and z.stage < 3):
+            return tree
+        return tree_map(lambda t, ax: t if t is None or ax is None else all_gather_along(t, ax, z.group),
+                        tree, z.axes)
+
+    def full_params(self) -> Params:
+        """The whole parameter tree (a collective under ZeRO-3)."""
+        return self._whole(self.state.params, of_params=True)
+
+    # -- the step ----------------------------------------------------------
+
+    def _plan(self, input_ids) -> LeftpadPlan:
+        """The leftpad plan of the whole step's rows: under data parallelism
+        made from every data rank's token ids, as one device would."""
+        ids = np.asarray(input_ids.detach().cpu() if isinstance(input_ids, Tensor) else input_ids)
+        if self.n_data > 1:
+            every = [None] * self.n_data
+            dist.all_gather_object(every, ids, group=axis_group(self.mesh, "data"))
+            ids = np.concatenate(every)
+        return leftpad_plan(ids, self.vlm_cfg.num_token_per_image, self.vlm_cfg.rwkv.ctx_len)
+
+    def loss_and_reduced_grads(self, batch: Dict[str, Any]) -> Tuple[Tensor, List[Tensor]]:
+        """The step's loss and the gradients of :attr:`leaves` (under ZeRO-3
+        a split leaf's gradient is this rank's part), reduced over the mesh:
+        summed over the seq ranks, averaged over the data ranks."""
+        loss_fn = self.loss_fn
+        if self.vlm_cfg.insertion_mode == "leftpad" and self.n_seq == 1:  # one plan for the batch
+            plan = self._plan(batch["input_ids"])
+            loss_fn = lambda params, micro: self.loss_fn(params, micro, plan)
+        if self.n_seq > 1:
+            batch = dict(batch, labels=shift_labels(batch["labels"]))
+        if self._split:
+            inner = loss_fn
+            loss_fn = lambda params, micro: inner(self._gathered_outside_blocks(params), micro)
+        with gathering(self._gather_tree if self._split else None):
+            loss, grads = loss_and_grads(loss_fn, self.state.params, self.leaves, batch,
+                                         self.cfg.accumulate_grad_batches)
+        if self.mesh is not None:  # once a step: sum over every rank, mean over the data ranks
+            whole = [g for g, p in zip(grads, self.leaves) if id(p) not in self._split]
+            reduce_gradients(whole, dist.group.WORLD, divide=self.n_data)
+        return loss, grads
 
     def train_step(self, batch: Dict[str, Any]) -> Tensor:
         """One step on ``batch`` (``input_ids`` and ``labels`` [A*B, T],
         optional per-tower ``images`` [A*N_img, H, W, 3]; A =
-        ``accumulate_grad_batches``). Returns the loss (a 0-d tensor on the
-        device; the caller decides when to wait for it)."""
-        loss_fn = self.loss_fn
-        if self.vlm_cfg.insertion_mode == "leftpad":  # one plan for the batch's micro-batches
-            plan = leftpad_plan(batch["input_ids"], self.vlm_cfg.num_token_per_image,
-                                self.vlm_cfg.rwkv.ctx_len)
-            loss_fn = lambda params, micro: self.loss_fn(params, micro, plan)
-        loss, grads = loss_and_grads(loss_fn, self.state.params, self.leaves, batch,
-                                     self.cfg.accumulate_grad_batches)
+        ``accumulate_grad_batches``; under a mesh this process's rows,
+        whole along T). Returns the loss (a 0-d tensor on the device, the
+        mean over the data ranks; the caller decides when to wait for it)."""
+        loss, grads = self.loss_and_reduced_grads(batch)
         if self._streamed is not None:
             self._streamed.step(self.state.params, grads)
         else:
@@ -199,40 +357,60 @@ class Trainer:
                 now = time.perf_counter()
                 rate = tokens / max(now - t_prev, 1e-9)  # since the last logged step
                 t_prev, tokens = now, 0
-                lr = self.opt.lr(self.state.opt_state.count - 1)
-                log.info("epoch %d step %d/%d loss %.4f exp(loss) %.3f lr %.3e tok/s %.0f",
-                         epoch, s, cfg.epoch_steps, last_loss, math.exp(min(last_loss, 20)), lr, rate)
-                self.history.append({"epoch": epoch, "step": s, "loss": last_loss, "lr": lr,
-                                     "token/s": rate})
-                self.train_log.log_step({"loss": last_loss, **rates})
-        lr_now = cosine_warmup_lr(self.state.step, cfg.lr_init, cfg.lr_final, cfg.warmup_steps,
-                                  self.total_steps)
-        self.train_log.log_epoch(epoch, last_loss, lr_now)
+                if self.rank0:
+                    lr = self.opt.lr(self.state.opt_state.count - 1)
+                    log.info("epoch %d step %d/%d loss %.4f exp(loss) %.3f lr %.3e tok/s %.0f",
+                             epoch, s, cfg.epoch_steps, last_loss, math.exp(min(last_loss, 20)), lr,
+                             rate)
+                    self.history.append({"epoch": epoch, "step": s, "loss": last_loss, "lr": lr,
+                                         "token/s": rate})
+                    self.train_log.log_step({"loss": last_loss, **rates})
+        if self.rank0:
+            lr_now = cosine_warmup_lr(self.state.step, cfg.lr_init, cfg.lr_final, cfg.warmup_steps,
+                                      self.total_steps)
+            self.train_log.log_epoch(epoch, last_loss, lr_now)
         return last_loss
 
+    # -- checkpoints -------------------------------------------------------
+
     def save_checkpoint(self, path: str, with_optimizer: bool = True) -> None:
-        """Parameters, step and (for a true resume) the optimizer state."""
-        payload = {"params": tree_map(lambda p: p.detach(), self.state.params),
+        """Parameters, step and (for a true resume) the optimizer state, in
+        the one-process format: under a mesh the ZeRO parts are gathered
+        (every rank must call this) and rank 0 writes the file."""
+        payload = {"params": tree_map(lambda p: p.detach(), self.full_params()),
                    "step": self.state.step}
         if with_optimizer:
             st = self._streamed.opt_state if self._streamed is not None else self.state.opt_state
-            payload["opt_state"] = st.state_dict()
-        torch.save(payload, path)
+            payload["opt_state"] = dict(st.state_dict(), **{
+                name: self._whole(getattr(st, name), of_params=False)
+                for name in ("mu", "nu", "master")})
+        if self.rank0:
+            torch.save(payload, path)
+        if dist.is_initialized():
+            dist.barrier()
 
     def load_checkpoint(self, path: str) -> None:
         """Restore into the live trees (same configuration as the run that
         saved it); a checkpoint without optimizer state restores the weights.
-        An offloaded optimizer's state goes back into its host buffers."""
+        An offloaded optimizer's state goes back into its host buffers;
+        under ZeRO each rank takes its part of the split leaves."""
         where = "cpu" if self._streamed is not None else self.device
         payload = torch.load(path, map_location=where, weights_only=True)
-        copy = lambda dst, src: dst if dst is None else dst.copy_(src)
+        z = self.zero
+
+        def copy_parts(dst_tree, src_tree, split: bool):
+            if z is None or not split:
+                return tree_map(lambda d, s: d if d is None else d.copy_(s), dst_tree, src_tree)
+            return tree_map(lambda d, s, ax: d if d is None else d.copy_(s if ax is None else z.part(s, ax)),
+                            dst_tree, src_tree, z.axes)
+
         with torch.no_grad():
-            tree_map(copy, self.state.params, payload["params"])
+            copy_parts(self.state.params, payload["params"], z is not None and z.stage >= 3)
             if "opt_state" in payload and self._streamed is not None:
                 self._streamed.opt_state = payload["opt_state"]
             elif "opt_state" in payload:
                 st, saved = self.state.opt_state, payload["opt_state"]
                 for name in ("mu", "nu", "master"):
-                    tree_map(copy, getattr(st, name), saved[name])
+                    copy_parts(getattr(st, name), saved[name], True)
                 st.count = int(saved["count"])
         self.state.step = int(payload["step"])
