@@ -45,6 +45,9 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
 - ``wkv7_v2``: the chunk-batched forward K16 at ``check_wkv7_v2``'s cases
   (``V2_CASES``): device and eager time, each phase alone where the side's
   wrappers offer ``wkv7_fwd_v2_phase`` (else null), and the outputs' digest;
+- ``wkv4``: the RWKV-4 forward K17 at ``chip_smoke.WKV4_CASES`` and its VJP
+  K18 at ``chip_smoke.WKV4_BWD_CASES`` (the same inputs on both sides):
+  device and eager time and the outputs' digest;
 - ``x070_prefill_profile``: the flagship's B=1 prefill (1024 + 32 tokens,
   fp32 state, after one unprofiled prefill) under the profiler: card busy,
   idle share and device ms by kind (``device_breakdown``);
@@ -56,7 +59,7 @@ sections asked for (default: all of ``SECTIONS``), through its own wrappers:
   gradient pass's card busy time, idle share and K8 / K9 device time.
 
 One ``AB {json}`` line a side (with ptxas's registers and spills of its
-attention, K7 / K8, K9, K5 / K12, K6 / K13, K2 / K4 / K10 and K16 kernels); the card's name and
+attention, K7 / K8, K9, K5 / K12, K6 / K13, K2 / K4 / K10, K16, K17 and K18 kernels); the card's name and
 power limit first.
 """
 
@@ -105,7 +108,7 @@ def k3_times(cs, dev) -> list:
 
 
 SECTIONS = ("k3", "attention_bwd", "sam_grad", "x070", "wkv6", "wkv7", "wkv7_prefill", "wkv7_step",
-            "wkv6_step", "wkv7_v2", "x070_prefill_profile", "x060_serving", "x060_training")
+            "wkv6_step", "wkv7_v2", "wkv4", "x070_prefill_profile", "x060_serving", "x060_training")
 # K7 / K8 / K9 timed: (kernel, B, T, H, stream dtype, initial state,
 # chunk_len), the timed cases of chip_smoke's check_wkv6_fwd (the x060 7B
 # prefill) and check_wkv6_train (the 1.6B training step; K7 at the same
@@ -322,6 +325,35 @@ def wkv7_v2_times(cs, dev) -> list:
     return out
 
 
+def wkv4_times(cs, dev) -> list:
+    """K17 at every case of ``chip_smoke.WKV4_CASES`` and K18 at every case
+    of ``chip_smoke.WKV4_BWD_CASES`` (K18 with cotangents on y and, with an
+    initial state, on the final state) through the tree's own wrappers:
+    device time (CUDA graphs), eager time, ms, and the outputs' digest."""
+    import torch
+
+    from visualrwkv_torch.ops import wkv4_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = []
+    for kernel, cases in (("wkv4_fwd", cs.WKV4_CASES), ("wkv4_bwd", cs.WKV4_BWD_CASES)):
+        for B, T, C, dname, big_k, with_state in cases:
+            w, u, k, v, s0 = cs._wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev)
+            if kernel == "wkv4_bwd":
+                dy = torch.randn(B, T, C, generator=gen, device=dev)
+                ds = torch.randn(B, C, 3, generator=gen, device=dev) if with_state else None
+                fn = lambda w=w, u=u, k=k, v=v, s0=s0, dy=dy, ds=ds: wkv4_cuda.wkv4_bwd(w, u, k, v, s0, dy, ds)
+            else:
+                fn = lambda w=w, u=u, k=k, v=v, s0=s0: wkv4_cuda.wkv4_fwd(w, u, k, v, s0)
+            case = (f"{kernel} B={B} T={T} C={C} {dname}{' k near 80' if big_k else ''}"
+                    f"{' with state' if with_state else ''}")
+            out.append({"case": case, "digest": digest([x for x in fn() if x is not None]),
+                        "ms": cs.cuda_ms(fn, reps=20), "eager_ms": cs.eager_ms(fn, reps=20)})
+            del fn
+    return out
+
+
 def x070_prefill_profile(cs, dev) -> dict:
     """The flagship's B=1 prefill under the profiler, after one unprofiled
     prefill of the same request: card busy, idle share, device ms by kind."""
@@ -362,7 +394,8 @@ def child(tree: str, sections) -> None:
                          "wkv6_fwd_kernel", "wkv6_bwd_kernel", "wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel",
                          "wkv7_fwd_res_kernel", "wkv7_bwd_state_kernel", "wkv7_bwd_chunk_kernel",
                          "wkv7_step_kernel", "wkv_step_kernel", "wkv7_v2_chunk_kernel",
-                         "wkv7_v2_chunk_f32_kernel", "wkv7_v2_chunk_bf16_kernel", "wkv7_v2_state_kernel")}}
+                         "wkv7_v2_chunk_f32_kernel", "wkv7_v2_chunk_bf16_kernel", "wkv7_v2_state_kernel",
+                         "wkv4_fwd_kernel", "wkv4_bwd_kernel", "wkv4_chunk_fwd_kernel", "wkv4_chunk_bwd_kernel")}}
     if "k3" in sections:
         out["k3"] = k3_times(cs, dev)
     if "attention_bwd" in sections:
@@ -410,6 +443,9 @@ def child(tree: str, sections) -> None:
         torch.cuda.empty_cache()
     if "wkv7_v2" in sections:
         out["wkv7_v2"] = wkv7_v2_times(cs, dev)
+        torch.cuda.empty_cache()
+    if "wkv4" in sections:
+        out["wkv4"] = wkv4_times(cs, dev)
         torch.cuda.empty_cache()
     if "x060_serving" in sections:
         cfg = cs.x060_serving_cfg()

@@ -65,12 +65,14 @@ Phases (any failure exits non-zero; nothing is caught):
    autograd of the floored sequential scan; x060 at ``chunk_len`` 8, 4 and 1
    (the decay floors -10, -20 and -80) through ``ops.wkv6.wkv6``, K7 and, at
    T = 2040 under autograd, K8 + K9, against ``wkv6_plain(..., chunk)``, with
-   K7, K8 and K9 timed at each floor; the RWKV-4 sequence forward K17 at
-   the x040 prefill's shapes (B = 1 and 4, T = 1056, C = 2048; k near 80 on
-   a quarter of the channels; bf16 k, v) against the plain loop
-   (``WKV4_CASES``), and its VJP K18 at those shapes and the v4 adapter's
-   (B = 8, T = 64) against ``wkv4_bwd_plain``, each case logging its plan
-   (``WKV4_BWD_CASES``).
+   K7, K8 and K9 timed at each floor; the RWKV-4 sequence forward K17 (a
+   chunked scan over T) at the x040 prefill's shapes (B = 1 and 4, T =
+   1056, C = 2048; k near 80 on a quarter of the channels; bf16 k, v)
+   against the plain loop in float64 (``WKV4_CASES``), and its VJP K18 at
+   those shapes and the v4 adapter's (B = 8, T = 64) against
+   ``wkv4_bwd_plain`` in float64 (``WKV4_BWD_CASES``), both also at a
+   ragged T, a T shorter than one chunk, T = 0 and an odd C
+   (``WKV4_PATH_CASES``), each case logging its chunk plan.
 3. The flagship VisualRWKV-7 1B5 (RWKV-7 L24 D2048, DINOv2-L + SigLIP-so400m
    @448 + SAM-B @1024, gated-MLP projector, 1024 image tokens) on seeded
    random bf16 weights, through ``InferenceEngine.generate``: one image with
@@ -253,6 +255,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1553,37 +1556,74 @@ def check_wkv6_step_flat(gen, dev):
 # 32 of the flagship's prompt length) at B=1 and B=4 with fp32 k, v (the
 # model passes fp32); k in [78, 82] on every fourth channel, where e^k
 # summed over the steps would overflow fp32 without the max tracking; bf16
-# k, v. Tolerance: relative RMS 1e-5 on y and on the final state, both
-# sides fp32 arithmetic.
+# k, v. Tolerance: relative RMS 1e-5 on y and on the final state against
+# the plain walk (wkv4_plain) in float64 on the same inputs. The kernel is a
+# chunked scan: its sums run in another order than the plain fp32 walk's,
+# and at k near 80 that walk is itself 3.3e-5 from the float64 walk on the
+# final state (every w + pp rounds on pp ~ 80's 7.6e-6 grid, by the same
+# fraction at every step of a channel); the fp32 walk's own distance is
+# logged beside the kernel's.
 WKV4_CASES = ((1, 1056, 2048, "float32", False, False), (4, 1056, 2048, "float32", False, True),
               (1, 1056, 2048, "float32", True, True), (1, 1056, 2048, "bfloat16", False, True))
 WKV4_TOL = 1e-5
+# K17 / K18's paths (held, not timed): a ragged T (1049: the last chunk
+# shorter), a T shorter than one chunk (5), T = 0 (the entering state out,
+# ds0 = ds), and C = 2045 in bf16 (rows not 16-byte aligned: one element a
+# lane; the last channel tile ragged), each with an initial state
+WKV4_PATH_CASES = ((1, 1049, 2048, "float32", True, True), (1, 5, 2048, "float32", False, True),
+                   (2, 0, 2048, "float32", False, True), (2, 1049, 2045, "bfloat16", False, True))
+
+
+def _f64(*xs):
+    """The tensors in float64 (None kept): the plain walks' exact oracle."""
+    return [None if x is None else x.double() for x in xs]
+
+
+def _wkv4_case(B, T, C, dname, big_k, with_state):
+    return (f"B={B} T={T} C={C} {dname} k, v{', k near 80 on every 4th channel' if big_k else ''}, "
+            f"{'with' if with_state else 'no'} initial state")
+
+
+def _wkv4_plan_log(name, plan, kernel):
+    log(f"  {name} plan: {plan['blocks']} blocks {plan['grid']} of {plan['slots']} chunk slots "
+        f"({plan['threads']} threads), {plan['chunks']} chunks of {plan['chunk']} steps in {plan['rounds']} "
+        f"round(s), {plan['smem_bytes']} B shared memory; ptxas "
+        f"{[v for key, v in PTXAS.items() if key[:2] == ('wkv4', kernel)]}")
 
 
 def check_wkv4(gen, dev):
     """K17 (``wkv4_cuda.wkv4_fwd``) against ``ops.wkv4.wkv4_plain`` (the
-    reference's loop over T, on the card) at ``WKV4_CASES``, with its plan
-    logged."""
+    reference's loop over T, on the card, in float64) at ``WKV4_CASES``,
+    timed, and at ``WKV4_PATH_CASES``, with its plan (``wkv4_cuda.fwd_plan``,
+    its shared memory held equal to the library's ``wkv4_smem_bytes``)
+    logged. The plain version is timed in fp32, its working type."""
     import torch
 
     from visualrwkv_torch.ops import wkv4 as pw
     from visualrwkv_torch.ops import wkv4_cuda
 
     out = []
-    for B, T, C, dname, big_k, with_state in WKV4_CASES:
-        case = (f"B={B} T={T} C={C} {dname} k, v{', k near 80 on every 4th channel' if big_k else ''}, "
-                f"{'with' if with_state else 'no'} initial state")
+    for B, T, C, dname, big_k, with_state in WKV4_CASES + WKV4_PATH_CASES:
+        timed = (B, T, C, dname, big_k, with_state) in WKV4_CASES
+        case = _wkv4_case(B, T, C, dname, big_k, with_state)
         w, u, k, v, s0 = _wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev)
-        plan = wkv4_cuda.fwd_plan(B, C)
-        log(f"  wkv4_fwd [{case}] plan: {plan['blocks']} blocks of {plan['threads']} threads, one a (b, c); "
-            f"ptxas {[v for key, v in PTXAS.items() if key[:2] == ('wkv4', 'wkv4_fwd_kernel')]}")
+        plan = wkv4_cuda.fwd_plan(B, T, C, k.dtype)
+        assert plan["smem_bytes"] == wkv4_cuda.kernel_smem_bytes("fwd", k.dtype, plan["slots"], plan["chunk"])
+        _wkv4_plan_log(f"wkv4_fwd [{case}]", plan, "wkv4_chunk_fwd_kernel")
         c = Check("wkv4_fwd", case)
         y, s = wkv4_cuda.wkv4_fwd(w, u, k, v, s0)
-        y_ref, s_ref = pw.wkv4_plain(w, u, k, v, s0)
+        y_ref, s_ref = pw.wkv4_plain(*_f64(w, u, k, v, s0))
+        y32, s32 = pw.wkv4_plain(w, u, k, v, s0)
         torch.cuda.synchronize()
         assert torch.isfinite(y).all() and torch.isfinite(s).all()
-        c.compare("y (fp32)", y, y_ref, WKV4_TOL)
-        c.compare("final state (fp32)", s, s_ref, WKV4_TOL)
+        assert y.shape == (B, T, C) and s.shape == (B, C, 3)
+        if T:
+            c.compare("y (fp32) against the float64 walk", y, y_ref, WKV4_TOL)
+        c.compare("final state (fp32) against the float64 walk", s, s_ref, WKV4_TOL)
+        log(f"  wkv4_fwd [{case}] the plain fp32 walk against the float64 walk: y rel_rms "
+            f"{rel_rms(y32, y_ref) if T else 0.0:.3e}, final state {rel_rms(s32, s_ref):.3e}")
+        if not timed:
+            continue
         fn = lambda: wkv4_cuda.wkv4_fwd(w, u, k, v, s0)
         k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
         p_ms = cuda_ms(lambda: pw.wkv4_plain(w, u, k, v, s0), reps=1, warmup=1)
@@ -1597,8 +1637,8 @@ def check_wkv4(gen, dev):
 # K18's cases: WKV4_CASES (the x040 prefill's shapes) and the v4 adapter's
 # LM input (phase 13e: B=8, 32 queries + 32 caption tokens, fp32 k, v as the
 # model passes them). Tolerance: relative RMS of each gradient against
-# wkv4_bwd_plain on the card, both fp32 arithmetic in the same order; the
-# kernel may contract a product and a sum into one fma, and dw / du sum
+# wkv4_bwd_plain in float64 on the card (as K17's: at k near 80 the plain
+# fp32 walk's dw is 4.4e-4 from it, logged beside the kernel's); dw / du sum
 # B * T terms with cancellation, so the limit is 1e-4, not K17's 1e-5.
 WKV4_BWD_CASES = WKV4_CASES + ((8, 64, 2048, "float32", False, False),)
 WKV4_BWD_TOL = 1e-4
@@ -1612,7 +1652,7 @@ def _wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev):
     k = torch.randn(B, T, C, generator=gen, device=dev)
     v = torch.randn(B, T, C, generator=gen, device=dev)
     if big_k:
-        k[..., ::4] = 78 + 4 * torch.rand(B, T, C // 4, generator=gen, device=dev)
+        k[..., ::4] = 78 + 4 * torch.rand(B, T, (C + 3) // 4, generator=gen, device=dev)
     dt = getattr(torch, dname)
     k, v = k.to(dt), v.to(dt)
     s0 = None
@@ -1625,37 +1665,50 @@ def _wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev):
 
 def check_wkv4_bwd(gen, dev):
     """K18 (``wkv4_cuda.wkv4_bwd``) against ``ops.wkv4.wkv4_bwd_plain`` (the
-    same reverse walk in torch, on the card) at ``WKV4_BWD_CASES``, with
-    cotangents on y and, with an initial state, on the final state too; its
-    plan logged. The bound counts k, v and dy read and dk, dv written once
-    (w, u, the states and the dw / du partials besides); the workspace of
-    recomputed states is the kernel's own traffic, not the function's."""
+    same reverse walk in torch, on the card, in float64) at
+    ``WKV4_BWD_CASES``, timed, and at ``WKV4_PATH_CASES``, with cotangents on
+    y and, with an initial state, on the final state too; its plan
+    (``wkv4_cuda.bwd_plan``) and workspace logged. The bound counts k, v and
+    dy read and dk, dv written once (w, u, the states and the dw / du
+    partials besides); the workspace of chunk states is the kernel's own
+    traffic, not the function's."""
     import torch
 
     from visualrwkv_torch.ops import wkv4 as pw
     from visualrwkv_torch.ops import wkv4_cuda
 
     out = []
-    for B, T, C, dname, big_k, with_state in WKV4_BWD_CASES:
-        case = (f"B={B} T={T} C={C} {dname} k, v{', k near 80 on every 4th channel' if big_k else ''}, "
-                f"{'with' if with_state else 'no'} initial state")
+    for B, T, C, dname, big_k, with_state in WKV4_BWD_CASES + WKV4_PATH_CASES:
+        timed = (B, T, C, dname, big_k, with_state) in WKV4_BWD_CASES
+        case = _wkv4_case(B, T, C, dname, big_k, with_state)
         w, u, k, v, s0 = _wkv4_inputs(gen, B, T, C, dname, big_k, with_state, dev)
         dy = torch.randn(B, T, C, generator=gen, device=dev)
         ds = torch.randn(B, C, 3, generator=gen, device=dev) if with_state else None
-        plan = wkv4_cuda.fwd_plan(B, C)
-        log(f"  wkv4_bwd [{case}] plan: {plan['blocks']} blocks of {plan['threads']} threads, one a (b, c), "
-            f"workspace {B * T * 3 * C * 4 / 2**20:.1f} MiB; ptxas "
-            f"{[v for key, v in PTXAS.items() if key[:2] == ('wkv4', 'wkv4_bwd_kernel')]}")
+        plan = wkv4_cuda.bwd_plan(B, T, C, k.dtype)
+        assert plan["smem_bytes"] == wkv4_cuda.kernel_smem_bytes("bwd", k.dtype, plan["slots"], plan["chunk"])
+        _wkv4_plan_log(f"wkv4_bwd [{case}]", plan, "wkv4_chunk_bwd_kernel")
+        ws_mib = math.prod(plan["workspace"]) * 4 / 2**20
+        log(f"  wkv4_bwd [{case}] workspace {plan['workspace']} = {ws_mib:.3f} MiB "
+            f"(the first form's [B, T, 3, C]: {B * T * 3 * C * 4 / 2**20:.1f} MiB)")
         c = Check("wkv4_bwd", case)
         got = wkv4_cuda.wkv4_bwd(w, u, k, v, s0, dy, ds)
-        ref = pw.wkv4_bwd_plain(w, u, k, v, s0, dy, ds)
+        ref = pw.wkv4_bwd_plain(*_f64(w, u, k, v, s0, dy, ds))
+        ref32 = pw.wkv4_bwd_plain(w, u, k, v, s0, dy, ds)
         torch.cuda.synchronize()
-        for name, g, r in zip(("dw", "du", "dk", "dv", "d initial state"), got, ref):
+        fp32_errs = []
+        for name, g, r, r32 in zip(("dw", "du", "dk", "dv", "d initial state"), got, ref, ref32):
             if r is None:
                 assert g is None
                 continue
-            assert torch.isfinite(g).all(), name
-            c.compare(f"{name} (fp32)", g, r, WKV4_BWD_TOL)
+            assert torch.isfinite(g).all() and g.shape == r.shape, name
+            if r.numel() and r.abs().max() > 0:
+                c.compare(f"{name} (fp32) against the float64 walk", g, r, WKV4_BWD_TOL)
+                fp32_errs.append(f"{name} {rel_rms(r32, r):.3e}")
+            else:  # T = 0: zero sums, no steps
+                assert torch.equal(g, r.float()), name
+        log(f"  wkv4_bwd [{case}] the plain fp32 walk against the float64 walk: {', '.join(fp32_errs)}")
+        if not timed:
+            continue
         fn = lambda: wkv4_cuda.wkv4_bwd(w, u, k, v, s0, dy, ds)
         k_ms, k_eager = cuda_ms(fn), eager_ms(fn)
         p_ms = cuda_ms(lambda: pw.wkv4_bwd_plain(w, u, k, v, s0, dy, ds), reps=1, warmup=1)
@@ -1663,7 +1716,8 @@ def check_wkv4_bwd(gen, dev):
         # written; with a state, s0 and ds read and ds0 written
         nbytes = 2 * B * T * C * k.element_size() + 3 * B * T * C * 4 + 4 * C * 4 + (36 * B * C if with_state else 0)
         ops = 60 * B * T * C  # a step: the update again, then 6 exp (~4 operations each), 2 divides, ~30 others
-        out.append(dict(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager), plan=plan))
+        out.append(dict(c.record(k_ms, p_ms, None, nbytes, ops, FP32_FLOPS, k_eager), plan=plan,
+                        workspace_mib=ws_mib))
     return out
 
 
@@ -2455,9 +2509,9 @@ def _category(kernel_name: str) -> str:
         return "K15 attention_bwd_dkv"
     if "wkv7_v2_" in n:  # both launches of K16
         return "K16 wkv7_fwd_v2"
-    if "wkv4_fwd_kernel" in n:
+    if "wkv4_chunk_fwd_kernel" in n:
         return "K17 wkv4_fwd"
-    if "wkv4_bwd_kernel" in n:
+    if "wkv4_chunk_bwd_kernel" in n:
         return "K18 wkv4_bwd"
     if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")):
         return "matmul (cuBLAS)"
@@ -5267,7 +5321,7 @@ def main(argv=None) -> int:
     want16 |= {("wkv7_v2", "wkv7_v2_state_kernel", (1, 1, cols, 3)) for cols in (16, 32, 64)}
     assert set(k16) == want16, f"K16: ptxas reported {sorted(k16)}, not {sorted(want16)}"
     assert not any(v.get("spill_bytes", 0) for v in k16.values()), f"a K16 instantiation spills: {k16}"
-    for kname, kernel in (("K17", "wkv4_fwd_kernel"), ("K18", "wkv4_bwd_kernel")):
+    for kname, kernel in (("K17", "wkv4_chunk_fwd_kernel"), ("K18", "wkv4_chunk_bwd_kernel")):
         k4 = {key: v for key, v in PTXAS.items() if key[:2] == ("wkv4", kernel)}
         assert len(k4) == 2, f"{kname}: ptxas reported {sorted(k4)}, not 2 dtypes"
         assert not any(v.get("spill_bytes", 0) for v in k4.values()), f"a {kname} instantiation spills: {k4}"

@@ -12,7 +12,7 @@ through ``csrc/wkv7_train.cu``), the WKV7 decode steps K2 / K4
 (``csrc/wkv_step.cuh``, built through ``csrc/wkv7.cu``) or the WKV6 decode
 step K10 (the same body, built through ``csrc/wkv6.cu``) or the chunk-batched
 WKV7 forward K16 (``csrc/wkv7_v2.cu``) or the RWKV-4 sequence forward K17
-(``csrc/wkv4.cu``).
+(``csrc/wkv4.cu``) and its VJP K18.
 
     python3 chip_variants.py                       # every variant of K3 in VARIANTS
     python3 chip_variants.py base stages2          # some of them
@@ -24,7 +24,7 @@ WKV7 forward K16 (``csrc/wkv7_v2.cu``) or the RWKV-4 sequence forward K17
     python3 chip_variants.py --wkv7step [names]    # K2 / K4: WKV7STEP_VARIANTS
     python3 chip_variants.py --wkv6step [names]    # K10: WKV6STEP_VARIANTS
     python3 chip_variants.py --v2 [names]          # K16: V2_VARIANTS
-    python3 chip_variants.py --wkv4 [names]        # K17: WKV4_VARIANTS
+    python3 chip_variants.py --wkv4 [names]        # K17 and K18: WKV4_VARIANTS
 
 A variant is the source with text substitutions (each names the design
 choice it undoes, or the part of the work it leaves out). Each is compiled
@@ -50,8 +50,10 @@ L2-cold, each exact variant held against the plain step (y <= 1e-3, the
 new state 1e-3 fp32, 1e-2 bf16); or K10 at ``WKV6STEP_CASES`` in the same
 way; or K16 at ``V2_CASES``, whole and each phase alone, each exact variant
 held against ``wkv7_v2_plain`` (y and the final state <= 1e-2 with bf16
-streams, 1e-3 with fp32); or K17 at ``WKV4_VARIANT_CASES``, each exact
-variant held against ``wkv4_plain`` (y and the final state <= 1e-5). The
+streams, 1e-3 with fp32); or K17 at ``WKV4_VARIANT_CASES`` and K18 at
+``WKV4_BWD_VARIANT_CASES``, each exact variant held against ``wkv4_plain``
+/ ``wkv4_bwd_plain`` in float64 (y and the final state <= 1e-5, the
+gradients <= 1e-4), its plan constants set on ``wkv4_cuda`` for its turn. The
 card's name and power limit come first, the SDPA forward's time
 at each no-bias case next (K3), and one ``VARIANT {json}`` line a variant
 last (its times in turn order).
@@ -403,20 +405,37 @@ WKV6STEP_VARIANTS = {
 }
 # K10 timed: (kernel, B, state dtype) at H=64, L2-hot and L2-cold
 WKV6STEP_CASES = tuple(("wkv6_step", B, dname) for B in (1, 4, 32) for dname in ("float32", "bfloat16"))
-# K17: name -> ([(text in wkv4.cu, replacement)], None, exact): steps of k
-# and v loaded ahead of the walk (PREFETCH; the base 1: the next step's), and
-# "fast_math", the exps and the divide on the approximate special-function
-# unit (__expf, __fdividef: another rounding; its error is printed, not held)
-_PREFETCH = "constexpr int PREFETCH = 1;"
+# K17 / K18: name -> ([(text in wkv4.cu, replacement)], {wkv4_cuda plan
+# constant: value} or None, exact). The chunk slots a block at most and the
+# steps a chunk at most (so the chunk length and the rounds at T = 1056:
+# "slots32" K17 32 chunks of 33 steps in one round, K18 16 slots; "chunk8"
+# K17 three rounds of 64 chunks of 6, K18 five rounds of 32 of 7), the steps
+# a slot at least at small T ("min_chunk2", "min_chunk4": the adapter's B=8
+# T=64 in 32 chunks of 2, or 16 of 4, in place of 8 of 8), the channels a
+# block ("ch8", "ch32":
+# CH, so two slots a warp become four or one), "no_cp_async" (k, v, dy staged
+# one element a lane, with plain loads) and "fast_math" (the exps and K17's
+# divide on the approximate special-function unit: another rounding; its
+# error is printed, not held)
+_CH = "constexpr int CH = 16;"
 WKV4_VARIANTS = {
     "base": ([], None, True),
-    **{f"prefetch{n}": ([(_PREFETCH, f"constexpr int PREFETCH = {n};")], None, True) for n in (4, 8, 16, 32)},
+    "slots32": ([], {"FWD_SLOTS": 32, "FWD_MAX_CHUNK": 40, "BWD_SLOTS": 16, "BWD_MAX_CHUNK": 24}, True),
+    "chunk8": ([], {"FWD_MAX_CHUNK": 8, "BWD_MAX_CHUNK": 8}, True),
+    "min_chunk2": ([], {"MIN_CHUNK": 2}, True),
+    "min_chunk4": ([], {"MIN_CHUNK": 4}, True),
+    "ch8": ([(_CH, "constexpr int CH = 8;")], {"CHANNELS": 8, "FWD_SLOTS": 128, "BWD_SLOTS": 64}, True),
+    "ch32": ([(_CH, "constexpr int CH = 32;")], {"CHANNELS": 32, "FWD_SLOTS": 32, "BWD_SLOTS": 16}, True),
+    "no_cp_async": ([("const bool tile_vec = vec && f.c0 + CH <= C;", "const bool tile_vec = false;")], None,
+                    True),
     "fast_math": ([("= expf(", "= __expf("),
                    ("(e1 * aa + e2 * vt) / (e1 * bb + e2)", "__fdividef(e1 * aa + e2 * vt, e1 * bb + e2)")],
                   None, False),
 }
-# K17 timed: (B, T, C, k/v dtype) of the x040 prefill, fp32 as the model passes them
+# K17 timed: (B, T, C, k/v dtype) of the x040 prefill, fp32 as the model
+# passes them; K18 timed: those and the v4 adapter's B=8 T=64
 WKV4_VARIANT_CASES = ((1, 1056, 2048, "float32"), (4, 1056, 2048, "float32"))
+WKV4_BWD_VARIANT_CASES = WKV4_VARIANT_CASES + ((8, 64, 2048, "float32"),)
 # K16: name -> ([(text in wkv7_v2.cu, replacement)], None, exact): phase 2's
 # value columns a block (with bf16 streams chosen by the blocks to reach,
 # V2_BLOCKS; V2_COLS_F32 with fp32 streams), its chunks of operands in flight
@@ -733,9 +752,11 @@ def time_step(names, libs, dev, family=7) -> int:
 
 
 def time_wkv4(names, libs, dev) -> int:
-    """K17 at ``WKV4_VARIANT_CASES`` under each variant, in turns, each
-    exact variant held against ``wkv4_plain`` (y and the final state
-    relative RMS <= 1e-5)."""
+    """K17 at ``WKV4_VARIANT_CASES`` and K18 at ``WKV4_BWD_VARIANT_CASES``
+    under each variant, in turns (each variant's plan constants set on
+    ``wkv4_cuda`` for its turn), each exact variant held against the plain
+    walks in float64 (y and the final state relative RMS <= 1e-5, every
+    gradient <= 1e-4); each case's chunk plan printed."""
     import torch
 
     import chip_smoke as cs
@@ -745,23 +766,42 @@ def time_wkv4(names, libs, dev) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    f64 = lambda xs: [None if x is None else x.double() for x in xs]
     cases = []
-    for B, T, C, dname in WKV4_VARIANT_CASES:
-        w = -torch.exp(torch.rand(C, generator=gen, device=dev) * 8 - 5)
-        u = torch.randn(C, generator=gen, device=dev) * 0.5
-        k, v = (torch.randn(B, T, C, generator=gen, device=dev).to(getattr(torch, dname)) for _ in range(2))
-        cases.append((f"B={B} T={T} C={C} {dname}", (w, u, k, v), pw.wkv4_plain(w, u, k, v)))
+    for kernel, case_list in (("wkv4_fwd", WKV4_VARIANT_CASES), ("wkv4_bwd", WKV4_BWD_VARIANT_CASES)):
+        for B, T, C, dname in case_list:
+            w, u, k, v, s0 = cs._wkv4_inputs(gen, B, T, C, dname, False, B > 1, dev)
+            if kernel == "wkv4_bwd":
+                dy = torch.randn(B, T, C, generator=gen, device=dev)
+                ds = None if s0 is None else torch.randn(B, C, 3, generator=gen, device=dev)
+                xs = (w, u, k, v, s0, dy, ds)
+                ref, tol = pw.wkv4_bwd_plain(*f64(xs)), 1e-4
+            else:
+                xs = (w, u, k, v, s0)
+                ref, tol = pw.wkv4_plain(*f64(xs)), 1e-5
+            cases.append((f"{kernel} B={B} T={T} C={C} {dname}", getattr(wkv4_cuda, kernel), xs, ref, tol))
+    consts = ("CHANNELS", "FWD_SLOTS", "BWD_SLOTS", "FWD_MAX_CHUNK", "BWD_MAX_CHUNK", "MIN_CHUNK")
+    saved = {c: getattr(wkv4_cuda, c) for c in consts}
     times = {n: {c[0]: [] for c in cases} for n in names}
-    for name in names + names[::-1]:
+    for turn, name in enumerate(names + names[::-1]):
         cuda_build._LIBS["wkv4"] = libs[name]
-        for case, xs, (y_ref, s_ref) in cases:
-            y, s = wkv4_cuda.wkv4_fwd(*xs)
+        for c, val in {**saved, **(WKV4_VARIANTS[name][1] or {})}.items():
+            setattr(wkv4_cuda, c, val)
+        for case, fn, xs, ref, tol in cases:
+            if turn < len(names):
+                B, T, C = xs[2].shape
+                plan = (wkv4_cuda.fwd_plan if fn is wkv4_cuda.wkv4_fwd else wkv4_cuda.bwd_plan)(B, T, C)
+                print(f"  {name} [{case}] plan {plan}", flush=True)
+            got = [g for g in fn(*xs) if g is not None]
             torch.cuda.synchronize()
-            e_y, e_s = cs.rel_rms(y, y_ref), cs.rel_rms(s, s_ref)
-            print(f"  {name} [{case}] y rel_rms {e_y:.3e}, final state {e_s:.3e}", flush=True)
+            errs = [cs.rel_rms(g, r) for g, r in zip(got, [r for r in ref if r is not None])]
+            if turn < len(names):
+                print(f"  {name} [{case}] rel_rms against the float64 walk {['%.3e' % e for e in errs]}", flush=True)
             if WKV4_VARIANTS[name][2]:
-                assert e_y <= 1e-5 and e_s <= 1e-5, (name, case, e_y, e_s)
-            times[name][case].append(cs.cuda_ms(lambda xs=xs: wkv4_cuda.wkv4_fwd(*xs)))
+                assert max(errs) <= tol, (name, case, errs)
+            times[name][case].append(cs.cuda_ms(lambda fn=fn, xs=xs: fn(*xs)))
+    for c, val in saved.items():
+        setattr(wkv4_cuda, c, val)
     for name in names:
         print("VARIANT " + json.dumps({"name": name, "ms": times[name]}), flush=True)
     return 0
