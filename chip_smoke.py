@@ -239,6 +239,26 @@ Phases (any failure exits non-zero; nothing is caught):
    its send / receive (the ring's and the halos' ``ppermute``) aborts the
    process (``PERF.md`` §6, multi-GPU).
 
+17. Tensor parallelism over ``model`` and the offloaded optimizer over data
+   ranks (after phase 16, before phase 15): (a) K5 + K6 (bf16 and fp32
+   streams) and K8 + K9 at B=2 T=2048 on 16 of 32 heads, bit-equal to the
+   same heads of the 32-head call (y, the final state, the chunk states,
+   every gradient); (b) two processes of this script (``--phase17_child``)
+   in a gloo group on the one card, ``Trainer(mesh=make_mesh(n_model=2))``
+   on phase 4's 1B5 and batches (the output and value projections given
+   seeded noise) for ``PHASE17_STEPS`` steps against the one-process
+   ``Trainer`` run first in this process: each step's loss within
+   ``TP_LOSS_TOL``, each trainable leaf's first-step gradient (a split
+   leaf's part against that part) within ``TP_GRAD_TOL``, each rank's
+   launches those of phase 4's path (K5 / K6 on its 16 heads); (c) two such
+   processes at ``make_mesh(n_data=2)`` with ``offload_optimizer`` on the
+   1B5 cut to ``OFFLOAD17_LAYERS`` layers: the losses within
+   ``OFFLOAD17_LOSS_TOL`` of the one-process offloaded ``Trainer``, each
+   trainable leaf's update over the steps (at seeded positions) equal on the
+   two ranks and to the resident ZeRO-1 optimizer's on the same ranks and
+   batches, and each rank's pinned bytes. Gloo stages the card's tensors through the host:
+   the step ms there are no speed claim. A failed process fails the run.
+
 The profiler breakdowns of phases 3-6 (and of a ``grad_cp="wkv"`` step;
 with K2's and K10's device time a B=1 decode step) come after all counted
 runs, each model built again from its seed: once the profiler has been used in a
@@ -253,6 +273,7 @@ beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -4471,7 +4492,7 @@ def run_adapter(cfg, params, seed: int, device):
 # ---------------------------------------------------------------------------
 
 
-EVAL_QUESTIONS = 8
+EVAL_QUESTIONS = 8  # two batches at eval_batch 4, eight at 1
 EVAL_BATCHES = (1, 4)
 EVAL_BUCKET = 64  # one length bucket holds every question of the phase
 EVAL_TEXTS = ("What is in the image?", "Describe this image in detail.", "What color is the object?",
@@ -5201,6 +5222,450 @@ def run_multigpu(seed: int, device):
     return out, by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism over `model` and the offloaded optimizer over
+# data ranks, two gloo processes on the one card
+# ---------------------------------------------------------------------------
+
+PHASE17_STEPS = 2
+# 17(b): the 2 model ranks against the one-process Trainer, both in bf16 on
+# the card: the loss's relative difference a step, and each trainable leaf's
+# first-step gradient's relative rms (a split leaf's part against that part
+# of the one-process gradient). The ranks differ from one process by rounding
+# only: the output and value products and the head's logits are each rank's
+# partial sums, rounded to bf16 before they are added, and a replicated
+# leaf's gradient is the sum of the two ranks' bf16 shares, which cancel in
+# part (the LoRA factors' read 3.6e-2 on the H100, 1.4e-2 at 2 layers on the
+# CPU). A share left out or counted twice reads 0.5 or more. Phase 4 holds
+# its kernels' gradients to 6e-2 against the CPU.
+TP_LOSS_TOL = 2e-3
+TP_GRAD_TOL = 1e-1
+# 17(c): the 1B5 cut to this depth for the offloaded optimizer on 2 data ranks
+OFFLOAD17_LAYERS = 4
+OFFLOAD17_LOSS_TOL = 2e-3
+# 17(c): each trainable leaf's update over the steps (the parameters after
+# them less the seeded init), read at OFFLOAD17_SAMPLES seeded positions of
+# the leaf, bit-equal to the resident ZeRO-1 optimizer's on the same 2 ranks
+# and batches: the same gradients, and the offloaded step runs the resident
+# arithmetic on the card (train/offload.py). A ZeRO part not updated or
+# copied back stale reads ~0.7 relative rms (half the update missing).
+# Against the one-process update the ranks are not held element-wise: the
+# first Adam steps are near lr * sign(g), and behind the zero-initialised
+# LoRA factors (w1, a1, v1) the second step's gradient of w2 / a2 / v2
+# follows the first step's signs, so the data ranks' rounding flips a share
+# of them (0.53 relative rms read on the H100, the resident run alike);
+# those are logged, and the losses held.
+OFFLOAD17_SAMPLES = 16384
+PHASE17_TIMEOUT = 600
+
+
+@contextlib.contextmanager
+def forced_rows(module, name: str, rows: int):
+    """Run the enclosed calls with the kernels of ``module``
+    (``wkv7_cuda`` / ``wkv6_cuda``) laid out ``rows`` value rows a block:
+    the plan's candidate list ``name`` cut to that one."""
+    old = getattr(module, name)
+    setattr(module, name, (rows,))
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def check_head_split(gen, dev):
+    """17(a): K5 + K6 (x070, bf16 and fp32 streams) and K8 + K9 (x060) at the
+    training shape B=2 T=2048, on the last 16 of 32 heads (what a model rank
+    of two runs, with its own plan) against the 32-head call. The plan
+    follows B * H: a block owns 32 value rows of a head at 32 heads and 16 at
+    16 (``FWD_RES_BLOCKS`` / ``FWD_BLOCKS``), and the rows a block owns set
+    the order of the chunk factors' sums. So: with the 32-head call laid out
+    at the half call's rows, y, the final state, the chunk states and every
+    gradient must be bit-equal (the recurrence is per head); against the
+    32-head call on its own plan, the half call must read within the limits
+    that phase 2 holds these kernels to against their plain versions (bf16
+    1e-2 and fp32 1e-3 relative rms). Returns (findings, the half calls'
+    launches)."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.ops import wkv6_cuda, wkv7_cuda
+
+    B, T, H, N = 2, TRAIN_CTX, 32, 64
+    half = slice(H // 2, H)
+    out, launches = {}, {}
+    for family in ("x070", "x060"):
+        for sdt in (torch.bfloat16, torch.float32):
+            if family == "x070":
+                xs, extra = _wkv_streams(gen, (B, T, H, N), sdt, dev), ()
+                mod, rows_name = wkv7_cuda, "FWD_RES_ROWS"
+                rows = wkv7_cuda.fwd_res_plan(B, H // 2, sdt)["rows"]
+                fwd = lambda xs, extra, s0: wkv7_cuda.wkv7_fwd_res(*xs, s0)
+                bwd = lambda xs, extra, zin, dy, ds: wkv7_cuda.wkv7_bwd(*xs, zin, dy, ds)
+                gnames = ("dr", "dw_raw", "dk", "dv", "da", "db")
+            else:
+                xs, u = _wkv6_streams(gen, (B, T, H, N), sdt, dev)
+                extra = (u,)
+                mod, rows_name = wkv6_cuda, "FWD_ROWS"
+                rows = wkv6_cuda.fwd_plan(B, H // 2, sdt)["rows"]
+                fwd = lambda xs, extra, s0: wkv6_cuda.wkv6_fwd_res(*xs, *extra, s0)
+                bwd = lambda xs, extra, zin, dy, ds: wkv6_cuda.wkv6_bwd(*xs, *extra, zin, dy, ds)
+                gnames = ("dr", "dw_raw", "dk", "dv", "du")
+            s0 = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.3
+            dy = (torch.randn(B, T, H, N, generator=gen, device=dev) * 0.5).to(sdt)
+            ds = torch.randn(B, H, N, N, generator=gen, device=dev) * 0.1
+
+            def run(xs, extra, s0, dy, ds):
+                y, s, zin = fwd(xs, extra, s0)
+                return (y, s, zin, *bwd(xs, extra, zin, dy, ds))
+
+            whole = run(xs, extra, s0, dy, ds)
+            with forced_rows(mod, rows_name, rows):
+                same = run(xs, extra, s0, dy, ds)
+            cut = lambda t: t[:, :, half].contiguous()
+            reset_launches()
+            part = run([cut(x) for x in xs], tuple(e[half].contiguous() for e in extra),
+                       s0[:, half].contiguous(), cut(dy), ds[:, half].contiguous())
+            torch.cuda.synchronize()
+            for k, v in cuda_build.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+
+            def heads(name, t):  # the half's heads of a 32-head output
+                if name == "chunk states":
+                    return t.view(B, H, -1, N, N)[:, half].reshape(B * H // 2, -1, N, N)
+                if name in ("final state", "d(initial state)"):
+                    return t[:, half]
+                return t[half] if name == "du" else t[:, :, half]
+
+            names = ("y", "final state", "chunk states", *gnames, "d(initial state)")
+            equal = {n: bool(torch.equal(p, heads(n, w))) for n, p, w in zip(names, part, same)}
+            errs = {n: rel_rms(p.float(), heads(n, w).float()) for n, p, w in zip(names, part, whole)}
+            tol = 1e-2 if sdt == torch.bfloat16 else 1e-3
+            tag = f"{family} {str(sdt)[6:]}"
+            log(f"  17(a) {tag}: heads {half.start}..{H - 1} of {H} alone (B={B} T={T}, {rows} rows a block) "
+                f"against the {H}-head call at {rows} rows: bit-equal {equal}; against the {H}-head call on "
+                f"its own plan ({mod.fwd_res_plan(B, H, sdt)['rows'] if family == 'x070' else mod.fwd_plan(B, H, sdt)['rows']} "
+                f"rows): rel rms {errs} (limit {tol})")
+            assert all(equal.values()), f"17(a) {tag}: the head-split call differs from the whole call at its rows"
+            assert max(errs.values()) <= tol, f"17(a) {tag}: {errs}"
+            out[tag] = {"rows": rows, "bit_equal_at_same_rows": equal, "rel_rms_against_own_plan": errs}
+            del xs, whole, same, part
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _tp_step(trainer, batch, keep_grads: bool):
+    """One step of ``trainer``: (loss, the step's reduced gradients or None).
+    With ``keep_grads``, ``Trainer.train_step``'s two parts, so that the
+    gradients can be read (the resident optimizer only); else
+    ``train_step`` itself."""
+    if not keep_grads:
+        return trainer.train_step(batch), None
+    loss, grads = trainer.loss_and_reduced_grads(batch)
+    trainer.opt.step(trainer.state.params, grads, trainer.state.opt_state, trainer.state.step)
+    trainer.state.step += 1
+    return loss, grads
+
+
+def tp_model(cfg, seed: int, device):
+    """Phase 4's 1B5 from its seed, the output and value projections given
+    seeded noise (at the random init they are zero and no gradient would
+    reach the time-mix's split projections)."""
+    import torch
+
+    params = init_model(cfg, seed, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 17)
+    perturb_zero_projections(params["rwkv"], gen, 1e-2)
+    return params
+
+
+def phase17_child(kind: str, rank: int, world: int, init_file: str, out_dir: str, seed: int,
+                  device="cuda") -> int:
+    """One of the two processes of 17(b) (``kind`` "tp": ``make_mesh(n_model=2)``)
+    or 17(c) ("offload": ``make_mesh(n_data=2)`` with ``offload_optimizer``):
+    joins a gloo group through ``init_file``, runs ``PHASE17_STEPS`` steps of
+    the ``Trainer`` on the card and writes its losses, launches, step ms,
+    peak memory (and, for "tp", its first-step gradients, for "offload" its
+    pinned bytes) to ``out_dir``."""
+    import torch
+
+    from visualrwkv_torch import cuda_build
+    from visualrwkv_torch.parallel import distributed
+    from visualrwkv_torch.parallel.mesh import data_rows, make_mesh
+    from visualrwkv_torch.train.optim import tree_leaves_with_path
+    from visualrwkv_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    distributed.initialize(num_processes=world, process_id=rank, device="cpu", init_method=f"file://{init_file}")
+    cfg = flagship_cfg()
+    batches = [train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100 + i) for i in range(PHASE17_STEPS)]
+    if kind == "tp":
+        mesh = make_mesh(n_data=1, n_model=2)
+        tcfg = train_cfg(PHASE17_STEPS)
+    else:
+        cfg = cfg.replace(rwkv=dataclasses.replace(cfg.rwkv, n_layer=OFFLOAD17_LAYERS))
+        mesh = make_mesh(n_data=2)
+        tcfg = dataclasses.replace(train_cfg(PHASE17_STEPS), micro_bsz=TRAIN_MICRO_BSZ // 2,
+                                   offload_optimizer=True, zero_stage=1)
+        batches = [data_rows(b, mesh) for b in batches]
+    trainer = Trainer(cfg, tcfg, tp_model(cfg, seed, dev), device=dev, proj_dir=TRAIN_LOG_DIR, log_every=1,
+                      mesh=mesh)
+    before = leaf_samples(trainer) if kind == "offload" else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = {"losses": [], "step_ms": []}
+    for i, b in enumerate(batches):
+        (loss, grads), ms = timed(lambda: _tp_step(trainer, b, kind == "tp"))
+        res["losses"].append(float(loss))
+        res["step_ms"].append(ms)
+        if i == 0 and kind == "tp":
+            names = [_name(p) for (p, _), t in zip(tree_leaves_with_path(trainer.params),
+                                                  _leaves_list(trainer.opt.train_mask)) if t]
+            torch.save({n: g.cpu() for n, g in zip(names, grads)}, os.path.join(out_dir, f"grads_{rank}.pt"))
+        del grads
+    res["launches"] = dict(cuda_build.LAUNCHES)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if trainer._streamed is not None:
+        res["pinned_bytes"] = trainer._streamed.pinned_bytes
+    if before is not None:
+        # the same steps with the resident ZeRO-1 optimizer on the same ranks:
+        # the same gradients, so the updates differ by the host's rounding only
+        after = leaf_samples(trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        resident = Trainer(cfg, dataclasses.replace(tcfg, offload_optimizer=False), tp_model(cfg, seed, dev),
+                           device=dev, proj_dir=TRAIN_LOG_DIR, log_every=1, mesh=mesh)
+        for b in batches:
+            resident.train_step(b)
+        torch.save({"after": after, "update": {n: after[n] - before[n] for n in after},
+                    "resident_update": {n: a - before[n] for n, a in leaf_samples(resident).items()}},
+                   os.path.join(out_dir, f"updates_{rank}.pt"))
+    with open(os.path.join(out_dir, f"{kind}_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+    return 0
+
+
+def _leaves_list(tree):
+    from visualrwkv_torch.train.optim import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def leaf_samples(trainer):
+    """Each trainable leaf of ``trainer``'s whole parameters at
+    ``OFFLOAD17_SAMPLES`` positions drawn from a generator seeded by the
+    leaf's place in the tree (the same positions in every process), fp32 on
+    the host, by leaf name."""
+    import torch
+
+    from visualrwkv_torch.train.optim import tree_leaves_with_path
+
+    out = {}
+    whole = trainer.full_params()
+    for i, ((path, t), m) in enumerate(zip(tree_leaves_with_path(whole), _leaves_list(trainer.opt.train_mask))):
+        if not m:
+            continue
+        flat = t.detach().reshape(-1)
+        gen = torch.Generator()
+        gen.manual_seed(1700 + i)
+        idx = torch.randint(0, flat.numel(), (min(OFFLOAD17_SAMPLES, flat.numel()),), generator=gen)
+        out[_name(path)] = flat[idx.to(flat.device)].float().cpu()
+    return out
+
+
+def _spawn_pair(kind: str, seed: int, work: str):
+    """Run the two processes of ``kind`` at once (this script, as
+    :func:`phase17_child`) and return their results; a failed process fails
+    the phase with its output's tail. The parent's cached device memory is
+    freed first: the two processes share the card."""
+    import torch
+
+    torch.cuda.empty_cache()
+    init = os.path.join(work, f"init_{kind}")
+    procs, logs = [], []
+    for rank in range(2):
+        path = os.path.join(work, f"{kind}_{rank}.log")
+        logs.append(path)
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--phase17_child", kind,
+                 str(rank), "2", init, work], cwd=HERE, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PHASE17_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, path in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"17: the {kind} process exited {p.returncode}:\n" + open(path).read()[-6000:])
+    out = []
+    for rank in range(2):
+        with open(os.path.join(work, f"{kind}_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _one_process_steps(cfg, tcfg, seed: int, device, batches, keep_grads: bool):
+    """The one-process ``Trainer`` of 17(b) / 17(c): (losses, step ms, the
+    first step's gradients on the host by leaf name (``keep_grads``), else
+    the update of each trainable leaf's samples (:func:`leaf_samples`),
+    pinned bytes, peak GiB)."""
+    import torch
+
+    from visualrwkv_torch.train.optim import tree_leaves_with_path
+    from visualrwkv_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, tcfg, tp_model(cfg, seed, device), device=device, proj_dir=TRAIN_LOG_DIR,
+                      log_every=1)
+    before = None if keep_grads else leaf_samples(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, ref = [], [], None
+    for i, b in enumerate(batches):
+        (loss, grads), t = timed(lambda: _tp_step(trainer, b, keep_grads))
+        losses.append(float(loss))
+        ms.append(t)
+        if i == 0 and keep_grads:
+            names = [_name(p) for (p, _), m in zip(tree_leaves_with_path(trainer.params),
+                                                  _leaves_list(trainer.opt.train_mask)) if m]
+            ref = {n: g.cpu() for n, g in zip(names, grads)}
+        del grads
+    pinned = trainer._streamed.pinned_bytes if trainer._streamed is not None else None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if before is not None:
+        ref = {n: a - before[n] for n, a in leaf_samples(trainer).items()}
+    del trainer
+    torch.cuda.empty_cache()
+    return losses, ms, ref, pinned, peak
+
+
+def run_phase17(seed: int, device):
+    """Phase 17: (a) :func:`check_head_split`; (b) two gloo processes on the
+    card, ``make_mesh(n_model=2)``, the 1B5 of phase 4 (its towers, its
+    batches) for ``PHASE17_STEPS`` steps against the one-process
+    ``Trainer`` made here first: each step's loss within ``TP_LOSS_TOL``,
+    each trainable leaf's first-step gradient (a split leaf's part against
+    that part) within ``TP_GRAD_TOL`` relative rms, K5 / K6 launched on the
+    16 heads of each rank; (c) two gloo processes at ``make_mesh(n_data=2)``
+    with ``offload_optimizer`` on the 1B5 cut to ``OFFLOAD17_LAYERS`` layers,
+    against the one-process offloaded ``Trainer``: the losses within
+    ``OFFLOAD17_LOSS_TOL``, each trainable leaf's update (at seeded
+    positions) bit-equal on the two ranks and to the resident ZeRO-1
+    optimizer's on the same ranks, and each rank's pinned bytes. The step ms of (b)
+    and (c) are no speed claim: gloo stages the card's tensors through the
+    host. Returns (numbers, launches by path)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from visualrwkv_torch.parallel.mesh import tensor_parallel_axis
+
+    out, by_path, secs = {}, {}, {}
+    t = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 170)
+    out["17a"], by_path["tp_head_split"] = check_head_split(gen, device)
+    secs["17a"] = time.perf_counter() - t
+    work = tempfile.mkdtemp(prefix="phase17_")
+    try:
+        # (b) -------------------------------------------------------------
+        t = time.perf_counter()
+        cfg = flagship_cfg()
+        batches = [train_batch(cfg, TRAIN_MICRO_BSZ, TRAIN_CTX, seed + 100 + i) for i in range(PHASE17_STEPS)]
+        losses, ms, ref, _, peak = _one_process_steps(cfg, train_cfg(PHASE17_STEPS), seed, device, batches, True)
+        ranks = _spawn_pair("tp", seed, work)
+        worst, leaves = {}, 0
+        for rank, r in enumerate(ranks):
+            got = torch.load(os.path.join(work, f"grads_{rank}.pt"), weights_only=True)
+            assert set(got) == set(ref), "17(b): the ranks' trainable leaves differ from one process's"
+            for name, g in got.items():
+                whole = ref[name]
+                ax = tensor_parallel_axis(name.split("."), tuple(whole.shape), 2)
+                want = whole if ax is None else whole.chunk(2, dim=ax)[rank]
+                assert g.shape == want.shape, (name, g.shape, want.shape)
+                e = rel_rms(g.float(), want.float()) if want.float().norm() > 0 else max_abs(g.float(), want.float())
+                worst[name] = max(worst.get(name, 0.0), e)
+                leaves += 1
+            del got
+        loss_err = [max(abs(r["losses"][i] - losses[i]) / abs(losses[i]) for r in ranks) for i in range(len(losses))]
+        top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+        k5, k6 = WKV_KERNELS["x070"][2:]
+        launches = [r["launches"] for r in ranks]
+        log(f"  17(b) 2 model ranks (gloo, one card) against one process: losses {[r['losses'] for r in ranks]} "
+            f"(one process {losses}; rel {loss_err}, limit {TP_LOSS_TOL}); first-step gradients of "
+            f"{len(worst)} leaves, worst rel rms {top} (limit {TP_GRAD_TOL}); step ms "
+            f"{[r['step_ms'] for r in ranks]} (one process {ms}); peak GiB a rank "
+            f"{[round(r['peak_gib'], 2) for r in ranks]} (one process {peak:.2f}); launches {launches}")
+        assert max(loss_err) <= TP_LOSS_TOL and max(worst.values()) <= TP_GRAD_TOL, (loss_err, top)
+        want_launch = expected_launches(cfg, encodes=PHASE17_STEPS, train_micro_batches=PHASE17_STEPS)
+        for r in ranks:
+            assert_launches("17(b) a model rank of the 1B5", r["launches"], want_launch)
+        by_path["tp_model2_rank0"], by_path["tp_model2_rank1"] = launches
+        out["17b"] = {"losses": [r["losses"] for r in ranks], "one_process_losses": losses,
+                      "loss_rel_err": loss_err, "grad_rel_rms_worst": dict(top), "leaves": len(worst),
+                      "step_ms": [r["step_ms"] for r in ranks], "one_process_step_ms": ms,
+                      "peak_gib": [r["peak_gib"] for r in ranks], "one_process_peak_gib": peak,
+                      "k5_k6_launches_a_rank": [(r["launches"].get(k5, 0), r["launches"].get(k6, 0)) for r in ranks]}
+        del ref
+        secs["17b"] = time.perf_counter() - t
+        # (c) -------------------------------------------------------------
+        t = time.perf_counter()
+        cfg_c = cfg.replace(rwkv=dataclasses.replace(cfg.rwkv, n_layer=OFFLOAD17_LAYERS))
+        tcfg = dataclasses.replace(train_cfg(PHASE17_STEPS), offload_optimizer=True)
+        losses, ms, ref, pinned, peak = _one_process_steps(cfg_c, tcfg, seed, device, batches, False)
+        ranks = _spawn_pair("offload", seed, work)
+        loss_err = [max(abs(r["losses"][i] - losses[i]) / abs(losses[i]) for r in ranks) for i in range(len(losses))]
+        got = [torch.load(os.path.join(work, f"updates_{rank}.pt"), weights_only=True) for rank in range(2)]
+        assert all(set(g["update"]) == set(ref) for g in got), "17(c): the ranks' trainable leaves differ"
+        upd, one_upd, resident_one = {}, {}, {}
+        err = lambda g, want: rel_rms(g, want) if want.norm() > 0 else max_abs(g, want)
+        for name, want in ref.items():
+            assert all(torch.equal(g["after"][name], got[0]["after"][name]) for g in got), \
+                f"17(c): the data ranks' {name} differ after the steps"
+            g, res = got[0]["update"][name], got[0]["resident_update"][name]
+            upd[name] = err(g, res)
+            one_upd[name], resident_one[name] = err(g, want), err(res, want)
+            assert all(torch.equal(r["update"][name], r["resident_update"][name]) for r in got), \
+                f"17(c): the offloaded update of {name} is not the resident one's ({upd[name]} rel rms)"
+        top = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:5]
+        worst_upd = top(upd)
+        log(f"  17(c) offload_optimizer on 2 data ranks (gloo, one card), the 1B5 at {OFFLOAD17_LAYERS} layers: "
+            f"losses {[r['losses'] for r in ranks]} (one process {losses}; rel {loss_err}, limit "
+            f"{OFFLOAD17_LOSS_TOL}); pinned bytes a rank {[r['pinned_bytes'] for r in ranks]} (one process "
+            f"{pinned}); step ms {[r['step_ms'] for r in ranks]} (one process {ms}); peak GiB a rank "
+            f"{[round(r['peak_gib'], 2) for r in ranks]} (one process {peak:.2f}); the updates of {len(upd)} "
+            f"leaves at {OFFLOAD17_SAMPLES} positions each, equal on the 2 ranks, worst rel rms against the "
+            f"resident ZeRO-1 optimizer on the same ranks {worst_upd} (bit-equal asserted); not "
+            f"held, against one process: offloaded {top(one_upd)}, resident {top(resident_one)}")
+        assert max(loss_err) <= OFFLOAD17_LOSS_TOL, loss_err
+        assert all(r["pinned_bytes"] < 0.75 * pinned for r in ranks), "17(c): the host state is not split"
+        want_launch = expected_launches(cfg_c, encodes=PHASE17_STEPS, train_micro_batches=PHASE17_STEPS)
+        for r in ranks:
+            assert_launches("17(c) a data rank, offloaded", r["launches"], want_launch)
+        by_path["offload_data2_rank0"], by_path["offload_data2_rank1"] = [r["launches"] for r in ranks]
+        out["17c"] = {"losses": [r["losses"] for r in ranks], "one_process_losses": losses,
+                      "loss_rel_err": loss_err, "pinned_bytes": [r["pinned_bytes"] for r in ranks],
+                      "one_process_pinned_bytes": pinned, "step_ms": [r["step_ms"] for r in ranks],
+                      "one_process_step_ms": ms, "peak_gib": [r["peak_gib"] for r in ranks],
+                      "update_rel_rms_worst": dict(worst_upd), "update_leaves": len(upd),
+                      "update_vs_one_process_worst": dict(top(one_upd)),
+                      "resident_update_vs_one_process_worst": dict(top(resident_one))}
+        secs["17c"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = secs
+    log(f"  phase 17 took {sum(secs.values()):.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out, by_path
+
+
 def build(cfg, seed: int, device):
     import torch
 
@@ -5250,6 +5715,8 @@ def train(cfg, params, device, seed: int, **kw):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # internal: one of phase 17's two processes (kind, rank, world, init file, out dir)
+    ap.add_argument("--phase17_child", nargs=5, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -5261,6 +5728,9 @@ def main(argv=None) -> int:
         print("chip_smoke: visualrwkv_torch/ (with csrc/) must sit beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.phase17_child:
+        kind, rank, world, init_file, out_dir = args.phase17_child
+        return phase17_child(kind, int(rank), int(world), init_file, out_dir, args.seed)
     from visualrwkv_torch import cuda_build
     from visualrwkv_torch.ops.wkv7 import set_wkv_impl
 
@@ -5616,6 +6086,14 @@ def main(argv=None) -> int:
         f"1.6B); the ring of {RING_SHARDS} shards on the card")
     phase16, multigpu_launches = run_multigpu(args.seed, dev)
 
+    # phase 17: tensor parallelism and the offloaded optimizer over data
+    # ranks, two gloo processes on the one card (after phase 16, before 15)
+    log("phase 17: (a) K5 / K6 and K8 / K9 on 16 of 32 heads against the 32-head call (bit for bit at the same "
+        "rows a block); (b) two "
+        f"gloo processes, make_mesh(n_model=2), the 1B5 for {PHASE17_STEPS} steps against one process; (c) two "
+        f"gloo processes, make_mesh(n_data=2), offload_optimizer, the 1B5 at {OFFLOAD17_LAYERS} layers")
+    phase17, tp_launches = run_phase17(args.seed, dev)
+
     # phase 15: the tooling, after every timed phase (its profile_trace
     # leaves the profiler attached), on the 1B5 rebuilt from its seed ---------
     log(f"phase 15: the tooling on the card: (a) kernel_bench {' '.join(KBENCH_ARGV)}; (b) the 1B5 through "
@@ -5680,7 +6158,8 @@ def main(argv=None) -> int:
                   if isinstance(v, dict) and "launches" in v},
                "serving_x060_uhd": uhd_launches,
                **({"training_x060_7b_offloaded": offload7_launches} if offload7_launches else {}),
-               **phase13_launches, **eval_launches, **tooling_launches, **multigpu_launches}
+               **phase13_launches, **eval_launches, **tooling_launches, **multigpu_launches,
+               **tp_launches}
     rows = []
     for name, cases in kernels.items():
         first = dict(cases[0])
@@ -5697,7 +6176,7 @@ def main(argv=None) -> int:
                     "wkv6_ms_by_chunk_len": wkv6_floor_times,
                     "wkv7_v2": v2_run, "phase9": phase9, "dispatch_c3_launches": c3_launches,
                     "phase10": phase10, "phase11": phase11, "phase12": phase12, "phase13": phase13,
-                    "phase14": phase14, "phase15": phase15, "phase16": phase16}))
+                    "phase14": phase14, "phase15": phase15, "phase16": phase16, "phase17": phase17}))
     from visualrwkv_torch.parallel import distributed
 
     distributed.shutdown()

@@ -12,7 +12,13 @@ package.
 Suites: ``seq`` (2 ranks, seq=2: the WKV7 / WKV6 rings, the context-parallel
 forwards, ``training_loss_seq``, the L2Wrap injection), ``data`` (2 ranks,
 data=2: trainer steps at ``zero_stage`` 1 and 3 with checkpoints, a
-``bf16_sr`` step at ``zero_stage`` 0, 1 and 3, the L2Wrap injection), ``mesh4`` (4 ranks, data=2 x seq=2: trainer steps).
+``bf16_sr`` step at ``zero_stage`` 0, 1 and 3, the L2Wrap injection), ``mesh4`` (4 ranks, data=2 x seq=2: trainer steps),
+``tp`` (2 ranks, model=2: the vocab-parallel loss and its L2Wrap injection,
+trainer steps of every ``TP_CASES`` case, a checkpoint, ``bf16_sr``, a head
+count the axis does not divide), ``tp_dm`` (4 ranks, data=2 x model=2: trainer steps at
+``zero_stage`` 0 and 1, and offloaded at 1), ``tp_sm`` (4 ranks, seq=2 x
+model=2: trainer steps), ``offload`` (2 ranks, data=2: offloaded trainer
+steps at ``zero_stage`` 0, 1 and 3).
 """
 
 import os
@@ -31,6 +37,10 @@ from visualrwkv_torch.vision.vit import ViTConfig  # noqa: E402
 SEQ_T = 64
 TRAIN_T = 64
 RING_SHAPE = (2, 64, 2, 32)  # B, T, H, N
+TP_STEPS = 3  # the steps of JAX's 3-D mesh trainer test
+VP_SHAPE = (2, 32, 64, 512)  # B, T, C, V of the vocab-parallel loss cases
+VP_TIE = (5, 300)  # two vocabulary rows made equal, one on each of 2 model ranks
+TP_VOCAB = 2048  # the TP cases' vocabulary: every rank's results fit in a few MB
 L2_SHAPE = (4, 64, 64, 512)  # B, T, C, V
 ZERO_STAGES = (1, 3)
 
@@ -322,9 +332,220 @@ def _sr_runs(out, mesh, cfg, out_dir, rows_per_rank):
         out.update(flat(tr.full_params(), f"sr{zero}/params/"))
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism and the offloaded optimizer over data ranks
+# ---------------------------------------------------------------------------
+
+
+def version_cfg(version: str, **kw) -> VLMConfig:
+    """:func:`train_cfg` with the LM of ``version`` over ``TP_VOCAB`` ids and
+    the ``VLMConfig`` fields ``kw``."""
+    import dataclasses
+
+    cfg = train_cfg()
+    return dataclasses.replace(cfg, rwkv=dataclasses.replace(cfg.rwkv, version=version, vocab_size=TP_VOCAB),
+                               **kw)
+
+
+# case -> (LM version, batches, grad_cp, WKV mode, VLMConfig fields); TP_STEPS steps
+TP_CASES = {
+    "x070_img": ("x070", "img", True, "auto", {}),
+    "x060_txt": ("x060", "txt", True, "auto", {}),
+    "x070_wkv": ("x070", "img", "wkv", "auto", {}),
+    "x070_packed": ("x070", "img", True, "packed", {}),  # H = 2: one head a rank, the head layout
+    "x052_txt": ("x052", "txt", True, "auto", {}),
+    "x040_txt": ("x040", "txt", True, "auto", {}),
+    # VisualRWKV-6 as published: leftpad insertion, the image span reversed on odd blocks
+    "x060_leftpad": ("x060", "leftpad", True, "auto", {"insertion_mode": "leftpad",
+                                                       "bidirectional_image": True}),
+    "x070_bidir": ("x070", "img", True, "auto", {"bidirectional_image": True}),
+    "x070_vtc": ("x070", "img", True, "auto", {"n_vtc_layer": 2}),  # the token compressor's blocks split too
+}
+
+
+def case_cfg(case: str) -> VLMConfig:
+    version, _, _, _, fields = TP_CASES[case]
+    return version_cfg(version, **fields)
+
+
+def case_params(case: str):
+    """:func:`model_params` of the case's model (with the token compressor:
+    noisy copies of the LM's first blocks)."""
+    cfg = case_cfg(case)
+    params = model_params(cfg)
+    if cfg.n_vtc_layer:
+        from visualrwkv_torch.multimodal.vtc import init_vtc_from_lm
+        from visualrwkv_torch.train.optim import tree_map
+
+        rng = np.random.default_rng(7)
+        params["vtc"] = tree_map(lambda p: p + torch.from_numpy(0.02 * rng.standard_normal(tuple(p.shape))).float(),
+                                 init_vtc_from_lm(params["rwkv"], cfg.n_vtc_layer))
+    return params
+
+
+def leftpad_batch(seed: int, rows: int, cfg: VLMConfig, T: int = 40):
+    """Samples of ``T`` tokens with one un-expanded image token each (at a
+    row's own place; none in the last row) and an image a row."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(10, 2000, (rows, T)).astype(np.int64)
+    for r in range(rows - 1):
+        ids[r, 3 + 5 * r] = IMAGE_TOKEN_INDEX
+    labels = np.where(ids == IMAGE_TOKEN_INDEX, IGNORE_INDEX, ids)
+    labels[:, :2] = IGNORE_INDEX
+    size = cfg.vision.image_size
+    return {"input_ids": ids, "labels": labels,
+            "images": {"dino": rng.integers(0, 256, (rows, size, size, 3)).astype(np.uint8)}}
+
+
+def tp_batches(case: str, rows: int = 4):
+    cfg, kind = case_cfg(case), TP_CASES[case][1]
+    make = {"img": lambda s: image_batch(20 + s, rows, cfg), "txt": lambda s: text_batch(20 + s, rows, TRAIN_T),
+            "leftpad": lambda s: leftpad_batch(20 + s, rows, cfg)}[kind]
+    return [make(s) for s in range(TP_STEPS)]
+
+
+def tp_trainer_cfg(zero: int, rows_per_rank: int, grad_cp=True, **kw) -> TrainConfig:
+    """:func:`trainer_cfg` for ``TP_STEPS`` steps of 2 micro-batches."""
+    return trainer_cfg(zero, micro_bsz=rows_per_rank // 2, epoch_steps=TP_STEPS, grad_cp=grad_cp, **kw)
+
+
+def vp_inputs(case: str, seed: int = 13):
+    """hidden [B, T, C], head [V, C] and labels [B, T] of a vocab-parallel
+    loss case: "rand" (each position's largest logit on either rank), "tie"
+    (rows ``VP_TIE`` equal and aligned with every hidden state: the largest
+    logit of most positions is on both ranks)."""
+    B, T, C, V = VP_SHAPE
+    rng = np.random.default_rng(seed)
+    hidden = rng.standard_normal((B, T, C))
+    head = 0.3 * rng.standard_normal((V, C))
+    if case == "tie":
+        d = rng.standard_normal(C)
+        d /= np.linalg.norm(d)
+        head[list(VP_TIE)] = 4.0 * d
+        hidden += 2.0 * d
+    labels = rng.integers(0, V, (B, T))
+    labels[:, :3] = IGNORE_INDEX
+    labels[0, 10:14] = V + 7  # beyond the vocabulary: clamped to its last id
+    return (torch.from_numpy(hidden).float(), torch.from_numpy(head).float(),
+            torch.from_numpy(labels.astype(np.int64)))
+
+
+def _vp_loss(out, group):
+    """The vocab-parallel CE + L2Wrap on this rank's half of the head, and
+    the L2Wrap injection alone on this rank's slice of the whole logits."""
+    from visualrwkv_torch.models.visualrwkv import L2WRAP_FACTOR, chunked_ce_l2wrap, l2wrap_injection
+    from visualrwkv_torch.parallel.collectives import all_reduce_op
+    from visualrwkv_torch.parallel.tensor import local_slice
+
+    for case in ("rand", "tie"):
+        hidden, head, labels = vp_inputs(case)
+        sl = local_slice(head.shape[0], group)
+        h = hidden.clone().requires_grad_(True)
+        w = head[sl].clone().requires_grad_(True)
+        loss = chunked_ce_l2wrap(16, w, h, labels, model_group=group)
+        loss.backward()
+        out[f"vp_{case}/loss"] = loss.detach().numpy()
+        out[f"vp_{case}/dhead"], out[f"vp_{case}/dhidden"] = w.grad.numpy(), h.grad.numpy()
+        logits = torch.nn.functional.linear(hidden, head)[..., sl]
+        top = all_reduce_op(logits.max(-1).values, group, torch.distributed.ReduceOp.MAX)
+        B, T = labels.shape
+        out[f"vp_{case}/injection"] = l2wrap_injection(logits, top, L2WRAP_FACTOR / (B * T), group).numpy()
+
+
+def _tp_run(out, mesh, tag, case, rows_per_rank, zero=0, ckpt_dir=None, **kw):
+    """``TP_STEPS`` trainer steps of ``TP_CASES[case]`` on this rank's rows:
+    the first step's reduced gradients (a split leaf's: this rank's part),
+    the losses, the whole parameters after them and, with ``ckpt_dir``, a
+    checkpoint after step 1."""
+    from visualrwkv_torch.ops.wkv7 import set_wkv_impl
+    from visualrwkv_torch.parallel.mesh import data_rows
+    from visualrwkv_torch.train.trainer import Trainer
+
+    _, _, grad_cp, impl, _ = TP_CASES[case]
+    set_wkv_impl(impl)
+    try:
+        tr = Trainer(case_cfg(case), tp_trainer_cfg(zero, rows_per_rank, grad_cp, **kw), case_params(case),
+                     device="cpu", proj_dir=_proj(tag), log_every=1, mesh=mesh)
+        _tp_steps(out, tr, tag, [data_rows(b, mesh) for b in tp_batches(case)], ckpt_dir)
+    finally:
+        set_wkv_impl("auto")
+
+
+def _tp_steps(out, tr, tag, batches, ckpt_dir):
+    from visualrwkv_torch.train.optim import tree_leaves, tree_leaves_with_path
+
+    names = ["/".join(map(str, p)) for (p, _), t in zip(tree_leaves_with_path(tr.params),
+                                                          tree_leaves(tr.opt.train_mask)) if t]
+    _, grads = tr.loss_and_reduced_grads(batches[0])
+    out.update({f"{tag}/grad1/{n}": g.numpy() for n, g in zip(names, grads)})
+    out[f"{tag}/shapes"] = np.array([f"{'/'.join(map(str, p))}:{tuple(t.shape)}"
+                                     for p, t in tree_leaves_with_path(tr.params)])
+    losses = []
+    for s, b in enumerate(batches):
+        losses.append(float(tr.train_step(b)))
+        if ckpt_dir and s == 0:
+            tr.save_checkpoint(os.path.join(ckpt_dir, f"{tag}.pth"))
+    out[f"{tag}/losses"] = np.array(losses)
+    out.update(flat(trained(tr.full_params()), f"{tag}/params/"))
+    if tr._streamed is not None:
+        out[f"{tag}/pinned_bytes"] = np.array(tr._streamed.pinned_bytes)
+
+
+def trained(params):
+    """``params`` without the frozen towers (they never change)."""
+    return {k: v for k, v in params.items() if k != "vit"}
+
+
+_OUT_DIR = None
+
+
+def _proj(tag):
+    return os.path.join(_OUT_DIR, f"{tag}_{torch.distributed.get_rank()}")
+
+
+def _tp_suite(out, mesh, out_dir):
+    from visualrwkv_torch.parallel.mesh import axis_group
+    from visualrwkv_torch.train.trainer import Trainer
+
+    out["tp/mesh_shape"] = np.array(tuple(mesh.shape))
+    _vp_loss(out, axis_group(mesh, "model"))
+    for case in TP_CASES:
+        _tp_run(out, mesh, f"tp_{case}", case, 4, ckpt_dir=out_dir if case == "x070_img" else None)
+    # bf16_sr: one step of one micro-batch with bf16 parameters and no masters
+    cfg = case_cfg("x070_img")
+    tr = Trainer(cfg, trainer_cfg(0, param_dtype="bfloat16", optim_precision="bf16_sr", micro_bsz=4,
+                                  accumulate_grad_batches=1), model_params(cfg), device="cpu",
+                 proj_dir=_proj("tp_sr"), mesh=mesh)
+    tr.train_step(image_batch(20, 4, cfg))
+    out.update(flat(trained(tr.full_params()), "tp_sr/params/"))
+    # 3 heads of 64 in a dim_att of 192: the rule splits it over 2 ranks, the heads do not split
+    import dataclasses
+
+    c = dataclasses.replace(train_cfg(), rwkv=dataclasses.replace(train_cfg().rwkv, n_embd=192, dim_att=0,
+                                                                   dim_ffn=0))
+    try:
+        Trainer(c, trainer_cfg(0), model_params(c), device="cpu", proj_dir=_proj("tp_heads"), mesh=mesh)
+        out["tp/odd_heads"] = np.array("no error")
+    except ValueError as e:
+        out["tp/odd_heads"] = np.array(str(e))
+
+
+def _tp_dm_suite(out, mesh):
+    for zero in (0, 1):
+        _tp_run(out, mesh, f"tp_dm{zero}", "x070_img", 2, zero=zero)
+    _tp_run(out, mesh, "tp_dm_offload", "x070_img", 2, zero=1, offload_optimizer=True)
+
+
+def _offload_suite(out, mesh):
+    for zero in (0, 1, 3):
+        _tp_run(out, mesh, f"offload{zero}", "x070_img", 2, zero=zero, offload_optimizer=True)
+
+
 def main():
     suite, rank, world, init_file, out_dir = sys.argv[1], *map(int, sys.argv[2:4]), *sys.argv[4:6]
     torch.set_num_threads(1)
+    global _OUT_DIR
+    _OUT_DIR = out_dir
     from visualrwkv_torch.parallel import distributed
     from visualrwkv_torch.parallel.mesh import axis_group, axis_index, axis_size, make_mesh
 
@@ -346,6 +567,14 @@ def main():
     elif suite == "mesh4":
         mesh = make_mesh(n_data=2, n_seq=2)
         _trainer_runs(out, mesh, train_cfg(), out_dir, 2, "mesh4_zero", ckpt=False)
+    elif suite == "tp":
+        _tp_suite(out, make_mesh(n_data=1, n_model=2), out_dir)
+    elif suite == "tp_dm":
+        _tp_dm_suite(out, make_mesh(n_data=2, n_model=2))
+    elif suite == "tp_sm":
+        _tp_run(out, make_mesh(n_data=1, n_seq=2, n_model=2), "tp_sm", "x070_img", 4)
+    elif suite == "offload":
+        _offload_suite(out, make_mesh(n_data=2))
     else:
         raise SystemExit(f"unknown suite {suite!r}")
     np.savez(os.path.join(out_dir, f"{suite}_{rank}.npz"), **out)

@@ -23,8 +23,18 @@ import torch
 
 from visualrwkv_torch.config import RWKVConfig
 from visualrwkv_torch.models.rwkv5 import cmix_x052, init_legacy_params, legacy_forward, static_mixes
-from visualrwkv_torch.models.rwkv7 import LayerState, _token_shift, _uniform, embed, layer_norm, linear
+from visualrwkv_torch.models.rwkv7 import (
+    LayerState,
+    _token_shift,
+    _uniform,
+    embed,
+    layer_norm,
+    linear,
+    split_region,
+)
 from visualrwkv_torch.ops.wkv4 import wkv4, wkv4_init_state, wkv4_step
+from visualrwkv_torch.parallel.collectives import reduce_from_model
+from visualrwkv_torch.parallel.tensor import local_slice, model_group, split_rows
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -87,11 +97,20 @@ def _tmix_inputs(p: Params, cfg: RWKVConfig, xf: Tensor, prev: Tensor):
 
 def tmix_x040(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tensor] = None,
               wkv_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns (out, new_shift_state, new_wkv_state)."""
+    """Returns (out, new_shift_state, new_wkv_state). Under a model axis
+    that split the projections, the recurrence runs on this rank's slice of
+    the ``dim_att`` channels (``time_decay`` and ``time_first`` through it)."""
+    group = model_group()
+    split = split_rows(p["receptance"], cfg.dim_att, group)
+    if split:
+        sl = local_slice(cfg.dim_att, group)
+        p = dict(p, time_decay=p["time_decay"][sl], time_first=p["time_first"][sl])
+        x, shift_state = split_region(x, shift_state, group)
     xf = x.float()
     r, k, v, w = _tmix_inputs(p, cfg, xf, _token_shift(xf, shift_state))
     y, new_wkv = wkv4(w, p["time_first"], k, v, initial_state=wkv_state)
-    return linear(p["output"], (r * y).to(cfg.dtype), cfg.dtype), xf[:, -1].clone(), new_wkv
+    out = linear(p["output"], (r * y).to(cfg.dtype), cfg.dtype)
+    return (reduce_from_model(out, group) if split else out), xf[:, -1].clone(), new_wkv
 
 
 def block_x040(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,

@@ -15,6 +15,11 @@ K9 under autograd), with the WKV6 decay floor -80 / chunk_len of
 the head or the flat state (``wkv6_step_auto``). The GroupNorm's eps is
 ``1e-5 * head_size_divisor**2``: the reference's ``ln_x(x / divisor)`` with
 eps 1e-5, written without the division.
+
+Under a model axis (:mod:`visualrwkv_torch.parallel.tensor`) the time-mix
+runs on this rank's heads (``time_decay``, ``time_faaaa`` and ``ln_x``
+through their slice) and the channel-mix as x060's: the key branch on the
+rank's slice of ``dim_ffn``, the receptance branch whole.
 """
 
 from __future__ import annotations
@@ -37,8 +42,11 @@ from visualrwkv_torch.models.rwkv7 import (
     embed,
     layer_norm,
     linear,
+    split_region,
 )
 from visualrwkv_torch.ops.wkv6 import wkv6, wkv6_step_auto
+from visualrwkv_torch.parallel.collectives import reduce_from_model
+from visualrwkv_torch.parallel.tensor import local_slice, model_group, split_rows
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -150,26 +158,45 @@ def tmix_x052(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tenso
               wkv_state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
     """Returns (out, new_shift_state, new_wkv_state)."""
     B, T, C = x.shape
-    H, N = cfg.n_head, cfg.head_size
+    N = cfg.head_size
     dt = cfg.dtype
+    group = model_group()
+    split = split_rows(p["receptance"], cfg.dim_att, group)
+    if split:  # this rank's heads
+        heads = local_slice(p["time_decay"].shape[0], group)
+        p = dict(p, time_decay=p["time_decay"][heads], time_faaaa=p["time_faaaa"][heads],
+                 ln_x={k: v[local_slice(cfg.dim_att, group)] for k, v in p["ln_x"].items()})
+        x, shift_state = split_region(x, shift_state, group)
     xf = x.float()
     r, k, v, g, decay = _tmix_inputs(p, cfg, xf, _token_shift(xf, shift_state))
+    H = decay.shape[0]
     shp = (B, T, H, N)
     # the static decay broadcast over time: the WKV6 recurrence with constant w
     w_raw = decay.reshape(1, 1, H, N).expand(shp)
     y, new_wkv = wkv6(r.to(dt).reshape(shp), w_raw, k.to(dt).reshape(shp), v.to(dt).reshape(shp),
                       p["time_faaaa"], initial_state=wkv_state, chunk=cfg.chunk_len)
-    return _tmix_output(p, cfg, y.reshape(B, T, cfg.dim_att), g), xf[:, -1].clone(), new_wkv
+    out = _tmix_output(p, cfg, y.reshape(B, T, -1), g)
+    return (reduce_from_model(out, group) if split else out), xf[:, -1].clone(), new_wkv
 
 
 def cmix_x052(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tensor] = None
               ) -> Tuple[Tensor, Tensor]:
-    """The ChannelMix of x052 and x040: squared ReLU, receptance gate."""
+    """The ChannelMix of x052 and x040: squared ReLU, receptance gate. Under
+    a model axis that split ``key`` the key branch alone enters the split
+    region (as x060's)."""
     dt = cfg.dtype
     xf = x.float()
     xk, xr = static_mixes(p, xf, _token_shift(xf, shift_state), dt, ("k", "r"))
+    group = model_group()
+    split = split_rows(p["key"], cfg.dim_ffn, group)
+    if split:
+        xs, ss = split_region(x, shift_state, group)
+        xsf = xs.float()
+        (xk,) = static_mixes(p, xsf, _token_shift(xsf, ss), dt, ("k",))
     k = torch.relu(linear(p["key"], xk, dt)).square()  # relu^2 in fp32
     kv = linear(p["value"], k.to(dt), dt)
+    if split:
+        kv = reduce_from_model(kv, group)
     return torch.sigmoid(linear(p["receptance"], xr, dt)) * kv, xf[:, -1].clone()
 
 

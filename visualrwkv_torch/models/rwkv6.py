@@ -16,6 +16,13 @@ sequence path casts r, w_raw, k and v to the compute dtype before the WKV
 (:func:`visualrwkv_torch.ops.wkv6.wkv6`: kernel K7 on CUDA, or K8 / K9 under
 autograd); the decode step hands the one-token step fp32 vectors
 (``wkv6_step_auto``: kernel K10 on CUDA), as the JAX package does.
+
+Under a model axis (:mod:`visualrwkv_torch.parallel.tensor`) the time-mix
+runs on this rank's heads (``time_decay``, the decay LoRA's output
+columns, ``time_faaaa`` and ``ln_x`` through their slice; the gate split on
+its output) and the channel-mix's key / value on its slice of ``dim_ffn``;
+the channel-mix's receptance branch runs whole on every rank, from the
+input before :func:`copy_to_model`, so that its gradient is not summed.
 """
 
 from __future__ import annotations
@@ -40,9 +47,12 @@ from visualrwkv_torch.models.rwkv7 import (
     halo_shift,
     layer_norm,
     linear,
+    split_region,
 )
 from visualrwkv_torch.ops.wkv6 import wkv6, wkv6_step_auto
 from visualrwkv_torch.ops.wkv7 import wkv_seq_axis
+from visualrwkv_torch.parallel.collectives import reduce_from_model
+from visualrwkv_torch.parallel.tensor import local_slice, model_axis, model_group, split_rows
 from visualrwkv_torch.parallel.zero import materialize
 
 Tensor = torch.Tensor
@@ -168,10 +178,24 @@ def _tmix_inputs(p: Params, cfg: RWKVConfig, xf: Tensor, xx: Tensor):
 
 
 def _tmix_output(p: Params, cfg: RWKVConfig, y: Tensor, g: Tensor) -> Tensor:
-    """ln_x (per-head group norm), the gate and the output projection; y [B, T, A]."""
+    """ln_x (per-head group norm), the gate and the output projection; y [B, T, A]
+    (this rank's heads under a model axis)."""
     dt = cfg.dtype
-    y = group_norm(p["ln_x"], y.to(dt), cfg.n_head, 1e-5 * cfg.head_size_divisor**2)
+    y = group_norm(p["ln_x"], y.to(dt), y.shape[-1] // cfg.head_size, 1e-5 * cfg.head_size_divisor**2)
     return linear(p["output"], (y.float() * g.float()).to(dt), dt)
+
+
+def _tmix_local(p: Params, group) -> Params:
+    """The time-mix leaves as this rank of ``group`` uses them: the decay,
+    the decay LoRA's output columns and ``ln_x`` through its slice of
+    ``dim_att``, ``time_faaaa`` through its heads."""
+    sl = local_slice(p["time_decay"].shape[0], group)
+    q = dict(p)
+    q["time_decay"] = p["time_decay"][sl]
+    q["time_decay_w2"] = p["time_decay_w2"][:, sl]
+    q["time_faaaa"] = p["time_faaaa"][local_slice(p["time_faaaa"].shape[0], group)]
+    q["ln_x"] = {k: v[sl] for k, v in p["ln_x"].items()}
+    return q
 
 
 def tmix_x060(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tensor] = None,
@@ -182,16 +206,24 @@ def tmix_x060(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tenso
     returned WKV state is then the trail ``[B, T, H, N, N]``."""
     B, T, C = x.shape
     dt = cfg.dtype
+    group = model_group()
+    split = split_rows(p["receptance"], cfg.dim_att, group)
+    if split:
+        p = _tmix_local(p, group)
+        x, shift_state = split_region(x, shift_state, group)
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
     r, w_raw, k, v, g = _tmix_inputs(p, cfg, xf, xx)
-    shp = (B, T, cfg.n_head, cfg.head_size)
+    shp = (B, T, r.shape[-1] // cfg.head_size, cfg.head_size)
     y, new_wkv = (wkv_fn or wkv6)(
         r.to(dt).reshape(shp), w_raw.to(dt).reshape(shp), k.to(dt).reshape(shp),
         v.to(dt).reshape(shp), p["time_faaaa"], initial_state=wkv_state, chunk=cfg.chunk_len,
     )
+    out = _tmix_output(p, cfg, y.reshape(B, T, -1), g)
+    if split:
+        out = reduce_from_model(out, group)
     # the shift carry is copied out: a view would keep all of xf alive with the state
-    return _tmix_output(p, cfg, y.reshape(B, T, cfg.dim_att), g), xf[:, -1].clone(), new_wkv
+    return out, xf[:, -1].clone(), new_wkv
 
 
 def cmix_x060(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tensor] = None
@@ -199,10 +231,19 @@ def cmix_x060(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tenso
     dt = cfg.dtype
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
-    xk = (xf + xx * p["time_maa_k"].float()).to(dt)
     xr = (xf + xx * p["time_maa_r"].float()).to(dt)
+    group = model_group()
+    split = split_rows(p["key"], cfg.dim_ffn, group)
+    if split:  # the key branch alone enters the split region
+        xs, ss = split_region(x, shift_state, group)
+        xsf = xs.float()
+        xk = (xsf + (_token_shift(xsf, ss) - xsf) * p["time_maa_k"].float()).to(dt)
+    else:
+        xk = (xf + xx * p["time_maa_k"].float()).to(dt)
     k = torch.relu(linear(p["key"], xk, dt)).square()  # relu^2 in fp32
     kv = linear(p["value"], k.to(dt), dt)
+    if split:
+        kv = reduce_from_model(kv, group)
     return torch.sigmoid(linear(p["receptance"], xr, dt)) * kv, xf[:, -1].clone()
 
 
@@ -225,9 +266,11 @@ def _block_checkpointed(blk: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
     x052 and x040 families') under activation checkpointing: only the
     block's inputs are kept and the block runs again in the backward pass."""
     block = block or block_x060
+    group = model_group()  # the recompute runs on the forward's model axis
 
     def run(x, *st):
-        y, ns = block(blk, cfg, layer_id, x, LayerState(*st) if st else None)
+        with model_axis(group):
+            y, ns = block(blk, cfg, layer_id, x, LayerState(*st) if st else None)
         return (y, *ns)
 
     y, *ns = checkpoint(run, x, *(state or ()), use_reentrant=False, preserve_rng_state=False)
@@ -279,9 +322,11 @@ def rwkv6_forward_seq(params: Params, cfg: RWKVConfig, x: Tensor, group=None, gr
         raise ValueError(f"seq-parallel shards must be chunk-aligned: T_local={T}, "
                          f"chunk_len={cfg.chunk_len}")
 
+    mgroup = model_group()
+
     def body(p, xx, i):
         p = materialize(p)
-        with wkv_seq_axis(group):
+        with wkv_seq_axis(group), model_axis(mgroup):
             if i == 0:
                 xx = layer_norm(p["ln0"], xx)
             xin = layer_norm(p["ln1"], xx)

@@ -13,6 +13,14 @@ The WKV recurrence goes through :func:`visualrwkv_torch.ops.wkv7.wkv7`
 "packed" mode) and the decode step through ``wkv7_step_auto`` (K2, or K4 on
 the flat state layout). The forward makes no in-place write, so autograd
 differentiates it as it stands.
+
+Under a model axis (:func:`visualrwkv_torch.parallel.tensor.model_axis`)
+whose rule split a block's projections, the time-mix runs on this rank's
+heads (the per-channel and per-head leaves through their slice, ``v_first``
+this rank's heads) and the channel-mix on its slice of ``dim_ffn``: their
+inputs pass :func:`copy_to_model`, the output and value products
+:func:`reduce_from_model`. The head then gives this rank's slice of the
+vocabulary.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from visualrwkv_torch.config import STOP_TOKEN_INDEX, RWKVConfig
 from visualrwkv_torch.infer.quant import dequantize_weight
 from visualrwkv_torch.ops.wkv7 import wkv7, wkv7_step_auto, wkv_seq_axis
-from visualrwkv_torch.parallel.collectives import group_rank, ppermute
+from visualrwkv_torch.parallel.collectives import copy_to_model, group_rank, ppermute, reduce_from_model
+from visualrwkv_torch.parallel.tensor import local_slice, model_axis, model_group, split_rows
 from visualrwkv_torch.parallel.zero import materialize
 
 Tensor = torch.Tensor
@@ -234,7 +243,7 @@ def _tmix_inputs(p: Params, cfg: RWKVConfig, layer_id: int, xf: Tensor, xx: Tens
         v = v + (v_first - v) * torch.sigmoid(p["v0"].float() + v_lora)
     a = torch.sigmoid(p["a0"].float() + _lora(_lora(xa, p["a1"], dt), p["a2"], dt))
     g = _lora(torch.sigmoid(_lora(xg, p["g1"], dt)), p["g2"], dt)
-    kk = _l2norm_heads(k * p["k_k"].float(), cfg.n_head)
+    kk = _l2norm_heads(k * p["k_k"].float(), k.shape[-1] // cfg.head_size)
     k = k * (1 + (a - 1) * p["k_a"].float())
     return r, w_raw, k, v, a, g, kk, v_first
 
@@ -243,12 +252,36 @@ def _tmix_output(p: Params, cfg: RWKVConfig, y: Tensor, r: Tensor, k: Tensor, v:
                  g: Tensor) -> Tensor:
     """ln_x, the r_k bonus, the gate and the output projection; y [B, T, C]."""
     B, T, C = y.shape
-    H = cfg.n_head
+    H = C // cfg.head_size  # this rank's heads under a model axis
     y = group_norm(p["ln_x"], y, H, 1e-5 * cfg.head_size_divisor**2)
     rk = (r * k).float().reshape(B, T, H, -1) * p["r_k"].float()
     bonus = rk.sum(-1, keepdim=True) * v.float().reshape(B, T, H, -1)
     y = y.float() + bonus.reshape(B, T, C)
     return linear(p["output"], (y * g.float()).to(cfg.dtype), cfg.dtype)
+
+
+def _tmix_local(p: Params, group) -> Params:
+    """The time-mix leaves as this rank of ``group`` uses them: the split
+    projections are its parts already; the per-channel leaves and the LoRA
+    up-factors' output columns are taken through its slice of the
+    channels, ``r_k`` through its heads."""
+    sl = local_slice(p["w0"].shape[0], group)
+    q = dict(p)
+    for name in ("w0", "a0", "v0", "k_k", "k_a"):
+        if name in p:
+            q[name] = p[name][sl]
+    for name in ("w2", "a2", "v2", "g2"):
+        if name in p:
+            q[name] = p[name][:, sl]
+    q["r_k"] = p["r_k"][local_slice(p["r_k"].shape[0], group)]
+    q["ln_x"] = {k: v[sl] for k, v in p["ln_x"].items()}
+    return q
+
+
+def split_region(x: Tensor, shift_state: Optional[Tensor], group):
+    """A replicated block input (and its token-shift carry) entering a
+    region of split products: its cotangent is summed over ``group``."""
+    return copy_to_model(x, group), (None if shift_state is None else copy_to_model(shift_state, group))
 
 
 # ---------------------------------------------------------------------------
@@ -266,16 +299,23 @@ def tmix_x070(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor, v_first: Opt
     trail ``[B, T, H, N, N]``."""
     B, T, C = x.shape
     dt = cfg.dtype
+    group = model_group()
+    split = split_rows(p["receptance"], C, group)
+    if split:
+        p = _tmix_local(p, group)
+        x, shift_state = split_region(x, shift_state, group)
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
     r, w_raw, k, v, a, g, kk, v_first = _tmix_inputs(p, cfg, layer_id, xf, xx, v_first)
-    shp = (B, T, cfg.n_head, C // cfg.n_head)
+    shp = (B, T, r.shape[-1] // cfg.head_size, cfg.head_size)
     y, new_wkv = (wkv_fn or wkv7)(
         r.to(dt).reshape(shp), w_raw.to(dt).reshape(shp), k.to(dt).reshape(shp),
         v.to(dt).reshape(shp), (-kk).to(dt).reshape(shp), (kk * a).to(dt).reshape(shp),
         initial_state=wkv_state, chunk=cfg.chunk_len,
     )
-    out = _tmix_output(p, cfg, y.reshape(B, T, C), r, k, v, g)
+    out = _tmix_output(p, cfg, y.reshape(B, T, -1), r, k, v, g)
+    if split:
+        out = reduce_from_model(out, group)
     # a copy: a view of the last row would keep the whole fp32 [B, T, C] input alive
     return out, v_first, xf[:, -1].clone(), new_wkv
 
@@ -283,11 +323,16 @@ def tmix_x070(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor, v_first: Opt
 def cmix_x070(p: Params, cfg: RWKVConfig, x: Tensor, shift_state: Optional[Tensor] = None
               ) -> Tuple[Tensor, Tensor]:
     dt = cfg.dtype
+    group = model_group()
+    split = split_rows(p["key"], cfg.dim_ffn, group)
+    if split:
+        x, shift_state = split_region(x, shift_state, group)
     xf = x.float()
     xx = _token_shift(xf, shift_state) - xf
     kx = (xf + xx * p["x_k"].float()).to(dt)
     k = torch.relu(linear(p["key"], kx, dt).to(dt)).square()  # relu^2 in the compute dtype
-    return linear(p["value"], k, dt), xf[:, -1].clone()
+    out = linear(p["value"], k, dt)
+    return (reduce_from_model(out, group) if split else out), xf[:, -1].clone()
 
 
 def block_x070(p: Params, cfg: RWKVConfig, layer_id: int, x: Tensor, v_first: Optional[Tensor],
@@ -348,8 +393,11 @@ def _block_checkpointed(blk: Params, cfg: RWKVConfig, layer_id: int, x: Tensor,
     """:func:`block_x070` under activation checkpointing: the block's inputs
     are kept (and, with a selective ``context_fn``, the outputs its policy
     saves) and the rest of the block runs again in the backward pass."""
+    group = model_group()  # the recompute runs on the forward's model axis
+
     def run(x, v_first, *st):
-        y, vf, ns = block_x070(blk, cfg, layer_id, x, v_first, LayerState(*st) if st else None)
+        with model_axis(group):
+            y, vf, ns = block_x070(blk, cfg, layer_id, x, v_first, LayerState(*st) if st else None)
         return (y, vf, *ns)
 
     kw = {} if context_fn is None else {"context_fn": context_fn}
@@ -426,10 +474,12 @@ def rwkv7_forward_seq(params: Params, cfg: RWKVConfig, x: Tensor, group=None, gr
     if T % cfg.chunk_len:
         raise ValueError(f"seq-parallel shards must be chunk-aligned: T_local={T}, "
                          f"chunk_len={cfg.chunk_len}")
+    mgroup = model_group()
 
     def body(p, xx, vf, i):
         p = materialize(p)
-        with wkv_seq_axis(group):  # inside the body, so that a recompute runs the ring too
+        # inside the body, so that a recompute runs the ring (on the same heads) too
+        with wkv_seq_axis(group), model_axis(mgroup):
             if i == 0:
                 xx = layer_norm(p["ln0"], xx)
             xin = layer_norm(p["ln1"], xx)

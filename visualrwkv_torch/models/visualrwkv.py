@@ -33,7 +33,14 @@ from visualrwkv_torch.multimodal.projector import (
 from visualrwkv_torch.multimodal.scanning import apply_scanning
 from visualrwkv_torch.multimodal.uhd import fuse_image_features
 from visualrwkv_torch.multimodal.vtc import vtc_forward
-from visualrwkv_torch.parallel.collectives import all_reduce_replicated, group_size
+from visualrwkv_torch.parallel.collectives import (
+    all_reduce_op,
+    all_reduce_replicated,
+    copy_to_model,
+    group_rank,
+    group_size,
+)
+from visualrwkv_torch.parallel.tensor import model_axis, split_rows
 from visualrwkv_torch.vision.backbone import backbone_features, backbone_tower_features, init_backbone_params
 
 Tensor = torch.Tensor
@@ -157,8 +164,9 @@ def _flip_span(x: Tensor, start, length: int) -> Tensor:
 
 
 def bidirectional_forward(params: Params, cfg: VLMConfig, x: Tensor, img_start, img_len: int,
-                          grad_cp=False) -> Tensor:
-    """Logits of the LM over embeddings ``x`` [B, T, C] where the odd blocks
+                          grad_cp=False, return_hidden: bool = False) -> Tensor:
+    """Logits (or the hidden states after ``ln_out``) of the LM over
+    embeddings ``x`` [B, T, C] where the odd blocks
     see the image span ``[img_start, img_start + img_len)`` reversed (v6.0
     / HD / UHD, v6.0/src/model.py:408-431): the span is flipped before and
     after each odd block. ``img_start`` is shared or a row's own (``[B]``).
@@ -184,7 +192,7 @@ def bidirectional_forward(params: Params, cfg: VLMConfig, x: Tensor, img_start, 
     x = rwkv7.layer_norm(params["rwkv"]["ln_out"], x)
     if pad:
         x = x[:, pad:]
-    return rwkv7.linear(params["rwkv"]["head"], x, rcfg.dtype)
+    return x if return_hidden else rwkv7.linear(params["rwkv"]["head"], x, rcfg.dtype)
 
 
 def _on_device(input_ids, images, device):
@@ -202,16 +210,13 @@ def vlm_forward(params: Params, cfg: VLMConfig, input_ids, images=None, grad_cp=
     to the LM's and the projector's parameters; ``grad_cp`` as in
     :func:`visualrwkv_torch.models.rwkv7.rwkv7_forward`. With
     ``bidirectional_image`` and images, the span of ``num_token_per_image``
-    tokens at row 0's first image token is reversed on the odd blocks (the
-    logits only)."""
+    tokens at row 0's first image token is reversed on the odd blocks."""
     device = resolve_device(device)
     ids, images = _on_device(input_ids, images, device)
     x = prepare_embeddings(params, cfg, ids, images)
     if cfg.bidirectional_image and images is not None:
-        if return_hidden:
-            raise ValueError("the bidirectional path returns logits only")
         return bidirectional_forward(params, cfg, x, image_token_span(ids)[0],
-                                     cfg.num_token_per_image, grad_cp)
+                                     cfg.num_token_per_image, grad_cp, return_hidden)
     out, _ = lm.lm_forward(params["rwkv"], cfg.rwkv, x, grad_cp=grad_cp, return_hidden=return_hidden)
     return out
 
@@ -238,9 +243,8 @@ def vlm_forward_leftpad(params: Params, cfg: VLMConfig, input_ids, labels, image
     emb, new_labels, off = leftpad_insert(params["rwkv"]["emb"]["weight"], ids, labels,
                                           image_features, plan)
     if cfg.bidirectional_image:
-        if return_hidden:
-            raise ValueError("the bidirectional path returns logits only")
-        out = bidirectional_forward(params, cfg, emb, plan.max_idx - off, plan.flip_len, grad_cp)
+        out = bidirectional_forward(params, cfg, emb, plan.max_idx - off, plan.flip_len, grad_cp,
+                                    return_hidden)
     else:
         out, _ = lm.lm_forward(params["rwkv"], cfg.rwkv, emb, grad_cp=grad_cp,
                                return_hidden=return_hidden)
@@ -303,22 +307,72 @@ def _dense_ce_l2wrap(logits: Tensor, labels: Tensor) -> Tensor:
     return l2wrap((ce / counts).mean(), logits)
 
 
-def _ce_stats(chunk_t: int, head_w: Tensor, hidden: Tensor, lbl_next: Tensor, valid: Tensor) -> Tensor:
+def _ce_chunk(head_w: Tensor, h_c: Tensor, lbl: Tensor, valid: Tensor, group):
+    """One T-chunk of the loss on this rank's rows ``head_w`` of a vocabulary
+    split over ``group`` (None: the whole head): (fp32 logits
+    ``[B, t, V_local]``, the clamped labels' local index, whether this rank
+    owns each label). A label beyond the vocabulary is its last id, as in
+    :func:`_ce_sums`."""
+    V_loc = head_w.shape[0]
+    v0 = group_rank(group) * V_loc
+    logits = F.linear(h_c, head_w.to(h_c.dtype)).float()
+    safe = torch.where(valid, lbl, 0).clamp(0, V_loc * group_size(group) - 1)
+    owned = valid & (safe >= v0) & (safe < v0 + V_loc)
+    return logits, (safe - v0).clamp(0, V_loc - 1), owned
+
+
+def _ce_stats(chunk_t: int, head_w: Tensor, hidden: Tensor, lbl_next: Tensor, valid: Tensor, group):
     """Per-sample fp32 sums of the shifted CE over ``hidden``'s T, one
-    T-chunk of logits at a time."""
-    w = head_w.to(hidden.dtype)
-    ce = torch.zeros(hidden.shape[0], dtype=torch.float32, device=hidden.device)
-    for s in range(0, hidden.shape[1], chunk_t):
+    T-chunk of logits at a time, and the log-sum-exp and the largest logit
+    of every position ``[B, T]``. Over a vocabulary split over ``group`` a
+    chunk's shift is the largest logit over every rank (an all-reduce MAX),
+    then the sum of the exponentials and the target's logit, which only its
+    owning rank adds, are summed (SUM)."""
+    B, T, _ = hidden.shape
+    ce = torch.zeros(B, dtype=torch.float32, device=hidden.device)
+    lse = torch.empty(B, T, dtype=torch.float32, device=hidden.device)
+    top = torch.empty_like(lse)
+    for s in range(0, T, chunk_t):
         sl = slice(s, s + chunk_t)
-        ce = ce + _ce_sums(F.linear(hidden[:, sl], w).float(), lbl_next[:, sl], valid[:, sl])
-    return ce
+        logits, idx, owned = _ce_chunk(head_w, hidden[:, sl], lbl_next[:, sl], valid[:, sl], group)
+        m = all_reduce_op(logits.max(-1).values, group, dist.ReduceOp.MAX)
+        gold = torch.where(owned, logits.gather(-1, idx[..., None])[..., 0], 0.0)
+        sums = all_reduce_replicated(torch.stack([torch.exp(logits - m[..., None]).sum(-1), gold]), group)
+        lse[:, sl] = m + torch.log(sums[0])
+        top[:, sl] = m
+        ce = ce + torch.where(valid[:, sl], lse[:, sl] - sums[1], 0.0).sum(1)
+    return ce, lse, top
+
+
+def _l2wrap_at(logits: Tensor, top: Tensor, l2: float, group):
+    """(index, value) of L2Wrap's gradient on this rank's slice ``logits``
+    ``[B, t, V_local]`` of a vocabulary split over ``group``: ``top * l2``
+    at each position's first index that attains the largest logit over
+    every rank (``top``, ``[B, t]``), as ``argmax`` of the whole row picks
+    it. Of two ranks that hold the maximum, the lower one (the lower
+    indices) injects; the others give zeros."""
+    m_loc, ids = logits.max(-1, keepdim=True)
+    n, r = group_size(group), group_rank(group)
+    if n == 1:
+        return ids, m_loc * l2
+    holds = m_loc[..., 0] == top
+    owner = all_reduce_op(torch.where(holds, r, n).float(), group, dist.ReduceOp.MIN)  # small integers: exact
+    return ids, torch.where((owner == r)[..., None], m_loc * l2, 0.0)
+
+
+def l2wrap_injection(logits: Tensor, top: Tensor, l2: float, group) -> Tensor:
+    """L2Wrap's gradient on this rank's slice ``logits`` (:func:`_l2wrap_at`)
+    as a tensor of its shape."""
+    return torch.zeros_like(logits).scatter_(-1, *_l2wrap_at(logits, top, l2, group))
 
 
 def _ce_l2wrap_grads(chunk_t: int, head_w: Tensor, hidden: Tensor, lbl_next: Tensor, valid: Tensor,
-                     counts: Tensor, g: Tensor, l2: float):
+                     counts: Tensor, lse: Tensor, top: Tensor, g: Tensor, l2: float, group):
     """(d head_w, d hidden) of the CE mean ``g``-scaled over per-sample
     ``counts``, plus the L2Wrap injection ``max_logit * l2`` at each
-    position's argmax, NOT scaled by ``g`` (the reference's L2Wrap)."""
+    position's argmax, NOT scaled by ``g`` (the reference's L2Wrap). Over a
+    vocabulary split over ``group``: d of this rank's rows, and this rank's
+    share of d hidden, to be summed over the group."""
     B, T, C = hidden.shape
     V = head_w.shape[0]
     dt = hidden.dtype
@@ -329,14 +383,11 @@ def _ce_l2wrap_grads(chunk_t: int, head_w: Tensor, hidden: Tensor, lbl_next: Ten
     for s in range(0, T, chunk_t):
         sl = slice(s, s + chunk_t)
         h_c = hidden[:, sl]
-        logits = F.linear(h_c, w).float()
-        vl = valid[:, sl, None]
-        safe = torch.where(valid[:, sl], lbl_next[:, sl], 0).clamp(0, V - 1)
-        maxx, ids = logits.max(-1, keepdim=True)
-        dlogits = torch.softmax(logits, -1) * vl
-        dlogits.scatter_add_(-1, safe[..., None], -vl.float())
+        logits, idx, owned = _ce_chunk(head_w, h_c, lbl_next[:, sl], valid[:, sl], group)
+        dlogits = torch.exp(logits - lse[:, sl, None]) * valid[:, sl, None]
+        dlogits.scatter_add_(-1, idx[..., None], -owned[..., None].float())
         dlogits *= scale
-        dlogits.scatter_add_(-1, ids, maxx * l2)
+        dlogits.scatter_add_(-1, *_l2wrap_at(logits, top[:, sl], l2, group))
         dl = dlogits.to(dt)
         dh[:, sl] = (dl @ w).to(dt)  # fp32 accumulation inside the matmul
         dw += (dl.reshape(-1, V).t() @ h_c.reshape(-1, C)).float()
@@ -358,48 +409,71 @@ class _ChunkedCEL2Wrap(torch.autograd.Function):
     mean. The L2Wrap injection is ``1e-4 / (B_local * T_global)`` a
     position: the trainer averages gradients over the data ranks
     (``parallel.collectives``), which makes it the reference's
-    ``1e-4 / (B_global * T_global)``."""
+    ``1e-4 / (B_global * T_global)``.
+
+    Under a vocabulary split over ``model_group`` (``head_w`` is this rank's
+    rows) the loss is the vocab-parallel one: each rank gives the loss
+    whole, its slice of the head's gradient and its share of the hidden
+    state's, which the caller's :func:`copy_to_model` sums over the model
+    ranks."""
 
     @staticmethod
-    def forward(ctx, chunk_t, head_w, hidden, labels_next, seq_group):
+    def forward(ctx, chunk_t, head_w, hidden, labels_next, seq_group, model_group):
         B, T, _ = hidden.shape
         valid = labels_next != IGNORE_INDEX
-        stats = torch.stack([_ce_stats(chunk_t, head_w, hidden, labels_next, valid),
-                             valid.sum(1).float()])
+        ce, lse, top = _ce_stats(chunk_t, head_w, hidden, labels_next, valid, model_group)
+        stats = torch.stack([ce, valid.sum(1).float()])
         if seq_group is not None:
             dist.all_reduce(stats, group=seq_group)
         ce, counts = stats[0], stats[1].clamp_min(1)
-        ctx.save_for_backward(head_w, hidden, labels_next, valid, counts)
-        ctx.chunk_t = chunk_t
+        ctx.save_for_backward(head_w, hidden, labels_next, valid, counts, lse, top)
+        ctx.chunk_t, ctx.model_group = chunk_t, model_group
         ctx.l2 = L2WRAP_FACTOR / (B * T * group_size(seq_group))  # the full T, whatever the chunk
         return (ce / counts).mean()
 
     @staticmethod
     def backward(ctx, g):
-        head_w, hidden, labels_next, valid, counts = ctx.saved_tensors
-        dw, dh = _ce_l2wrap_grads(ctx.chunk_t, head_w, hidden, labels_next, valid, counts, g, ctx.l2)
-        return None, dw, dh, None, None
+        head_w, hidden, labels_next, valid, counts, lse, top = ctx.saved_tensors
+        dw, dh = _ce_l2wrap_grads(ctx.chunk_t, head_w, hidden, labels_next, valid, counts, lse, top, g,
+                                  ctx.l2, ctx.model_group)
+        return None, dw, dh, None, None, None
 
 
-def chunked_ce_l2wrap(chunk_t: int, head_w: Tensor, hidden: Tensor, labels: Tensor) -> Tensor:
-    """``head_w`` [V, C], ``hidden`` [B, T, C] with T a multiple of
+def chunked_ce_l2wrap(chunk_t: int, head_w: Tensor, hidden: Tensor, labels: Tensor,
+                      model_group=None) -> Tensor:
+    """``head_w`` [V, C] (under ``model_group``, this rank's rows of a
+    vocabulary split over it), ``hidden`` [B, T, C] with T a multiple of
     ``chunk_t``, ``labels`` [B, T] (unshifted, ``IGNORE_INDEX`` where masked)."""
-    return chunked_ce_l2wrap_sp(chunk_t, head_w, hidden, _shifted_labels(labels)[0])
+    return chunked_ce_l2wrap_sp(chunk_t, head_w, hidden, _shifted_labels(labels)[0],
+                                model_group=model_group)
 
 
 def chunked_ce_l2wrap_sp(chunk_t: int, head_w: Tensor, hidden: Tensor, labels_next: Tensor,
-                         seq_group=None) -> Tensor:
+                         seq_group=None, model_group=None) -> Tensor:
     """``hidden`` [B, T_local, C] with T_local a multiple of ``chunk_t``,
     ``labels_next`` [B, T_local] pre-shifted (``labels_next[t]`` is the
-    target of position t): :class:`_ChunkedCEL2Wrap`."""
+    target of position t): :class:`_ChunkedCEL2Wrap`. A ``model_group`` of
+    more than one rank makes it the vocab-parallel loss over ``head_w``,
+    this rank's rows of the head; ``hidden`` then passes
+    :func:`copy_to_model`, so that its gradient is summed over the group."""
     if hidden.shape[1] % chunk_t:
         raise ValueError(f"T={hidden.shape[1]} must be a multiple of chunk_t={chunk_t}")
-    return _ChunkedCEL2Wrap.apply(chunk_t, head_w, hidden, labels_next, seq_group)
+    if group_size(model_group) == 1:
+        model_group = None
+    else:
+        hidden = copy_to_model(hidden, model_group)
+    return _ChunkedCEL2Wrap.apply(chunk_t, head_w, hidden, labels_next, seq_group, model_group)
+
+
+def _head_group(params: Params, cfg: VLMConfig, model_group):
+    """``model_group`` when the rule split the vocabulary head over it, else
+    None (the head whole on every rank)."""
+    return model_group if split_rows(params["rwkv"]["head"], cfg.rwkv.vocab_size, model_group) else None
 
 
 def training_loss_seq(params: Params, cfg: VLMConfig, input_ids, labels_next, grad_cp=True,
                       ce_chunk_t: int = 128, seq_group=None, data_group=None,
-                      embeds: Optional[Tensor] = None, device="cuda") -> Tensor:
+                      embeds: Optional[Tensor] = None, device="cuda", model_group=None) -> Tensor:
     """The training loss under context parallelism (the JAX package's
     ``training_loss_seq``), x070 and x060: this rank holds its rows (of its
     ``data`` index) and its token range (of its ``seq`` index).
@@ -411,7 +485,13 @@ def training_loss_seq(params: Params, cfg: VLMConfig, input_ids, labels_next, gr
     rows' whole sequences (``prepare_embeddings``). Returns the loss over
     every rank's rows, the same on each, whose backward is the identity:
     each rank's gradients are then its own part, to be summed over the seq
-    ranks and averaged over the data ranks."""
+    ranks and averaged over the data ranks.
+
+    ``model_group``: the model axis of the 3-D mesh. ``params`` then hold
+    this rank's parts (:mod:`visualrwkv_torch.parallel.tensor`): the blocks
+    run on its heads, the ring of each block on them, and the loss is the
+    vocab-parallel one; an image batch's ``embeds`` must have been built
+    under ``model_axis(model_group)`` too (the projector's split)."""
     device = resolve_device(device)
     rcfg = cfg.rwkv
     forward_seq = {"x070": rwkv7.rwkv7_forward_seq, "x060": rwkv6.rwkv6_forward_seq}.get(rcfg.version)
@@ -422,19 +502,29 @@ def training_loss_seq(params: Params, cfg: VLMConfig, input_ids, labels_next, gr
     if embeds is None:
         ids = torch.as_tensor(input_ids, device=device).long()
         embeds = rwkv7.embed(params["rwkv"], ids.clamp(0, rcfg.vocab_size - 1))
-    hidden = forward_seq(params["rwkv"], rcfg, embeds, group=seq_group, grad_cp=grad_cp,
-                         return_hidden=True)
+    with model_axis(model_group):
+        hidden = forward_seq(params["rwkv"], rcfg, embeds, group=seq_group, grad_cp=grad_cp,
+                             return_hidden=True)
     T_local = embeds.shape[1]
     chunk = ce_chunk_t if T_local % ce_chunk_t == 0 else T_local
     local = chunked_ce_l2wrap_sp(chunk, params["rwkv"]["head"]["weight"], hidden, labels_next,
-                                 seq_group)
+                                 seq_group, _head_group(params, cfg, model_group))
     return all_reduce_replicated(local, data_group, mean=True)
 
 
 def training_loss_leftpad(params: Params, cfg: VLMConfig, input_ids, labels, images=None,
-                          plan: Optional[LeftpadPlan] = None, grad_cp=True, device="cuda") -> Tensor:
+                          plan: Optional[LeftpadPlan] = None, grad_cp=True, device="cuda",
+                          model_group=None) -> Tensor:
     """The training loss of the v6.0 leftpad insertion: the dense loss on
-    the realigned labels (:func:`vlm_forward_leftpad`)."""
+    the realigned labels (:func:`vlm_forward_leftpad`). Under a
+    ``model_group`` (``params`` this rank's parts) the vocab-parallel loss
+    over all of T in one chunk, the dense loss's numbers."""
+    if group_size(model_group) > 1:
+        with model_axis(model_group):
+            hidden, new_labels, _ = vlm_forward_leftpad(params, cfg, input_ids, labels, images, plan=plan,
+                                                        grad_cp=grad_cp, return_hidden=True, device=device)
+        return chunked_ce_l2wrap(hidden.shape[1], params["rwkv"]["head"]["weight"], hidden, new_labels,
+                                 _head_group(params, cfg, model_group))
     logits, new_labels, _ = vlm_forward_leftpad(params, cfg, input_ids, labels, images, plan=plan,
                                                 grad_cp=grad_cp, device=device)
     return _dense_ce_l2wrap(logits, new_labels)
@@ -442,19 +532,27 @@ def training_loss_leftpad(params: Params, cfg: VLMConfig, input_ids, labels, ima
 
 def training_loss(params: Params, cfg: VLMConfig, input_ids, labels, images=None,
                   grad_cp=True, chunked_ce: bool = True, ce_chunk_t: int = 128,
-                  device="cuda") -> Tensor:
+                  device="cuda", model_group=None) -> Tensor:
     """Shifted cross-entropy, normalised per sample by its valid-label count,
     then the batch mean, with the L2Wrap penalty. ``chunked_ce`` (default)
     never materialises the full fp32 ``[B, T, vocab]`` logits; it applies when
     T is a multiple of ``ce_chunk_t`` and the forward is not the
-    bidirectional one (which gives logits only), else the dense loss runs."""
+    bidirectional one, else the dense loss runs.
+
+    ``model_group``: a model axis over which ``params`` hold this rank's
+    parts (:mod:`visualrwkv_torch.parallel.tensor`): the forward runs on
+    them and the loss is the vocab-parallel one, one chunk of all of T where
+    the dense loss would run (the same numbers)."""
     device = resolve_device(device)
     ids = torch.as_tensor(input_ids, device=device).long()
     labels = torch.as_tensor(labels, device=device).long()
     bidirectional = cfg.bidirectional_image and images is not None
-    if chunked_ce and not bidirectional and ids.shape[1] % ce_chunk_t == 0:
-        hidden = vlm_forward(params, cfg, ids, images, grad_cp=grad_cp, return_hidden=True,
-                             device=device)
-        return chunked_ce_l2wrap(ce_chunk_t, params["rwkv"]["head"]["weight"], hidden, labels)
+    chunked = chunked_ce and not bidirectional and ids.shape[1] % ce_chunk_t == 0
+    if chunked or group_size(model_group) > 1:
+        with model_axis(model_group):
+            hidden = vlm_forward(params, cfg, ids, images, grad_cp=grad_cp, return_hidden=True,
+                                 device=device)
+        return chunked_ce_l2wrap(ce_chunk_t if chunked else ids.shape[1], params["rwkv"]["head"]["weight"],
+                                 hidden, labels, _head_group(params, cfg, model_group))
     logits = vlm_forward(params, cfg, ids, images, grad_cp=grad_cp, device=device)
     return _dense_ce_l2wrap(logits, labels)

@@ -1,7 +1,13 @@
 """Vision -> language projector and token-space utilities.
 Counterpart of ``visualrwkv_tpu/multimodal/projector.py``: linear / gated-MLP
 projector, exact adaptive average pooling, CLIP grid pooling, and the scatter
-of image features into ``IMAGE_TOKEN_INDEX`` positions."""
+of image features into ``IMAGE_TOKEN_INDEX`` positions.
+
+Under a model axis (:mod:`visualrwkv_torch.parallel.tensor`) whose rule split
+the gated projector's ``gate`` and ``o_proj`` on their input dim, each rank
+multiplies its slice of the input channels and the partial products are
+summed over the axis (:func:`reduce_from_model`); the gated features pass
+:func:`copy_to_model` before ``o_proj`` takes its slice of them."""
 
 from __future__ import annotations
 
@@ -11,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from visualrwkv_torch.config import IMAGE_TOKEN_INDEX
+from visualrwkv_torch.parallel.collectives import copy_to_model, reduce_from_model
+from visualrwkv_torch.parallel.tensor import local_slice, model_group
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -38,8 +46,13 @@ def apply_projector(p: Params, proj_type: str, x: Tensor, dtype=torch.bfloat16) 
     dt = dtype
     if proj_type == "linear":
         return F.linear(x.to(dt), p["weight"].to(dt)).to(dt)
-    gating = torch.sigmoid(F.linear(x.to(dt), p["gate"]["weight"].to(dt)).float())
-    h = F.linear((x.float() * gating).to(dt), p["o_proj"]["weight"].to(dt)).float()
+    split = p["o_proj"]["weight"].shape[1] != x.shape[-1]  # gate and o_proj on their input dim
+    group = model_group() if split else None
+    sl = local_slice(x.shape[-1], group)
+    pre = F.linear(x[..., sl].to(dt), p["gate"]["weight"].to(dt)).float()
+    gating = torch.sigmoid(reduce_from_model(pre, group))
+    gated = copy_to_model((x.float() * gating).to(dt), group)
+    h = reduce_from_model(F.linear(gated[..., sl], p["o_proj"]["weight"].to(dt)).float(), group)
     out = F.layer_norm(h, h.shape[-1:], p["ln_v"]["weight"].float(), p["ln_v"]["bias"].float(), 1e-5)
     return out.to(dt)
 

@@ -19,6 +19,15 @@ numerics of ``psum_cotangents_f32``).
 - :func:`gather_leaf`: ZeRO-3's parameter gather along the leaf's split dim,
   whose backward sums the cotangent over ``seq`` and reduce-scatters it over
   ``data`` in fp32, divided by the data size.
+- :func:`copy_to_model` / :func:`reduce_from_model`: the two Megatron
+  region operators of tensor parallelism over ``model``. The first is the
+  identity on a replicated activation about to meet a split product, and
+  sums its cotangent over the group (each rank's is its own heads' share);
+  the second sums a row-split product's partial results, and passes the
+  cotangent through.
+- :func:`all_reduce_op`: an elementwise MAX or MIN over a group, without a
+  gradient (the vocab-parallel loss's shift and the owner of a position's
+  largest logit).
 
 A group of None is a group of one: nothing is sent.
 """
@@ -183,3 +192,50 @@ def gather_leaf(shard: Tensor, axis: int, data_group, seq_group=None) -> Tensor:
     over ``seq_group``, averaged over ``data_group``, reduced in fp32 and
     rounded once."""
     return _GatherLeaf.apply(shard, axis, data_group, seq_group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_model(x: Tensor, group) -> Tensor:
+    """``x`` unchanged; its cotangent summed over ``group`` (a replicated
+    activation entering a region of split products)."""
+    return x if group_size(group) == 1 else _CopyToModel.apply(x, group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_model(x: Tensor, group) -> Tensor:
+    """The sum over ``group`` of each rank's partial result ``x`` (a
+    row-split product); the cotangent passes through to every rank."""
+    return x if group_size(group) == 1 else _ReduceFromModel.apply(x, group)
+
+
+@torch.no_grad()
+def all_reduce_op(x: Tensor, group, op) -> Tensor:
+    """``x`` reduced elementwise by ``op`` (a ``dist.ReduceOp``: MAX, MIN)
+    over ``group``, without a gradient (a new tensor)."""
+    out = x.contiguous().clone()
+    if group_size(group) > 1:
+        dist.all_reduce(out, op=op, group=group)
+    return out

@@ -1,5 +1,6 @@
-"""The ``(data, seq, model)`` device mesh, the per-process batch and the
-ZeRO sharding rule. Counterpart of ``visualrwkv_tpu/parallel/mesh.py``.
+"""The ``(data, seq, model)`` device mesh, the per-process batch, the ZeRO
+sharding rule and the tensor-parallel rule. Counterpart of
+``visualrwkv_tpu/parallel/mesh.py``.
 
 One process drives one device, so where the JAX package places a global
 array on a mesh (``shard_batch``), a process here takes its own part of
@@ -9,13 +10,15 @@ context parallelism, the token range of its ``seq`` index. The mesh is a
 group, or None for one process without a group: the helpers below read
 both (sizes 1, index 0, no group).
 
-Tensor parallelism over ``model`` (``tensor_parallel_sharding``) is not
-ported: :func:`make_mesh` refuses ``n_model > 1``.
+Tensor parallelism over ``model`` (:func:`tensor_parallel_sharding`) splits
+the RWKV blocks' head and hidden dims, the vocabulary and the projector's
+input dim; :mod:`visualrwkv_torch.parallel.tensor` holds the split and the
+model code runs on it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +35,6 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, n_seq: int = 1):
     or None, the one-process mesh, when no group is initialised.
     ``n_data`` defaults to the world size over ``n_seq * n_model``; the
     product must be the world size."""
-    if n_model > 1:
-        raise NotImplementedError("tensor parallelism over a `model` axis is not ported yet "
-                                  "(ROADMAP item A.17b)")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_data is None:
         n_data = world // (n_model * n_seq)
@@ -61,6 +61,21 @@ def axis_group(mesh, axis: str):
     """The process group of ``axis`` (this process and the others that
     differ from it only there), None for the one-process mesh."""
     return None if mesh is None else mesh.get_group(axis)
+
+
+def data_seq_group(mesh):
+    """The process group of this process's ``model`` index: the ranks that
+    differ from it along ``data`` and ``seq`` (all of them when ``model`` is
+    1; None for the one-process mesh). Every rank makes every such group,
+    in the same order, as ``torch.distributed.new_group`` requires."""
+    if mesh is None:
+        return None
+    n_model = axis_size(mesh, "model")
+    if n_model == 1:
+        return dist.group.WORLD
+    world = dist.get_world_size()
+    groups = [dist.new_group([r for r in range(world) if r % n_model == m]) for m in range(n_model)]
+    return groups[dist.get_rank() % n_model]
 
 
 def take_part(x, axis: int, n: int, i: int):
@@ -129,3 +144,54 @@ def zero_sharding(tree, n: int):
     if tree is None or not isinstance(tree, torch.Tensor):
         return None
     return shardable_axis(tuple(tree.shape), n)
+
+
+def tensor_parallel_axis(path: Sequence[Any], shape: Sequence[int], n: int) -> Optional[int]:
+    """The ``model`` split dim of the leaf at ``path`` (its keys) in the
+    port's layout, or None (replicated): the rule of the JAX package's
+    ``tensor_parallel_sharding``, over 2-D leaves only.
+
+    - a block's time-mix ``receptance`` / ``key`` / ``value`` / ``gate``
+      split on their output (head) dim, its ``output`` on its input dim;
+    - the channel-mix (``ffn``, ``ffn_v``) ``key`` on its output dim,
+      ``value`` on its input dim;
+    - the vocabulary ``head`` on the vocabulary;
+    - the projector's ``gate`` and ``o_proj`` on their input dim;
+    - a dim that ``n`` does not divide keeps its leaf replicated.
+
+    JAX's linears are ``[in, out]``, the port's ``[out, in]``: JAX's
+    ``P(None, "model")`` (output) is dim 0 here, ``P("model", None)``
+    (input) dim 1."""
+    keys = [str(k) for k in path]
+    if len(shape) != 2 or n == 1:
+        return None
+    tail = keys[-2] if len(keys) >= 2 else ""
+    out_dim, in_dim = shape  # [out, in]
+    if tail == "head" and out_dim % n == 0:
+        return 0
+    if "att" in keys:
+        if tail in ("receptance", "key", "value", "gate") and out_dim % n == 0:
+            return 0
+        if tail == "output" and in_dim % n == 0:
+            return 1
+    if "ffn" in keys or "ffn_v" in keys:
+        if tail == "key" and out_dim % n == 0:
+            return 0
+        if tail == "value" and in_dim % n == 0:
+            return 1
+    if tail in ("o_proj", "gate") and keys[0] == "proj" and in_dim % n == 0:
+        return 1
+    return None
+
+
+def tensor_parallel_sharding(tree, n: int, path: Tuple[Any, ...] = ()):
+    """The ``model`` split dim of every leaf of ``tree`` for ``n`` model
+    ranks (:func:`tensor_parallel_axis`; None: replicated), as a tree of the
+    same structure."""
+    if isinstance(tree, dict):
+        return {k: tensor_parallel_sharding(v, n, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tensor_parallel_sharding(v, n, path + (i,)) for i, v in enumerate(tree)]
+    if tree is None or not hasattr(tree, "shape"):
+        return None
+    return tensor_parallel_axis(path, tuple(tree.shape), n)

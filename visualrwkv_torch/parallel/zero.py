@@ -8,6 +8,10 @@ their context-parallel forwards) then gather each block's leaves just
 before the block runs, and under activation checkpointing again when the
 backward recomputes the block. Outside :func:`gathering` the hook is the
 identity.
+
+:class:`SplitPlan` is a split of the leaves over one mesh axis: ZeRO's
+over ``data`` (:class:`ZeroPlan`), tensor parallelism's over ``model``
+(:class:`visualrwkv_torch.parallel.tensor.TensorPlan`).
 """
 
 from __future__ import annotations
@@ -40,14 +44,12 @@ def gathering(fn: Optional[Callable[[Any], Any]]):
 
 
 @dataclasses.dataclass
-class ZeroPlan:
-    """How the leaves split over the data ranks. ``stage`` 1 splits the
-    optimizer state, 3 the parameters too; ``axes`` is a tree over the
-    parameters of each leaf's split dim (None: whole on every rank,
-    :func:`visualrwkv_torch.parallel.mesh.zero_sharding`); ``group`` the
-    data ranks, ``n`` their count and ``index`` this rank's place."""
+class SplitPlan:
+    """How the leaves split over the ranks of one mesh axis: ``axes`` is a
+    tree over the parameters of each leaf's split dim (None: whole on every
+    rank), ``group`` the axis's ranks, ``n`` their count and ``index`` this
+    rank's place."""
 
-    stage: int
     axes: Any
     n: int
     index: int
@@ -65,3 +67,12 @@ class ZeroPlan:
         shape = list(part.shape)
         shape[axis] *= self.n
         return tuple(shape)
+
+
+@dataclasses.dataclass
+class ZeroPlan(SplitPlan):
+    """How the leaves split over the data ranks (:class:`SplitPlan`, with
+    ``axes`` from :func:`visualrwkv_torch.parallel.mesh.zero_sharding`).
+    ``stage`` 1 splits the optimizer state, 3 the parameters too."""
+
+    stage: int = dataclasses.field(kw_only=True)

@@ -102,20 +102,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for a configuration the port does not run yet: tensor
-    parallelism over a ``model`` axis and the offloaded optimizer under ZeRO
-    sharding over several data ranks (ROADMAP item A.17b). The CLI's own
-    flags all run; ``n_model`` and ``offload_optimizer`` are read where a
-    caller's namespace carries them."""
-    unported = {
-        "a model axis (n_model > 1)": getattr(args, "n_model", 1) > 1,
-        "offload_optimizer under ZeRO over data ranks": (
-            getattr(args, "offload_optimizer", False) and args.zero_stage >= 1
-            and (args.n_data or 1) > 1),
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP item A.17b)")
+    """Refuses nothing: every configuration these flags express runs in the
+    port (tensor parallelism is reached through ``Trainer(mesh=make_mesh(
+    n_model=...))``, as in the JAX package, whose CLI has no ``--n_model``
+    either, and the offloaded optimizer runs over several data ranks). Kept
+    for callers that check a namespace before they build from it."""
 
 
 def load_lm_weights(init, loaded, where: str = "rwkv"):
@@ -235,7 +226,6 @@ def dummy_vision_config():
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = build_argparser().parse_args(argv)
-    check_ported(args)
     from visualrwkv_torch.parallel import distributed
     from visualrwkv_torch.parallel.mesh import axis_index, axis_size, make_mesh
 

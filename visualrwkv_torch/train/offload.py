@@ -24,6 +24,18 @@ moments, then its master when it is stored below fp32). A step:
 
 On the CPU (a caller that asks for it) the same groups and copies run
 synchronously, without pinning.
+
+Over several data ranks (a :class:`visualrwkv_torch.parallel.zero.ZeroPlan`)
+each rank keeps the state of its ZeRO part of every leaf the rule splits,
+so its pinned bytes are about ``1 / n_data`` of one device's: it steps
+those parts on the gradients averaged over the data ranks, then each
+updated leaf is gathered (ZeRO-1; under ZeRO-3 a rank's parameters are its
+parts, and stay so). The JAX package keeps the whole state on every rank,
+behind a replicated host sharding, and steps it on the same gradients: the
+numbers are the same. Under tensor parallelism (a
+:class:`visualrwkv_torch.parallel.tensor.TensorPlan`) the leaves are each
+model rank's parts, and the clip counts them as the resident optimizer
+does.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from visualrwkv_torch.config import TrainConfig, VLMConfig
+from visualrwkv_torch.parallel.tensor import TensorPlan
+from visualrwkv_torch.parallel.zero import ZeroPlan
 from visualrwkv_torch.train.optim import (
     OptState,
     Optimizer,
@@ -56,13 +70,22 @@ def _group_of(path) -> Tuple[int, ...]:
     return (1,)
 
 
+def state_part(opt: Optimizer, i: int, p: Tensor) -> Tensor:
+    """The part of trainable leaf ``i`` (``p``, as the rank holds it) whose
+    state this rank keeps: its ZeRO-1 part where the rule splits it over
+    the data ranks, else ``p`` (a ZeRO-3 part already, or whole)."""
+    _, zax = opt.axes(i)
+    return opt.zero.part(p, zax) if zax is not None and opt.zero.stage < 3 else p
+
+
 def group_layout(opt: Optimizer, params: Params):
     """Where each trainable leaf's state sits: (rows, groups, sizes). ``rows``
     are the trainable leaves' (path, leaf), in the order of their gradients;
     ``groups[g]`` lists (row index, decayed, offsets of mu / nu / master or
     None) and ``sizes[g]`` is group g's buffer length in floats. Sizes
     follow from the shapes and dtypes alone: the host memory an offloaded
-    run needs is ``4 * sum(sizes)`` bytes before anything is allocated."""
+    run needs is ``4 * sum(sizes)`` bytes before anything is allocated.
+    Under ZeRO a leaf's state is that of this rank's part (:func:`state_part`)."""
     leaves = tree_leaves_with_path(params)
     train = tree_leaves(opt.train_mask)
     decay = tree_leaves(opt.wd_mask)
@@ -73,7 +96,7 @@ def group_layout(opt: Optimizer, params: Params):
         for i, (path, p, d) in enumerate(rows):
             if _group_of(path) != key:
                 continue
-            step = -(-p.numel() // _ALIGN) * _ALIGN
+            step = -(-state_part(opt, i, p).numel() // _ALIGN) * _ALIGN
             master = p.dtype != torch.float32
             members.append((i, d, (n, n + step, n + 2 * step if master else None)))
             n += (3 if master else 2) * step
@@ -88,9 +111,11 @@ class StreamedOffloadOptimizer:
     ``mu`` / ``nu`` / ``master`` trees are views into the host buffers."""
 
     def __init__(self, cfg: TrainConfig, vlm_cfg: VLMConfig, params: Params, total_steps: int,
-                 device="cuda"):
+                 device="cuda", zero: Optional[ZeroPlan] = None, tp: Optional[TensorPlan] = None):
+        """``params`` as the rank holds them (under ZeRO-3 its parts);
+        ``zero`` the split over the data ranks, ``tp`` over the model ranks."""
         self.device = torch.device(device)
-        self.opt = Optimizer(cfg, params, total_steps, vlm_cfg.rwkv.n_layer)
+        self.opt = Optimizer(cfg, params, total_steps, vlm_cfg.rwkv.n_layer, zero, tp)
         self._check_uniform_blocks()
         cuda = self.device.type == "cuda"
 
@@ -100,12 +125,13 @@ class StreamedOffloadOptimizer:
         for buf, members in zip(self._host, self.groups):
             for i, _, offs in members:
                 path, p = rows[i]
-                view = lambda o: buf[o:o + p.numel()].view(p.shape)
+                part = state_part(self.opt, i, p)
+                view = lambda o: buf[o:o + part.numel()].view(part.shape)
                 mu, nu = view(offs[0]), view(offs[1])
                 master = None
                 if offs[2] is not None:
                     master = view(offs[2])
-                    master.copy_(p.detach().float())
+                    master.copy_(part.detach().float())
                 views[path] = (mu, nu, master)
         pick = lambda k: tree_map_with_path(lambda path, _: views[path][k] if path in views else None,
                                             params)
@@ -201,9 +227,10 @@ class StreamedOffloadOptimizer:
             stage = self._stage[slot]
             for i, decayed, (o_mu, o_nu, o_ms) in self.groups[g]:
                 p = leaves[i]
-                view = lambda o: stage[o:o + p.numel()].view(p.shape)
+                shape = state_part(opt, i, p).shape
+                view = lambda o: stage[o:o + shape.numel()].view(shape)
                 master = view(o_ms) if o_ms is not None else None
-                opt.update_leaf(p, grads[i], view(o_mu), view(o_nu), master, decayed, hyper)
+                opt.apply_leaf(i, p, grads[i], view(o_mu), view(o_nu), master, decayed, hyper)
             self._copy_back(g, slot)
         self.state.count += 1
 

@@ -31,6 +31,12 @@ parameters are parts too, their gradients arrive reduce-scattered, and the
 clip's squared norm of those parts is all-reduced. Under ``bf16_sr`` a part
 draws the rounding bits of its whole leaf and keeps its own, so that it
 rounds as the leaf would on one device.
+
+Under tensor parallelism (a :class:`visualrwkv_torch.parallel.tensor.
+TensorPlan`) the parameters are each model rank's parts; the clip sums a
+split leaf's squares over the model ranks and counts a replicated leaf
+once, ZeRO-1 splits each rank's parts over the data ranks, and ``bf16_sr``
+takes a part's bits from its whole leaf's, as for a ZeRO part.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from visualrwkv_torch.config import TrainConfig
+from visualrwkv_torch.parallel.tensor import TensorPlan
 from visualrwkv_torch.parallel.zero import ZeroPlan
 from visualrwkv_torch.train.schedule import cosine_warmup_lr, wd_schedule
 
@@ -121,24 +128,36 @@ def trainable_mask(params: Params, cfg: TrainConfig, n_layer: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def global_norm_scale(grads: List[Tensor], max_norm: float, parts: Optional[List[bool]] = None,
-                      group=None) -> Tuple[Tensor, Tensor]:
+def global_norm_scale(grads: List[Tensor], max_norm: float,
+                      groups: Optional[List[Any]] = None) -> Tuple[Tensor, Tensor]:
     """(scale, finite) of the global-norm clip: ``scale = min(1, max_norm /
     norm)`` with the norm accumulated in fp32 (the sum of squares of bf16
     gradients overflows at scale), and whether the norm is finite. Where
-    ``parts[i]``, ``grads[i]`` is this rank's part of a leaf split over
-    ``group`` (ZeRO-3): its sum of squares is summed over the group before
-    the leaves' sums are added up, in the leaves' order."""
+    ``groups[i]`` is a process group, ``grads[i]`` is this rank's part of a
+    leaf split over it (ZeRO-3 over ``data``, tensor parallelism over
+    ``model``): its sum of squares is summed over the group before the
+    leaves' sums are added up, in the leaves' order; every other leaf is
+    counted once. The finite flag is then agreed over each such group, so
+    that its ranks skip a step together."""
     sqs = [torch.sum(g.float() ** 2) for g in grads]
-    split = [i for i, is_part in enumerate(parts or ()) if is_part]
-    if split and group is not None:
+    distinct = []
+    for grp in groups or ():
+        if grp is not None and all(grp is not d for d in distinct):
+            distinct.append(grp)
+    for grp in distinct:
+        split = [i for i, g in enumerate(groups) if g is grp]
         red = torch.stack([sqs[i] for i in split])
-        dist.all_reduce(red, group=group)
+        dist.all_reduce(red, group=grp)
         for j, i in enumerate(split):
             sqs[i] = red[j]
-    sq = sum(sqs)
-    gnorm = torch.sqrt(sq)
-    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0), torch.isfinite(gnorm)
+    gnorm = torch.sqrt(sum(sqs))
+    finite = torch.isfinite(gnorm)
+    if distinct:
+        flag = finite.float().reshape(1)
+        for grp in distinct:
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=grp)
+        finite = flag[0] > 0
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0), finite
 
 
 def _clipped(g: Tensor, scale: Tensor, finite: Tensor) -> Tensor:
@@ -207,16 +226,23 @@ class Optimizer:
     """AdamW over the trainable leaves of a parameter tree (module docstring)."""
 
     def __init__(self, cfg: TrainConfig, params: Params, total_steps: int, n_layer: int,
-                 zero: Optional[ZeroPlan] = None):
-        """``params``: the whole leaves (the masks read their shapes).
-        ``zero``: the ZeRO split of the leaves over the data ranks, None on
-        one device or without sharding."""
+                 zero: Optional[ZeroPlan] = None, tp: Optional[TensorPlan] = None):
+        """``params``: the leaves (under ``tp`` each model rank's parts; the
+        masks read their shapes). ``zero``: the ZeRO split of the leaves over
+        the data ranks, None on one device or without sharding. ``tp``: the
+        split of the leaves over the model ranks, None without one."""
         self.cfg = cfg
         self.total_steps = total_steps
         self.lean = cfg.optim_precision == "bf16_sr"
         self.train_mask = trainable_mask(params, cfg, n_layer)
         self.wd_mask = weight_decay_mask(params)
         self.zero = zero
+        self.tp = tp
+        trainable = lambda axes: ([ax for ax, t in zip(tree_leaves(axes), tree_leaves(self.train_mask)) if t]
+                                  if axes is not None else None)
+        # each trainable leaf's ZeRO and model split dims (None: whole)
+        self._zero_axes = trainable(None if zero is None else zero.axes)
+        self._tp_axes = trainable(None if tp is None else tp.axes)
 
     def lr(self, count: int) -> float:
         c = self.cfg
@@ -247,14 +273,30 @@ class Optimizer:
     def trainable_leaves(self, params: Params) -> List[Tensor]:
         return [p for p, t in zip(tree_leaves(params), tree_leaves(self.train_mask)) if t]
 
-    def hyper(self, count: int, grads: List[Tensor], parts: Optional[List[bool]] = None):
+    def axes(self, i: int) -> Tuple[Optional[int], Optional[int]]:
+        """Trainable leaf ``i``'s (model split dim, ZeRO split dim)."""
+        return (None if self._tp_axes is None else self._tp_axes[i],
+                None if self._zero_axes is None else self._zero_axes[i])
+
+    def norm_groups(self, n: int) -> List[Any]:
+        """The group over which each of the ``n`` trainable gradients is a
+        part of its leaf: the data ranks for a ZeRO-3 part, the model ranks
+        for a model part, else None."""
+        out = []
+        for i in range(n):
+            tax, zax = self.axes(i)
+            out.append(self.tp.group if tax is not None else
+                       self.zero.group if zax is not None and self.zero.stage >= 3 else None)
+        return out
+
+    def hyper(self, count: int, grads: List[Tensor]):
         """What one step at ``count`` shares across its leaves: the clip
         ``(scale, finite)`` over all of ``grads`` (None without clipping;
-        ``parts`` marks the gradients that are ZeRO-3 parts of their leaf),
-        the learning rate, the weight decay and the bias corrections."""
+        :meth:`norm_groups` tells the parts of a split leaf), the learning
+        rate, the weight decay and the bias corrections."""
         cfg = self.cfg
-        group = None if self.zero is None else self.zero.group
-        clip = global_norm_scale(grads, cfg.grad_clip, parts, group) if cfg.grad_clip > 0 else None
+        clip = (global_norm_scale(grads, cfg.grad_clip, self.norm_groups(len(grads)))
+                if cfg.grad_clip > 0 else None)
         c1, c2 = 1.0 - cfg.beta1**(count + 1), 1.0 - cfg.beta2**(count + 1)
         return clip, self.lr(count), self.weight_decay(count), c1, c2
 
@@ -288,6 +330,31 @@ class Optimizer:
         else:
             p.add_(u.to(p.dtype))
 
+    def apply_leaf(self, i: int, p: Tensor, g: Tensor, mu: Tensor, nu: Tensor, master: Optional[Tensor],
+                   decayed: bool, hyper, gen: Optional[torch.Generator] = None) -> None:
+        """Trainable leaf ``i``'s update from its reduced gradient ``g``
+        (:meth:`update_leaf`), with its ZeRO and model splits: a ZeRO-3 or a
+        model part is updated as it is; under ZeRO-1 this rank's part of
+        ``p`` is updated from its part of ``g``, then the leaf is gathered
+        over the data ranks. ``mu`` / ``nu`` / ``master`` are the part's.
+        Under ``bf16_sr`` a part's rounding bits are its part of the whole
+        leaf's."""
+        tax, zax = self.axes(i)
+        z, tp = self.zero, self.tp
+        whole_shape = tp.whole_shape(p, tax) if tax is not None else tuple(p.shape)
+        tp_part = (lambda t: tp.part(t, tax)) if tax is not None else (lambda t: t)
+        if zax is None:
+            whole = (whole_shape, tp_part) if tax is not None else None
+            self.update_leaf(p, g, mu, nu, master, decayed, hyper, gen, whole)
+        elif z.stage >= 3:  # p is this rank's part already
+            whole = (z.whole_shape(p, zax), lambda t: z.part(t, zax))
+            self.update_leaf(p, g, mu, nu, master, decayed, hyper, gen, whole)
+        else:  # ZeRO-1: update this rank's part, then gather the leaf
+            pv = z.part(p, zax)
+            whole = (whole_shape, lambda t: z.part(tp_part(t), zax))
+            self.update_leaf(pv, z.part(g, zax), mu, nu, master, decayed, hyper, gen, whole)
+            p.copy_(z.gather(pv, zax))
+
     @torch.no_grad()
     def step(self, params: Params, grads: List[Tensor], state: OptState, step: int) -> None:
         """One update, in place on ``params`` and ``state``. ``grads`` are the
@@ -301,26 +368,13 @@ class Optimizer:
         ]
         if len(rows) != len(grads):
             raise ValueError(f"{len(grads)} gradients for {len(rows)} trainable leaves")
-        z = self.zero
-        axes = ([ax for ax, t in zip(tree_leaves(z.axes), tree_leaves(self.train_mask)) if t]
-                if z is not None else [None] * len(rows))
-        parts = [ax is not None and z.stage >= 3 for ax in axes]
-        hyper = self.hyper(state.count, grads, parts)
+        hyper = self.hyper(state.count, grads)
         gen = sr_generator(step, rows[0][0].device) if self.lean and rows else None
-        for (p, mu, nu, master, decayed), g, ax in zip(rows, grads, axes):
-            if ax is None:
-                self.update_leaf(p, g, mu, nu, master, decayed, hyper, gen)
-            elif z.stage >= 3:  # p is this rank's part already
-                whole = (z.whole_shape(p, ax), lambda t, ax=ax: z.part(t, ax))
-                self.update_leaf(p, g, mu, nu, master, decayed, hyper, gen, whole)
-            else:  # ZeRO-1: update this rank's part, then gather the leaf
-                part = lambda t, ax=ax: z.part(t, ax)
-                pv = part(p)
-                self.update_leaf(pv, part(g), mu, nu, master, decayed, hyper, gen, (p.shape, part))
-                p.copy_(z.gather(pv, ax))
+        for i, ((p, mu, nu, master, decayed), g) in enumerate(zip(rows, grads)):
+            self.apply_leaf(i, p, g, mu, nu, master, decayed, hyper, gen)
         state.count += 1
 
 
 def make_optimizer(cfg: TrainConfig, params: Params, total_steps: int, n_layer: int,
-                   zero: Optional[ZeroPlan] = None) -> Optimizer:
-    return Optimizer(cfg, params, total_steps, n_layer, zero)
+                   zero: Optional[ZeroPlan] = None, tp: Optional[TensorPlan] = None) -> Optimizer:
+    return Optimizer(cfg, params, total_steps, n_layer, zero, tp)

@@ -1,6 +1,6 @@
 """The trainer. Counterpart of ``visualrwkv_tpu/train/trainer.py``: one
-device, or one process a device over a ``(data, seq)`` mesh
-(:mod:`visualrwkv_torch.parallel.mesh`; ``model`` is not ported).
+device, or one process a device over a ``(data, seq, model)`` mesh
+(:mod:`visualrwkv_torch.parallel.mesh`).
 
 - a train step is the loss and its gradient over ``accumulate_grad_batches``
   micro-batches of ``micro_bsz`` samples (a loop; the mean of the losses and
@@ -40,6 +40,17 @@ of the global batch, :func:`visualrwkv_torch.parallel.mesh.data_rows`):
   x060; image batches build their rows' embeddings whole on each seq rank,
   then keep the range; leftpad and bidirectional image batches raise, as in
   the JAX package);
+- tensor parallelism (``model > 1``, every LM family): each rank keeps its
+  part of every leaf the rule splits (:mod:`visualrwkv_torch.parallel.
+  tensor`) and runs the blocks on its heads, the head on its slice of the
+  vocabulary (the vocab-parallel loss) and the projector on its slice of
+  the input channels. A replicated leaf used inside a split region gets
+  its gradient summed over every rank; the others' are reduced over the
+  ``data`` x ``seq`` ranks of this model index. ZeRO-1 splits each rank's
+  parts over the data ranks; ``zero_stage >= 3`` runs as 1, as the JAX
+  trainer ignores it under a model axis;
+- ``offload_optimizer`` over several data ranks (or under ``zero_stage``
+  3): each rank keeps the host state of its ZeRO part of every split leaf;
 - the reported loss is the mean over the data ranks; the log, the history
   and ``train_log.txt`` come from rank 0 only; a checkpoint is gathered and
   written by rank 0 in the one-process format, and each rank reads its part
@@ -70,12 +81,19 @@ from visualrwkv_torch.models.visualrwkv import (
 from visualrwkv_torch.multimodal.insertion import LeftpadPlan, leftpad_plan
 from visualrwkv_torch.ops.wkv7 import get_wkv_impl
 from visualrwkv_torch.parallel.collectives import (
-    all_gather_along,
     all_reduce_replicated,
     gather_leaf,
     reduce_gradients,
 )
-from visualrwkv_torch.parallel.mesh import axis_group, axis_index, axis_size, seq_range, zero_sharding
+from visualrwkv_torch.parallel.mesh import (
+    axis_group,
+    axis_index,
+    axis_size,
+    data_seq_group,
+    seq_range,
+    zero_sharding,
+)
+from visualrwkv_torch.parallel.tensor import TensorPlan, model_axis
 from visualrwkv_torch.parallel.zero import ZeroPlan, gathering
 from visualrwkv_torch.train.offload import StreamedOffloadOptimizer
 from visualrwkv_torch.train.optim import OptState, make_optimizer, tree_leaves, tree_map
@@ -102,8 +120,10 @@ def make_loss_fn(cfg: TrainConfig, vlm_cfg: VLMConfig, device, mesh=None) -> Cal
     loss is the mean over the data ranks, whose backward is the identity
     (each rank's gradients are its own rows'); under ``seq > 1`` the micro
     batch's labels must be pre-shifted (:func:`shift_labels`) and its
-    arrays whole along T: the loss takes this rank's range."""
+    arrays whole along T: the loss takes this rank's range. Under
+    ``model > 1`` the loss runs on this rank's parts of the parameters."""
     data_group = axis_group(mesh, "data")
+    model_group = axis_group(mesh, "model") if axis_size(mesh, "model") > 1 else None
     if axis_size(mesh, "seq") > 1:
         if vlm_cfg.rwkv.version not in ("x070", "x060"):
             raise NotImplementedError("sequence-parallel training supports RWKV-7/RWKV-6 "
@@ -114,14 +134,15 @@ def make_loss_fn(cfg: TrainConfig, vlm_cfg: VLMConfig, device, mesh=None) -> Cal
             ids, images = _on_device(micro["input_ids"], micro.get("images"), device)
             labels_next = seq_range(torch.as_tensor(micro["labels"], device=device), mesh)
             kw = dict(grad_cp=cfg.grad_cp, ce_chunk_t=cfg.ce_chunk_t, seq_group=seq_group,
-                      data_group=data_group, device=device)
+                      data_group=data_group, device=device, model_group=model_group)
             if images is None:
                 return training_loss_seq(params, vlm_cfg, seq_range(ids, mesh), labels_next, **kw)
             if vlm_cfg.insertion_mode == "leftpad" or vlm_cfg.bidirectional_image:
                 raise NotImplementedError(
                     "sequence-parallel image training supports the default scatter insertion only "
                     "(leftpad reshapes T per batch; bidirectional needs the whole span)")
-            emb = seq_range(prepare_embeddings(params, vlm_cfg, ids, images), mesh)
+            with model_axis(model_group):  # the projector on this rank's input channels
+                emb = seq_range(prepare_embeddings(params, vlm_cfg, ids, images), mesh)
             return training_loss_seq(params, vlm_cfg, None, labels_next, embeds=emb, **kw)
 
         return seq_loss_fn
@@ -130,12 +151,13 @@ def make_loss_fn(cfg: TrainConfig, vlm_cfg: VLMConfig, device, mesh=None) -> Cal
         if vlm_cfg.insertion_mode == "leftpad":
             loss = training_loss_leftpad(
                 params, vlm_cfg, micro["input_ids"], micro["labels"], micro.get("images"),
-                plan=plan, grad_cp=cfg.grad_cp, device=device,
+                plan=plan, grad_cp=cfg.grad_cp, device=device, model_group=model_group,
             )
         else:
             loss = training_loss(
                 params, vlm_cfg, micro["input_ids"], micro["labels"], micro.get("images"),
                 grad_cp=cfg.grad_cp, ce_chunk_t=cfg.ce_chunk_t, device=device,
+                model_group=model_group,
             )
         return loss if mesh is None else all_reduce_replicated(loss, data_group, mean=True)
 
@@ -205,6 +227,7 @@ class Trainer:
         self.mesh = mesh
         self.n_data = axis_size(mesh, "data")
         self.n_seq = axis_size(mesh, "seq")
+        self.n_model = axis_size(mesh, "model")
         self.rank0 = not dist.is_initialized() or dist.get_rank() == 0
         self.proj_dir = proj_dir
         self.log_every = log_every
@@ -213,31 +236,43 @@ class Trainer:
         pd = getattr(torch, train_cfg.param_dtype)
         params = tree_map(
             lambda p: p.detach().to(pd) if p.is_floating_point() else p.detach(), params)
+        zero_stage = train_cfg.zero_stage
+        self.tp = tp = None
+        self._kinds: Optional[List[Optional[str]]] = None
+        if self.n_model > 1:
+            tp = self.tp = self._tensor_plan(params)
+            if zero_stage >= 3:
+                log.info("zero_stage %d under a model axis of %d runs as ZeRO-1 (the JAX trainer "
+                         "places the parameters by the tensor-parallel rule then)", zero_stage,
+                         self.n_model)
+                zero_stage = 1
+            kinds = tp.kinds(params)
+            params = tree_map(lambda p, ax: p if ax is None else tp.part(p, ax).clone(), params, tp.axes)
+        # ZeRO over the data ranks: asked for, or the host state of an
+        # offloaded optimizer over several of them
         zero = None
-        if mesh is not None and train_cfg.zero_stage >= 1 and not train_cfg.offload_optimizer:
-            zero = ZeroPlan(stage=3 if train_cfg.zero_stage >= 3 else 1,
+        if mesh is not None and (zero_stage >= 1 or (train_cfg.offload_optimizer and self.n_data > 1)):
+            zero = ZeroPlan(stage=3 if zero_stage >= 3 else 1,
                             axes=zero_sharding(params, self.n_data), n=self.n_data,
                             index=axis_index(mesh, "data"), group=axis_group(mesh, "data"))
         self.zero = zero
+        self._dp_group = data_seq_group(mesh) if self.n_model > 1 else None
+        if zero is not None and zero.stage >= 3:  # a rank keeps its part of each split leaf
+            params = tree_map(lambda p, ax: p if ax is None else zero.part(p, ax).clone(), params, zero.axes)
         self._streamed = None
-        if train_cfg.offload_optimizer and mesh is not None and (
-                self.n_data > 1 or train_cfg.zero_stage >= 3):
-            raise NotImplementedError("offload_optimizer under ZeRO sharding over data ranks is not "
-                                      "ported yet (ROADMAP item A.17b)")
         if train_cfg.offload_optimizer and 0 < train_cfg.freeze_rwkv_layers < vlm_cfg.rwkv.n_layer:
             log.info("offload_optimizer: a partial layer freeze keeps the resident optimizer")
         elif train_cfg.offload_optimizer:
             self._streamed = StreamedOffloadOptimizer(train_cfg, vlm_cfg, params, self.total_steps,
-                                                      self.device)
+                                                      self.device, zero, tp)
         if self._streamed is not None:
             self.opt = self._streamed.opt
             self.state = TrainState(params=params, opt_state=self._streamed.state, step=0)
         else:
-            self.opt = make_optimizer(train_cfg, params, self.total_steps, vlm_cfg.rwkv.n_layer, zero)
-            if zero is not None and zero.stage >= 3:  # a rank keeps its part of each split leaf
-                params = tree_map(lambda p, ax: p if ax is None else zero.part(p, ax).clone(),
-                                  params, zero.axes)
+            self.opt = make_optimizer(train_cfg, params, self.total_steps, vlm_cfg.rwkv.n_layer, zero, tp)
             self.state = TrainState(params=params, opt_state=self.opt.init(params), step=0)
+        if tp is not None:
+            self._kinds = [k for k, t in zip(tree_leaves(kinds), tree_leaves(self.opt.train_mask)) if t]
         # ZeRO-3: the split dim of each part, by the part's identity (updates are in place)
         self._split: Dict[int, int] = {}
         if zero is not None and zero.stage >= 3:
@@ -253,9 +288,22 @@ class Trainer:
         self.train_log = (TrainLogWriter(proj_dir, run_config={"train": vars(train_cfg)},
                                          wandb_project=train_cfg.wandb_project)
                           if self.rank0 else None)
-        log.info("trainer: %s on %s, WKV mode %s, grad_cp %r, mesh data=%d seq=%d, zero_stage %d",
-                 vlm_cfg.rwkv.version, self.device, get_wkv_impl(), train_cfg.grad_cp,
-                 self.n_data, self.n_seq, train_cfg.zero_stage)
+        log.info("trainer: %s on %s, WKV mode %s, grad_cp %r, mesh data=%d seq=%d model=%d, "
+                 "zero_stage %d", vlm_cfg.rwkv.version, self.device, get_wkv_impl(), train_cfg.grad_cp,
+                 self.n_data, self.n_seq, self.n_model, zero_stage)
+
+    def _tensor_plan(self, params: Params) -> TensorPlan:
+        """The split of ``params`` (whole) over the model ranks. Raises for
+        a head count the axis does not divide where the rule splits
+        ``dim_att`` (the matrix-state families run the WKV on whole heads;
+        x040's recurrence is per channel)."""
+        rcfg = self.vlm_cfg.rwkv
+        tp = TensorPlan.make(params, axis_group(self.mesh, "model"))
+        att_split = any(blk["att"]["receptance"]["weight"] is not None for blk in tp.axes["rwkv"]["blocks"])
+        if att_split and rcfg.version != "x040" and rcfg.n_head % tp.n:
+            raise ValueError(f"a model axis of {tp.n} splits dim_att {rcfg.dim_att} but not the "
+                             f"{rcfg.n_head} heads: the WKV runs on whole heads")
+        return tp
 
     @property
     def params(self) -> Params:
@@ -284,12 +332,26 @@ class Trainer:
     @torch.no_grad()
     def _whole(self, tree, of_params: bool):
         """``tree`` (the parameters, or a tree of optimizer state shaped like
-        them) with each split leaf gathered whole; every rank must call it."""
+        them) with each split leaf gathered whole, over the data ranks, then
+        the model ranks; every rank must call it."""
+        gather = lambda t, ax, plan: t if t is None or ax is None else plan.gather(t, ax)
         z = self.zero
-        if z is None or (of_params and z.stage < 3):
-            return tree
-        return tree_map(lambda t, ax: t if t is None or ax is None else all_gather_along(t, ax, z.group),
-                        tree, z.axes)
+        if z is not None and not (of_params and z.stage < 3):
+            tree = tree_map(lambda t, ax: gather(t, ax, z), tree, z.axes)
+        if self.tp is not None:
+            tree = tree_map(lambda t, ax: gather(t, ax, self.tp), tree, self.tp.axes)
+        return tree
+
+    def _local(self, tree, of_params: bool):
+        """The inverse of :meth:`_whole`: this rank's parts of a tree of whole
+        leaves (views)."""
+        part = lambda t, ax, plan: t if t is None or ax is None else plan.part(t, ax)
+        if self.tp is not None:
+            tree = tree_map(lambda t, ax: part(t, ax, self.tp), tree, self.tp.axes)
+        z = self.zero
+        if z is not None and not (of_params and z.stage < 3):
+            tree = tree_map(lambda t, ax: part(t, ax, z), tree, z.axes)
+        return tree
 
     def full_params(self) -> Params:
         """The whole parameter tree (a collective under ZeRO-3)."""
@@ -323,7 +385,13 @@ class Trainer:
         with gathering(self._gather_tree if self._split else None):
             loss, grads = loss_and_grads(loss_fn, self.state.params, self.leaves, batch,
                                          self.cfg.accumulate_grad_batches)
-        if self.mesh is not None:  # once a step: sum over every rank, mean over the data ranks
+        if self._kinds is not None:  # model > 1: a rank's share of a replicated leaf's gradient is
+            # summed over every rank, the others over this model index's data and seq ranks
+            reduce_gradients([g for g, k in zip(grads, self._kinds) if k == "partial"], dist.group.WORLD,
+                             divide=self.n_data)
+            reduce_gradients([g for g, k in zip(grads, self._kinds) if k != "partial"], self._dp_group,
+                             divide=self.n_data)
+        elif self.mesh is not None:  # once a step: sum over every rank, mean over the data ranks
             whole = [g for g, p in zip(grads, self.leaves) if id(p) not in self._split]
             reduce_gradients(whole, dist.group.WORLD, divide=self.n_data)
         return loss, grads
@@ -393,24 +461,22 @@ class Trainer:
         """Restore into the live trees (same configuration as the run that
         saved it); a checkpoint without optimizer state restores the weights.
         An offloaded optimizer's state goes back into its host buffers;
-        under ZeRO each rank takes its part of the split leaves."""
+        under ZeRO and tensor parallelism each rank takes its parts of the
+        split leaves."""
         where = "cpu" if self._streamed is not None else self.device
         payload = torch.load(path, map_location=where, weights_only=True)
-        z = self.zero
-
-        def copy_parts(dst_tree, src_tree, split: bool):
-            if z is None or not split:
-                return tree_map(lambda d, s: d if d is None else d.copy_(s), dst_tree, src_tree)
-            return tree_map(lambda d, s, ax: d if d is None else d.copy_(s if ax is None else z.part(s, ax)),
-                            dst_tree, src_tree, z.axes)
-
+        copy = lambda dst, src: tree_map(lambda d, s: d if d is None else d.copy_(s), dst, src)
         with torch.no_grad():
-            copy_parts(self.state.params, payload["params"], z is not None and z.stage >= 3)
-            if "opt_state" in payload and self._streamed is not None:
-                self._streamed.opt_state = payload["opt_state"]
-            elif "opt_state" in payload:
-                st, saved = self.state.opt_state, payload["opt_state"]
-                for name in ("mu", "nu", "master"):
-                    copy_parts(getattr(st, name), saved[name], True)
-                st.count = int(saved["count"])
+            copy(self.state.params, self._local(payload["params"], of_params=True))
+            if "opt_state" in payload:
+                saved = dict(payload["opt_state"], **{
+                    name: self._local(payload["opt_state"][name], of_params=False)
+                    for name in ("mu", "nu", "master")})
+                if self._streamed is not None:
+                    self._streamed.opt_state = saved
+                else:
+                    st = self.state.opt_state
+                    for name in ("mu", "nu", "master"):
+                        copy(getattr(st, name), saved[name])
+                    st.count = int(saved["count"])
         self.state.step = int(payload["step"])
